@@ -5,13 +5,25 @@
 
 Builds the port's CUDA kernels from `src/repro_torch/kernels/*/csrc/*.cu`
 (into `build/repro_torch_kernels/`), holds each kernel against its plain
-PyTorch version on the card at every shape the main path gives it, times
-it, solves full tsunami waves at both published levels, and drives the paper's §4.3 main path once — two-level
-ensemble MLDA through `EvaluationFabric(ModelBackend(TsunamiModel()))` —
-checking that every step went through the kernel. Each phase prints one
-JSON line; any failed check raises and the script exits non-zero. The last
-two lines are the `{"kernels": [...]}` summary and
-`{"ok": true, "device": {...}}`.
+PyTorch version on the card at every shape the main paths give it, and
+times it. Then it drives the port's two paths through the entry points a
+user calls:
+
+* the paper's §4.3 tsunami inversion: full tsunami waves at both published
+  levels, and two-level ensemble MLDA through
+  `EvaluationFabric(ModelBackend(TsunamiModel()))`, every time step one
+  launch of the SWE step kernel;
+* the LM-as-UQ-model serving flow of `examples/serve_uq.py` on full-width
+  mamba2-1.3b (48 layers, bf16, seeded random weights): a level-4 sparse
+  grid of the NLL over (embedding scale, temperature) through the fabric,
+  the surrogate's Monte Carlo, and 8 per-point submits, every layer of
+  every forward one launch of the SSD chunk-scan kernel; then one wave on
+  the kernel path against the plain path, and one wave under the profiler.
+
+Each launch count is set to 0 just before a path and read just after. Each
+phase prints one JSON line; any failed check raises and the script exits
+non-zero. The last lines are the card's name and power limit, the
+`{"kernels": [...]}` summary and `{"ok": true, "device": {...}}`.
 
 Imports torch, numpy and the port only — never JAX, never the JAX package.
 Exits non-zero, printing nothing on stdout, without a CUDA device or
@@ -19,6 +31,7 @@ outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
@@ -37,6 +50,19 @@ FP32_FLOPS = 67e12
 # float operations per (cell, lane) of one SWE step, counting each face and
 # each velocity once: velocity 10, face flux 48, divergence + update 9
 SWE_OPS_PER_CELL_LANE = 67
+
+# the LM path: examples/serve_uq.py's flow on full-width mamba2-1.3b
+LM_ARCH = "mamba2-1.3b"
+LM_BATCH, LM_SEQ = 2, 2048
+LM_BOX = (0.7, 1.3)  # sparse-grid box of (embedding scale, temperature)
+LM_GRID_LEVEL = 4  # 41 points, one 64-point wave after pow2 padding
+LM_SUBMITS = 8
+# bound on the relative NLL difference of the kernel path and the plain
+# path. The SSD's float32 reordering (~5e-6 relative, ssd_kernel_vs_plain)
+# flips bf16 roundings of the residual stream, which 48 layers spread: on an
+# H100 (700 W) the mean NLLs of a wave differed by up to 8.3e-5 relative
+# (PERF.md, PR 12). 1e-3 is ten times that.
+LM_NLL_RTOL = 1e-3
 
 # §4.3 campaign constants (benchmarks/mlda_tsunami.py); the prior box is
 # `repro_torch.kernels.swe.testing.SOURCE_BOX`
@@ -253,6 +279,7 @@ def phase_profile(torch) -> dict:
 def phase_main_path(torch) -> dict:
     from repro_torch.apps.tsunami import TsunamiModel, level_grid
     from repro_torch.core.fabric import EvaluationFabric, ModelBackend
+    from repro_torch.kernels.ssd import ssd
     from repro_torch.kernels.swe import swe_step
     from repro_torch.kernels.swe.testing import SOURCE_BOX, sources
     from repro_torch.uq.mlda import ensemble_mlda
@@ -276,7 +303,7 @@ def phase_main_path(torch) -> dict:
     fabric = EvaluationFabric(ModelBackend(model), cache_size=8192)
     try:
         # every launch count starts at 0 right before the main path
-        swe_step.launches = 0
+        swe_step.launches = ssd.launches = 0
         stats0, waves0 = dict(model.stats), dict(model.waves)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -288,7 +315,7 @@ def phase_main_path(torch) -> dict:
         )
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = swe_step.launches
+        launches, ssd_launches = swe_step.launches, ssd.launches
         tel = fabric.telemetry()
     finally:
         fabric.shutdown()
@@ -309,9 +336,260 @@ def phase_main_path(torch) -> dict:
          n_waves=res.n_waves, evals_per_level=res.evals_per_level,
          model_solves_per_level=solves, model_waves_per_level=waves,
          accept_rates=res.accept_rates, wall_s=wall, swe_step_launches=launches,
+         ssd_launches=ssd_launches,
          posterior_mean=res.samples.reshape(-1, 2).mean(0).tolist(),
          backend=tel["backend"])
     return {"launches": launches}
+
+
+def ssd_work(B: int, H: int, G: int, S: int, P: int, N: int) -> dict:
+    """Bytes the SSD scan must move (each input read once, each output
+    written once, float32) and the float operations it needs: per chunk of
+    Q = 128 and head, the causal triangle of C B^T (Q(Q+1)/2 N multiply-
+    adds) and of scores X (Q(Q+1)/2 P), plus C S and the state update
+    (2 Q N P). `flops_square` counts the full [Q, Q] products instead, as
+    the Pallas kernel computes them."""
+    Q = 128
+    chunks = B * H * (S // Q)
+    tri = Q * (Q + 1) // 2
+    nbytes = 4 * (2 * B * H * S * P + B * H * S + 2 * B * G * S * N + H + 2 * B * H * N * P)
+    flops = chunks * 2 * (tri * N + tri * P + 2 * Q * N * P)
+    flops_square = chunks * 2 * (Q * Q * N + Q * Q * P + 2 * Q * N * P)
+    return {"bytes": nbytes, "flops": flops, "flops_square": flops_square}
+
+
+def phase_ssd_kernel_vs_plain(torch, dev) -> dict:
+    """The SSD kernel against its plain version (`ssd_chunked_ref`) on the
+    card, within a relative bound (value and reason:
+    `repro_torch.kernels.ssd.testing`): the JAX package's SSD_CASES shapes,
+    a non-zero initial state, an S the adapter pads, and the main path's
+    shapes (one point, a wave of 8, the 41-point grid padded to 64)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd import ssd, ssd_chunk_scan, ssd_chunked_ref
+    from repro_torch.kernels.ssd import testing as T
+
+    report = {}
+    for i, case in enumerate(T.CASES):
+        inputs = T.kernel_inputs(case, dev, seed=i)
+        got = ssd_chunk_scan(*inputs)
+        torch.cuda.synchronize()
+        name = T.case_name(case)
+        report[name] = T.assert_close(got, ssd_chunked_ref(*inputs), name)
+        del inputs, got
+        torch.cuda.empty_cache()
+    # through the adapter, S = 200 padded to 256 with dt = 0; the plain side
+    # runs the same adapter on the CPU
+    args = T.padded_adapter_inputs(dev, seed=len(T.CASES))
+    cfg = get_config(LM_ARCH)
+    got = ssd(cfg, *args)
+    torch.cuda.synchronize()
+    report["adapter_S200_state"] = T.assert_close(
+        tuple(t.cpu() for t in got), ssd(cfg, *(t.cpu() for t in args)), "adapter S=200")
+    worst_abs = max(r[k]["max_abs_err"] for r in report.values() for k in ("y", "state"))
+    worst_rel = max(r[k]["rel_err"] for r in report.values() for k in ("y", "state"))
+    emit("ssd_kernel_vs_plain", kernel="ssd",
+         bound=f"max|kernel - plain| / max|plain| <= {T.REL_TOL} for y and the final state "
+               "(repro_torch/kernels/ssd/testing.py)",
+         max_rel_err=worst_rel, max_abs_err=worst_abs, cases=report)
+    return {"max_abs_err": worst_abs, "max_rel_err": worst_rel}
+
+
+def phase_ssd_times(torch, dev, smi: str) -> dict:
+    """Device time of one SSD launch at the main path's shapes, beside its
+    bound and the plain version's time."""
+    from repro_torch.kernels.ssd import ssd_chunk_scan, ssd_chunked_ref
+    from repro_torch.kernels.ssd import testing as T
+
+    shapes = []
+    torch.cuda.reset_peak_memory_stats()
+    for B in T.MAIN_PATH_BATCHES:
+        H, G, S, P, N = T.MAMBA2_HEADS, 1, T.MAIN_PATH_SEQ, T.MAMBA2_P, T.MAMBA2_N
+        inputs = T.kernel_inputs((B, H, G, S, P, N, False), dev)
+        ms = _device_ms(torch, lambda: ssd_chunk_scan(*inputs), calls=max(2, 40 // B))
+        # ~300 PyTorch kernels a call
+        plain_ms = _device_ms(torch, lambda: ssd_chunked_ref(*inputs), calls=1, windows=3)
+        work = ssd_work(B, H, G, S, P, N)
+        t_bytes, t_ops = work["bytes"] / HBM_BYTES_PER_S, work["flops"] / FP32_FLOPS
+        shapes.append({
+            "shape": [B, H, S, P, N], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes * 1e3, "ops_ms": t_ops * 1e3,
+            "square_ops_ms": work["flops_square"] / FP32_FLOPS * 1e3,
+            "fraction_of_fp32_peak": t_ops * 1e3 / ms, **work,
+        })
+        del inputs
+        torch.cuda.empty_cache()
+    emit("ssd_times", kernel="ssd",
+         timer="one CUDA event pair around back-to-back launches (40 // B, at least 2; "
+               "plain: 1), per launch, median of 5 windows (plain: 3)",
+         shapes=shapes, library_ms=None,
+         max_memory_allocated=torch.cuda.max_memory_allocated(), card=smi)
+    return {"shapes": shapes}
+
+
+def phase_lm_main_path(torch) -> dict:
+    """examples/serve_uq.py's flow on full-width mamba2-1.3b: a level-4
+    sparse grid of the NLL (41 points, one padded wave), the surrogate's
+    4,000-sample Monte Carlo, and 8 per-point submits, all through
+    `EvaluationFabric(ModelBackend(LMUQModel))`. Every forward launches the
+    SSD kernel once per layer."""
+    from repro_torch.apps.lm_model import LMUQModel
+    from repro_torch.core.fabric import EvaluationFabric, ModelBackend
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.swe import swe_step
+    from repro_torch.uq import sparse_grid as sg
+
+    t0 = time.perf_counter()
+    model = LMUQModel(LM_ARCH, reduced=False, batch=LM_BATCH, seq=LM_SEQ)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    knots = [sg.knots_uniform_leja(*LM_BOX)] * 2
+    grid = sg.smolyak_grid(2, LM_GRID_LEVEL, knots)
+    reduced = sg.reduce_sparse_grid(grid)
+    rng = np.random.default_rng(0)
+    sample = np.stack([rng.uniform(0.9, 1.1, 4000), rng.uniform(0.8, 1.2, 4000)], 1)
+    fabric = EvaluationFabric(ModelBackend(model), cache_size=4096)
+    try:
+        # every launch count starts at 0 right before the main path
+        ssd.launches = swe_step.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vals = sg.evaluate_on_sparse_grid(fabric, reduced)
+        grid_s = time.perf_counter() - t0
+        nlls = sg.interpolate_on_sparse_grid(grid, reduced, vals, sample)[:, 0]
+        t0 = time.perf_counter()
+        futs = [fabric.submit([1.0 + 0.02 * i, 1.0]) for i in range(LM_SUBMITS)]
+        sens = np.array([float(f.result()[0]) for f in futs])
+        submits_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches, swe_launches = ssd.launches, swe_step.launches
+        peak = torch.cuda.max_memory_allocated()
+        tel = fabric.telemetry()
+    finally:
+        fabric.shutdown()
+    n = len(reduced.points)
+    forwards = tel["backend"]["native_batches"]
+    if vals.shape != (n, 1) or not np.isfinite(vals).all():
+        raise AssertionError(f"grid values {vals.shape}, finite {np.isfinite(vals).all()}")
+    # the NLL of a 50,280-way softmax is positive; a random model sits near
+    # ln 50,280 = 10.8, so a value outside (0, 30) means broken logits
+    if not (np.isfinite(nlls).all() and np.isfinite(sens).all()
+            and 0 < vals.min() and vals.max() < 30 and 0 < sens.min() and sens.max() < 30):
+        raise AssertionError(f"NLL out of range: grid {vals.min()}..{vals.max()}, "
+                             f"submits {sens}")
+    # the surrogate interpolates: it reproduces the grid values at the grid
+    np.testing.assert_allclose(sg.interpolate_on_sparse_grid(grid, reduced, vals, reduced.points),
+                               vals, rtol=1e-9, atol=1e-9)
+    # every forward the fabric dispatched launched the kernel once per layer
+    if forwards < 2 or launches != model.cfg.n_layers * forwards:
+        raise AssertionError(f"SSD kernel launches {launches}, expected "
+                             f"{model.cfg.n_layers} x {forwards} native batches")
+    emit("lm_main_path", arch=LM_ARCH, batch=LM_BATCH, seq=LM_SEQ, layers=model.cfg.n_layers,
+         init_s=init_s, grid_points=n, grid_wave_s=grid_s, grid_evals_per_s=n / grid_s,
+         submits=LM_SUBMITS, submits_s=submits_s,
+         nll_grid={"min": vals.min(), "max": vals.max(), "at_1_1": sens[0]},
+         nll_surrogate_mc={"mean": nlls.mean(), "std": nlls.std(),
+                           "p95": np.percentile(nlls, 95)},
+         nll_vs_embedding_scale=sens.tolist(), forwards=forwards, ssd_launches=launches,
+         swe_step_launches=swe_launches, max_memory_allocated=peak, backend=tel["backend"],
+         fabric={k: tel[k] for k in ("waves", "points", "cache_hits", "mean_wave_size")})
+    return {"launches": launches, "model": model, "points": reduced.points, "grid_s": grid_s}
+
+
+def phase_lm_kernel_vs_plain(torch, model) -> dict:
+    """One full-width wave of 8 points on the kernel path against the plain
+    path (`attn_impl="plain"`: `ssd_scan` in torch ops) on the same weights.
+    The only difference is the SSD's float32 summation order, rounded to
+    bf16 after each layer."""
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import lm_head
+
+    plain = copy.copy(model)
+    plain.cfg = model.cfg.replace(attn_impl="plain")
+    thetas = np.array([[1.0 + 0.02 * i, 1.0] for i in range(LM_SUBMITS)])
+    before = ssd.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = model.evaluate_batch(thetas)[:, 0]
+    kernel_s = time.perf_counter() - t0
+    if ssd.launches - before != model.cfg.n_layers:
+        raise AssertionError(f"{ssd.launches - before} SSD launches for one forward")
+    t0 = time.perf_counter()
+    want = plain.evaluate_batch(thetas)[:, 0]
+    plain_s = time.perf_counter() - t0
+    rel = float(np.abs(got / want - 1.0).max())
+    if not rel <= LM_NLL_RTOL:
+        raise AssertionError(f"kernel path NLL {got} vs plain {want}: {rel:.3g} > {LM_NLL_RTOL}")
+    # how far the two paths drift apart token by token, at theta = (1, 1)
+    token_nll = []
+    for m in (model, plain):
+        with torch.inference_mode():
+            hidden, _, _ = transformer.forward(m.cfg, m.params, m.batch["tokens"], skip_head=True)
+            logits = M.mask_padded_logits(m.cfg, lm_head(m.params["embed"], hidden).float())
+            tgt = torch.gather(logits, -1, m.batch["targets"][..., None])[..., 0]
+            token_nll.append(torch.logsumexp(logits, dim=-1) - tgt)
+    emit("lm_kernel_vs_plain", points=len(thetas), bound=LM_NLL_RTOL, nll_rel_err=rel,
+         nll_kernel=got.tolist(), nll_plain=want.tolist(), kernel_wave_s=kernel_s,
+         plain_wave_s=plain_s,
+         token_nll_max_abs_diff=float((token_nll[0] - token_nll[1]).abs().max()),
+         token_nll_std=float(token_nll[1].std()))
+    return {"nll_rel_err": rel}
+
+
+def phase_lm_profile(torch, model, points, unprofiled_s: float) -> dict:
+    """The grid wave again under torch.profiler: the SSD kernel's and the
+    GEMMs' shares of the wave's wall time, and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.interface import next_pow2, pad_to_bucket
+
+    thetas, _ = pad_to_bucket(np.asarray(points, float), next_pow2(len(points)))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.evaluate_batch(thetas)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    trace = ROOT / "build" / "chip_smoke_lm_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    busy = {"ssd": 0.0, "gemm": 0.0, "other": 0.0, "memcpy_memset": 0.0}
+    by_name: dict[str, list] = {}
+    n_kernels = 0
+    for ev in json.loads(trace.read_text()).get("traceEvents", []):
+        if ev.get("ph") != "X":
+            continue
+        cat, name, dur = ev.get("cat"), ev.get("name", ""), float(ev.get("dur", 0.0))
+        if cat in ("gpu_memcpy", "gpu_memset"):
+            busy["memcpy_memset"] += dur
+        elif cat == "kernel":
+            n_kernels += 1
+            low = name.lower()
+            if "ssd_chunk_scan" in low:
+                busy["ssd"] += dur
+            elif any(k in low for k in ("gemm", "cutlass", "xmma", "nvjet")):  # cuBLAS
+                busy["gemm"] += dur
+            else:
+                busy["other"] += dur
+            entry = by_name.setdefault(name[:90], [0, 0.0])
+            entry[0] += 1
+            entry[1] += dur
+    if not n_kernels:
+        raise AssertionError("the profiler recorded no device kernel")
+    device_us = sum(busy.values())
+    emit("lm_profile", wave=f"{len(points)} grid points padded to {len(thetas)}",
+         wall_ms=wall_us / 1e3, unprofiled_wall_ms=unprofiled_s * 1e3,
+         device_kernels=n_kernels, device_busy_ms=device_us / 1e3,
+         busy_ms={k: v / 1e3 for k, v in busy.items()},
+         share_of_wall={k: v / wall_us for k, v in busy.items()},
+         device_busy_share=device_us / wall_us, device_idle_share=1.0 - device_us / wall_us,
+         top_kernels=[{"name": k, "launches": n, "ms": us / 1e3} for k, (n, us) in
+                      sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]])
+    return {"ssd_share": busy["ssd"] / wall_us, "idle_share": 1.0 - device_us / wall_us}
 
 
 def main() -> int:
@@ -341,11 +619,17 @@ def main() -> int:
     solves = phase_full_solves(torch, dev)
     phase_profile(torch)
     main_path = phase_main_path(torch)
+    ssd_check = phase_ssd_kernel_vs_plain(torch, dev)
+    ssd_times = phase_ssd_times(torch, dev, probe["smi"])
+    lm = phase_lm_main_path(torch)
+    phase_lm_kernel_vs_plain(torch, lm["model"])
+    phase_lm_profile(torch, lm["model"], lm["points"], lm["grid_s"])
 
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro.")))
     if leaked or "repro" in sys.modules:
         raise AssertionError(f"the smoke run imported the JAX package: {leaked}")
     fine = next(s for s in times["shapes"] if s["shape"] == [2048, 16])
+    point = ssd_times["shapes"][0]  # one point: B = 2
     print(probe["smi"], flush=True)
     print(json.dumps({"kernels": [{
         "name": "swe_step",
@@ -363,6 +647,22 @@ def main() -> int:
         "by_shape": times["shapes"],
         "launches_per_wave": {k: v["launches"] for k, v in solves.items()},
         "wall_ms_per_step": {k: v["wall_ms_per_step"] for k, v in solves.items()},
+        "card": probe["smi"],
+    }, {
+        "name": "ssd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd/ssd.py:89",
+        "launches": lm["launches"],
+        "max_abs_err": ssd_check["max_abs_err"],
+        "max_rel_err": ssd_check["max_rel_err"],
+        "ms": point["ms"],
+        "plain_ms": point["plain_ms"],
+        "bound_ms": point["bound_ms"],
+        "bound_by": point["bound_by"],
+        "library_ms": None,
+        "shape": point["shape"],
+        "by_shape": ssd_times["shapes"],
         "card": probe["smi"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

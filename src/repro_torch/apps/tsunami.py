@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.races import named_lock
+from repro_torch.core.device import resolve_device
 from repro_torch.core.interface import Capabilities, Model, next_pow2, pad_to_bucket
 from repro_torch.kernels.swe import swe_step
 
@@ -63,18 +64,6 @@ def _bathymetry_cached(n_cells: int, smoothed: bool) -> np.ndarray:
     dx = L_DOMAIN / n_cells
     x = (np.arange(n_cells) + 0.5) * dx
     return np.asarray(bathymetry(x, smoothed), np.float32)
-
-
-def resolve_device(device=None) -> torch.device:
-    """`None` means the GPU. A CUDA device without a usable GPU raises: the
-    entry points never fall back to the CPU unless the caller asks for it."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "plain PyTorch path on the CPU"
-        )
-    return device
 
 
 def level_grid(n_cells: int) -> tuple[float, int, tuple[int, ...]]:

@@ -4,13 +4,16 @@ Every `csrc/*.cu` under `repro_torch/kernels/` is compiled by `nvcc` into
 its own shared library with a plain C interface (no PyTorch headers, so a
 build takes seconds), for Hopper only:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 [per-source flags]
          -shared -Xcompiler -fPIC -o lib<stem>_<hash>.so <stem>.cu
 
-`-fmad=false` keeps every multiply and add separately rounded, as the eager
-plain PyTorch versions are, so a kernel and its plain version agree to the
-last bit or close to it. Libraries land in `build/repro_torch_kernels/` at
-the root of the checkout, named by a hash of the source and the flags, so an
+The per-source flags are `SOURCE_FLAGS`. `swe_step.cu` is built with
+`-fmad=false`: every multiply and add stays separately rounded, as in the
+eager plain PyTorch version, which is what its bit-equality with that
+version rests on. `ssd.cu` lets the compiler contract multiply-adds: its
+products sum in another order than the plain version's, so they cannot be
+bit-equal anyway. Libraries land in `build/repro_torch_kernels/` at
+the root of the checkout, named by a hash of the source and its flags, so an
 edited source is rebuilt and an unchanged one is reused. Each build writes a
 temporary file and renames it into place, so a cut build never leaves a
 half-written library behind. Nothing is built or loaded at import time: the
@@ -32,8 +35,10 @@ KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC",
 )
+#: flags of one source on top of NVCC_FLAGS, by stem
+SOURCE_FLAGS = {"swe_step": ("-fmad=false",)}
 
 _lock = named_lock("kernels.build")
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -59,9 +64,14 @@ def nvcc() -> str:
     )
 
 
+def flags(stem: str) -> tuple[str, ...]:
+    """The nvcc flags of one kernel source."""
+    return (*NVCC_FLAGS, *SOURCE_FLAGS.get(stem, ()))
+
+
 def library_path(stem: str) -> Path:
     src = sources()[stem]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags(stem)).encode())
     return BUILD_DIR / f"lib{stem}_{digest.hexdigest()[:16]}.so"
 
 
@@ -80,7 +90,7 @@ def build(stems=None) -> dict[str, Path]:
     procs = {}
     for s in todo:
         tmp = paths[s].with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(srcs[s])]
+        cmd = [compiler, *flags(s), "-o", str(tmp), str(srcs[s])]
         procs[s] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ))

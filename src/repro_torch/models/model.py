@@ -1,0 +1,46 @@
+"""LM top level: init, parameter count, NLL (counterpart of
+`repro.models.model`). The train step, the prefill/decode serving steps and
+the dry-run input specs wait for later slices (ROADMAP queue 1, item 13)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import params as pm
+from repro_torch.models import transformer
+from repro_torch.types import ModelConfig, dtype_of
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator):
+    """Random weights of `cfg`, drawn from `gen` on `gen.device`."""
+    return pm.materialize(transformer.decl_model(cfg), gen, dtype_of(cfg.param_dtype))
+
+
+def n_params(cfg: ModelConfig) -> int:
+    return pm.count_params(transformer.decl_model(cfg))
+
+
+def mask_padded_logits(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    """Padded-vocab logits must not leak probability mass."""
+    if cfg.padded_vocab == cfg.vocab_size:
+        return logits
+    idx = torch.arange(cfg.padded_vocab, device=logits.device)
+    return logits.masked_fill(idx >= cfg.vocab_size, -1e9)
+
+
+def _token_nll(cfg: ModelConfig, logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    logits = mask_padded_logits(cfg, logits.float())
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return logz - tgt
+
+
+def eval_nll(cfg: ModelConfig, params, batch) -> torch.Tensor:
+    """Per-sequence mean NLL [B]."""
+    logits, _, _ = transformer.forward(cfg, params, batch["tokens"], mode="train")
+    return _token_nll(cfg, logits, batch["targets"]).mean(dim=-1)
+
+
+def make_synth_batch(cfg: ModelConfig, B: int, S: int, gen: torch.Generator) -> dict:
+    """Small concrete batch: random tokens, targets = tokens shifted by one."""
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=gen.device)
+    return {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}

@@ -1,8 +1,10 @@
-"""PyTorch port on the card: the CUDA SWE step kernel against its plain
-PyTorch version, one step and whole solves, bit for bit (the bound and its
-reason: `repro_torch.kernels.swe.testing`). Every test here is marked `gpu`
-and skips without a CUDA device. The file imports neither JAX nor the JAX
-package, so it also runs on a GPU machine that has no JAX:
+"""PyTorch port on the card: each CUDA kernel against its plain PyTorch
+version. The SWE step, one step and whole solves, bit for bit (the bound and
+its reason: `repro_torch.kernels.swe.testing`); the SSD chunk scan within its
+relative bound (`repro_torch.kernels.ssd.testing`), alone and inside a
+reduced mamba2 forward. Every test here is marked `gpu` and skips without a
+CUDA device. The file imports neither JAX nor the JAX package, so it also
+runs on a GPU machine that has no JAX:
 
     PYTHONPATH=src python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
@@ -12,6 +14,10 @@ import torch
 
 from _torch_parity import cuda_or_skip
 from repro_torch.apps.tsunami import level_grid, solve_batch
+from repro_torch.configs import get_config
+from repro_torch.kernels.ssd import ssd, ssd_chunk_scan, ssd_chunked_ref
+from repro_torch.kernels.ssd import testing as ssd_testing
+from repro_torch.models import model, transformer
 from repro_torch.kernels.swe import swe_step, swe_step_ref, swe_step_ref_into
 from repro_torch.kernels.swe.testing import CASES, assert_step_equal, case_inputs, sources
 
@@ -47,3 +53,46 @@ def test_coarse_solve_kernel_path_matches_plain_path():
 @pytest.mark.gpu
 def test_fine_solve_kernel_path_matches_plain_path():
     _solve_kernel_path_matches_plain_path(2048, False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ssd_testing.CASES, ids=ssd_testing.case_name)
+def test_ssd_kernel_matches_plain_on_cuda(case):
+    dev = cuda_or_skip()
+    inputs = ssd_testing.kernel_inputs(case, dev, seed=1)
+    before = ssd.launches
+    got = ssd_chunk_scan(*inputs)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1
+    ssd_testing.assert_close(got, ssd_chunked_ref(*inputs), ssd_testing.case_name(case))
+
+
+@pytest.mark.gpu
+def test_ssd_adapter_pads_on_cuda():
+    """S = 200 at mamba2's widths from a non-zero state: the adapter pads to
+    256 with dt = 0 on the card as on the CPU."""
+    dev = cuda_or_skip()
+    cfg = get_config("mamba2-1.3b")
+    args = ssd_testing.padded_adapter_inputs(dev, seed=2)
+    got = ssd(cfg, *args)
+    want = ssd(cfg, *(t.cpu() for t in args))  # the plain version on the CPU
+    ssd_testing.assert_close(tuple(t.cpu() for t in got), want, "adapter S=200")
+
+
+@pytest.mark.gpu
+def test_reduced_forward_kernel_path_matches_plain_path():
+    """The reduced mamba2 config (float32) on the card: the kernel path
+    launches the SSD kernel once per layer and gives the plain path's logits
+    within the kernel's bound; only the SSD differs between the two."""
+    dev = cuda_or_skip()
+    cfg = get_config("mamba2-1.3b", reduced=True)
+    params = model.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    tokens = model.make_synth_batch(cfg, 2, 200, torch.Generator(device=dev).manual_seed(1))["tokens"]
+    before = ssd.launches
+    got, _, _ = transformer.forward(cfg, params, tokens)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + cfg.n_layers
+    want, _, _ = transformer.forward(cfg.replace(attn_impl="plain"), params, tokens)
+    assert ssd.launches == before + cfg.n_layers
+    err = ssd_testing.rel_err(got, want)
+    assert err <= ssd_testing.REL_TOL, err
