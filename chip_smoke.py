@@ -13,12 +13,17 @@ user calls:
   levels, and two-level ensemble MLDA through
   `EvaluationFabric(ModelBackend(TsunamiModel()))`, every time step one
   launch of the SWE step kernel;
-* the LM-as-UQ-model serving flow of `examples/serve_uq.py` on full-width
-  mamba2-1.3b (48 layers, bf16, seeded random weights): a level-4 sparse
-  grid of the NLL over (embedding scale, temperature) through the fabric,
-  the surrogate's Monte Carlo, and 8 per-point submits, every layer of
-  every forward one launch of the SSD chunk-scan kernel; then one wave on
-  the kernel path against the plain path, and one wave under the profiler.
+* the LM-as-UQ-model serving flow of `examples/serve_uq.py` on two
+  full-width models from seeded random weights (bf16): mamba2-1.3b (48
+  layers), every layer of every forward one launch of the SSD chunk-scan
+  kernel, and qwen3-0.6b (28 layers, the model the example serves), every
+  layer one launch of the flash-attention kernel. Each runs a level-4
+  sparse grid of the NLL over (embedding scale, temperature) through the
+  fabric, the surrogate's Monte Carlo, and 8 per-point submits; then one
+  wave on the kernel path against the plain path, and one wave under the
+  profiler;
+* the RMSNorm kernel through its own entry point at qwen3-0.6b's norm
+  shapes: as in the JAX package, no model calls it.
 
 Each launch count is set to 0 just before a path and read just after. Each
 phase prints one JSON line; any failed check raises and the script exits
@@ -47,12 +52,15 @@ SRC = ROOT / "src"
 # published peaks of one H100 SXM (NVIDIA data sheet; dense, no sparsity)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 # float operations per (cell, lane) of one SWE step, counting each face and
 # each velocity once: velocity 10, face flux 48, divergence + update 9
 SWE_OPS_PER_CELL_LANE = 67
 
-# the LM path: examples/serve_uq.py's flow on full-width mamba2-1.3b
-LM_ARCH = "mamba2-1.3b"
+# the LM paths: examples/serve_uq.py's flow on full-width mamba2-1.3b and
+# qwen3-0.6b (the model the example serves)
+SSM_ARCH = "mamba2-1.3b"
+DENSE_ARCH = "qwen3-0.6b"
 LM_BATCH, LM_SEQ = 2, 2048
 LM_BOX = (0.7, 1.3)  # sparse-grid box of (embedding scale, temperature)
 LM_GRID_LEVEL = 4  # 41 points, one 64-point wave after pow2 padding
@@ -61,7 +69,9 @@ LM_SUBMITS = 8
 # path. The SSD's float32 reordering (~5e-6 relative, ssd_kernel_vs_plain)
 # flips bf16 roundings of the residual stream, which 48 layers spread: on an
 # H100 (700 W) the mean NLLs of a wave differed by up to 8.3e-5 relative
-# (PERF.md, PR 12). 1e-3 is ten times that.
+# (PERF.md). 1e-3 is ten times that. It holds qwen3-0.6b too, whose plain
+# path rounds the softmax to bf16 before the product with V (as the JAX
+# package's XLA path does) where the flash kernel keeps float32.
 LM_NLL_RTOL = 1e-3
 
 # §4.3 campaign constants (benchmarks/mlda_tsunami.py); the prior box is
@@ -73,6 +83,27 @@ SEED = 3
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}, default=float), flush=True)
+
+
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port, by kernel name; each counts its
+    launches in `.launches`."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm_fused
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.swe import swe_step
+
+    return {"swe_step": swe_step, "ssd": ssd, "flash_attention": flash_attention,
+            "rmsnorm": rmsnorm_fused}
+
+
+def reset_launches() -> None:
+    for wrapper in kernel_wrappers().values():
+        wrapper.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: wrapper.launches for name, wrapper in kernel_wrappers().items()}
 
 
 def nvidia_smi() -> str:
@@ -279,8 +310,6 @@ def phase_profile(torch) -> dict:
 def phase_main_path(torch) -> dict:
     from repro_torch.apps.tsunami import TsunamiModel, level_grid
     from repro_torch.core.fabric import EvaluationFabric, ModelBackend
-    from repro_torch.kernels.ssd import ssd
-    from repro_torch.kernels.swe import swe_step
     from repro_torch.kernels.swe.testing import SOURCE_BOX, sources
     from repro_torch.uq.mlda import ensemble_mlda
 
@@ -303,7 +332,7 @@ def phase_main_path(torch) -> dict:
     fabric = EvaluationFabric(ModelBackend(model), cache_size=8192)
     try:
         # every launch count starts at 0 right before the main path
-        swe_step.launches = ssd.launches = 0
+        reset_launches()
         stats0, waves0 = dict(model.stats), dict(model.waves)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -315,7 +344,7 @@ def phase_main_path(torch) -> dict:
         )
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, ssd_launches = swe_step.launches, ssd.launches
+        counts = read_launches()
         tel = fabric.telemetry()
     finally:
         fabric.shutdown()
@@ -328,6 +357,7 @@ def phase_main_path(torch) -> dict:
     if min(waves.values()) <= 0 or sum(waves.values()) != tel["backend"]["native_batches"]:
         raise AssertionError(f"model waves per level {waves}, backend {tel['backend']}")
     # every step of every wave the fabric dispatched was one kernel launch
+    launches = counts["swe_step"]
     expected = sum(n * level_grid(TsunamiModel.N_CELLS[lvl])[1] for lvl, n in waves.items())
     if launches != expected:
         raise AssertionError(f"kernel launches {launches}, expected {expected} for "
@@ -336,7 +366,7 @@ def phase_main_path(torch) -> dict:
          n_waves=res.n_waves, evals_per_level=res.evals_per_level,
          model_solves_per_level=solves, model_waves_per_level=waves,
          accept_rates=res.accept_rates, wall_s=wall, swe_step_launches=launches,
-         ssd_launches=ssd_launches,
+         launches=counts,
          posterior_mean=res.samples.reshape(-1, 2).mean(0).tolist(),
          backend=tel["backend"])
     return {"launches": launches}
@@ -380,7 +410,7 @@ def phase_ssd_kernel_vs_plain(torch, dev) -> dict:
     # through the adapter, S = 200 padded to 256 with dt = 0; the plain side
     # runs the same adapter on the CPU
     args = T.padded_adapter_inputs(dev, seed=len(T.CASES))
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(SSM_ARCH)
     got = ssd(cfg, *args)
     torch.cuda.synchronize()
     report["adapter_S200_state"] = T.assert_close(
@@ -428,20 +458,208 @@ def phase_ssd_times(torch, dev, smi: str) -> dict:
     return {"shapes": shapes}
 
 
-def phase_lm_main_path(torch) -> dict:
-    """examples/serve_uq.py's flow on full-width mamba2-1.3b: a level-4
-    sparse grid of the NLL (41 points, one padded wave), the surrogate's
-    4,000-sample Monte Carlo, and 8 per-point submits, all through
+def rmsnorm_work(n: int, d: int, x_bytes: int, w_bytes: int) -> dict:
+    """Bytes the RMSNorm must move (x read once, y written once, w once) and
+    its float operations: per element the square, its sum, the scale by
+    the row's rsqrt and the product with w."""
+    return {"bytes": 2 * n * d * x_bytes + d * w_bytes, "flops": 4 * n * d}
+
+
+def phase_rmsnorm_kernel_vs_plain(torch, dev) -> dict:
+    """The RMSNorm kernel against its plain version (`rmsnorm_ref`) on the
+    card (bound and reason: `repro_torch.kernels.rmsnorm.testing`): the JAX
+    package's RMS_CASES and qwen3-0.6b's norm shapes."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_fused, rmsnorm_ref
+    from repro_torch.kernels.rmsnorm import testing as R
+
+    report = {}
+    for i, case in enumerate(R.CASES):
+        x, w = R.case_inputs(case, dev, seed=i)
+        got = rmsnorm_fused(x, w)
+        torch.cuda.synchronize()
+        report[R.case_name(case)] = R.assert_close(got, rmsnorm_ref(x, w), R.case_name(case))
+        del x, w, got
+    worst = max(r["max_abs_err"] for r in report.values())
+    emit("rmsnorm_kernel_vs_plain", kernel="rmsnorm",
+         bound=f"max abs error <= {R.F32_ATOL} in float32, <= {R.BF16_ULPS} bf16 ulp in bf16 "
+               "(repro_torch/kernels/rmsnorm/testing.py)",
+         max_abs_err=worst, max_bf16_ulp=max(r.get("max_ulp", 0.0) for r in report.values()),
+         cases=report)
+    return {"max_abs_err": worst}
+
+
+def phase_rmsnorm_times(torch, dev, smi: str) -> dict:
+    """Device time of one RMSNorm launch at every case, beside its bound,
+    the plain version's time and `F.rms_norm`'s on the same inputs (with a
+    float32 w and bf16 x PyTorch takes its unfused path; the fused one,
+    with w cast to x's dtype, is given beside it)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm import rmsnorm_fused, rmsnorm_ref
+    from repro_torch.kernels.rmsnorm import testing as R
+
+    shapes = []
+    for i, case in enumerate(R.CASES):
+        n, d = case[0], case[1]
+        x, w = R.case_inputs(case, dev, seed=i)
+        calls = 200 if n * d <= 2**22 else 20
+        ms = _device_ms(torch, lambda: rmsnorm_fused(x, w), calls=calls)
+        plain_ms = _device_ms(torch, lambda: rmsnorm_ref(x, w), calls=calls // 10)
+        library_ms = _device_ms(torch, lambda: F.rms_norm(x, (d,), w, 1e-5), calls=calls // 10)
+        w_x = w.to(x.dtype)
+        library_cast_ms = _device_ms(torch, lambda: F.rms_norm(x, (d,), w_x, 1e-5), calls=calls)
+        work = rmsnorm_work(n, d, x.element_size(), w.element_size())
+        peak = FP32_FLOPS
+        t_bytes, t_ops = work["bytes"] / HBM_BYTES_PER_S, work["flops"] / peak
+        shapes.append({
+            "shape": [n, d], "dtype": case[2], "w_dtype": case[3], "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_ms_w_in_x_dtype": library_cast_ms,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "fraction_of_hbm_rate": t_bytes * 1e3 / ms, **work,
+        })
+        del x, w, w_x
+    emit("rmsnorm_times", kernel="rmsnorm",
+         timer="one CUDA event pair around back-to-back launches (200, or 20 above 4 M "
+               "elements; plain and F.rms_norm with float32 w: a tenth), per launch, "
+               "median of 5 windows",
+         library="torch.nn.functional.rms_norm(x, (d,), w, 1e-5)", shapes=shapes, card=smi)
+    return {"shapes": shapes}
+
+
+def phase_rmsnorm_path(torch, dev) -> dict:
+    """The RMSNorm kernel's own path: its entry point `rmsnorm_fused`, called
+    as a user calls it on model-layout activations at qwen3-0.6b's norm
+    shapes (a point's and the 64-point wave's hidden states, a point's
+    queries per head), with the model's float32 scale. No model calls it,
+    as in the JAX package; the LM paths check that it stays at 0."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_fused
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    inputs = [torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+              for shape in ((LM_BATCH, LM_SEQ, 1024), (64 * LM_BATCH, LM_SEQ, 1024),
+                            (LM_BATCH, LM_SEQ, 16, 128))]
+    scales = [torch.ones(x.shape[-1], device=dev) for x in inputs]
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [rmsnorm_fused(x, w) for x, w in zip(inputs, scales)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    for x, y in zip(inputs, outs):
+        if y.shape != x.shape or y.dtype != x.dtype or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"rmsnorm_fused: output {tuple(y.shape)} {y.dtype}")
+        # unit scale: every row of the output has a mean square of ~1
+        ms_rows = y.float().pow(2).mean(-1)
+        if not bool(((ms_rows - 1).abs() < 0.02).all()):
+            raise AssertionError("rmsnorm_fused: rows are not normalised")
+    if counts["rmsnorm"] != len(inputs) or sum(counts.values()) != len(inputs):
+        raise AssertionError(f"launches {counts}, expected {len(inputs)} of rmsnorm")
+    emit("rmsnorm_path", shapes=[list(x.shape) for x in inputs], wall_s=wall, launches=counts)
+    return {"launches": counts["rmsnorm"]}
+
+
+def flash_work(B: int, nq: int, nkv: int, Sq: int, Sk: int, hd: int, causal: bool,
+               elem: int) -> dict:
+    """Bytes flash attention must move (q, k, v read once, o written once)
+    and its float operations: two multiply-adds per (q row, key, column)
+    for q k^T and P V, over the (row, key) pairs the mask keeps (S(S+1)/2
+    per head when causal)."""
+    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
+    return {"bytes": elem * (2 * B * nq * Sq * hd + 2 * B * nkv * Sk * hd),
+            "flops": 4 * B * nq * hd * pairs}
+
+
+def phase_flash_kernel_vs_plain(torch, dev) -> dict:
+    """The flash kernel against its plain version (`attention_ref`) on the
+    card (bound and reason: `repro_torch.kernels.flash_attention.testing`):
+    the JAX package's FLASH_CASES, ragged shapes, and qwen3-0.6b's attention
+    at one point, a wave of 8 and the 64-point wave."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import testing as T
+
+    report = {}
+    for i, case in enumerate(T.CASES):
+        q, k, v = T.case_inputs(case, dev, seed=i)
+        got = flash_attention(q, k, v, causal=case[6])
+        torch.cuda.synchronize()
+        report[T.case_name(case)] = T.assert_close(got, T.plain(q, k, v, case[6]),
+                                                   T.case_name(case))
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    worst = {dt: max((r["max_abs_err"] for c, r in zip(T.CASES, report.values()) if c[7] == dt),
+                     default=0.0) for dt in T.ATOL}
+    emit("flash_kernel_vs_plain", kernel="flash_attention",
+         bound="max abs error <= 2e-5 in float32, <= 2e-2 in bf16, the JAX package's "
+               "(repro_torch/kernels/flash_attention/testing.py)",
+         max_abs_err_by_dtype=worst, cases=report)
+    return {"max_abs_err": max(worst.values()), "by_dtype": worst}
+
+
+def phase_flash_times(torch, dev, smi: str) -> dict:
+    """Device time of one flash launch at the FLASH_CASES and main-path
+    shapes, beside its bound (operations at the peak of the inputs' type),
+    the plain version's time and `scaled_dot_product_attention`'s."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import testing as T
+
+    shapes = []
+    for i, case in enumerate(T.FLASH_CASES + T.MODEL_CASES):
+        B, nq, nkv, Sq, Sk, hd, causal, dt = case
+        q, k, v = T.case_inputs(case, dev, seed=i)
+        work = flash_work(B, nq, nkv, Sq, Sk, hd, causal, q.element_size())
+        big = work["flops"] > 1e11
+        ms = _device_ms(torch, lambda: flash_attention(q, k, v, causal=causal),
+                        calls=2 if big else 50)
+        plain_ms = _device_ms(torch, lambda: T.plain(q, k, v, causal), calls=1 if big else 10,
+                              windows=3 if big else 5)
+        library_ms = _device_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True), calls=10 if big else 50)
+        peak = BF16_FLOPS if dt == "bfloat16" else FP32_FLOPS
+        t_bytes, t_ops = work["bytes"] / HBM_BYTES_PER_S, work["flops"] / peak
+        shapes.append({
+            "shape": [B, nq, nkv, Sq, hd], "causal": causal, "dtype": dt, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes * 1e3, "ops_ms": t_ops * 1e3,
+            "fp32_ops_ms": work["flops"] / FP32_FLOPS * 1e3,
+            "fraction_of_fp32_peak": work["flops"] / FP32_FLOPS * 1e3 / ms, **work,
+        })
+        del q, k, v
+        torch.cuda.empty_cache()
+    emit("flash_times", kernel="flash_attention",
+         timer="one CUDA event pair around back-to-back launches (50; 2 above 0.1 TFLOP; "
+               "plain: 10, or 1 in 3 windows), per launch, median of 5 windows",
+         library="F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)",
+         shapes=shapes, card=smi)
+    return {"shapes": shapes}
+
+
+#: the kernel each LM path runs once per layer, and its name in a trace
+LM_KERNELS = {SSM_ARCH: ("ssd", "ssd_chunk_scan"),
+              DENSE_ARCH: ("flash_attention", "flash_attention_kernel")}
+#: the phase names' prefix of each LM path
+LM_PHASE = {SSM_ARCH: "lm", DENSE_ARCH: "dense_lm"}
+
+
+def phase_lm_main_path(torch, arch: str) -> dict:
+    """examples/serve_uq.py's flow on a full-width LM: a level-4 sparse grid
+    of the NLL (41 points, one padded wave), the surrogate's 4,000-sample
+    Monte Carlo, and 8 per-point submits, all through
     `EvaluationFabric(ModelBackend(LMUQModel))`. Every forward launches the
-    SSD kernel once per layer."""
+    model's kernel once per layer, and no other kernel."""
     from repro_torch.apps.lm_model import LMUQModel
     from repro_torch.core.fabric import EvaluationFabric, ModelBackend
-    from repro_torch.kernels.ssd import ssd
-    from repro_torch.kernels.swe import swe_step
     from repro_torch.uq import sparse_grid as sg
 
+    kernel = LM_KERNELS[arch][0]
     t0 = time.perf_counter()
-    model = LMUQModel(LM_ARCH, reduced=False, batch=LM_BATCH, seq=LM_SEQ)
+    model = LMUQModel(arch, reduced=False, batch=LM_BATCH, seq=LM_SEQ)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     knots = [sg.knots_uniform_leja(*LM_BOX)] * 2
@@ -452,7 +670,7 @@ def phase_lm_main_path(torch) -> dict:
     fabric = EvaluationFabric(ModelBackend(model), cache_size=4096)
     try:
         # every launch count starts at 0 right before the main path
-        ssd.launches = swe_step.launches = 0
+        reset_launches()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -464,7 +682,7 @@ def phase_lm_main_path(torch) -> dict:
         sens = np.array([float(f.result()[0]) for f in futs])
         submits_s = time.perf_counter() - t0
         torch.cuda.synchronize()
-        launches, swe_launches = ssd.launches, swe_step.launches
+        counts = read_launches()
         peak = torch.cuda.max_memory_allocated()
         tel = fabric.telemetry()
     finally:
@@ -473,8 +691,9 @@ def phase_lm_main_path(torch) -> dict:
     forwards = tel["backend"]["native_batches"]
     if vals.shape != (n, 1) or not np.isfinite(vals).all():
         raise AssertionError(f"grid values {vals.shape}, finite {np.isfinite(vals).all()}")
-    # the NLL of a 50,280-way softmax is positive; a random model sits near
-    # ln 50,280 = 10.8, so a value outside (0, 30) means broken logits
+    # the NLL of a V-way softmax is positive; a random model sits near ln V
+    # (10.8 for mamba2's 50,280 tokens, 11.9 for qwen3's 151,936), so a value
+    # outside (0, 30) means broken logits
     if not (np.isfinite(nlls).all() and np.isfinite(sens).all()
             and 0 < vals.min() and vals.max() < 30 and 0 < sens.min() and sens.max() < 30):
         raise AssertionError(f"NLL out of range: grid {vals.min()}..{vals.max()}, "
@@ -483,44 +702,52 @@ def phase_lm_main_path(torch) -> dict:
     np.testing.assert_allclose(sg.interpolate_on_sparse_grid(grid, reduced, vals, reduced.points),
                                vals, rtol=1e-9, atol=1e-9)
     # every forward the fabric dispatched launched the kernel once per layer
+    launches = counts[kernel]
     if forwards < 2 or launches != model.cfg.n_layers * forwards:
-        raise AssertionError(f"SSD kernel launches {launches}, expected "
+        raise AssertionError(f"{kernel} kernel launches {launches}, expected "
                              f"{model.cfg.n_layers} x {forwards} native batches")
-    emit("lm_main_path", arch=LM_ARCH, batch=LM_BATCH, seq=LM_SEQ, layers=model.cfg.n_layers,
-         init_s=init_s, grid_points=n, grid_wave_s=grid_s, grid_evals_per_s=n / grid_s,
-         submits=LM_SUBMITS, submits_s=submits_s,
+    if sum(counts.values()) != launches:
+        raise AssertionError(f"other kernels launched on the {arch} path: {counts}")
+    emit(f"{LM_PHASE[arch]}_main_path", arch=arch, batch=LM_BATCH, seq=LM_SEQ,
+         layers=model.cfg.n_layers, init_s=init_s, grid_points=n, grid_wave_s=grid_s,
+         grid_evals_per_s=n / grid_s, submits=LM_SUBMITS, submits_s=submits_s,
          nll_grid={"min": vals.min(), "max": vals.max(), "at_1_1": sens[0]},
          nll_surrogate_mc={"mean": nlls.mean(), "std": nlls.std(),
                            "p95": np.percentile(nlls, 95)},
-         nll_vs_embedding_scale=sens.tolist(), forwards=forwards, ssd_launches=launches,
-         swe_step_launches=swe_launches, max_memory_allocated=peak, backend=tel["backend"],
+         nll_vs_embedding_scale=sens.tolist(), forwards=forwards,
+         **{f"{kernel}_launches": launches}, launches=counts, max_memory_allocated=peak,
+         backend=tel["backend"],
          fabric={k: tel[k] for k in ("waves", "points", "cache_hits", "mean_wave_size")})
     return {"launches": launches, "model": model, "points": reduced.points, "grid_s": grid_s}
 
 
 def phase_lm_kernel_vs_plain(torch, model) -> dict:
     """One full-width wave of 8 points on the kernel path against the plain
-    path (`attn_impl="plain"`: `ssd_scan` in torch ops) on the same weights.
-    The only difference is the SSD's float32 summation order, rounded to
-    bf16 after each layer."""
-    from repro_torch.kernels.ssd import ssd
+    path (`attn_impl="plain"`: `ssd_scan`, or `_grouped_attention`, in torch
+    ops) on the same weights. The two differ only in the kernel's float32
+    summation order (and, for attention, the plain path's bf16 softmax),
+    rounded to bf16 after each layer."""
     from repro_torch.models import model as M
     from repro_torch.models import transformer
     from repro_torch.models.layers import lm_head
 
+    arch = model.cfg.name
+    kernel = kernel_wrappers()[LM_KERNELS[arch][0]]
     plain = copy.copy(model)
     plain.cfg = model.cfg.replace(attn_impl="plain")
     thetas = np.array([[1.0 + 0.02 * i, 1.0] for i in range(LM_SUBMITS)])
-    before = ssd.launches
+    before = kernel.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     got = model.evaluate_batch(thetas)[:, 0]
     kernel_s = time.perf_counter() - t0
-    if ssd.launches - before != model.cfg.n_layers:
-        raise AssertionError(f"{ssd.launches - before} SSD launches for one forward")
+    if kernel.launches - before != model.cfg.n_layers:
+        raise AssertionError(f"{kernel.launches - before} kernel launches for one forward")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     want = plain.evaluate_batch(thetas)[:, 0]
     plain_s = time.perf_counter() - t0
+    plain_peak = torch.cuda.max_memory_allocated()
     rel = float(np.abs(got / want - 1.0).max())
     if not rel <= LM_NLL_RTOL:
         raise AssertionError(f"kernel path NLL {got} vs plain {want}: {rel:.3g} > {LM_NLL_RTOL}")
@@ -532,21 +759,25 @@ def phase_lm_kernel_vs_plain(torch, model) -> dict:
             logits = M.mask_padded_logits(m.cfg, lm_head(m.params["embed"], hidden).float())
             tgt = torch.gather(logits, -1, m.batch["targets"][..., None])[..., 0]
             token_nll.append(torch.logsumexp(logits, dim=-1) - tgt)
-    emit("lm_kernel_vs_plain", points=len(thetas), bound=LM_NLL_RTOL, nll_rel_err=rel,
-         nll_kernel=got.tolist(), nll_plain=want.tolist(), kernel_wave_s=kernel_s,
-         plain_wave_s=plain_s,
+    emit(f"{LM_PHASE[arch]}_kernel_vs_plain", points=len(thetas), bound=LM_NLL_RTOL,
+         nll_rel_err=rel, nll_kernel=got.tolist(), nll_plain=want.tolist(),
+         kernel_wave_s=kernel_s, plain_wave_s=plain_s,
+         plain_max_memory_allocated=plain_peak,
          token_nll_max_abs_diff=float((token_nll[0] - token_nll[1]).abs().max()),
          token_nll_std=float(token_nll[1].std()))
     return {"nll_rel_err": rel}
 
 
 def phase_lm_profile(torch, model, points, unprofiled_s: float) -> dict:
-    """The grid wave again under torch.profiler: the SSD kernel's and the
-    GEMMs' shares of the wave's wall time, and the device's idle share."""
+    """The grid wave again under torch.profiler: the model kernel's and the
+    GEMMs' shares of the wave's wall time, the rest of the device time
+    (elementwise glue, norms, softmax of the head), and the idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.interface import next_pow2, pad_to_bucket
 
+    arch = model.cfg.name
+    kernel, trace_name = LM_KERNELS[arch]
     thetas, _ = pad_to_bucket(np.asarray(points, float), next_pow2(len(points)))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -554,10 +785,10 @@ def phase_lm_profile(torch, model, points, unprofiled_s: float) -> dict:
         model.evaluate_batch(thetas)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    trace = ROOT / "build" / "chip_smoke_lm_trace.json"
+    trace = ROOT / "build" / f"chip_smoke_{LM_PHASE[arch]}_trace.json"
     trace.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(trace))
-    busy = {"ssd": 0.0, "gemm": 0.0, "other": 0.0, "memcpy_memset": 0.0}
+    busy = {kernel: 0.0, "gemm": 0.0, "other": 0.0, "memcpy_memset": 0.0}
     by_name: dict[str, list] = {}
     n_kernels = 0
     for ev in json.loads(trace.read_text()).get("traceEvents", []):
@@ -569,8 +800,8 @@ def phase_lm_profile(torch, model, points, unprofiled_s: float) -> dict:
         elif cat == "kernel":
             n_kernels += 1
             low = name.lower()
-            if "ssd_chunk_scan" in low:
-                busy["ssd"] += dur
+            if trace_name in low:
+                busy[kernel] += dur
             elif any(k in low for k in ("gemm", "cutlass", "xmma", "nvjet")):  # cuBLAS
                 busy["gemm"] += dur
             else:
@@ -581,7 +812,7 @@ def phase_lm_profile(torch, model, points, unprofiled_s: float) -> dict:
     if not n_kernels:
         raise AssertionError("the profiler recorded no device kernel")
     device_us = sum(busy.values())
-    emit("lm_profile", wave=f"{len(points)} grid points padded to {len(thetas)}",
+    emit(f"{LM_PHASE[arch]}_profile", wave=f"{len(points)} grid points padded to {len(thetas)}",
          wall_ms=wall_us / 1e3, unprofiled_wall_ms=unprofiled_s * 1e3,
          device_kernels=n_kernels, device_busy_ms=device_us / 1e3,
          busy_ms={k: v / 1e3 for k, v in busy.items()},
@@ -589,7 +820,19 @@ def phase_lm_profile(torch, model, points, unprofiled_s: float) -> dict:
          device_busy_share=device_us / wall_us, device_idle_share=1.0 - device_us / wall_us,
          top_kernels=[{"name": k, "launches": n, "ms": us / 1e3} for k, (n, us) in
                       sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]])
-    return {"ssd_share": busy["ssd"] / wall_us, "idle_share": 1.0 - device_us / wall_us}
+    return {"kernel_share": busy[kernel] / wall_us, "idle_share": 1.0 - device_us / wall_us}
+
+
+def run_lm_path(torch, arch: str) -> dict:
+    """The main path, the kernel-vs-plain wave and the profiled wave of one
+    LM; the model's memory is released afterwards."""
+    lm = phase_lm_main_path(torch, arch)
+    phase_lm_kernel_vs_plain(torch, lm["model"])
+    phase_lm_profile(torch, lm["model"], lm["points"], lm["grid_s"])
+    launches = lm["launches"]
+    del lm
+    torch.cuda.empty_cache()
+    return {"launches": launches}
 
 
 def main() -> int:
@@ -621,15 +864,23 @@ def main() -> int:
     main_path = phase_main_path(torch)
     ssd_check = phase_ssd_kernel_vs_plain(torch, dev)
     ssd_times = phase_ssd_times(torch, dev, probe["smi"])
-    lm = phase_lm_main_path(torch)
-    phase_lm_kernel_vs_plain(torch, lm["model"])
-    phase_lm_profile(torch, lm["model"], lm["points"], lm["grid_s"])
+    lm = run_lm_path(torch, SSM_ARCH)
+    rms_check = phase_rmsnorm_kernel_vs_plain(torch, dev)
+    rms_times = phase_rmsnorm_times(torch, dev, probe["smi"])
+    rms_path = phase_rmsnorm_path(torch, dev)
+    flash_check = phase_flash_kernel_vs_plain(torch, dev)
+    flash_times = phase_flash_times(torch, dev, probe["smi"])
+    dense = run_lm_path(torch, DENSE_ARCH)
 
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro.")))
     if leaked or "repro" in sys.modules:
         raise AssertionError(f"the smoke run imported the JAX package: {leaked}")
     fine = next(s for s in times["shapes"] if s["shape"] == [2048, 16])
     point = ssd_times["shapes"][0]  # one point: B = 2
+    # one point: qwen3-0.6b's attention over 2 sequences, and its layer norm
+    flash_point = next(s for s in flash_times["shapes"]
+                       if s["shape"] == [LM_BATCH, 16, 8, LM_SEQ, 128])
+    rms_point = next(s for s in rms_times["shapes"] if s["shape"] == [LM_BATCH * LM_SEQ, 1024])
     print(probe["smi"], flush=True)
     print(json.dumps({"kernels": [{
         "name": "swe_step",
@@ -663,6 +914,39 @@ def main() -> int:
         "library_ms": None,
         "shape": point["shape"],
         "by_shape": ssd_times["shapes"],
+        "card": probe["smi"],
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:93",
+        "launches": dense["launches"],
+        "max_abs_err": flash_check["max_abs_err"],
+        "max_abs_err_by_dtype": flash_check["by_dtype"],
+        "ms": flash_point["ms"],
+        "plain_ms": flash_point["plain_ms"],
+        "bound_ms": flash_point["bound_ms"],
+        "bound_by": flash_point["bound_by"],
+        "library_ms": flash_point["library_ms"],
+        "shape": flash_point["shape"],
+        "by_shape": flash_times["shapes"],
+        "card": probe["smi"],
+    }, {
+        "name": "rmsnorm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm/rmsnorm.py:26",
+        # its own path, the entry point at qwen3-0.6b's norm shapes: no model
+        # calls it, as in the JAX package
+        "launches": rms_path["launches"],
+        "max_abs_err": rms_check["max_abs_err"],
+        "ms": rms_point["ms"],
+        "plain_ms": rms_point["plain_ms"],
+        "bound_ms": rms_point["bound_ms"],
+        "bound_by": rms_point["bound_by"],
+        "library_ms": rms_point["library_ms"],
+        "shape": rms_point["shape"],
+        "by_shape": rms_times["shapes"],
         "card": probe["smi"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -75,7 +75,8 @@ class LMUQModel(Model):
         (point k's copy of the batch has its embedding rows scaled by
         theta_k[0]); then per point the head, the padded-vocab mask and the
         log-softmax over its [B*S, V] logits at temperature theta_k[1], so
-        the wave's logits are never held at once."""
+        the wave's logits are never held at once. A tied head reads point
+        k's table scaled by theta_k[0], as the JAX package's does."""
         thetas = np.atleast_2d(np.asarray(thetas, np.float32))
         K = len(thetas)
         cfg, params = self.cfg, self.params
@@ -88,7 +89,7 @@ class LMUQModel(Model):
         )
         out = torch.empty(K, dtype=torch.float32, device=self.device)
         for k in range(K):
-            logits = lm_head(params["embed"], hidden[k * B:(k + 1) * B])
+            logits = lm_head(params["embed"], hidden[k * B:(k + 1) * B], theta[k, 0])
             logits = M.mask_padded_logits(cfg, logits.float()) / theta[k, 1]
             logz = torch.logsumexp(logits, dim=-1)
             tgt = torch.gather(logits, -1, targets[..., None])[..., 0]

@@ -1,0 +1,90 @@
+"""Inputs and the check that hold the flash-attention kernel against its
+plain version (`ref.attention_ref`). `chip_smoke.py` and the port's tests
+both use them, so the card and the test suite run the same cases against
+the same bound.
+
+The bound is the JAX package's own kernel-vs-oracle tolerance on the
+largest absolute error (tests/test_kernels.py): 2e-5 in float32 and 2e-2 in
+bfloat16. Both sides compute in IEEE float32 from the same inputs and differ
+only in summation order and in the online softmax's rescaling (a few
+float32 ulp of outputs of order 1); in bf16 both round the same float32
+result, so they differ by at most one bf16 rounding (0.0078 for outputs in
+[1, 2)). Inputs are standard normals, as in the JAX package's tests. A
+dropped diagonal or a wrong scale moves outputs by O(0.1) and fails it.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+#: max |kernel - plain| by dtype (see above)
+ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: the FLASH_CASES of the JAX package's tests:
+#: (B, nq, nkv, Sq, Sk, hd, causal, dtype)
+FLASH_CASES = (
+    (2, 4, 2, 256, 256, 64, True, "float32"),
+    (1, 4, 4, 128, 128, 128, True, "float32"),
+    (2, 8, 2, 256, 256, 64, False, "float32"),
+    (1, 2, 1, 512, 512, 64, True, "float32"),
+    (1, 4, 2, 256, 256, 64, True, "bfloat16"),
+)
+#: the reduced qwen3-0.6b's widths (hd 32, at the parity tests' seq 128),
+#: a causal S that is no multiple of the 64-row tiles, and full attention
+#: with Sq != Sk, both ragged
+EDGE_CASES = (
+    (2, 4, 2, 128, 128, 32, True, "float32"),
+    (1, 4, 2, 100, 100, 32, True, "bfloat16"),
+    (1, 4, 1, 96, 200, 64, False, "float32"),
+)
+#: qwen3-0.6b's attention on the main path (16 q heads, 8 kv heads of 128,
+#: 2,048 tokens, bf16): one point (2 sequences), a wave of 8 (16) and the
+#: 41-point grid padded to 64 (128)
+MAIN_PATH_BATCHES = (2, 16, 128)
+QWEN3_HEADS, QWEN3_KV_HEADS, QWEN3_HD, MAIN_PATH_SEQ = 16, 8, 128, 2048
+MODEL_CASES = tuple((B, QWEN3_HEADS, QWEN3_KV_HEADS, MAIN_PATH_SEQ, MAIN_PATH_SEQ, QWEN3_HD,
+                     True, "bfloat16") for B in MAIN_PATH_BATCHES)
+CASES = FLASH_CASES + EDGE_CASES + MODEL_CASES
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+#: sequences of one plain-version call: the plain version holds the whole
+#: [B, nq, Sq, Sk] float32 score tensor (4.3 GB at 16 qwen3 sequences)
+PLAIN_BATCH = 16
+
+
+def case_name(case) -> str:
+    B, nq, nkv, Sq, Sk, hd, causal, dt = case
+    s = f"S{Sq}" if Sq == Sk else f"Sq{Sq}_Sk{Sk}"
+    return f"B{B}_nq{nq}_nkv{nkv}_{s}_hd{hd}_{'causal' if causal else 'full'}_{dt}"
+
+
+def case_inputs(case, device, seed: int = 0):
+    """Standard-normal (q [B,nq,Sq,hd], k, v [B,nkv,Sk,hd]) in the case's
+    dtype, drawn on `device` from `seed`."""
+    B, nq, nkv, Sq, Sk, hd, _, dt = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device=device).to(_DTYPES[dt])
+                 for shape in ((B, nq, Sq, hd), (B, nkv, Sk, hd), (B, nkv, Sk, hd)))
+
+
+def plain(q, k, v, causal: bool) -> torch.Tensor:
+    """`attention_ref` PLAIN_BATCH sequences at a time (it is independent
+    per sequence), so the largest main-path shape fits the card."""
+    return torch.cat([attention_ref(q[i:i + PLAIN_BATCH], k[i:i + PLAIN_BATCH],
+                                    v[i:i + PLAIN_BATCH], causal=causal)
+                      for i in range(0, q.shape[0], PLAIN_BATCH)])
+
+
+def assert_close(got: torch.Tensor, want: torch.Tensor, name: str) -> dict:
+    """Raises unless `got` has `want`'s shape and dtype, is finite and is
+    within ATOL of its dtype; returns the error."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: got {tuple(got.shape)} {got.dtype}, "
+                             f"expected {tuple(want.shape)} {want.dtype}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: result is not finite")
+    tol = ATOL[str(want.dtype).removeprefix("torch.")]
+    err = float((got.float() - want.float()).abs().max())
+    if not err <= tol:
+        raise AssertionError(f"{name}: max abs error {err:.3g} exceeds {tol}")
+    return {"max_abs_err": err, "bound": tol}

@@ -10,9 +10,10 @@ whose parameters are stacked with a leading layer dimension:
   vlm         : [(self x (period-1) + cross) x n]
 
 The JAX package scans over the stacked units; here a Python loop runs the
-layers in order on one device (no sharding context). This slice ports the
-`ssm` group for `mode="train"` and `"prefill"`; the other group kinds and
-the decode step raise `NotImplementedError` (ROADMAP queue 1, item 13).
+layers in order on one device (no sharding context). The `ssm` and `dense`
+groups (without MoE) are ported for `mode="train"` and `"prefill"`; the
+other group kinds and the decode step raise `NotImplementedError` (ROADMAP
+queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -20,8 +21,17 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import decl_embed, decl_rmsnorm, embed_tokens, lm_head, rmsnorm
+from repro_torch.models.layers import (
+    decl_embed,
+    decl_mlp,
+    decl_rmsnorm,
+    embed_tokens,
+    lm_head,
+    mlp,
+    rmsnorm,
+)
 from repro_torch.models.params import stack, walk
 from repro_torch.types import ModelConfig, dtype_of
 
@@ -62,11 +72,22 @@ def make_groups(cfg: ModelConfig) -> list[Group]:
     raise ValueError(cfg.family)
 
 
+def _decl_dense_unit(cfg: ModelConfig) -> dict:
+    return {
+        "ln1": decl_rmsnorm(cfg.d_model),
+        "attn": attn_mod.decl_attention(cfg),
+        "ln2": decl_rmsnorm(cfg.d_model),
+        "mlp": decl_mlp(cfg.d_model, cfg.d_ff, cfg.use_bias),
+    }
+
+
 def _decl_ssm_unit(cfg: ModelConfig) -> dict:
     return {"ln": decl_rmsnorm(cfg.d_model), "ssm": ssm_mod.decl_ssm(cfg)}
 
 
 def decl_group_unit(cfg: ModelConfig, kind: str) -> dict:
+    if kind == "dense":
+        return _decl_dense_unit(cfg)
     if kind == "ssm":
         return _decl_ssm_unit(cfg)
     raise NotImplementedError(f"the {kind!r} group {_NOT_PORTED}")
@@ -79,6 +100,18 @@ def decl_model(cfg: ModelConfig) -> dict:
     ]
     decls["final_norm"] = decl_rmsnorm(cfg.d_model)
     return decls
+
+
+def _dense_unit(cfg: ModelConfig, params: dict, x: torch.Tensor, *, positions, mode: str,
+                cache_len: int | None):
+    h = rmsnorm(params["ln1"], x, cfg.norm_eps)
+    a, new_attn = attn_mod.gqa_full(
+        cfg, params["attn"], h, positions=positions, want_cache=(mode == "prefill"),
+        cache_len=cache_len,
+    )
+    x = x + a
+    x = x + mlp(params["mlp"], rmsnorm(params["ln2"], x, cfg.norm_eps))
+    return x, ({"attn": new_attn} if new_attn is not None else None)
 
 
 def _ssm_unit(cfg: ModelConfig, params: dict, x: torch.Tensor, *, mode: str, use_kernel: bool):
@@ -96,6 +129,7 @@ def forward(
     tokens: torch.Tensor,
     *,
     mode: str = "train",
+    cache_len: int | None = None,
     skip_head: bool = False,
     embed_scale: torch.Tensor | None = None,
 ):
@@ -103,36 +137,50 @@ def forward(
 
     `embed_scale` [B] multiplies each sequence's gathered embedding rows
     (in the parameter dtype), which is the same multiply as scaling the
-    whole table for that sequence. The SSD runs the CUDA kernel when
-    `cfg.attn_impl == "kernel"` and the plain `ssd_scan` when it is
-    "plain" (see `types.ModelConfig.attn_impl`)."""
+    whole table for that sequence; a tied head then reads that sequence's
+    scaled table too. `cache_len` pads the prefill K/V caches of the dense
+    group. `cfg.attn_impl` picks the kernel or the plain path of the SSD
+    ("kernel": the CUDA kernel, "plain": `ssd_scan`) and of attention
+    ("kernel": the flash kernel, "plain": `_grouped_attention`); see
+    `types.ModelConfig.attn_impl`."""
     if mode not in ("train", "prefill"):
         raise NotImplementedError(f"forward mode {mode!r} {_NOT_PORTED}")
     if cfg.attn_impl not in ("kernel", "plain"):
         raise ValueError(f"attn_impl must be 'kernel' or 'plain', got {cfg.attn_impl!r}")
     use_kernel = cfg.attn_impl == "kernel"
+    B, S = tokens.shape
     x = embed_tokens(params["embed"], tokens)
     if embed_scale is not None:
         x = x * embed_scale.to(x.dtype)[:, None, None]
     x = x.to(dtype_of(cfg.act_dtype))
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
     new_caches = []
     for gi, group in enumerate(make_groups(cfg)):
-        if group.kind != "ssm":
+        if group.kind not in ("dense", "ssm"):
             raise NotImplementedError(f"the {group.kind!r} group {_NOT_PORTED}")
         gparams = params["groups"][gi]
         layer_caches = []
         for layer in range(group.count):
             p = walk(gparams, lambda t, _path, _l=layer: t[_l])
-            x, nc = _ssm_unit(cfg, p, x, mode=mode, use_kernel=use_kernel)
+            if group.kind == "dense":
+                x, nc = _dense_unit(cfg, p, x, positions=positions, mode=mode,
+                                    cache_len=cache_len)
+            else:
+                x, nc = _ssm_unit(cfg, p, x, mode=mode, use_kernel=use_kernel)
             layer_caches.append(nc)
         if mode == "prefill":
             # stacked like the JAX package's scan outputs: [L, ...] per leaf
-            new_caches.append({"ssm": {
-                k: torch.stack([c["ssm"][k] for c in layer_caches]) for k in ("conv", "state")
+            unit = "attn" if group.kind == "dense" else "ssm"
+            new_caches.append({unit: {
+                k: torch.stack([c[unit][k] for c in layer_caches]) for k in layer_caches[0][unit]
             }})
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     caches = new_caches if mode == "prefill" else None
     if skip_head:
         return x, caches, aux
-    return lm_head(params["embed"], x), caches, aux
+    if embed_scale is None or "head" in params["embed"]:
+        return lm_head(params["embed"], x), caches, aux
+    # tied: each sequence's logits read its own scaled table
+    logits = torch.cat([lm_head(params["embed"], x[i:i + 1], embed_scale[i]) for i in range(B)])
+    return logits, caches, aux

@@ -94,10 +94,12 @@ class ModelConfig:
     q_chunk: int = 1024
     # remat: none | full | dots (checkpoint_dots_with_no_batch_dims)
     remat: str = "full"
-    # SSD implementation of the ssm units: "kernel" (the hand-written CUDA
-    # kernel, `kernels/ssd`) | "plain" (`models/ssm.py::ssd_scan`, the
-    # reference path). The JAX package names the same choice "pallas" |
-    # "xla" and defaults to "xla"; the port defaults to the kernel.
+    # kernel or plain path of the ssm units' SSD and of GQA attention:
+    # "kernel" (the hand-written CUDA kernels, `kernels/ssd` and
+    # `kernels/flash_attention`) | "plain" (`models/ssm.py::ssd_scan` and
+    # `models/attention.py::_grouped_attention`, the reference paths). The
+    # JAX package names the same choice "pallas" | "xla" and defaults to
+    # "xla"; the port defaults to the kernels.
     attn_impl: str = "kernel"
     # --- perf knobs (EXPERIMENTS.md §Perf; all default off = paper baseline) --
     # Megatron-style sequence parallelism: residual stream sharded over

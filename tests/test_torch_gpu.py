@@ -2,8 +2,10 @@
 version. The SWE step, one step and whole solves, bit for bit (the bound and
 its reason: `repro_torch.kernels.swe.testing`); the SSD chunk scan within its
 relative bound (`repro_torch.kernels.ssd.testing`), alone and inside a
-reduced mamba2 forward. Every test here is marked `gpu` and skips without a
-CUDA device. The file imports neither JAX nor the JAX package, so it also
+reduced mamba2 forward; flash attention and RMSNorm within theirs
+(`repro_torch.kernels.{flash_attention,rmsnorm}.testing`), at every case and
+main-path shape, and flash attention inside a reduced qwen3-0.6b forward.
+Every test here is marked `gpu` and skips without a CUDA device. The file imports neither JAX nor the JAX package, so it also
 runs on a GPU machine that has no JAX:
 
     PYTHONPATH=src python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -15,6 +17,10 @@ import torch
 from _torch_parity import cuda_or_skip
 from repro_torch.apps.tsunami import level_grid, solve_batch
 from repro_torch.configs import get_config
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import testing as flash_testing
+from repro_torch.kernels.rmsnorm import rmsnorm_fused, rmsnorm_ref
+from repro_torch.kernels.rmsnorm import testing as rms_testing
 from repro_torch.kernels.ssd import ssd, ssd_chunk_scan, ssd_chunked_ref
 from repro_torch.kernels.ssd import testing as ssd_testing
 from repro_torch.models import model, transformer
@@ -96,3 +102,59 @@ def test_reduced_forward_kernel_path_matches_plain_path():
     assert ssd.launches == before + cfg.n_layers
     err = ssd_testing.rel_err(got, want)
     assert err <= ssd_testing.REL_TOL, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", flash_testing.CASES, ids=flash_testing.case_name)
+def test_flash_kernel_matches_plain_on_cuda(case):
+    dev = cuda_or_skip()
+    q, k, v = flash_testing.case_inputs(case, dev, seed=1)
+    causal = case[6]
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    flash_testing.assert_close(got, flash_testing.plain(q, k, v, causal),
+                               flash_testing.case_name(case))
+
+
+@pytest.mark.gpu
+def test_flash_kernel_raises_for_causal_with_sq_ne_sk_on_cuda():
+    dev = cuda_or_skip()
+    q = torch.zeros(1, 2, 64, 32, device=dev)
+    kv = torch.zeros(1, 1, 128, 32, device=dev)
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        flash_attention(q, kv, kv, causal=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", rms_testing.CASES, ids=rms_testing.case_name)
+def test_rmsnorm_kernel_matches_plain_on_cuda(case):
+    dev = cuda_or_skip()
+    x, w = rms_testing.case_inputs(case, dev, seed=1)
+    before = rmsnorm_fused.launches
+    got = rmsnorm_fused(x, w)
+    torch.cuda.synchronize()
+    assert rmsnorm_fused.launches == before + 1
+    rms_testing.assert_close(got, rmsnorm_ref(x, w), rms_testing.case_name(case))
+
+
+@pytest.mark.gpu
+def test_reduced_qwen3_forward_kernel_path_matches_plain_path():
+    """The reduced qwen3-0.6b (float32, hd 32) on the card, at a sequence
+    that is no multiple of the kernel's tiles: the kernel path launches the
+    flash kernel once per layer and gives the plain path's logits within
+    float32 reordering (measured ~1e-6 against the JAX package on the CPU,
+    tests/test_torch_dense.py)."""
+    dev = cuda_or_skip()
+    cfg = get_config("qwen3-0.6b", reduced=True)
+    params = model.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    tokens = model.make_synth_batch(cfg, 2, 200, torch.Generator(device=dev).manual_seed(1))["tokens"]
+    before = flash_attention.launches
+    got, _, _ = transformer.forward(cfg, params, tokens)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + cfg.n_layers
+    want, _, _ = transformer.forward(cfg.replace(attn_impl="plain"), params, tokens)
+    assert flash_attention.launches == before + cfg.n_layers
+    err = ssd_testing.rel_err(got, want)
+    assert err <= 1e-5, err

@@ -28,7 +28,7 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.core.fabric import EvaluationFabric, ModelBackend
 from repro_torch.kernels.ssd import ssd
-from repro_torch.models import model, ssm, transformer
+from repro_torch.models import attention, model, ssm, transformer
 from repro_torch.uq import sparse_grid as sg
 
 ARCH = "mamba2-1.3b"
@@ -148,8 +148,12 @@ def test_forward_raises_for_what_is_not_ported(carried):
     cfg = get_config(ARCH, True)
     with pytest.raises(NotImplementedError, match="queue 1, item 13"):
         transformer.forward(cfg, params, torch.tensor(batch["tokens"]), mode="decode")
+    # the moe and hybrid groups, MLA and the GQA decode step are not ported
+    for arch in ("deepseek-moe-16b", "zamba2-1.2b", "minicpm3-4b"):
+        with pytest.raises(NotImplementedError, match="queue 1, item 13"):
+            model.n_params(get_config(arch, True))
     with pytest.raises(NotImplementedError, match="queue 1, item 13"):
-        model.n_params(get_config("qwen3-0.6b", True))
+        attention.gqa_decode(get_config("qwen3-0.6b", True), {}, torch.zeros(1, 1, 128), {}, 0)
 
 
 @pytest.fixture(scope="module", params=IMPLS, ids=[i for i, _ in IMPLS])
