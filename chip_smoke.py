@@ -17,13 +17,21 @@ user calls:
   full-width models from seeded random weights (bf16): mamba2-1.3b (48
   layers), every layer of every forward one launch of the SSD chunk-scan
   kernel, and qwen3-0.6b (28 layers, the model the example serves), every
-  layer one launch of the flash-attention kernel. Each runs a level-4
+  layer one launch of the bf16 tensor-core flash-attention kernel (wgmma
+  and TMA, reading the model's [B, S, n, hd] tensors through strides). Each
+  runs a level-4
   sparse grid of the NLL over (embedding scale, temperature) through the
   fabric, the surrogate's Monte Carlo, and 8 per-point submits; then one
   wave on the kernel path against the plain path, and one wave under the
   profiler;
 * the RMSNorm kernel through its own entry point at qwen3-0.6b's norm
-  shapes: as in the JAX package, no model calls it.
+  shapes: as in the JAX package, no model calls it;
+* the float32 flash-attention kernel (CUDA cores) on its own path: the
+  reduced qwen3-0.6b in float32, as the port's tests run it, serving a
+  level-2 sparse grid through the fabric.
+
+The build phase is followed by the count of HGMMA (wgmma) instructions in
+the tensor-core kernel's SASS.
 
 Each launch count is set to 0 just before a path and read just after. Each
 phase prints one JSON line; any failed check raises and the script exits
@@ -86,8 +94,9 @@ def emit(phase: str, **fields) -> None:
 
 
 def kernel_wrappers() -> dict:
-    """Every kernel wrapper of the port, by kernel name; each counts its
-    launches in `.launches`."""
+    """Every kernel wrapper of the port, by wrapper name; each counts its
+    launches in `.launches` (flash attention also by kernel, in
+    `.launches_by_kernel`)."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rmsnorm import rmsnorm_fused
     from repro_torch.kernels.ssd import ssd
@@ -100,10 +109,17 @@ def kernel_wrappers() -> dict:
 def reset_launches() -> None:
     for wrapper in kernel_wrappers().values():
         wrapper.launches = 0
+        for name in getattr(wrapper, "launches_by_kernel", {}):
+            wrapper.launches_by_kernel[name] = 0
 
 
 def read_launches() -> dict:
-    return {name: wrapper.launches for name, wrapper in kernel_wrappers().items()}
+    """Launches by kernel: flash attention's two kernels (the CUDA-core
+    `flash_attention`, the tensor-core `flash_attention_wgmma`) apart."""
+    counts = {}
+    for name, wrapper in kernel_wrappers().items():
+        counts.update(getattr(wrapper, "launches_by_kernel", {name: wrapper.launches}))
+    return counts
 
 
 def nvidia_smi() -> str:
@@ -136,6 +152,24 @@ def phase_build() -> None:
     libs = _build.build()
     emit("build", seconds=time.perf_counter() - t0,
          libraries={k: str(v.relative_to(ROOT)) for k, v in libs.items()})
+    # evidence that the bf16 flash kernel runs on the tensor cores: its SASS
+    # holds HGMMA (warpgroup MMA) instructions
+    cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(libs["flash_attention_wgmma"])],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    by_function: dict[str, int] = {}
+    function = ""
+    for line in sass.splitlines():
+        if "Function : " in line:
+            function = line.split("Function : ")[1].strip()
+            by_function[function] = 0
+        elif "HGMMA" in line:
+            by_function[function] = by_function.get(function, 0) + 1
+    hgmma = sum(by_function.values())
+    if not by_function or min(by_function.values()) == 0:
+        raise AssertionError(f"a tensor-core flash kernel without HGMMA: {by_function}")
+    emit("sass", library=str(libs["flash_attention_wgmma"].relative_to(ROOT)),
+         hgmma_instructions=hgmma, hgmma_by_function=by_function)
 
 
 def phase_kernel_vs_plain(torch, dev) -> dict:
@@ -572,69 +606,121 @@ def flash_work(B: int, nq: int, nkv: int, Sq: int, Sk: int, hd: int, causal: boo
             "flops": 4 * B * nq * hd * pairs}
 
 
+#: the float32 flash kernel's own path: the reduced qwen3-0.6b (float32, 4 q
+#: heads and 2 kv heads of 32) over a level-2 grid (13 points, one wave of 16)
+F32_LM_BATCH, F32_LM_SEQ, F32_GRID_LEVEL = 2, 512, 2
+#: its attention shape on that path: 16 points x 2 sequences
+F32_PATH_CASE = (16 * F32_LM_BATCH, 4, 2, F32_LM_SEQ, F32_LM_SEQ, 32, True, "float32")
+
+
+def _model_layout(q, k, v):
+    """The same values as transposed views of [B, S, n, hd] tensors: the
+    layout the qwen3 path hands the kernel."""
+    return tuple(t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+
+
 def phase_flash_kernel_vs_plain(torch, dev) -> dict:
-    """The flash kernel against its plain version (`attention_ref`) on the
-    card (bound and reason: `repro_torch.kernels.flash_attention.testing`):
+    """Both flash kernels against their plain version (`attention_ref`) on
+    the card (bound and reason: `repro_torch.kernels.flash_attention.testing`):
     the JAX package's FLASH_CASES, ragged shapes, and qwen3-0.6b's attention
-    at one point, a wave of 8 and the 64-point wave."""
+    at one point, a wave of 8 and the 64-point wave (at its model layout,
+    through strides), and the float32 path's shape. Each case goes through
+    the wrapper to the kernel of its dtype (`flash_attention_wgmma` for bf16,
+    `flash_attention` for float32), and the CUDA-core kernel also runs every
+    bf16 case."""
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention import testing as T
 
-    report = {}
-    for i, case in enumerate(T.CASES):
+    report = {"flash_attention_wgmma": {}, "flash_attention": {}}
+    for i, case in enumerate(T.CASES + (F32_PATH_CASE,)):
+        name, causal = T.case_name(case), case[6]
         q, k, v = T.case_inputs(case, dev, seed=i)
-        got = flash_attention(q, k, v, causal=case[6])
+        if case in T.MODEL_CASES:
+            q, k, v = _model_layout(q, k, v)
+        want = T.plain(q, k, v, causal)
+        before = dict(flash_attention.launches_by_kernel)
+        got = flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        report[T.case_name(case)] = T.assert_close(got, T.plain(q, k, v, case[6]),
-                                                   T.case_name(case))
-        del q, k, v, got
+        kernel = ops.KERNEL_OF[q.dtype]
+        if flash_attention.launches_by_kernel[kernel] != before[kernel] + 1:
+            raise AssertionError(f"{name}: the wrapper did not launch {kernel}")
+        report[kernel][name] = T.assert_close(got, want, f"{kernel} {name}")
+        if kernel != "flash_attention":  # the CUDA-core kernel on the same bf16 inputs
+            got = torch.empty_like(q)
+            ops.launch("flash_attention", q, k, v, got, causal)
+            torch.cuda.synchronize()
+            report["flash_attention"][name] = T.assert_close(got, want, f"flash_attention {name}")
+        del q, k, v, got, want
         torch.cuda.empty_cache()
-    worst = {dt: max((r["max_abs_err"] for c, r in zip(T.CASES, report.values()) if c[7] == dt),
-                     default=0.0) for dt in T.ATOL}
-    emit("flash_kernel_vs_plain", kernel="flash_attention",
+    worst = {kernel: {dt: max((r["max_abs_err"] for n, r in cases.items() if n.endswith(dt)),
+                              default=None) for dt in T.ATOL}
+             for kernel, cases in report.items()}
+    emit("flash_kernel_vs_plain", kernels=list(report),
          bound="max abs error <= 2e-5 in float32, <= 2e-2 in bf16, the JAX package's "
                "(repro_torch/kernels/flash_attention/testing.py)",
-         max_abs_err_by_dtype=worst, cases=report)
-    return {"max_abs_err": max(worst.values()), "by_dtype": worst}
+         max_abs_err_by_kernel_and_dtype=worst, cases=report)
+    return {"wgmma": worst["flash_attention_wgmma"]["bfloat16"],
+            "cuda_core": worst["flash_attention"]["float32"],
+            "cuda_core_bf16": worst["flash_attention"]["bfloat16"], "by_kernel": worst}
 
 
 def phase_flash_times(torch, dev, smi: str) -> dict:
-    """Device time of one flash launch at the FLASH_CASES and main-path
-    shapes, beside its bound (operations at the peak of the inputs' type),
-    the plain version's time and `scaled_dot_product_attention`'s."""
+    """Device time of one launch of each flash kernel at the FLASH_CASES
+    shapes, qwen3-0.6b's main-path shapes (at the model layout, through
+    strides) and the float32 path's shape, beside the bound (operations at
+    the peak of the inputs' type), the plain version's time and
+    `scaled_dot_product_attention`'s. `ms` is the kernel the wrapper takes;
+    at bf16 shapes `cuda_core_ms` is the CUDA-core kernel on the same
+    inputs."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention import testing as T
 
     shapes = []
-    for i, case in enumerate(T.FLASH_CASES + T.MODEL_CASES):
+    for i, case in enumerate(T.FLASH_CASES + T.MODEL_CASES + (F32_PATH_CASE,)):
         B, nq, nkv, Sq, Sk, hd, causal, dt = case
         q, k, v = T.case_inputs(case, dev, seed=i)
+        if case in T.MODEL_CASES:
+            q, k, v = _model_layout(q, k, v)
         work = flash_work(B, nq, nkv, Sq, Sk, hd, causal, q.element_size())
         big = work["flops"] > 1e11
         ms = _device_ms(torch, lambda: flash_attention(q, k, v, causal=causal),
-                        calls=2 if big else 50)
-        plain_ms = _device_ms(torch, lambda: T.plain(q, k, v, causal), calls=1 if big else 10,
-                              windows=3 if big else 5)
-        library_ms = _device_ms(torch, lambda: F.scaled_dot_product_attention(
+                        calls=10 if big else 50)
+        entry = {"shape": [B, nq, nkv, Sq, hd], "causal": causal, "dtype": dt,
+                 "kernel": ops.KERNEL_OF[q.dtype], "model_layout": case in T.MODEL_CASES,
+                 "ms": ms}
+        if dt == "bfloat16":
+            o = torch.empty_like(q)
+            entry["cuda_core_ms"] = _device_ms(
+                torch, lambda: ops.launch("flash_attention", q, k, v, o, causal),
+                calls=2 if big else 50)
+        entry["plain_ms"] = _device_ms(torch, lambda: T.plain(q, k, v, causal),
+                                       calls=1 if big else 10, windows=3 if big else 5)
+        entry["library_ms"] = _device_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal, enable_gqa=True), calls=10 if big else 50)
         peak = BF16_FLOPS if dt == "bfloat16" else FP32_FLOPS
         t_bytes, t_ops = work["bytes"] / HBM_BYTES_PER_S, work["flops"] / peak
-        shapes.append({
-            "shape": [B, nq, nkv, Sq, hd], "causal": causal, "dtype": dt, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
+        entry.update({
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes_ms": t_bytes * 1e3, "ops_ms": t_ops * 1e3,
-            "fp32_ops_ms": work["flops"] / FP32_FLOPS * 1e3,
-            "fraction_of_fp32_peak": work["flops"] / FP32_FLOPS * 1e3 / ms, **work,
+            "fp32_ops_ms": work["flops"] / FP32_FLOPS * 1e3, **work,
         })
+        if dt == "bfloat16":
+            entry["fraction_of_bf16_peak"] = t_ops * 1e3 / ms
+            entry["cuda_core_fraction_of_fp32_peak"] = entry["fp32_ops_ms"] / entry["cuda_core_ms"]
+        else:
+            entry["fraction_of_fp32_peak"] = entry["fp32_ops_ms"] / ms
+        shapes.append(entry)
         del q, k, v
         torch.cuda.empty_cache()
-    emit("flash_times", kernel="flash_attention",
-         timer="one CUDA event pair around back-to-back launches (50; 2 above 0.1 TFLOP; "
-               "plain: 10, or 1 in 3 windows), per launch, median of 5 windows",
+    emit("flash_times", kernels=["flash_attention_wgmma", "flash_attention"],
+         timer="one CUDA event pair around back-to-back launches (50; 10 above 0.1 TFLOP, "
+               "the CUDA-core kernel 2; plain: 10, or 1 in 3 windows), per launch, median of "
+               "5 windows",
          library="F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)",
          shapes=shapes, card=smi)
     return {"shapes": shapes}
@@ -642,7 +728,7 @@ def phase_flash_times(torch, dev, smi: str) -> dict:
 
 #: the kernel each LM path runs once per layer, and its name in a trace
 LM_KERNELS = {SSM_ARCH: ("ssd", "ssd_chunk_scan"),
-              DENSE_ARCH: ("flash_attention", "flash_attention_kernel")}
+              DENSE_ARCH: ("flash_attention_wgmma", "flash_attention_wgmma_kernel")}
 #: the phase names' prefix of each LM path
 LM_PHASE = {SSM_ARCH: "lm", DENSE_ARCH: "dense_lm"}
 
@@ -732,17 +818,18 @@ def phase_lm_kernel_vs_plain(torch, model) -> dict:
     from repro_torch.models.layers import lm_head
 
     arch = model.cfg.name
-    kernel = kernel_wrappers()[LM_KERNELS[arch][0]]
+    kernel = LM_KERNELS[arch][0]
     plain = copy.copy(model)
     plain.cfg = model.cfg.replace(attn_impl="plain")
     thetas = np.array([[1.0 + 0.02 * i, 1.0] for i in range(LM_SUBMITS)])
-    before = kernel.launches
+    before = read_launches()[kernel]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     got = model.evaluate_batch(thetas)[:, 0]
     kernel_s = time.perf_counter() - t0
-    if kernel.launches - before != model.cfg.n_layers:
-        raise AssertionError(f"{kernel.launches - before} kernel launches for one forward")
+    launched = read_launches()[kernel] - before
+    if launched != model.cfg.n_layers:
+        raise AssertionError(f"{launched} {kernel} launches for one forward")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     want = plain.evaluate_batch(thetas)[:, 0]
@@ -790,7 +877,7 @@ def phase_lm_profile(torch, model, points, unprofiled_s: float) -> dict:
     prof.export_chrome_trace(str(trace))
     busy = {kernel: 0.0, "gemm": 0.0, "other": 0.0, "memcpy_memset": 0.0}
     by_name: dict[str, list] = {}
-    n_kernels = 0
+    n_kernels = n_model_kernel = 0
     for ev in json.loads(trace.read_text()).get("traceEvents", []):
         if ev.get("ph") != "X":
             continue
@@ -802,6 +889,7 @@ def phase_lm_profile(torch, model, points, unprofiled_s: float) -> dict:
             low = name.lower()
             if trace_name in low:
                 busy[kernel] += dur
+                n_model_kernel += 1
             elif any(k in low for k in ("gemm", "cutlass", "xmma", "nvjet")):  # cuBLAS
                 busy["gemm"] += dur
             else:
@@ -811,16 +899,74 @@ def phase_lm_profile(torch, model, points, unprofiled_s: float) -> dict:
             entry[1] += dur
     if not n_kernels:
         raise AssertionError("the profiler recorded no device kernel")
+    # the wave is one forward: one launch of the model's kernel per layer,
+    # under its own name in the trace
+    if n_model_kernel != model.cfg.n_layers:
+        raise AssertionError(f"the trace holds {n_model_kernel} launches of {trace_name}, "
+                             f"expected {model.cfg.n_layers}")
     device_us = sum(busy.values())
     emit(f"{LM_PHASE[arch]}_profile", wave=f"{len(points)} grid points padded to {len(thetas)}",
          wall_ms=wall_us / 1e3, unprofiled_wall_ms=unprofiled_s * 1e3,
          device_kernels=n_kernels, device_busy_ms=device_us / 1e3,
+         **{f"{kernel}_launches_in_trace": n_model_kernel},
          busy_ms={k: v / 1e3 for k, v in busy.items()},
          share_of_wall={k: v / wall_us for k, v in busy.items()},
          device_busy_share=device_us / wall_us, device_idle_share=1.0 - device_us / wall_us,
          top_kernels=[{"name": k, "launches": n, "ms": us / 1e3} for k, (n, us) in
                       sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]])
     return {"kernel_share": busy[kernel] / wall_us, "idle_share": 1.0 - device_us / wall_us}
+
+
+def phase_flash_f32_path(torch) -> dict:
+    """The float32 flash kernel's own path: the reduced qwen3-0.6b in
+    float32 (the config the port's parity tests hold to the JAX package)
+    as an UM-Bridge model, a level-2 sparse grid of its NLL through
+    `EvaluationFabric(ModelBackend(LMUQModel))` as one padded wave, and the
+    same wave on the plain path. Every forward launches the CUDA-core flash
+    kernel once per layer, at `F32_PATH_CASE`'s shape, and no other kernel."""
+    from repro_torch.apps.lm_model import LMUQModel
+    from repro_torch.core.fabric import EvaluationFabric, ModelBackend
+    from repro_torch.core.interface import next_pow2, pad_to_bucket
+    from repro_torch.uq import sparse_grid as sg
+
+    model = LMUQModel(DENSE_ARCH, reduced=True, batch=F32_LM_BATCH, seq=F32_LM_SEQ)
+    if model.cfg.act_dtype != "float32":
+        raise AssertionError(f"the reduced {DENSE_ARCH} runs in {model.cfg.act_dtype}")
+    knots = [sg.knots_uniform_leja(*LM_BOX)] * 2
+    reduced = sg.reduce_sparse_grid(sg.smolyak_grid(2, F32_GRID_LEVEL, knots))
+    wave = next_pow2(len(reduced.points))
+    if wave * F32_LM_BATCH != F32_PATH_CASE[0]:
+        raise AssertionError(f"a wave of {wave} points, F32_PATH_CASE has {F32_PATH_CASE[0]}")
+    fabric = EvaluationFabric(ModelBackend(model), cache_size=64)
+    try:
+        # every launch count starts at 0 right before the path
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vals = sg.evaluate_on_sparse_grid(fabric, reduced)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+        forwards = fabric.telemetry()["backend"]["native_batches"]
+    finally:
+        fabric.shutdown()
+    launches = counts["flash_attention"]
+    if forwards < 1 or launches != model.cfg.n_layers * forwards or sum(counts.values()) != launches:
+        raise AssertionError(f"launches {counts}, expected {model.cfg.n_layers} x {forwards} "
+                             "of flash_attention and no other kernel")
+    plain = copy.copy(model)
+    plain.cfg = model.cfg.replace(attn_impl="plain")
+    thetas, _ = pad_to_bucket(np.asarray(reduced.points, float), wave)
+    want = plain.evaluate_batch(thetas)[:len(reduced.points)]
+    rel = float(np.abs(vals / want - 1.0).max())
+    if vals.shape != (len(reduced.points), 1) or not np.isfinite(vals).all() or not rel <= 1e-5:
+        raise AssertionError(f"float32 path NLL {vals.ravel()} vs plain {want.ravel()}: {rel:.3g}")
+    emit("flash_f32_path", arch=f"{DENSE_ARCH} (reduced, float32)", batch=F32_LM_BATCH,
+         seq=F32_LM_SEQ, layers=model.cfg.n_layers, grid_points=len(reduced.points),
+         forwards=forwards, wall_s=wall, flash_attention_launches=launches, launches=counts,
+         nll_grid={"min": vals.min(), "max": vals.max()}, nll_rel_err_vs_plain=rel,
+         bound=1e-5)
+    return {"launches": launches}
 
 
 def run_lm_path(torch, arch: str) -> dict:
@@ -870,6 +1016,7 @@ def main() -> int:
     rms_path = phase_rmsnorm_path(torch, dev)
     flash_check = phase_flash_kernel_vs_plain(torch, dev)
     flash_times = phase_flash_times(torch, dev, probe["smi"])
+    f32_path = phase_flash_f32_path(torch)
     dense = run_lm_path(torch, DENSE_ARCH)
 
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro.")))
@@ -877,9 +1024,13 @@ def main() -> int:
         raise AssertionError(f"the smoke run imported the JAX package: {leaked}")
     fine = next(s for s in times["shapes"] if s["shape"] == [2048, 16])
     point = ssd_times["shapes"][0]  # one point: B = 2
-    # one point: qwen3-0.6b's attention over 2 sequences, and its layer norm
+    # one point: qwen3-0.6b's attention over 2 sequences, and its layer norm;
+    # the float32 flash kernel at its own path's shape
     flash_point = next(s for s in flash_times["shapes"]
                        if s["shape"] == [LM_BATCH, 16, 8, LM_SEQ, 128])
+    f32_shape = [F32_PATH_CASE[i] for i in (0, 1, 2, 3, 5)]
+    f32_point = next(s for s in flash_times["shapes"]
+                     if s["shape"] == f32_shape and s["dtype"] == "float32")
     rms_point = next(s for s in rms_times["shapes"] if s["shape"] == [LM_BATCH * LM_SEQ, 1024])
     print(probe["smi"], flush=True)
     print(json.dumps({"kernels": [{
@@ -916,20 +1067,40 @@ def main() -> int:
         "by_shape": ssd_times["shapes"],
         "card": probe["smi"],
     }, {
-        "name": "flash_attention",
+        "name": "flash_attention_wgmma",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:93",
+        "dtype": "bfloat16",
         "launches": dense["launches"],
-        "max_abs_err": flash_check["max_abs_err"],
-        "max_abs_err_by_dtype": flash_check["by_dtype"],
+        "max_abs_err": flash_check["wgmma"],
         "ms": flash_point["ms"],
         "plain_ms": flash_point["plain_ms"],
         "bound_ms": flash_point["bound_ms"],
         "bound_by": flash_point["bound_by"],
         "library_ms": flash_point["library_ms"],
+        "cuda_core_ms": flash_point["cuda_core_ms"],
         "shape": flash_point["shape"],
-        "by_shape": flash_times["shapes"],
+        "by_shape": [s for s in flash_times["shapes"] if s["dtype"] == "bfloat16"],
+        "card": probe["smi"],
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:93",
+        "dtype": "float32",
+        # its own path: the reduced qwen3-0.6b in float32 (bf16 goes to the
+        # tensor-core kernel)
+        "launches": f32_path["launches"],
+        "max_abs_err": flash_check["cuda_core"],
+        "max_abs_err_bf16": flash_check["cuda_core_bf16"],
+        "ms": f32_point["ms"],
+        "plain_ms": f32_point["plain_ms"],
+        "bound_ms": f32_point["bound_ms"],
+        "bound_by": f32_point["bound_by"],
+        "library_ms": f32_point["library_ms"],
+        "shape": f32_point["shape"],
+        "by_shape": [s for s in flash_times["shapes"] if s["dtype"] == "float32"],
         "card": probe["smi"],
     }, {
         "name": "rmsnorm",

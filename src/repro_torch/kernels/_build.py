@@ -12,7 +12,11 @@ The per-source flags are `SOURCE_FLAGS`. `swe_step.cu` is built with
 eager plain PyTorch version, which is what its bit-equality with that
 version rests on. `ssd.cu` lets the compiler contract multiply-adds: its
 products sum in another order than the plain version's, so they cannot be
-bit-equal anyway. Libraries land in `build/repro_torch_kernels/` at
+bit-equal anyway. `flash_attention_wgmma.cu` (wgmma, TMA, `setmaxnreg`:
+sm_90a only) needs no flag of its own and no library beyond the runtime:
+it looks up `cuTensorMapEncodeTiled` at run time through
+`cudaGetDriverEntryPoint`, so nothing links `-lcuda`, and it uses no
+CUTLASS header. Libraries land in `build/repro_torch_kernels/` at
 the root of the checkout, named by a hash of the source and its flags, so an
 edited source is rebuilt and an unchanged one is reused. Each build writes a
 temporary file and renames it into place, so a cut build never leaves a

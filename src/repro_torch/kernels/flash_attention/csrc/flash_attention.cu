@@ -8,9 +8,13 @@
 // softmax), the KV tiles wholly above the diagonal skipped, the diagonal tile
 // masked per element, and o = acc / max(l, 1e-30) at the end, cast to q's
 // dtype. Causal needs Sq == Sk (the wrapper raises otherwise). q, k, v and o
-// are float32 or bfloat16; everything inside is IEEE float32 on the CUDA
-// cores, never TF32 (the f32 bound, 2e-5, is below TF32's error). The plain
-// version is src/repro_torch/kernels/flash_attention/ref.py::attention_ref.
+// are float32 or bfloat16, read and written through strides (the model's
+// [B, S, n, hd] tensors arrive as transposed views, no copy); everything
+// inside is IEEE float32 on the CUDA cores, never TF32 (the f32 bound, 2e-5,
+// is below TF32's error). The wrapper sends float32 here and bf16 to the
+// tensor-core kernel, flash_attention_wgmma.cu; this kernel's bf16 path is
+// kept as the yardstick that kernel was measured against. The plain version
+// is src/repro_torch/kernels/flash_attention/ref.py::attention_ref.
 //
 // What bounds it on this card: operations. One (b, head) of qwen3-0.6b
 // (S = 2,048, hd = 128, causal) needs 2 * 2 * S^2/2 * hd = 1.07 GFLOP for
@@ -34,12 +38,11 @@
 // distinct banks), V and the probabilities row-major. K and V are converted
 // to float32 as they are staged. At hd = 128 a block holds 112 KB of shared
 // memory, two blocks per SM. Tiles are scheduled longest first (the last q
-// tiles of causal attention sweep the most KV tiles). Offsets are 64-bit: q
-// of a 64-point qwen3 wave holds 537 M elements.
-// Known waste, left for later (ROADMAP queue 2, item 3): no tensor cores
-// (wgmma), no TMA or cp.async overlap of the next tile's loads with this
-// tile's products, and the model layout [B, S, n, hd] is transposed to
-// [B, n, S, hd] around the call.
+// tiles of causal attention sweep the most KV tiles). Offsets are 64-bit
+// (from the strides of the B, n and S dims): q of a 64-point qwen3 wave
+// holds 537 M elements. No tensor cores and no overlap of the next tile's
+// loads with this tile's products: float32 has no tensor-core path within
+// its bound.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -121,6 +124,11 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* p, const float (&s)[W])
     *reinterpret_cast<__nv_bfloat162*>(p + i) = __floats2bfloat162_rn(s[i], s[i + 1]);
 }
 
+// element strides of the B, n and S dims of q, k, v and o (hd has stride 1)
+struct Strides {
+  long long q[3], k[3], v[3], o[3];
+};
+
 // Dynamic shared memory of one block, in bytes: q, K transposed, V, and the
 // probabilities, all float32.
 constexpr int smem_bytes(int D) { return 4 * (BQ * D + D * BK + BK * D + BQ * BK); }
@@ -128,8 +136,8 @@ constexpr int smem_bytes(int D) { return 4 * (BQ * D + D * BK + BK * D + BQ * BK
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int nq, int nkv,
-                       int Sq, int Sk, int n_qt, long long n_bh, float q_scale,
+                       const T* __restrict__ v, T* __restrict__ o, Strides st, int nq,
+                       int nkv, int Sq, int Sk, int n_qt, long long n_bh, float q_scale,
                        int causal) {
   constexpr int EV = Vec<T>::N;       // elements of one 16-byte load
   constexpr int NC = D / 16;          // accumulator columns of a thread
@@ -145,18 +153,18 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long blk = blockIdx.x;
   const int qt = n_qt - 1 - (int)(blk / n_bh);  // the longest sweeps first
   const long long bh = blk % n_bh;              // b * nq + h
-  const long long bkv = (bh / nq) * nkv + (bh % nq) / (nq / nkv);
-  const T* qg = q + bh * Sq * D;  // 64-bit offsets throughout
-  const T* kg = k + bkv * Sk * D;
-  const T* vg = v + bkv * Sk * D;
-  T* og = o + bh * Sq * D;
+  const long long b = bh / nq, h = bh % nq, hkv = h / (nq / nkv);
+  const T* qg = q + b * st.q[0] + h * st.q[1];  // 64-bit offsets throughout
+  const T* kg = k + b * st.k[0] + hkv * st.k[1];
+  const T* vg = v + b * st.v[0] + hkv * st.v[1];
+  T* og = o + b * st.o[0] + h * st.o[1];
   const int q0 = qt * BQ;
 
   for (int e = tid; e < BQ * (D / EV); e += THREADS) {
     const int r = e / (D / EV), c = (e % (D / EV)) * EV;
     float t[EV];
     if (q0 + r < Sq) {
-      Vec<T>::load(t, qg + (long long)(q0 + r) * D + c);
+      Vec<T>::load(t, qg + (long long)(q0 + r) * st.q[2] + c);
     } else {
 #pragma unroll
       for (int i = 0; i < EV; ++i) t[i] = 0.f;
@@ -185,7 +193,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = e % BK, c = (e / BK) * EV;  // consecutive threads: consecutive keys
       float t[EV];
       if (k0 + j < Sk) {
-        Vec<T>::load(t, kg + (long long)(k0 + j) * D + c);
+        Vec<T>::load(t, kg + (long long)(k0 + j) * st.k[2] + c);
       } else {
 #pragma unroll
         for (int i = 0; i < EV; ++i) t[i] = 0.f;
@@ -197,7 +205,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = e / (D / EV), c = (e % (D / EV)) * EV;
       float t[EV];
       if (k0 + j < Sk) {
-        Vec<T>::load(t, vg + (long long)(k0 + j) * D + c);
+        Vec<T>::load(t, vg + (long long)(k0 + j) * st.v[2] + c);
       } else {
 #pragma unroll
         for (int i = 0; i < EV; ++i) t[i] = 0.f;
@@ -292,14 +300,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float out[VW];
 #pragma unroll
       for (int c = 0; c < VW; ++c) out[c] = acc[r][ch * VW + c] / denom;
-      store_out<VW>(og + (long long)row * D + ch * 16 * VW + tx * VW, out);
+      store_out<VW>(og + (long long)row * st.o[2] + ch * 16 * VW + tx * VW, out);
     }
   }
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int nq, int nkv,
-           int Sq, int Sk, int causal, void* stream) {
+           int Sq, int Sk, const Strides& st, int causal, void* stream) {
   auto kernel = flash_attention_kernel<T, D>;
   constexpr int smem = smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -316,17 +324,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int nq, 
   const float q_scale = (float)(1.4426950408889634 / sqrt((double)D));  // log2(e) / sqrt(hd)
   kernel<<<(unsigned int)blocks, THREADS, smem, (cudaStream_t)stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), nq, nkv, Sq, Sk, n_qt, n_bh, q_scale, causal);
+      static_cast<T*>(o), st, nq, nkv, Sq, Sk, n_qt, n_bh, q_scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_hd(const void* q, const void* k, const void* v, void* o, int B, int nq, int nkv,
-              int Sq, int Sk, int hd, int causal, void* stream) {
+              int Sq, int Sk, int hd, const Strides& st, int causal, void* stream) {
   switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, o, B, nq, nkv, Sq, Sk, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, nq, nkv, Sq, Sk, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, nq, nkv, Sq, Sk, causal, stream);
+    case 32: return launch<T, 32>(q, k, v, o, B, nq, nkv, Sq, Sk, st, causal, stream);
+    case 64: return launch<T, 64>(q, k, v, o, B, nq, nkv, Sq, Sk, st, causal, stream);
+    case 128: return launch<T, 128>(q, k, v, o, B, nq, nkv, Sq, Sk, st, causal, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -334,17 +342,27 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B, int n
 }  // namespace
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-// q, o [B, nq, Sq, hd]; k, v [B, nkv, Sk, hd]; contiguous, 16-byte aligned,
-// all of one dtype (0 = float32, 1 = bfloat16); hd in {32, 64, 128}; nq a
-// multiple of nkv; causal (1) needs Sq == Sk.
+// q, o [B, nq, Sq, hd]; k, v [B, nkv, Sk, hd]; all of one dtype (0 =
+// float32, 1 = bfloat16); `strides` holds the element strides of the B, n
+// and S dims of q, k, v and o in that order (12 values; hd has stride 1),
+// each a multiple of 16 bytes, every base 16-byte aligned; hd in
+// {32, 64, 128}; nq a multiple of nkv; causal (1) needs Sq == Sk.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
                                    int nq, int nkv, int Sq, int Sk, int hd, int dtype,
-                                   int causal, void* stream) {
+                                   const long long* strides, int causal, void* stream) {
   if (B <= 0 || nq <= 0 || nkv <= 0 || nq % nkv != 0 || Sq <= 0 || Sk <= 0 ||
       (causal && Sq != Sk))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return launch_hd<float>(q, k, v, o, B, nq, nkv, Sq, Sk, hd, causal, stream);
+  Strides st;
+  for (int i = 0; i < 3; ++i) {
+    st.q[i] = strides[i];
+    st.k[i] = strides[3 + i];
+    st.v[i] = strides[6 + i];
+    st.o[i] = strides[9 + i];
+  }
+  if (dtype == 0)
+    return launch_hd<float>(q, k, v, o, B, nq, nkv, Sq, Sk, hd, st, causal, stream);
   if (dtype == 1)
-    return launch_hd<__nv_bfloat16>(q, k, v, o, B, nq, nkv, Sq, Sk, hd, causal, stream);
+    return launch_hd<__nv_bfloat16>(q, k, v, o, B, nq, nkv, Sq, Sk, hd, st, causal, stream);
   return (int)cudaErrorInvalidValue;
 }

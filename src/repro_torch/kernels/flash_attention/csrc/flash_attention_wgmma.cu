@@ -1,0 +1,538 @@
+// Causal or full GQA flash-attention forward for bf16 on Hopper's tensor
+// cores (sm_90a): wgmma for both products, TMA for the tiles.
+//
+// Replaces: src/repro/kernels/flash_attention/flash_attention.py::
+// flash_attention_kernel (Pallas body `_attn_kernel`) for bf16 inputs. For
+// q [B, nq, Sq, hd] and k, v [B, nkv, Sk, hd] (q head h reads kv head
+// h / (nq / nkv)):
+//   o = softmax(q k^T / sqrt(hd), masked) v
+// with a float32 running max, sum and accumulator per q row (online
+// softmax), the KV tiles wholly above the diagonal skipped, the diagonal
+// tile masked per element, and o = acc / max(l, 1e-30), cast to bf16. Causal
+// needs Sq == Sk (the wrapper raises otherwise). float32 inputs go to the
+// CUDA-core kernel in flash_attention.cu: the f32 bound (2e-5) is below
+// TF32's error. The plain version is
+// src/repro_torch/kernels/flash_attention/ref.py::attention_ref.
+//
+// What bounds it on this card: operations. qwen3-0.6b's attention over a
+// 64-point wave ([B = 128, 16 q heads, 8 kv heads, S = 2,048, hd = 128],
+// causal) needs 2 * 2 * S(S+1)/2 * hd * B * nq = 2.2 TFLOP for 2.1 GB of q,
+// k, v and o: ~1,000 operations per byte, above the bf16 ridge (~295). At
+// the bf16 tensor-core peak (989 TFLOP/s) that is 2.24 ms; the bytes take
+// 0.64 ms. Only wgmma reaches that peak.
+//
+// What the design does about it (FA3-like, warp-specialised):
+// * One block of three warpgroups per (b, q head, 128-row q tile); the tiles
+//   with the longest causal sweeps are issued first. Warpgroup 0 is the
+//   producer: one thread issues every TMA load and the warpgroup gives its
+//   registers to the consumers (setmaxnreg 24). Warpgroups 1 and 2 are the
+//   consumers (setmaxnreg 240), 64 q rows each, the m64 of wgmma. Two
+//   consumers rather than one: while one runs its softmax on the CUDA cores
+//   the other's products keep the tensor cores busy.
+// * Shared memory: the q tile, loaded once, and a ring of 2 stages of
+//   BK = 128 keys of K and V, each stage with a full and an empty mbarrier
+//   (TMA completes the full one with its byte count; each consumer warp
+//   arrives on the empty one once its products have retired). At hd = 128:
+//   q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB, one block per SM.
+// * S = Q K^T: wgmma m64n128k16, both operands in shared memory, both
+//   K-major (hd contiguous), hd / 16 k-steps.
+// * Softmax in registers, in the accumulator's fragment: a thread holds 2
+//   rows, and the 4 lanes that share a row reduce its max with two
+//   shuffles; the row sum stays per thread until the epilogue. The scale is
+//   folded into exp2 as log2(e) / sqrt(hd). Elements are masked only on the
+//   diagonal tile and on keys >= Sk.
+// * O += P V: P is rounded to bf16 in registers. The m64nNk16 f32
+//   accumulator layout, packed in pairs, is the register A operand of the
+//   next wgmma, so P never goes to shared memory. V is the B operand with
+//   hd contiguous: the MN-major ("transposed B") descriptor. O is rescaled
+//   by alpha only after wgmma.wait_group has retired the products that
+//   write it. Rounding P to bf16 is the one rounding the CUDA-core kernel
+//   does not make; the JAX package's model path makes it too
+//   (src/repro/models/attention.py: softmax(...).astype(v.dtype)).
+// * Epilogue: O / l in bf16, stored with 4-byte stores straight into o's
+//   strided layout; rows >= Sq are never written.
+// * Layout through strides: q, k and v are read through one 4-D tensor map
+//   each over the strided [B, S, n, hd] view (hd and the other three dims in
+//   order of their strides; strides in bytes from the tensor), so the
+//   model's [B, S, n, hd] tensors need no transposing copy, and a ragged S
+//   zero-fills at the sequence's end instead of reading the next
+//   sequence's rows. The maps come from cuTensorMapEncodeTiled through
+//   cudaGetDriverEntryPoint (no -lcuda) and reach the kernel as
+//   __grid_constant__ parameters.
+// * Swizzle: a tile row of hd bf16 is 64 bytes at hd = 32 (SWIZZLE_64B) and
+//   128 or 256 bytes otherwise (SWIZZLE_128B, whose box is at most 128 bytes
+//   wide: at hd = 128 a tile is two 64-column boxes, one after the other).
+//   The wgmma descriptors walk them: a k-step of Q K^T moves 32 bytes along
+//   a row and, past a box, to the next box; the V descriptor's leading byte
+//   offset is the distance between boxes (the next 64 columns of hd) and its
+//   stride byte offset that between groups of 8 keys.
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BQ = 128;          // q rows of a block: 64 per consumer warpgroup
+constexpr int BK = 128;          // keys of a KV tile
+constexpr int STAGES = 2;        // KV tiles in flight
+constexpr int THREADS = 384;     // producer + 2 consumer warpgroups
+constexpr float NEG_INF = -1e30f;  // the Pallas kernel's mask value
+
+// ---- shared-memory barriers and TMA -------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 4-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// ---- wgmma ---------------------------------------------------------------------
+
+// A shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (16-byte units), swizzle (1 = 128B, 2 = 64B).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint32_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from reading an accumulator before the wait that
+// retires the wgmma writing it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[128 x 16]^T, both K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D[64 x 32] += A[64 x 16] (registers) B[16 x 32] (MN-major in shared memory)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 16] (registers) B[16 x 64] (MN-major in shared memory)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] (registers) B[16 x 128] (MN-major in shared memory)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (D == 32) wgmma_rs_n32(d, a, b);
+  else if constexpr (D == 64) wgmma_rs_n64(d, a, b);
+  else wgmma_rs_n128(d, a, b);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---- the kernel ----------------------------------------------------------------
+
+// Tiles of one head dim D: a tile row of D bf16 is cut into boxes of CPB
+// columns, SW bytes a row, each box [rows][CPB] in shared memory.
+template <int D>
+struct Tile {
+  static constexpr int SW = D == 32 ? 64 : 128;  // swizzle span = bytes of a box row
+  static constexpr int CPB = SW / 2;             // columns of a box
+  static constexpr int NBOX = D / CPB;
+  static constexpr uint32_t LAYOUT = SW == 128 ? 1 : 2;  // descriptor: 128B or 64B swizzle
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;
+  // 1024 bytes to align the tiles to the swizzle's 1 KB pattern, the tiles,
+  // and 2 * STAGES + 1 mbarriers
+  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * 2 * KV_BYTES + 8 * (2 * STAGES + 1);
+};
+
+// coordinate of tensor-map dim 1, 2 or 3: `sel` is 0 (head), 1 (row) or 2 (batch)
+__device__ __forceinline__ int pick(int sel, int head, int row, int batch) {
+  return sel == 0 ? head : (sel == 1 ? row : batch);
+}
+
+// the NBOX boxes of one tile (rows `row`.. of one head of one sequence)
+template <int D>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map, int perm,
+                                          int head, int row, int batch, int rows,
+                                          uint64_t* bar) {
+  using T = Tile<D>;
+  const int c1 = pick(perm & 3, head, row, batch), c2 = pick((perm >> 2) & 3, head, row, batch),
+            c3 = pick((perm >> 4) & 3, head, row, batch);
+#pragma unroll
+  for (int bx = 0; bx < T::NBOX; ++bx)
+    tma_load_4d(dst + bx * rows * T::SW, map, bx * T::CPB, c1, c2, c3, bar);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                             long long o_sb, long long o_sn, long long o_ss, int nq, int nkv,
+                             int Sq, int Sk, int n_qt, long long n_bh, float scale_log2,
+                             int causal, int perm_q, int perm_k, int perm_v) {
+  using T = Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* KVs = Qs + T::Q_BYTES;  // stage s: K at s * 2 * KV_BYTES, V after it
+  uint64_t* full = reinterpret_cast<uint64_t*>(KVs + STAGES * 2 * T::KV_BYTES);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
+
+  const long long blk = blockIdx.x;
+  const int qt = n_qt - 1 - (int)(blk / n_bh);  // the longest sweeps first
+  const long long bh = blk % n_bh;              // b * nq + h
+  const int b = (int)(bh / nq), h = (int)(bh % nq), hkv = h / (nq / nkv);
+  const int q0 = qt * BQ;
+  const int n_kt_all = (Sk + BK - 1) / BK;
+  // causal (Sq == Sk): KV tiles wholly above the diagonal are never loaded
+  const int n_kt = causal ? min(n_kt_all, (q0 + BQ - 1) / BK + 1) : n_kt_all;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);   // the producer's expect_tx; TMA completes the bytes
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qbar, T::Q_BYTES);
+      load_tile<D>(Qs, &tq, perm_q, h, q0, b, BQ, qbar);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kt = 0; kt < n_kt; ++kt) {
+        mbar_wait(&empty[stage], phase ^ 1);  // the first round passes at once
+        mbar_expect_tx(&full[stage], 2 * T::KV_BYTES);
+        uint8_t* Ks = KVs + stage * 2 * T::KV_BYTES;
+        load_tile<D>(Ks, &tk, perm_k, hkv, kt * BK, b, BK, &full[stage]);
+        load_tile<D>(Ks + T::KV_BYTES, &tv, perm_v, hkv, kt * BK, b, BK, &full[stage]);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // consumers: 64 q rows each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int row_first = q0 + cw * 64;
+    const int r_lo = row_first + warp * 16 + lane / 4;  // this thread's rows: r_lo, r_lo + 8
+    const int col_base = (lane % 4) * 2;
+    const uint32_t q_addr = smem_addr(Qs) + cw * 64 * T::SW;
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;  // l: this thread's part of the sum
+
+    mbar_wait(qbar, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int k0 = kt * BK;
+      mbar_wait(&full[stage], phase);
+      const uint32_t k_addr = smem_addr(KVs + stage * 2 * T::KV_BYTES);
+      const uint32_t v_addr = k_addr + T::KV_BYTES;
+
+      // S = Q K^T: D / 16 k-steps of 32 bytes along the rows, box after box
+      float s[BK / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int box = kk * 16 / T::CPB, off = (kk * 16 % T::CPB) * 2;
+        const uint64_t da = gmma_desc(q_addr + box * BQ * T::SW + off, 16, 8 * T::SW, T::LAYOUT);
+        const uint64_t db = gmma_desc(k_addr + box * BK * T::SW + off, 16, 8 * T::SW, T::LAYOUT);
+        wgmma_ss_n128(s, da, db, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+
+      // scores in log2 units; mask on the diagonal tile and past Sk. Element
+      // i of the fragment: row r_lo + 8 * ((i >> 1) & 1), key
+      // k0 + (i >> 2) * 8 + col_base + (i & 1)
+      const bool masked = (causal && k0 + BK - 1 > row_first) || k0 + BK > Sk;
+      float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        float x = s[i] * scale_log2;
+        if (masked) {
+          const int row = r_lo + ((i & 2) ? 8 : 0);
+          const int col = k0 + (i >> 2) * 8 + col_base + (i & 1);
+          if ((causal && col > row) || col >= Sk) x = NEG_INF;
+        }
+        s[i] = x;
+        if (i & 2) mx1 = fmaxf(mx1, x);
+        else mx0 = fmaxf(mx0, x);
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float alpha0 = ex2(m0 - mn0), alpha1 = ex2(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const float p = ex2(s[i] - ((i & 2) ? mn1 : mn0));
+        s[i] = p;
+        if (i & 2) sum1 += p;
+        else sum0 += p;
+      }
+      l0 = l0 * alpha0 + sum0;
+      l1 = l1 * alpha1 + sum1;
+      // the previous tile's P V has retired (wait_group 0 below)
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= (i & 2) ? alpha1 : alpha0;
+
+      // O += P V: P in bf16 from registers (the accumulator layout is the A
+      // fragment), V MN-major: k-steps of 16 keys
+      uint32_t p[BK / 4];
+#pragma unroll
+      for (int j = 0; j < BK / 4; ++j) p[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+        const uint64_t dv = gmma_desc(v_addr + kk * 16 * T::SW, BK * T::SW, 8 * T::SW, T::LAYOUT);
+        wgmma_rs<D>(acc, a, dv);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);  // this warp is done with the stage
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    // epilogue: the row sums over the 4 lanes of a row, o = acc / l in bf16
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv[2] = {1.f / fmaxf(l0, 1e-30f), 1.f / fmaxf(l1, 1e-30f)};
+    __nv_bfloat16* ob = o + (long long)b * o_sb + (long long)h * o_sn;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r_lo + 8 * half;
+      if (row >= Sq) continue;
+      __nv_bfloat16* orow = ob + (long long)row * o_ss + col_base;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int i = 4 * j + 2 * half;
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+            __floats2bfloat162_rn(acc[i] * inv[half], acc[i + 1] * inv[half]);
+      }
+    }
+  }
+}
+
+// ---- host side -------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled, found through the runtime: no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// returned for a tensor map that cannot be encoded: TENSOR_MAP_ERROR + CUresult
+constexpr int TENSOR_MAP_ERROR = 10000;
+
+// A 4-D map over the [B, S, n, hd] view of a [B, n, S, hd] tensor with
+// element strides st = (B, n, S) and stride 1 along hd: dim 0 is hd, dims
+// 1-3 are n, S and B in order of their strides; the box is `cols` columns
+// of `rows` rows of one head of one sequence. *perm gets, for dims 1-3, which
+// coordinate each takes (0 head, 1 row, 2 batch; 2 bits each).
+template <int D>
+int make_map(CUtensorMap* map, const void* ptr, int B, int n, int S, const long long* st,
+             int rows, int* perm) {
+  using T = Tile<D>;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return TENSOR_MAP_ERROR + (int)CUDA_ERROR_NOT_FOUND;
+  struct Dim {
+    long long stride;
+    int size, box, sel;
+  } d[3] = {{st[1], n, 1, 0}, {st[2], S, rows, 1}, {st[0], B, 1, 2}};
+  for (int i = 1; i < 3; ++i)
+    for (int j = i; j > 0 && d[j].stride < d[j - 1].stride; --j) {
+      const Dim t = d[j];
+      d[j] = d[j - 1];
+      d[j - 1] = t;
+    }
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)d[0].size, (cuuint64_t)d[1].size,
+                              (cuuint64_t)d[2].size};
+  const cuuint64_t strides[3] = {(cuuint64_t)d[0].stride * 2, (cuuint64_t)d[1].stride * 2,
+                                 (cuuint64_t)d[2].stride * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)T::CPB, (cuuint32_t)d[0].box, (cuuint32_t)d[1].box,
+                             (cuuint32_t)d[2].box};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  *perm = d[0].sel | (d[1].sel << 2) | (d[2].sel << 4);
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      T::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + (int)r;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int nq, int nkv, int Sq,
+           int Sk, const long long* st, int causal, void* stream) {
+  using T = Tile<D>;
+  CUtensorMap mq, mk, mv;
+  int pq, pk, pv, err;
+  if ((err = make_map<D>(&mq, q, B, nq, Sq, st, BQ, &pq))) return err;
+  if ((err = make_map<D>(&mk, k, B, nkv, Sk, st + 3, BK, &pk))) return err;
+  if ((err = make_map<D>(&mv, v, B, nkv, Sk, st + 6, BK, &pv))) return err;
+  auto kernel = flash_attention_wgmma_kernel<D>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const long long n_bh = (long long)B * nq;
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  const long long blocks = n_bh * n_qt;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));  // log2(e) / sqrt(hd)
+  kernel<<<(unsigned int)blocks, THREADS, T::SMEM, (cudaStream_t)stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), st[9], st[10], st[11], nq, nkv, Sq, Sk, n_qt,
+      n_bh, scale_log2, causal, pq, pk, pv);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Launch on `stream`; returns 0, a cudaError_t of the launch, or 10000 + the
+// CUresult of a tensor map that could not be encoded. q, o [B, nq, Sq, hd];
+// k, v [B, nkv, Sk, hd]; bf16; `strides` holds the element strides of the
+// B, n and S dims of q, k, v and o in that order (12 values; hd has stride
+// 1), each a multiple of 8 elements, every base 16-byte aligned; hd in
+// {32, 64, 128}; nq a multiple of nkv; causal (1) needs Sq == Sk.
+extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v, void* o,
+                                         int B, int nq, int nkv, int Sq, int Sk, int hd,
+                                         const long long* strides, int causal, void* stream) {
+  if (B <= 0 || nq <= 0 || nkv <= 0 || nq % nkv != 0 || Sq <= 0 || Sk <= 0 ||
+      (causal && Sq != Sk))
+    return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 32: return launch<32>(q, k, v, o, B, nq, nkv, Sq, Sk, strides, causal, stream);
+    case 64: return launch<64>(q, k, v, o, B, nq, nkv, Sq, Sk, strides, causal, stream);
+    case 128: return launch<128>(q, k, v, o, B, nq, nkv, Sq, Sk, strides, causal, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -1,16 +1,20 @@
-"""Inputs and the check that hold the flash-attention kernel against its
+"""Inputs and the check that hold the flash-attention kernels against their
 plain version (`ref.attention_ref`). `chip_smoke.py` and the port's tests
 both use them, so the card and the test suite run the same cases against
 the same bound.
 
 The bound is the JAX package's own kernel-vs-oracle tolerance on the
 largest absolute error (tests/test_kernels.py): 2e-5 in float32 and 2e-2 in
-bfloat16. Both sides compute in IEEE float32 from the same inputs and differ
-only in summation order and in the online softmax's rescaling (a few
-float32 ulp of outputs of order 1); in bf16 both round the same float32
-result, so they differ by at most one bf16 rounding (0.0078 for outputs in
-[1, 2)). Inputs are standard normals, as in the JAX package's tests. A
-dropped diagonal or a wrong scale moves outputs by O(0.1) and fails it.
+bfloat16. In float32 both sides compute in IEEE float32 from the same inputs
+and differ only in summation order and in the online softmax's rescaling (a
+few float32 ulp of outputs of order 1). In bf16 the tensor-core kernel also
+rounds the probabilities to bf16 before P V (relative error <= 2^-9 of
+each term, ~0.002 of an output of order 1, as the JAX package's model path
+does), and both sides round their float32 result to bf16, so they differ by
+about one bf16 rounding (0.0078 for outputs in [1, 2), 0.0156 in [2, 4)).
+Inputs are standard normals, as in the JAX package's tests. A dropped
+diagonal moves outputs by O(1) and fails it; so does a 1/hd scale, and at
+qwen3-0.6b's shape a scale 1% off.
 """
 from __future__ import annotations
 
@@ -73,6 +77,20 @@ def plain(q, k, v, causal: bool) -> torch.Tensor:
     return torch.cat([attention_ref(q[i:i + PLAIN_BATCH], k[i:i + PLAIN_BATCH],
                                     v[i:i + PLAIN_BATCH], causal=causal)
                       for i in range(0, q.shape[0], PLAIN_BATCH)])
+
+
+def variant(q, k, v, *, drop_diagonal: bool = False, scale: float | None = None):
+    """Causal attention gone wrong, for the tests that show the check sees
+    it: the diagonal masked out (row 0 then sees no key and, as in the
+    kernels' masked arithmetic, averages all of them) or another scale.
+    With neither, the plain version's function."""
+    hd, S = q.shape[-1], q.shape[2]
+    group = q.shape[1] // k.shape[1]
+    k, v = k.repeat_interleave(group, 1).float(), v.repeat_interleave(group, 1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k) * (scale or hd ** -0.5)
+    mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril(-1 if drop_diagonal else 0)
+    p = torch.softmax(s.masked_fill(~mask, -1e30), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v).to(q.dtype)
 
 
 def assert_close(got: torch.Tensor, want: torch.Tensor, name: str) -> dict:

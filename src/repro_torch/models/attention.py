@@ -3,8 +3,9 @@
 
 Two paths compute the same function, selected by `cfg.attn_impl`:
 
-* `"kernel"` (the port's default) transposes q, k and v to ``[B, n, S, hd]``
-  and calls the hand-written flash kernel, `kernels.flash_attention`. The
+* `"kernel"` (the port's default) passes q, k and v to the hand-written
+  flash kernels, `kernels.flash_attention`, as ``[B, n, S, hd]`` views of
+  the model's ``[B, S, n, hd]`` tensors (read through strides, no copy). The
   JAX package documents this path as `attn_impl="pallas"`
   (`models/attention.py:6`) but its transformer never takes it (ROADMAP
   queue 3); the port wires it, and the parity tests hold it to the JAX
@@ -128,8 +129,10 @@ def gqa_full(
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if cfg.attn_impl == "kernel":
-        out = flash_attention(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-                              v.transpose(1, 2).contiguous(), causal=True).transpose(1, 2)
+        # [B, S, n, hd] read through strides; o comes back in q's memory
+        # order, so `out` is a contiguous [B, S, nq, hd] for the einsum below
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                              causal=True).transpose(1, 2)
     else:
         out = _grouped_attention(
             q, k, v, scale=1.0 / math.sqrt(cfg.head_dim), causal=True, q_chunk=cfg.q_chunk,

@@ -1,9 +1,11 @@
-"""PyTorch port: flash attention. The port's plain version (the kernel's
+"""PyTorch port: flash attention. The port's plain version (the kernels'
 CPU path) against the JAX package's oracle and its Pallas kernel in
-interpret mode, the wrapper's dispatch and checks, and the check that holds
-the CUDA kernel to its plain version on the card
-(`repro_torch.kernels.flash_attention.testing`; the kernel itself runs in
-test_torch_gpu.py and chip_smoke.py).
+interpret mode, the wrapper's dispatch and checks (the model layout read
+through strides, and the layout check the card runs before a launch), the
+error budget of the bf16 tensor-core kernel's one extra rounding, and the
+check that holds the CUDA kernels to their plain version on the card
+(`repro_torch.kernels.flash_attention.testing`; the kernels themselves run
+in test_torch_gpu.py and chip_smoke.py).
 
 Inputs are standard normals from a numpy seed, handed to both packages (in
 bf16 cases both round the same float32 numbers to bf16). The bounds are
@@ -19,6 +21,7 @@ from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.flash_attention import testing as T
+from repro_torch.kernels.flash_attention.ops import check_layout
 
 _JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -89,19 +92,6 @@ def test_wrapper_checks_its_inputs():
         flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
 
 
-def _variant(q, k, v, *, drop_diagonal=False, scale=None):
-    """Causal attention with the diagonal masked out (row 0 then sees no
-    key and, as in the kernel's masked arithmetic, averages all of them) or
-    with another scale."""
-    hd, S = q.shape[-1], q.shape[2]
-    group = q.shape[1] // k.shape[1]
-    k, v = k.repeat_interleave(group, 1).float(), v.repeat_interleave(group, 1).float()
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k) * (scale or hd ** -0.5)
-    mask = torch.ones(S, S, dtype=torch.bool).tril(-1 if drop_diagonal else 0)
-    p = torch.softmax(s.masked_fill(~mask, -1e30), dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v).to(q.dtype)
-
-
 @pytest.mark.parametrize("case", [T.FLASH_CASES[0], T.FLASH_CASES[4], T.EDGE_CASES[0]],
                          ids=T.case_name)
 def test_kernel_check_sees_a_dropped_diagonal_or_a_wrong_scale(case):
@@ -109,14 +99,96 @@ def test_kernel_check_sees_a_dropped_diagonal_or_a_wrong_scale(case):
     rejects a causal mask without its diagonal and a 1/hd scale."""
     q, k, v = T.case_inputs(case, "cpu", seed=4)
     want = attention_ref(q, k, v, causal=True)
-    T.assert_close(_variant(q, k, v), want, "same")
+    T.assert_close(T.variant(q, k, v), want, "same")
     with pytest.raises(AssertionError, match="max abs error"):
-        T.assert_close(_variant(q, k, v, drop_diagonal=True), want, "diagonal")
+        T.assert_close(T.variant(q, k, v, drop_diagonal=True), want, "diagonal")
     with pytest.raises(AssertionError, match="max abs error"):
-        T.assert_close(_variant(q, k, v, scale=1.0 / q.shape[-1]), want, "scale")
+        T.assert_close(T.variant(q, k, v, scale=1.0 / q.shape[-1]), want, "scale")
 
 
 def test_plain_in_batches_is_the_plain_version():
     case = (T.PLAIN_BATCH + 3, 2, 1, 64, 64, 32, True, "float32")
     q, k, v = T.case_inputs(case, "cpu", seed=5)
     torch.testing.assert_close(T.plain(q, k, v, True), attention_ref(q, k, v), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_wrapper_reads_the_model_layout_through_strides(dt):
+    """q, k, v as [B, n, S, hd] views of [B, S, n, hd] tensors (the model's
+    layout) give what their contiguous copies give, and o comes back in
+    q's memory order: a [B, S, nq, hd] buffer seen through the same
+    transpose."""
+    B, nq, nkv, S, hd = 2, 4, 2, 96, 32
+    rng = np.random.default_rng(0)
+    q_m, k_m, v_m = (torch.from_numpy(rng.standard_normal((B, S, n, hd)).astype(np.float32))
+                     .to(_TORCH[dt]) for n in (nq, nkv, nkv))
+    q, k, v = q_m.transpose(1, 2), k_m.transpose(1, 2), v_m.transpose(1, 2)
+    assert not q.is_contiguous()
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert got.stride() == q.stride()
+    assert got.transpose(1, 2).is_contiguous()
+    assert want.is_contiguous()
+
+
+def test_layout_check_takes_strided_views_and_raises_on_the_rest():
+    """The check the CUDA path runs before a launch, on CPU tensors: it
+    looks only at shapes, strides and data pointers."""
+    B, S, nq, hd = 2, 64, 4, 32
+    for dt in (torch.float32, torch.bfloat16):
+        model = torch.zeros(B, S, nq, hd, dtype=dt)
+        check_layout(model.transpose(1, 2), model.transpose(1, 2).contiguous())
+        # hd not contiguous: the kernels read 16-byte vectors along it
+        with pytest.raises(ValueError, match="stride 1"):
+            check_layout(torch.zeros(B, nq, hd, S, dtype=dt).transpose(2, 3))
+        # rows 34 elements apart: 136 bytes in float32, 68 in bf16
+        with pytest.raises(ValueError, match="multiples of 16 bytes"):
+            check_layout(torch.zeros(B, nq, S, hd + 2, dtype=dt)[..., :hd])
+        # a base address 4 bytes past an aligned one
+        flat = torch.zeros(B * nq * S * hd + 8, dtype=dt)
+        with pytest.raises(ValueError, match="aligned"):
+            check_layout(flat[4 // flat.element_size():][:B * nq * S * hd].view(B, nq, S, hd))
+    # a dimension of length 1 may have any stride
+    check_layout(torch.zeros(1, 8, 5, hd)[:, :1].expand(1, 1, 5, hd))
+
+
+def _attention_bf16_p(q, k, v, causal: bool) -> torch.Tensor:
+    """The tensor-core kernel's arithmetic: scores in float32, p = exp(s -
+    max) rounded to bf16 before P V, the row sum and the division in
+    float32, the output rounded to bf16."""
+    hd = q.shape[-1]
+    group = q.shape[1] // k.shape[1]
+    k, v = k.repeat_interleave(group, 1).float(), v.repeat_interleave(group, 1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k) / hd ** 0.5
+    if causal:
+        S = q.shape[2]
+        s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(), float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = torch.einsum("bhqk,bhkd->bhqd", p.bfloat16().float(), v) / p.sum(-1, keepdim=True)
+    return o.to(q.dtype)
+
+
+@pytest.mark.parametrize("case", [T.FLASH_CASES[4], (1, 16, 8, 2048, 2048, 128, True, "bfloat16")],
+                         ids=T.case_name)
+def test_bf16_probabilities_stay_within_the_error_budget(case):
+    """Rounding P to bf16 before P V (the one rounding the tensor-core
+    kernel adds) keeps the output within the JAX package's bf16 bound of
+    the plain version, at the bf16 FLASH_CASES case and at one sequence of
+    qwen3-0.6b's attention; inputs from numpy seed 0."""
+    _, (q, k, v) = _inputs(case, seed=0)
+    want = attention_ref(q, k, v, causal=case[6])
+    err = _err(_attention_bf16_p(q, k, v, case[6]), want.float().numpy())
+    print(f"{T.case_name(case)}: P in bf16 vs plain {err:.3g}")
+    assert err <= T.ATOL["bfloat16"]
+
+
+def test_kernel_check_sees_a_one_percent_scale_at_the_main_path_shape():
+    """At one sequence of qwen3-0.6b's attention a scale 1% off moves
+    outputs past the bf16 bound (the GPU tests hold the kernel's own output
+    to the same check)."""
+    case = (1, 16, 8, 2048, 2048, 128, True, "bfloat16")
+    q, k, v = T.case_inputs(case, "cpu", seed=4)
+    want = attention_ref(q, k, v, causal=True)
+    with pytest.raises(AssertionError, match="max abs error"):
+        T.assert_close(T.variant(q, k, v, scale=1.01 * 128 ** -0.5), want, "scale")

@@ -4,7 +4,11 @@ its reason: `repro_torch.kernels.swe.testing`); the SSD chunk scan within its
 relative bound (`repro_torch.kernels.ssd.testing`), alone and inside a
 reduced mamba2 forward; flash attention and RMSNorm within theirs
 (`repro_torch.kernels.{flash_attention,rmsnorm}.testing`), at every case and
-main-path shape, and flash attention inside a reduced qwen3-0.6b forward.
+main-path shape. Flash attention runs bf16 on the tensor-core kernel and
+float32 on the CUDA-core kernel (the per-kernel launch counts show which),
+through strides at the model's layout, and inside reduced qwen3-0.6b
+forwards in float32 and in bf16; its check rejects the tensor-core
+kernel's output against a 1%-off scale or a dropped diagonal.
 Every test here is marked `gpu` and skips without a CUDA device. The file imports neither JAX nor the JAX package, so it also
 runs on a GPU machine that has no JAX:
 
@@ -19,6 +23,7 @@ from repro_torch.apps.tsunami import level_grid, solve_batch
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import testing as flash_testing
+from repro_torch.kernels.flash_attention.ops import KERNEL_OF
 from repro_torch.kernels.rmsnorm import rmsnorm_fused, rmsnorm_ref
 from repro_torch.kernels.rmsnorm import testing as rms_testing
 from repro_torch.kernels.ssd import ssd, ssd_chunk_scan, ssd_chunked_ref
@@ -110,12 +115,52 @@ def test_flash_kernel_matches_plain_on_cuda(case):
     dev = cuda_or_skip()
     q, k, v = flash_testing.case_inputs(case, dev, seed=1)
     causal = case[6]
-    before = flash_attention.launches
+    kernel = KERNEL_OF[q.dtype]  # bf16: the tensor-core kernel; float32: the CUDA-core one
+    before, by_kernel = flash_attention.launches, dict(flash_attention.launches_by_kernel)
     got = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
+    assert flash_attention.launches_by_kernel == {**by_kernel, kernel: by_kernel[kernel] + 1}
     flash_testing.assert_close(got, flash_testing.plain(q, k, v, causal),
                                flash_testing.case_name(case))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [flash_testing.MODEL_CASES[0], flash_testing.FLASH_CASES[0],
+                                  flash_testing.EDGE_CASES[1]], ids=flash_testing.case_name)
+def test_flash_kernel_reads_the_model_layout_on_cuda(case):
+    """q, k, v as transposed views of [B, S, n, hd] tensors (qwen3-0.6b's
+    layout, no copy): the kernel gives the plain version's result on the
+    contiguous copies, and o comes back in q's memory order."""
+    dev = cuda_or_skip()
+    B, nq, nkv, S, _, hd, causal, dt = case
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in flash_testing.case_inputs(case, dev, seed=2))
+    assert not q.is_contiguous()
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.stride() == q.stride()
+    flash_testing.assert_close(got, flash_testing.plain(q.contiguous(), k.contiguous(),
+                                                        v.contiguous(), causal),
+                               flash_testing.case_name(case))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wrong", ["scale_1pct", "dropped_diagonal"])
+def test_wgmma_kernel_check_sees_a_wrong_result(wrong):
+    """The bound that holds the tensor-core kernel to its plain version
+    rejects the kernel's own output against attention with a scale 1% off
+    (at qwen3-0.6b's shape, one point) or without the diagonal."""
+    dev = cuda_or_skip()
+    case = flash_testing.MODEL_CASES[0] if wrong == "scale_1pct" else flash_testing.FLASH_CASES[4]
+    q, k, v = flash_testing.case_inputs(case, dev, seed=4)
+    got = flash_attention(q, k, v, causal=True)
+    hd = q.shape[-1]
+    flash_testing.assert_close(got, flash_testing.variant(q, k, v), "same")
+    bad = (flash_testing.variant(q, k, v, scale=1.01 * hd ** -0.5) if wrong == "scale_1pct"
+           else flash_testing.variant(q, k, v, drop_diagonal=True))
+    with pytest.raises(AssertionError, match="max abs error"):
+        flash_testing.assert_close(got, bad, wrong)
 
 
 @pytest.mark.gpu
@@ -151,10 +196,39 @@ def test_reduced_qwen3_forward_kernel_path_matches_plain_path():
     params = model.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     tokens = model.make_synth_batch(cfg, 2, 200, torch.Generator(device=dev).manual_seed(1))["tokens"]
     before = flash_attention.launches
+    f32_before = flash_attention.launches_by_kernel["flash_attention"]
     got, _, _ = transformer.forward(cfg, params, tokens)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + cfg.n_layers
+    assert flash_attention.launches_by_kernel["flash_attention"] == f32_before + cfg.n_layers
     want, _, _ = transformer.forward(cfg.replace(attn_impl="plain"), params, tokens)
     assert flash_attention.launches == before + cfg.n_layers
     err = ssd_testing.rel_err(got, want)
     assert err <= 1e-5, err
+
+
+@pytest.mark.gpu
+def test_reduced_qwen3_bf16_forward_runs_the_wgmma_kernel():
+    """The reduced qwen3-0.6b in bf16 (hd 32) on the card, at a sequence
+    that is no multiple of the kernel's tiles: one launch of the tensor-core
+    kernel per layer, and a mean NLL within `LM_NLL_RTOL` (1e-3, the bound
+    chip_smoke.py holds the full model's kernel path to) of the plain
+    path's."""
+    dev = cuda_or_skip()
+    cfg = get_config("qwen3-0.6b", reduced=True).replace(param_dtype="bfloat16",
+                                                          act_dtype="bfloat16")
+    params = model.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    batch = model.make_synth_batch(cfg, 2, 200, torch.Generator(device=dev).manual_seed(1))
+
+    def nll(c):
+        logits, _, _ = transformer.forward(c, params, batch["tokens"])
+        return float(torch.nn.functional.cross_entropy(
+            logits.float().flatten(0, 1), batch["targets"].flatten()))
+
+    before = dict(flash_attention.launches_by_kernel)
+    got = nll(cfg)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_kernel == {
+        **before, "flash_attention_wgmma": before["flash_attention_wgmma"] + cfg.n_layers}
+    want = nll(cfg.replace(attn_impl="plain"))
+    assert abs(got / want - 1.0) <= 1e-3, (got, want)
