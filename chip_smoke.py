@@ -11,8 +11,10 @@ user calls:
 
 * the paper's §4.3 tsunami inversion: full tsunami waves at both published
   levels, and two-level ensemble MLDA through
-  `EvaluationFabric(ModelBackend(TsunamiModel()))`, every time step one
-  launch of the SWE step kernel;
+  `EvaluationFabric(ModelBackend(TsunamiModel()))`, every wave (all its
+  time steps and the buoy reduction) one launch of the SWE solve kernel;
+  and the SWE step kernel on its own path, `solve_batch(step=swe_step)`,
+  one launch per time step;
 * the LM-as-UQ-model serving flow of `examples/serve_uq.py` on two
   full-width models from seeded random weights (bf16): mamba2-1.3b (48
   layers), every layer of every forward one launch of the SSD chunk-scan
@@ -71,7 +73,7 @@ SSM_ARCH = "mamba2-1.3b"
 DENSE_ARCH = "qwen3-0.6b"
 LM_BATCH, LM_SEQ = 2, 2048
 LM_BOX = (0.7, 1.3)  # sparse-grid box of (embedding scale, temperature)
-LM_GRID_LEVEL = 4  # 41 points, one 64-point wave after pow2 padding
+LM_GRID_LEVEL = 4  # 41 points: one 41-point wave of 82 sequences, unpadded
 LM_SUBMITS = 8
 # bound on the relative NLL difference of the kernel path and the plain
 # path. The SSD's float32 reordering (~5e-6 relative, ssd_kernel_vs_plain)
@@ -100,10 +102,10 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rmsnorm import rmsnorm_fused
     from repro_torch.kernels.ssd import ssd
-    from repro_torch.kernels.swe import swe_step
+    from repro_torch.kernels.swe import swe_solve, swe_step
 
-    return {"swe_step": swe_step, "ssd": ssd, "flash_attention": flash_attention,
-            "rmsnorm": rmsnorm_fused}
+    return {"swe_solve": swe_solve, "swe_step": swe_step, "ssd": ssd,
+            "flash_attention": flash_attention, "rmsnorm": rmsnorm_fused}
 
 
 def reset_launches() -> None:
@@ -173,11 +175,20 @@ def phase_build() -> None:
 
 
 def phase_kernel_vs_plain(torch, dev) -> dict:
-    """The kernel against its plain version on the card, bit for bit (the
-    bound and its reason: `repro_torch.kernels.swe.testing`), on the four
-    limiter cases and at every [cells, lanes] shape the main path runs."""
-    from repro_torch.kernels.swe import swe_step, swe_step_ref
-    from repro_torch.kernels.swe.testing import CASES, assert_step_equal, case_inputs
+    """Both SWE kernels against their plain versions on the card, bit for
+    bit (the bound and its reason: `repro_torch.kernels.swe.testing`): the
+    step kernel on the four limiter cases and at every [cells, lanes] shape
+    the main path runs; the solve kernel on the limiter cases over 300 steps
+    and on whole waves at both levels (1, 4, 8, 13, 16 and 64 lanes)."""
+    from repro_torch.kernels.swe import swe_solve, swe_solve_ref, swe_step, swe_step_ref
+    from repro_torch.kernels.swe.testing import (
+        CASES,
+        SOLVE_CASES,
+        assert_solve_equal,
+        assert_step_equal,
+        case_inputs,
+        solve_case_inputs,
+    )
 
     report = {}
     for case in CASES:
@@ -187,7 +198,18 @@ def phase_kernel_vs_plain(torch, dev) -> dict:
         report[case] = assert_step_equal(got, swe_step_ref(h, hu, b, dt_dx), (h, hu), case)
     worst = max(r[key]["max_abs"] for r in report.values() for key in ("h", "hu"))
     emit("kernel_vs_plain", kernel="swe_step", bound="bit for bit", cases=report)
-    return {"max_abs_err": worst}
+    solves = {}
+    for case in SOLVE_CASES:
+        kw = solve_case_inputs(case, dev)
+        h, hu, b = kw.pop("h"), kw.pop("hu"), kw.pop("b")
+        got = swe_solve(h, hu, b, **kw)
+        torch.cuda.synchronize()
+        solves[case] = dict(assert_solve_equal(got, swe_solve_ref(h, hu, b, **kw), case),
+                            shape=list(h.shape), n_steps=kw["n_steps"])
+    solve_worst = max(r[key]["max_abs"] for r in solves.values() for key in ("mx", "arr"))
+    emit("kernel_vs_plain", kernel="swe_solve", bound="bit for bit (mx, arr; NaN matches NaN)",
+         cases=solves)
+    return {"max_abs_err": worst, "solve_max_abs_err": solve_worst}
 
 
 def _device_ms(torch, fn, calls: int, windows: int = 5) -> float:
@@ -213,13 +235,26 @@ def _device_ms(torch, fn, calls: int, windows: int = 5) -> float:
     return statistics.median(times)
 
 
+def solve_work(C: int, N: int, n_steps: int, R: int) -> dict:
+    """Bytes one whole-wave solve must move (h, hu and b read once, the
+    [R] depths at rest read once, mx and arr [R, N] written once) and its
+    float operations (`SWE_OPS_PER_CELL_LANE` per cell, lane and step)."""
+    return {"bytes": (2 * C * N + C + R + 2 * R * N) * 4,
+            "ops": SWE_OPS_PER_CELL_LANE * C * N * n_steps}
+
+
 def phase_times(torch, dev, smi: str) -> dict:
-    from repro_torch.kernels.swe import swe_step, swe_step_ref
-    from repro_torch.kernels.swe.testing import main_path_state
+    """Device time of one step-kernel launch at the main path's shapes, and
+    of one solve-kernel launch (a whole wave) at both levels and 16, 64 and
+    512 lanes, each beside its bound; the solve beside the step kernel's
+    loop over the same wave (n_steps x the step's time) and the plain
+    loop's device time."""
+    from repro_torch.kernels.swe import swe_solve, swe_solve_ref, swe_step, swe_step_ref
+    from repro_torch.kernels.swe.testing import main_path_state, wave_inputs
 
     shapes = []
     for C in (512, 2048):
-        for N in (4, 16, 64):
+        for N in (4, 16, 64, 512):
             h, hu, b, dt_dx = main_path_state(C, N, dev)
             pair = (torch.empty_like(h), torch.empty_like(hu))
             ms = _device_ms(
@@ -228,7 +263,7 @@ def phase_times(torch, dev, smi: str) -> dict:
             # ~45 PyTorch kernels a call: 16 calls fit the launch queue
             plain_ms = _device_ms(torch, lambda: swe_step_ref(h, hu, b, dt_dx), calls=16)
             # host side: wall time per launch of back-to-back steps, as the
-            # solver issues them (without its buoy reduction)
+            # per-step path issues them (without its buoy reduction)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(2000):
@@ -249,48 +284,106 @@ def phase_times(torch, dev, smi: str) -> dict:
          timer="one CUDA event pair around 200 back-to-back steps (plain: 16), "
                "per step, median of 5 windows",
          shapes=shapes, library_ms=None, card=smi)
-    return {"shapes": shapes}
+    step_ms = {tuple(s["shape"]): s["ms"] for s in shapes}
+    waves = []
+    for C in (512, 2048):
+        for N in (16, 64, 512):
+            kw = wave_inputs(C, N, dev)
+            h, hu, b = kw.pop("h"), kw.pop("hu"), kw.pop("b")
+            n_steps = kw["n_steps"]
+            ms = _device_ms(torch, lambda: swe_solve(h, hu, b, **kw), calls=5)
+            # one loop a window: its ~50 small kernels a step overrun the
+            # launch queue, so the host's issue rate enters, as it does on
+            # the plain path
+            plain_ms = _device_ms(torch, lambda: swe_solve_ref(h, hu, b, **kw),
+                                  calls=1, windows=1)
+            work = solve_work(C, N, n_steps, len(kw["rows"]))
+            t_bytes, t_ops = work["bytes"] / HBM_BYTES_PER_S, work["ops"] / FP32_FLOPS
+            waves.append({
+                "shape": [C, N], "n_steps": n_steps, "ms": ms,
+                "ms_per_step": ms / n_steps,
+                "step_kernel_loop_ms": n_steps * step_ms[(C, N)],
+                "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "fraction_of_fp32_peak": t_ops * 1e3 / ms, **work,
+            })
+    emit("solve_times", kernel="swe_solve",
+         timer="one CUDA event pair around 5 back-to-back solves (one wave each), per "
+               "solve, median of 5 windows; plain: one CUDA event pair around one "
+               "plain loop",
+         waves=waves, library_ms=None, card=smi)
+    return {"shapes": shapes, "waves": waves}
 
 
 def phase_full_solves(torch, dev) -> dict:
-    """Whole waves through `TsunamiModel.evaluate_batch` at both levels, at
-    the main path's 16 lanes and at 64, held bit for bit to the same solve
-    on the plain path, with the kernel launches each wave took."""
+    """Whole waves through `TsunamiModel.evaluate_batch` at both levels and
+    4, 16, 64 and 512 lanes: each ONE launch of the solve kernel and none of
+    the step kernel. At 4, 16 and 64 lanes held bit for bit to the same
+    solve on the plain path; at 512 lanes, where the plain path (x 8,899
+    steps) would not fit the time limit, to the per-step kernel path
+    (`solve_batch(step=swe_step)`, one step-kernel launch a step). The
+    16-lane wave of each level also runs the per-step kernel path: the step
+    kernel's own path, its launch counts set to 0 just before it and read
+    just after."""
     from repro_torch.apps.tsunami import TsunamiModel, level_grid, solve_batch
-    from repro_torch.kernels.swe import swe_step, swe_step_ref_into
+    from repro_torch.kernels.swe import swe_solve, swe_step, swe_step_ref_into
     from repro_torch.kernels.swe.testing import sources
 
     model = TsunamiModel(device="cuda")
-    out = {}
+    out, step_path_launches = {}, 0
     for level, (n_cells, smoothed) in enumerate(((512, True), (2048, False))):
         n_steps = level_grid(n_cells)[1]
         model.evaluate_batch(sources(4, 11), {"level": level})  # warm-up wave
-        for lanes in (16, 64):
+        for lanes in (4, 16, 64, 512):
             thetas = sources(lanes, 11)
-            before = swe_step.launches
+            solves, steps = swe_solve.launches, swe_step.launches
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             ys = model.evaluate_batch(thetas, {"level": level})
             wall = time.perf_counter() - t0
-            launched = swe_step.launches - before
-            if launched != n_steps:
-                raise AssertionError(f"level {level}, {lanes} lanes: {launched} "
-                                     f"launches for one wave, expected {n_steps}")
+            launched = {"swe_solve": swe_solve.launches - solves,
+                        "swe_step": swe_step.launches - steps}
+            if launched != {"swe_solve": 1, "swe_step": 0}:
+                raise AssertionError(f"level {level}, {lanes} lanes: launches {launched} "
+                                     "for one wave, expected one of swe_solve")
             if ys.shape != (lanes, 4) or not np.isfinite(ys).all():
                 raise AssertionError(f"level {level}: bad output {ys.shape}")
-            t0 = time.perf_counter()
-            plain = solve_batch(torch.as_tensor(thetas, device=dev), n_cells, smoothed,
-                                step=swe_step_ref_into).cpu().numpy().astype(float)
-            plain_wall = time.perf_counter() - t0
-            # every step is bit for bit, and the buoy reduction is the same code
-            np.testing.assert_array_equal(ys, plain, err_msg=f"level {level}, {lanes} lanes")
-            out[f"{level}x{lanes}"] = {
+            entry = {
                 "level": level, "n_cells": n_cells, "n_steps": n_steps, "lanes": lanes,
                 "launches": launched, "wall_s": wall, "evals_per_s": lanes / wall,
-                "wall_ms_per_step": wall / n_steps * 1e3, "plain_wall_s": plain_wall,
+                "wall_ms_per_step": wall / n_steps * 1e3,
             }
-    emit("full_solves", waves=out, bound="bit for bit")
-    return out
+            t_dev = torch.as_tensor(thetas, device=dev)
+            if lanes in (16, 512):
+                # every launch count starts at 0 right before the step path
+                reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                per_step = solve_batch(t_dev, n_cells, smoothed,
+                                       step=swe_step).cpu().numpy().astype(float)
+                entry["per_step_kernel_path_wall_s"] = wall_s = time.perf_counter() - t0
+                entry["per_step_kernel_path_evals_per_s"] = lanes / wall_s
+                counts = read_launches()
+                if counts["swe_step"] != n_steps or sum(counts.values()) != n_steps:
+                    raise AssertionError(f"level {level}, {lanes} lanes, per step: "
+                                         f"launches {counts}, expected {n_steps} of swe_step")
+                np.testing.assert_array_equal(ys, per_step,
+                                              err_msg=f"level {level}, {lanes} lanes, per step")
+                if lanes == 16:
+                    step_path_launches += counts["swe_step"]
+            if lanes <= 64:
+                t0 = time.perf_counter()
+                plain = solve_batch(t_dev, n_cells, smoothed,
+                                    step=swe_step_ref_into).cpu().numpy().astype(float)
+                entry["plain_wall_s"] = time.perf_counter() - t0
+                np.testing.assert_array_equal(ys, plain,
+                                              err_msg=f"level {level}, {lanes} lanes")
+            out[f"{level}x{lanes}"] = entry
+    emit("full_solves", waves=out, step_path_launches=step_path_launches,
+         bound="bit for bit: against the plain path at 4, 16 and 64 lanes, against "
+               "the per-step kernel path at 16 and 512")
+    return {"waves": out, "step_path_launches": step_path_launches}
 
 
 def phase_profile(torch) -> dict:
@@ -319,15 +412,22 @@ def phase_profile(torch) -> dict:
     prof.export_chrome_trace(str(trace))
     events = json.loads(trace.read_text()).get("traceEvents", [])
     busy = {"kernel": 0.0, "gpu_memcpy": 0.0, "gpu_memset": 0.0}
-    swe_us, n_kernels = 0.0, 0
+    swe_us, n_kernels, n_solve, n_step = 0.0, 0, 0, 0
     for ev in events:
         cat = ev.get("cat")
         if cat in busy and ev.get("ph") == "X":
             busy[cat] += float(ev.get("dur", 0.0))
             if cat == "kernel":
                 n_kernels += 1
-                if "swe_step" in ev.get("name", ""):
+                name = ev.get("name", "")
+                if "swe_solve" in name:
+                    n_solve += 1
                     swe_us += float(ev.get("dur", 0.0))
+                n_step += "swe_step" in name
+    # the wave is one launch of the solve kernel, by its symbol in the trace
+    if n_kernels and (n_solve, n_step) != (1, 0):
+        raise AssertionError(f"the trace holds {n_solve} swe_solve and {n_step} swe_step "
+                             "kernels for one wave, expected 1 and 0")
     device_us = sum(busy.values())
     # None: not measured. The profiler's host overhead lengthens the wave, so
     # the share is also given against the same wave's unprofiled wall time
@@ -335,14 +435,15 @@ def phase_profile(torch) -> dict:
     emit("profile", wave="coarse, 16 lanes", wall_ms=wall_us / 1e3,
          unprofiled_wall_ms=plain_wall_us / 1e3,
          device_busy_share_unprofiled=device_us / plain_wall_us if n_kernels else None,
-         device_busy_ms=device_us / 1e3, swe_step_kernel_ms=swe_us / 1e3,
+         device_busy_ms=device_us / 1e3, swe_solve_kernel_ms=swe_us / 1e3,
+         swe_solve_launches_in_trace=n_solve,
          device_kernels=n_kernels, device_busy_share=share,
          device_idle_share=None if share is None else 1.0 - share)
     return {"device_busy_share": share}
 
 
 def phase_main_path(torch) -> dict:
-    from repro_torch.apps.tsunami import TsunamiModel, level_grid
+    from repro_torch.apps.tsunami import TsunamiModel
     from repro_torch.core.fabric import EvaluationFabric, ModelBackend
     from repro_torch.kernels.swe.testing import SOURCE_BOX, sources
     from repro_torch.uq.mlda import ensemble_mlda
@@ -390,16 +491,15 @@ def phase_main_path(torch) -> dict:
         raise AssertionError(f"acceptance rates {res.accept_rates}")
     if min(waves.values()) <= 0 or sum(waves.values()) != tel["backend"]["native_batches"]:
         raise AssertionError(f"model waves per level {waves}, backend {tel['backend']}")
-    # every step of every wave the fabric dispatched was one kernel launch
-    launches = counts["swe_step"]
-    expected = sum(n * level_grid(TsunamiModel.N_CELLS[lvl])[1] for lvl, n in waves.items())
-    if launches != expected:
-        raise AssertionError(f"kernel launches {launches}, expected {expected} for "
-                             f"waves per level {waves}")
+    # every wave the fabric dispatched was one launch of the solve kernel
+    launches = counts["swe_solve"]
+    if launches != sum(waves.values()) or counts["swe_step"] != 0:
+        raise AssertionError(f"kernel launches {counts}, expected {sum(waves.values())} of "
+                             f"swe_solve and none of swe_step for waves per level {waves}")
     emit("main_path", chains=K, n_samples=4, subsampling=[5],
          n_waves=res.n_waves, evals_per_level=res.evals_per_level,
          model_solves_per_level=solves, model_waves_per_level=waves,
-         accept_rates=res.accept_rates, wall_s=wall, swe_step_launches=launches,
+         accept_rates=res.accept_rates, wall_s=wall, swe_solve_launches=launches,
          launches=counts,
          posterior_mean=res.samples.reshape(-1, 2).mean(0).tolist(),
          backend=tel["backend"])
@@ -427,7 +527,7 @@ def phase_ssd_kernel_vs_plain(torch, dev) -> dict:
     card, within a relative bound (value and reason:
     `repro_torch.kernels.ssd.testing`): the JAX package's SSD_CASES shapes,
     a non-zero initial state, an S the adapter pads, and the main path's
-    shapes (one point, a wave of 8, the 41-point grid padded to 64)."""
+    shapes (one point, a wave of 8, the 41-point grid as one wave)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.ssd import ssd, ssd_chunk_scan, ssd_chunked_ref
     from repro_torch.kernels.ssd import testing as T
@@ -565,14 +665,14 @@ def phase_rmsnorm_times(torch, dev, smi: str) -> dict:
 def phase_rmsnorm_path(torch, dev) -> dict:
     """The RMSNorm kernel's own path: its entry point `rmsnorm_fused`, called
     as a user calls it on model-layout activations at qwen3-0.6b's norm
-    shapes (a point's and the 64-point wave's hidden states, a point's
+    shapes (a point's and the 41-point grid wave's hidden states, a point's
     queries per head), with the model's float32 scale. No model calls it,
     as in the JAX package; the LM paths check that it stays at 0."""
     from repro_torch.kernels.rmsnorm import rmsnorm_fused
 
     gen = torch.Generator(device=dev).manual_seed(11)
     inputs = [torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-              for shape in ((LM_BATCH, LM_SEQ, 1024), (64 * LM_BATCH, LM_SEQ, 1024),
+              for shape in ((LM_BATCH, LM_SEQ, 1024), (41 * LM_BATCH, LM_SEQ, 1024),
                             (LM_BATCH, LM_SEQ, 16, 128))]
     scales = [torch.ones(x.shape[-1], device=dev) for x in inputs]
     reset_launches()
@@ -607,10 +707,10 @@ def flash_work(B: int, nq: int, nkv: int, Sq: int, Sk: int, hd: int, causal: boo
 
 
 #: the float32 flash kernel's own path: the reduced qwen3-0.6b (float32, 4 q
-#: heads and 2 kv heads of 32) over a level-2 grid (13 points, one wave of 16)
+#: heads and 2 kv heads of 32) over a level-2 grid (13 points, one wave)
 F32_LM_BATCH, F32_LM_SEQ, F32_GRID_LEVEL = 2, 512, 2
-#: its attention shape on that path: 16 points x 2 sequences
-F32_PATH_CASE = (16 * F32_LM_BATCH, 4, 2, F32_LM_SEQ, F32_LM_SEQ, 32, True, "float32")
+#: its attention shape on that path: 13 points x 2 sequences
+F32_PATH_CASE = (13 * F32_LM_BATCH, 4, 2, F32_LM_SEQ, F32_LM_SEQ, 32, True, "float32")
 
 
 def _model_layout(q, k, v):
@@ -623,7 +723,7 @@ def phase_flash_kernel_vs_plain(torch, dev) -> dict:
     """Both flash kernels against their plain version (`attention_ref`) on
     the card (bound and reason: `repro_torch.kernels.flash_attention.testing`):
     the JAX package's FLASH_CASES, ragged shapes, and qwen3-0.6b's attention
-    at one point, a wave of 8 and the 64-point wave (at its model layout,
+    at one point, a wave of 8 and the 41-point grid wave (at its model layout,
     through strides), and the float32 path's shape. Each case goes through
     the wrapper to the kernel of its dtype (`flash_attention_wgmma` for bf16,
     `flash_attention` for float32), and the CUDA-core kernel also runs every
@@ -735,7 +835,7 @@ LM_PHASE = {SSM_ARCH: "lm", DENSE_ARCH: "dense_lm"}
 
 def phase_lm_main_path(torch, arch: str) -> dict:
     """examples/serve_uq.py's flow on a full-width LM: a level-4 sparse grid
-    of the NLL (41 points, one padded wave), the surrogate's 4,000-sample
+    of the NLL (41 points, one unpadded wave), the surrogate's 4,000-sample
     Monte Carlo, and 8 per-point submits, all through
     `EvaluationFabric(ModelBackend(LMUQModel))`. Every forward launches the
     model's kernel once per layer, and no other kernel."""
@@ -794,6 +894,9 @@ def phase_lm_main_path(torch, arch: str) -> dict:
                              f"{model.cfg.n_layers} x {forwards} native batches")
     if sum(counts.values()) != launches:
         raise AssertionError(f"other kernels launched on the {arch} path: {counts}")
+    # no wave is padded: the port has no trace cache for padding to bound
+    if tel["backend"]["padded"] != 0:
+        raise AssertionError(f"padded waves on the {arch} path: {tel['backend']}")
     emit(f"{LM_PHASE[arch]}_main_path", arch=arch, batch=LM_BATCH, seq=LM_SEQ,
          layers=model.cfg.n_layers, init_s=init_s, grid_points=n, grid_wave_s=grid_s,
          grid_evals_per_s=n / grid_s, submits=LM_SUBMITS, submits_s=submits_s,
@@ -861,11 +964,9 @@ def phase_lm_profile(torch, model, points, unprofiled_s: float) -> dict:
     (elementwise glue, norms, softmax of the head), and the idle share."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.interface import next_pow2, pad_to_bucket
-
     arch = model.cfg.name
     kernel, trace_name = LM_KERNELS[arch]
-    thetas, _ = pad_to_bucket(np.asarray(points, float), next_pow2(len(points)))
+    thetas = np.asarray(points, float)  # the grid wave as the fabric runs it
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -905,7 +1006,7 @@ def phase_lm_profile(torch, model, points, unprofiled_s: float) -> dict:
         raise AssertionError(f"the trace holds {n_model_kernel} launches of {trace_name}, "
                              f"expected {model.cfg.n_layers}")
     device_us = sum(busy.values())
-    emit(f"{LM_PHASE[arch]}_profile", wave=f"{len(points)} grid points padded to {len(thetas)}",
+    emit(f"{LM_PHASE[arch]}_profile", wave=f"{len(thetas)} grid points, unpadded",
          wall_ms=wall_us / 1e3, unprofiled_wall_ms=unprofiled_s * 1e3,
          device_kernels=n_kernels, device_busy_ms=device_us / 1e3,
          **{f"{kernel}_launches_in_trace": n_model_kernel},
@@ -921,12 +1022,11 @@ def phase_flash_f32_path(torch) -> dict:
     """The float32 flash kernel's own path: the reduced qwen3-0.6b in
     float32 (the config the port's parity tests hold to the JAX package)
     as an UM-Bridge model, a level-2 sparse grid of its NLL through
-    `EvaluationFabric(ModelBackend(LMUQModel))` as one padded wave, and the
+    `EvaluationFabric(ModelBackend(LMUQModel))` as one unpadded wave, and the
     same wave on the plain path. Every forward launches the CUDA-core flash
     kernel once per layer, at `F32_PATH_CASE`'s shape, and no other kernel."""
     from repro_torch.apps.lm_model import LMUQModel
     from repro_torch.core.fabric import EvaluationFabric, ModelBackend
-    from repro_torch.core.interface import next_pow2, pad_to_bucket
     from repro_torch.uq import sparse_grid as sg
 
     model = LMUQModel(DENSE_ARCH, reduced=True, batch=F32_LM_BATCH, seq=F32_LM_SEQ)
@@ -934,7 +1034,7 @@ def phase_flash_f32_path(torch) -> dict:
         raise AssertionError(f"the reduced {DENSE_ARCH} runs in {model.cfg.act_dtype}")
     knots = [sg.knots_uniform_leja(*LM_BOX)] * 2
     reduced = sg.reduce_sparse_grid(sg.smolyak_grid(2, F32_GRID_LEVEL, knots))
-    wave = next_pow2(len(reduced.points))
+    wave = len(reduced.points)  # one wave, unpadded
     if wave * F32_LM_BATCH != F32_PATH_CASE[0]:
         raise AssertionError(f"a wave of {wave} points, F32_PATH_CASE has {F32_PATH_CASE[0]}")
     fabric = EvaluationFabric(ModelBackend(model), cache_size=64)
@@ -947,17 +1047,19 @@ def phase_flash_f32_path(torch) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = read_launches()
-        forwards = fabric.telemetry()["backend"]["native_batches"]
+        backend = fabric.telemetry()["backend"]
     finally:
         fabric.shutdown()
+    forwards = backend["native_batches"]
     launches = counts["flash_attention"]
     if forwards < 1 or launches != model.cfg.n_layers * forwards or sum(counts.values()) != launches:
         raise AssertionError(f"launches {counts}, expected {model.cfg.n_layers} x {forwards} "
                              "of flash_attention and no other kernel")
+    if backend["padded"] != 0:
+        raise AssertionError(f"the grid wave was padded: {backend}")
     plain = copy.copy(model)
     plain.cfg = model.cfg.replace(attn_impl="plain")
-    thetas, _ = pad_to_bucket(np.asarray(reduced.points, float), wave)
-    want = plain.evaluate_batch(thetas)[:len(reduced.points)]
+    want = plain.evaluate_batch(np.asarray(reduced.points, float))
     rel = float(np.abs(vals / want - 1.0).max())
     if vals.shape != (len(reduced.points), 1) or not np.isfinite(vals).all() or not rel <= 1e-5:
         raise AssertionError(f"float32 path NLL {vals.ravel()} vs plain {want.ravel()}: {rel:.3g}")
@@ -1023,6 +1125,7 @@ def main() -> int:
     if leaked or "repro" in sys.modules:
         raise AssertionError(f"the smoke run imported the JAX package: {leaked}")
     fine = next(s for s in times["shapes"] if s["shape"] == [2048, 16])
+    fine_wave = next(s for s in times["waves"] if s["shape"] == [2048, 16])
     point = ssd_times["shapes"][0]  # one point: B = 2
     # one point: qwen3-0.6b's attention over 2 sequences, and its layer norm;
     # the float32 flash kernel at its own path's shape
@@ -1034,11 +1137,34 @@ def main() -> int:
     rms_point = next(s for s in rms_times["shapes"] if s["shape"] == [LM_BATCH * LM_SEQ, 1024])
     print(probe["smi"], flush=True)
     print(json.dumps({"kernels": [{
+        "name": "swe_solve",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/swe/csrc/swe_solve.cu",
+        "replaces": "src/repro/kernels/swe/swe.py:54",
+        "replaces_scan": "src/repro/apps/tsunami.py:172",
+        "launches": main_path["launches"],
+        "max_abs_err": check["solve_max_abs_err"],
+        "ms": fine_wave["ms"],
+        "plain_ms": fine_wave["plain_ms"],
+        "bound_ms": fine_wave["bound_ms"],
+        "bound_by": fine_wave["bound_by"],
+        "library_ms": None,
+        "shape": fine_wave["shape"],
+        "n_steps": fine_wave["n_steps"],
+        "step_kernel_loop_ms": fine_wave["step_kernel_loop_ms"],
+        "by_shape": times["waves"],
+        "launches_per_wave": {k: v["launches"]["swe_solve"]
+                              for k, v in solves["waves"].items()},
+        "wall_s_per_wave": {k: v["wall_s"] for k, v in solves["waves"].items()},
+        "card": probe["smi"],
+    }, {
         "name": "swe_step",
         "route": "cuda",
         "source": "src/repro_torch/kernels/swe/csrc/swe_step.cu",
         "replaces": "src/repro/kernels/swe/swe.py:54",
-        "launches": main_path["launches"],
+        # its own path, a 16-lane wave per level through
+        # solve_batch(step=swe_step): the model's waves take the solve kernel
+        "launches": solves["step_path_launches"],
         "max_abs_err": check["max_abs_err"],
         "ms": fine["ms"],
         "plain_ms": fine["plain_ms"],
@@ -1047,8 +1173,9 @@ def main() -> int:
         "library_ms": None,
         "shape": fine["shape"],
         "by_shape": times["shapes"],
-        "launches_per_wave": {k: v["launches"] for k, v in solves.items()},
-        "wall_ms_per_step": {k: v["wall_ms_per_step"] for k, v in solves.items()},
+        "per_step_path_wall_s_per_wave": {k: v["per_step_kernel_path_wall_s"]
+                                          for k, v in solves["waves"].items()
+                                          if "per_step_kernel_path_wall_s" in v},
         "card": probe["smi"],
     }, {
         "name": "ssd",

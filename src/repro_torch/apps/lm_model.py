@@ -35,9 +35,10 @@ class LMUQModel(Model):
     package by `repro_torch.convert.lm_params_from_numpy`). Runs on `device`
     (default: the GPU; raises if there is none)."""
 
-    # one forward per wave: the dispatcher pads waves to powers of two so a
-    # wave's shape takes few distinct values
-    batch_bucket = True
+    # one forward per wave of N points, over N·B sequences. No `batch_bucket`:
+    # the JAX package pads waves to powers of two to bound its jit trace
+    # cache; the port runs eagerly and has no such cache, so padding would
+    # only add thrown-away forwards (41 points as a 64-point wave)
 
     def __init__(self, arch: str, reduced: bool = True, batch=2, seq: int = 64,
                  seed: int = 0, device=None, params=None):

@@ -11,11 +11,12 @@ ocean-to-coast transect:
 Observables: arrival time + max wave height at two buoys (x = 150 km,
 250 km) -> 4 outputs.
 
-On the GPU every time step is one launch of the hand-written SWE step kernel
-(`repro_torch.kernels.swe`); on the CPU the same loop runs its plain
-PyTorch version. The per-point time-series path (`_simulate`/`observables`
-in the JAX package) and the derivative surface are not ported yet (ROADMAP
-queue 1, items 3 and 6): a point is solved as a wave of one.
+On the GPU a whole wave, every time step and the buoy reduction, is ONE
+launch of the hand-written SWE solve kernel (`repro_torch.kernels.swe.
+swe_solve`); on the CPU the same wave runs its plain PyTorch loop. The
+per-point time-series path (`_simulate`/`observables` in the JAX package)
+and the derivative surface are not ported yet (ROADMAP queue 1, items 3 and
+6): a point is solved as a wave of one.
 """
 from __future__ import annotations
 
@@ -27,14 +28,12 @@ import torch
 from repro_torch.analysis.races import named_lock
 from repro_torch.core.device import resolve_device
 from repro_torch.core.interface import Capabilities, Model, next_pow2, pad_to_bucket
-from repro_torch.kernels.swe import swe_step
+from repro_torch.kernels.swe import swe_solve, swe_solve_ref
+from repro_torch.kernels.swe.ref import G, H_DRY
 
-G = 9.81
 L_DOMAIN = 400e3  # m
 T_END = 2600.0  # s
 BUOYS_KM = (150.0, 250.0)
-H_DRY = 0.05  # wetting/drying threshold [m]
-ARRIVAL_THRESH = 0.1  # m
 
 #: smallest wave the solver runs: waves are padded to next_pow2(max(N, 4))
 _WAVE_MIN = 4
@@ -94,36 +93,29 @@ def initial_state(
 
 
 def solve_batch(
-    thetas: torch.Tensor, n_cells: int, smoothed: bool, *, step=swe_step
+    thetas: torch.Tensor, n_cells: int, smoothed: bool, *, step=None
 ) -> torch.Tensor:
     """[N, 2] -> [N, 4] float32: all N sources solved in lockstep on
     thetas' device, in the JAX package's `_solve_batch` layout (state
     [n_cells, N], batch last). The arrival-time / max-height reduction runs
-    inside the time loop, so only [N, 4] leaves the device, and nothing in
-    the loop waits for the device: the GPU queue runs ahead of the host.
+    inside the time loop, so only [N, 4] leaves the device.
 
-    `step` is the SWE step with the signature of `kernels.swe.swe_step`;
-    the model always uses that default, which on the GPU is one kernel
-    launch per step. Passing `kernels.swe.swe_step_ref_into`, the plain
-    version with that signature, holds the kernel against it over a whole
-    solve."""
+    By default the wave is `kernels.swe.swe_solve`: on the GPU one kernel
+    launch for all the steps, and the model always takes it. With `step=`
+    (the signature of `kernels.swe.swe_step`) the wave runs the per-step
+    loop `kernels.swe.swe_solve_ref` instead: `swe_step_ref_into` is the
+    plain path, `swe_step` one step-kernel launch per step. Those two hold
+    the solve kernel against the plain version and the step kernel."""
     dt, n_steps, buoy_rows = level_grid(n_cells)
     dt_dx = dt / (L_DOMAIN / n_cells)
     h, hu, b = initial_state(thetas.to(torch.float32), n_cells, smoothed)
     N = h.shape[1]
-    rows = torch.as_tensor(buoy_rows, device=h.device)
-    h0_buoy = torch.clamp_min(-b, 0.0).index_select(0, rows)  # [2, 1]
-    mx = torch.full((2, N), -torch.inf, device=h.device)
-    arr = torch.full((2, N), -1.0, device=h.device)
-    # two state pairs ping-pong: each step writes the spare pair IN PLACE
-    # (no per-step allocation) and the pairs swap roles
-    h_nxt, hu_nxt = torch.empty_like(h), torch.empty_like(hu)
-    for i in range(n_steps):
-        step(h, hu, b, dt_dx=dt_dx, g=G, h_dry=H_DRY, out=(h_nxt, hu_nxt))
-        h, h_nxt, hu, hu_nxt = h_nxt, h, hu_nxt, hu
-        eta_b = h.index_select(0, rows) - h0_buoy  # [2, N]
-        torch.maximum(mx, eta_b, out=mx)
-        arr.masked_fill_((torch.abs(eta_b) > ARRIVAL_THRESH) & (arr < 0), float(i))
+    h0_rows = torch.clamp_min(-b, 0.0)[list(buoy_rows), 0]  # [2] depth at rest
+    kw = dict(dt_dx=dt_dx, n_steps=n_steps, rows=buoy_rows, h0_rows=h0_rows)
+    if step is None:
+        mx, arr = swe_solve(h, hu, b, **kw)
+    else:
+        mx, arr = swe_solve_ref(h, hu, b, step=step, **kw)
     arrival = torch.where(arr >= 0, arr * (dt / 60.0), T_END / 60.0)
     # [2, N] obs pairs -> [N, 4] rows [a1, h1, a2, h2]
     return torch.stack([arrival, mx], dim=2).transpose(0, 1).reshape(N, 4)
@@ -135,7 +127,8 @@ class TsunamiModel(Model):
 
     Runs on `device` (default: the GPU; raises if there is none). Native
     batched evaluate: a wave of N sources is padded to a power of two and
-    solved as ONE lockstep wave on the device."""
+    solved as ONE lockstep wave on the device: on the GPU, one launch of the
+    SWE solve kernel."""
 
     N_CELLS = {0: 512, 1: 2048}
     # pads internally (see evaluate_batch) — dispatcher-level pow2 padding

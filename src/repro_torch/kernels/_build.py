@@ -7,10 +7,10 @@ build takes seconds), for Hopper only:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 [per-source flags]
          -shared -Xcompiler -fPIC -o lib<stem>_<hash>.so <stem>.cu
 
-The per-source flags are `SOURCE_FLAGS`. `swe_step.cu` is built with
-`-fmad=false`: every multiply and add stays separately rounded, as in the
-eager plain PyTorch version, which is what its bit-equality with that
-version rests on. `ssd.cu` lets the compiler contract multiply-adds: its
+The per-source flags are `SOURCE_FLAGS`. `swe_step.cu` and `swe_solve.cu`
+are built with `-fmad=false`: every multiply and add stays separately
+rounded, as in the eager plain PyTorch version, which is what their
+bit-equality with that version rests on. `ssd.cu` lets the compiler contract multiply-adds: its
 products sum in another order than the plain version's, so they cannot be
 bit-equal anyway. `flash_attention_wgmma.cu` (wgmma, TMA, `setmaxnreg`:
 sm_90a only) needs no flag of its own and no library beyond the runtime:
@@ -42,7 +42,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 #: flags of one source on top of NVCC_FLAGS, by stem
-SOURCE_FLAGS = {"swe_step": ("-fmad=false",)}
+SOURCE_FLAGS = {"swe_step": ("-fmad=false",), "swe_solve": ("-fmad=false",)}
 
 _lock = named_lock("kernels.build")
 _loaded: dict[str, ctypes.CDLL] = {}

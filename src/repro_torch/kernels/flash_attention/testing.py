@@ -43,8 +43,8 @@ EDGE_CASES = (
 )
 #: qwen3-0.6b's attention on the main path (16 q heads, 8 kv heads of 128,
 #: 2,048 tokens, bf16): one point (2 sequences), a wave of 8 (16) and the
-#: 41-point grid padded to 64 (128)
-MAIN_PATH_BATCHES = (2, 16, 128)
+#: 41-point grid as one wave (82)
+MAIN_PATH_BATCHES = (2, 16, 82)
 QWEN3_HEADS, QWEN3_KV_HEADS, QWEN3_HD, MAIN_PATH_SEQ = 16, 8, 128, 2048
 MODEL_CASES = tuple((B, QWEN3_HEADS, QWEN3_KV_HEADS, MAIN_PATH_SEQ, MAIN_PATH_SEQ, QWEN3_HD,
                      True, "bfloat16") for B in MAIN_PATH_BATCHES)

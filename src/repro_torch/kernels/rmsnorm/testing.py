@@ -28,11 +28,11 @@ RMS_CASES = (
 )
 #: qwen3-0.6b's norms on the main path, bf16 activations with the float32
 #: scale the model declares: the layer norms of one point (2 x 2,048
-#: tokens) and of the 64-point wave (128 x 2,048), and the qk-norm rows of
-#: one point's queries (4,096 tokens x 16 heads of 128)
+#: tokens) and of the 41-point grid wave (82 x 2,048), and the qk-norm rows
+#: of one point's queries (4,096 tokens x 16 heads of 128)
 MODEL_CASES = (
     (4096, 1024, "bfloat16", "float32"),
-    (262144, 1024, "bfloat16", "float32"),
+    (167936, 1024, "bfloat16", "float32"),
     (65536, 128, "bfloat16", "float32"),
 )
 #: a row wider than the kernel keeps in registers (1,024 floats), and a

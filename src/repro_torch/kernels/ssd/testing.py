@@ -21,8 +21,8 @@ REL_TOL = 1e-4
 #: mamba2-1.3b's SSD widths: 64 heads of P = 64 in one group, state N = 128
 MAMBA2_HEADS, MAMBA2_P, MAMBA2_N = 64, 64, 128
 #: sequences of the main path's forwards: one point (B = 2), a wave of 8,
-#: and the 41-point sparse grid, which the fabric pads to 64 points
-MAIN_PATH_BATCHES = (2, 16, 128)
+#: and the 41-point sparse grid as one wave (82 sequences)
+MAIN_PATH_BATCHES = (2, 16, 82)
 MAIN_PATH_SEQ = 2048
 #: (B, H, G, S, P, N, non-zero initial state): the SSD_CASES shapes of the
 #: JAX package's tests, one of them from a non-zero state, and the main

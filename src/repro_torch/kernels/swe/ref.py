@@ -9,8 +9,10 @@ corrections, reflective walls, positivity/dry-cell limiter. Integer powers
 are written as products in the order `jax.lax.integer_pow` lowers them
 (x**2 = x*x, x**4 = (x*x)*(x*x)), so on the CPU the two agree to rounding.
 
-The CUDA kernel (`csrc/swe_step.cu`) repeats this arithmetic term by term;
-`ops.swe_step` takes this version only for tensors on the CPU.
+The CUDA kernels (`csrc/swe_step.cu`, one step, and `csrc/swe_solve.cu`, a
+whole wave) repeat this arithmetic term by term; `swe_solve_ref` is the
+whole wave's loop with the buoy reduction. `ops.swe_step` and
+`ops.swe_solve` take these versions only for tensors on the CPU.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 
 G = 9.81
 H_DRY = 0.05
+ARRIVAL_THRESH = 0.1  # |eta| [m] at a buoy that counts as the wave's arrival
 _SQRT2 = math.sqrt(2.0)
 
 
@@ -89,3 +92,41 @@ def swe_step_ref_into(
     out[0].copy_(h_new)
     out[1].copy_(hu_new)
     return out
+
+
+def swe_solve_ref(
+    h: torch.Tensor,  # [C, N] water depth
+    hu: torch.Tensor,  # [C, N] momentum
+    b: torch.Tensor,  # [C, 1] bathymetry
+    *,
+    dt_dx: float,
+    n_steps: int,
+    rows,
+    h0_rows: torch.Tensor,  # [R] depth at rest of each buoy row
+    step=swe_step_ref_into,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`n_steps` SWE steps of a wave with the buoy reduction inside the time
+    loop: returns (mx, arr), each [R, N] for the R buoy `rows`: the largest
+    free surface eta = h[row] - h0 over the steps (NaN propagates, as in
+    `torch.maximum`) and the index of the first step whose |eta| exceeds
+    `ARRIVAL_THRESH` (-1 if none), as float32. The inputs are left as they are.
+
+    `step` is the SWE step with the signature of `ops.swe_step`; the default
+    is the plain version, and `ops.swe_step` runs the loop one kernel launch
+    per step. Nothing in the loop waits for the device."""
+    N = h.shape[1]
+    rows = torch.as_tensor(rows, device=h.device)
+    h0_buoy = h0_rows.reshape(-1, 1)  # [R, 1]
+    mx = torch.full((len(rows), N), -torch.inf, device=h.device)
+    arr = torch.full((len(rows), N), -1.0, device=h.device)
+    # two state pairs ping-pong: each step writes the spare pair IN PLACE
+    # (no per-step allocation) and the pairs swap roles
+    h, hu = h.clone(), hu.clone()
+    h_nxt, hu_nxt = torch.empty_like(h), torch.empty_like(hu)
+    for i in range(n_steps):
+        step(h, hu, b, dt_dx=dt_dx, out=(h_nxt, hu_nxt))
+        h, h_nxt, hu, hu_nxt = h_nxt, h, hu_nxt, hu
+        eta_b = h.index_select(0, rows) - h0_buoy  # [R, N]
+        torch.maximum(mx, eta_b, out=mx)
+        arr.masked_fill_((torch.abs(eta_b) > ARRIVAL_THRESH) & (arr < 0), float(i))
+    return mx, arr

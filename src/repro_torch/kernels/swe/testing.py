@@ -1,6 +1,7 @@
-"""Inputs and the check that hold the SWE step kernel against its plain
-version. `chip_smoke.py` and the port's tests both use them, so the card and
-the test suite run the same cases against the same bound.
+"""Inputs and the checks that hold the SWE kernels against their plain
+versions: the step kernel against `swe_step_ref`, the solve kernel against
+`swe_solve_ref`. `chip_smoke.py` and the port's tests both use them, so the
+card and the test suite run the same cases against the same bound.
 
 The bound is bit equality. The kernel repeats the plain version's
 operations term by term and in the same order. It is compiled with
@@ -11,7 +12,10 @@ shape has measured 0 ulp (PERF.md). A looser bound would be blind where it
 matters: at the main path's ~4,000 m depths one float32 ulp of `h` is
 2.4e-4 m, which is more than a mass flux that is 1% wrong moves `h` in one
 step. Only an exact comparison sees such a fault there
-(tests/test_torch_swe.py checks that it does).
+(tests/test_torch_swe.py checks that it does). A solve is held the same
+way: its (mx, arr) outputs bit for bit, a NaN matching a NaN
+(tests/test_torch_swe_solve.py checks that the check sees a dt 1e-6 off,
+one step fewer and a buoy row off by one).
 """
 from __future__ import annotations
 
@@ -28,10 +32,21 @@ SWE_KINDS = ("lake_at_rest", "dam_break", "dry_bed", "moving")
 CASE_DT_DX = 0.02
 #: [cells, lanes] of the steps the main path runs: both published levels,
 #: waves of the campaign's 16 chains, the narrower waves left after cache
-#: hits, and 64 lanes
-MAIN_PATH_SHAPES = tuple((C, N) for C in (512, 2048) for N in (4, 8, 16, 64))
+#: hits, 64 lanes, and 512 lanes
+MAIN_PATH_SHAPES = tuple((C, N) for C in (512, 2048) for N in (4, 8, 16, 64, 512))
 #: every case of the check, by name
 CASES = (*SWE_KINDS, *(f"main_{C}x{N}" for C, N in MAIN_PATH_SHAPES))
+#: the limiter cases' solve: steps and buoy rows (dam-break and dry-bed
+#: cross the limiter branches for many steps)
+CASE_SOLVE_STEPS, CASE_SOLVE_ROWS = 300, (5, 40)
+#: [cells, lanes] of the whole waves the solve kernel is held at: both
+#: published levels at every width the model gives it (its waves are padded
+#: to next_pow2(max(N, 4)): 4 and 8 after cache hits, the campaign's 16, and
+#: 64), one source, and 13 lanes (not a power of two)
+SOLVE_SHAPES = tuple((C, N) for C in (512, 2048) for N in (1, 4, 8, 13, 16, 64))
+#: every case of the solve check, by name
+SOLVE_CASES = (*(f"solve_{k}" for k in SWE_KINDS),
+               *(f"wave_{C}x{N}" for C, N in SOLVE_SHAPES))
 #: the §4.3 campaign's uniform prior box: x0 [km], amplitude [m]
 SOURCE_BOX = ((30.0, 150.0), (0.5, 4.0))
 
@@ -83,6 +98,30 @@ def main_path_state(n_cells: int, N: int, device) -> tuple:
     return h.contiguous(), hu.contiguous(), b, dt_dx
 
 
+def wave_inputs(n_cells: int, N: int, device) -> dict:
+    """`swe_solve`'s inputs for one whole wave of N sources on the published
+    `n_cells` grid, as `apps.tsunami.solve_batch` builds them."""
+    device = torch.device(device)
+    h, hu, b = initial_state(
+        torch.as_tensor(sources(N, 11), device=device), n_cells,
+        smoothed=(n_cells == 512),
+    )
+    dt, n_steps, rows = level_grid(n_cells)
+    return dict(h=h, hu=hu, b=b, dt_dx=dt / (L_DOMAIN / n_cells), n_steps=n_steps,
+                rows=rows, h0_rows=torch.clamp_min(-b, 0.0)[list(rows), 0])
+
+
+def solve_case_inputs(case: str, device) -> dict:
+    """`swe_solve`'s keyword inputs of one entry of `SOLVE_CASES` on `device`."""
+    if case.startswith("wave_"):
+        C, N = (int(v) for v in case[len("wave_"):].split("x"))
+        return wave_inputs(C, N, device)
+    h, hu, b = swe_state_from_numpy(*swe_state(case[len("solve_"):]), device)
+    return dict(h=h, hu=hu, b=b, dt_dx=CASE_DT_DX, n_steps=CASE_SOLVE_STEPS,
+                rows=CASE_SOLVE_ROWS,
+                h0_rows=torch.clamp_min(-b, 0.0)[list(CASE_SOLVE_ROWS), 0])
+
+
 def case_inputs(case: str, device) -> tuple:
     """(h, hu, b, dt_dx) of one entry of `CASES` on `device`."""
     if case.startswith("main_"):
@@ -118,5 +157,28 @@ def assert_step_equal(got: tuple, want: tuple, old: tuple, what: str) -> dict:
             raise AssertionError(
                 f"{what}, {key}: the kernel differs from the plain version: "
                 f"{report[key]}"
+            )
+    return report
+
+
+def assert_solve_equal(got: tuple, want: tuple, what: str) -> dict:
+    """Hold one solve's `got = (mx, arr)` to `want` bit for bit, a NaN
+    matching a NaN. Returns, for mx and arr, the largest absolute difference
+    where both are numbers and the count of NaNs, and raises AssertionError,
+    naming the output, if either differs."""
+    report = {}
+    for key, g, w in zip(("mx", "arr"), got, want):
+        if g.shape != w.shape:
+            raise AssertionError(f"{what}, {key}: shape {tuple(g.shape)}, "
+                                 f"expected {tuple(w.shape)}")
+        g_nan, w_nan = torch.isnan(g), torch.isnan(w)
+        both = ~(g_nan | w_nan)
+        g_num, w_num = g[both], w[both]
+        diff = torch.where(g_num == w_num, 0.0, (g_num.double() - w_num.double()).abs())
+        report[key] = {"max_abs": float(diff.max()) if diff.numel() else 0.0,
+                       "nan": int(g_nan.sum())}
+        if not (torch.equal(g_nan, w_nan) and torch.equal(g_num, w_num)):
+            raise AssertionError(
+                f"{what}, {key}: the kernel differs from the plain version: {report[key]}"
             )
     return report

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import repro.apps.lm_model as jax_lm
+from _torch_parity import UNPADDED_RTOL, grid_wave_unpadded_vs_padded
 from repro.configs import get_config as jax_get_config
 from repro.models import attention as jax_attention
 from repro.models import model as jax_model
@@ -191,7 +192,7 @@ def test_lm_uq_nll_matches_jax(lm_pair):
 
 def test_sparse_grid_through_the_fabric_matches_jax(lm_pair):
     """The serving flow's first step at level 2: the port's grid through
-    `EvaluationFabric(ModelBackend(LMUQModel))`, one padded wave, against the
+    `EvaluationFabric(ModelBackend(LMUQModel))`, one unpadded wave, against the
     JAX package's grid evaluated by its LMUQModel."""
     pm, jm = lm_pair
     jknots = [jax_sg.knots_uniform_leja(0.7, 1.3)] * 2
@@ -211,3 +212,18 @@ def test_sparse_grid_through_the_fabric_matches_jax(lm_pair):
     print(f"{pm.cfg.attn_impl}: {len(Sr.points)} points, rel err "
           f"{np.abs(got / want - 1).max():.3g}")
     np.testing.assert_allclose(got, want, rtol=NLL_RTOL)
+
+
+def test_grid_wave_runs_unpadded(lm_pair):
+    """The level-2 grid's 13 points run as ONE 13-point wave: the fabric
+    pads nothing (the port has no trace cache to bound), and the values
+    equal those of the same points in a wave padded to 16, within
+    `UNPADDED_RTOL`."""
+    pm, _ = lm_pair
+    got, padded, backend = grid_wave_unpadded_vs_padded(pm)
+    assert got.shape == (13, 1)
+    assert backend["native_batches"] == 1 and backend["native_points"] == 13
+    assert backend["padded"] == 0
+    print(f"{pm.cfg.attn_impl}: unpadded vs padded max rel diff "
+          f"{np.abs(got / padded - 1).max():.3g}")
+    np.testing.assert_allclose(got, padded, rtol=UNPADDED_RTOL)

@@ -1,6 +1,7 @@
 """PyTorch port on the card: each CUDA kernel against its plain PyTorch
-version. The SWE step, one step and whole solves, bit for bit (the bound and
-its reason: `repro_torch.kernels.swe.testing`); the SSD chunk scan within its
+version. The SWE step and the SWE solve (a whole wave in one launch), and
+whole waves through `solve_batch`, bit for bit (the bound and its reason:
+`repro_torch.kernels.swe.testing`); the SSD chunk scan within its
 relative bound (`repro_torch.kernels.ssd.testing`), alone and inside a
 reduced mamba2 forward; flash attention and RMSNorm within theirs
 (`repro_torch.kernels.{flash_attention,rmsnorm}.testing`), at every case and
@@ -29,8 +30,22 @@ from repro_torch.kernels.rmsnorm import testing as rms_testing
 from repro_torch.kernels.ssd import ssd, ssd_chunk_scan, ssd_chunked_ref
 from repro_torch.kernels.ssd import testing as ssd_testing
 from repro_torch.models import model, transformer
-from repro_torch.kernels.swe import swe_step, swe_step_ref, swe_step_ref_into
-from repro_torch.kernels.swe.testing import CASES, assert_step_equal, case_inputs, sources
+from repro_torch.kernels.swe import (
+    swe_solve,
+    swe_solve_ref,
+    swe_step,
+    swe_step_ref,
+    swe_step_ref_into,
+)
+from repro_torch.kernels.swe.testing import (
+    CASES,
+    SOLVE_CASES,
+    assert_solve_equal,
+    assert_step_equal,
+    case_inputs,
+    solve_case_inputs,
+    sources,
+)
 
 
 @pytest.mark.gpu
@@ -45,15 +60,36 @@ def test_kernel_matches_plain_on_cuda(case):
     assert_step_equal(got, swe_step_ref(h, hu, b, dt_dx), (h, hu), case)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SOLVE_CASES)
+def test_solve_kernel_matches_plain_on_cuda(case):
+    """One launch of the solve kernel against the plain loop
+    (`swe_solve_ref`), bit for bit: the limiter cases over 300 steps, and
+    whole waves at both published levels."""
+    dev = cuda_or_skip()
+    kw = solve_case_inputs(case, dev)
+    h, hu, b = kw.pop("h"), kw.pop("hu"), kw.pop("b")
+    before = swe_solve.launches
+    got = swe_solve(h, hu, b, **kw)
+    torch.cuda.synchronize()
+    assert swe_solve.launches == before + 1
+    assert_solve_equal(got, swe_solve_ref(h, hu, b, **kw), case)
+
+
 def _solve_kernel_path_matches_plain_path(n_cells: int, smoothed: bool):
     dev = cuda_or_skip()
     thetas = torch.as_tensor(sources(16, 11), device=dev)
-    before = swe_step.launches
+    solves, steps = swe_solve.launches, swe_step.launches
     got = solve_batch(thetas, n_cells, smoothed).cpu().numpy()
-    assert swe_step.launches - before == level_grid(n_cells)[1]
+    # the whole wave is one launch of the solve kernel
+    assert swe_solve.launches - solves == 1 and swe_step.launches == steps
     want = solve_batch(thetas, n_cells, smoothed, step=swe_step_ref_into).cpu().numpy()
-    # every step is bit for bit, and the buoy reduction is the same code
+    # every step is bit for bit, and so is the buoy reduction
     np.testing.assert_array_equal(got, want)
+    # and the per-step kernel path: one step-kernel launch per step
+    per_step = solve_batch(thetas, n_cells, smoothed, step=swe_step).cpu().numpy()
+    assert swe_step.launches - steps == level_grid(n_cells)[1]
+    np.testing.assert_array_equal(per_step, want)
 
 
 @pytest.mark.gpu

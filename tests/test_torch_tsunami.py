@@ -8,6 +8,7 @@ import torch
 
 import repro.apps.tsunami as jax_tsunami
 import repro_torch.apps.tsunami as tsunami
+from _torch_parity import SOLVE_THETAS, SOLVE_TOL
 from repro_torch.convert import swe_state_from_numpy
 from repro_torch.core.interface import Capabilities
 
@@ -17,10 +18,7 @@ from repro_torch.core.interface import Capabilities
 torch.set_num_threads(1)
 
 LEVELS = [(0, 512, True), (1, 2048, False)]
-RNG = np.random.default_rng(42)
-THETAS = np.stack(
-    [RNG.uniform(40.0, 140.0, 4), RNG.uniform(0.8, 3.5, 4)], axis=1
-).astype(np.float32)
+THETAS = SOLVE_THETAS
 
 
 @pytest.mark.parametrize("level,n_cells,smoothed", LEVELS)
@@ -36,17 +34,7 @@ def test_bathymetry_identical_to_reference(level, n_cells, smoothed):
     assert np.array_equal(b.numpy()[:, 0], want)
 
 
-# Full-solve bounds: the ones the JAX package holds its own two orderings of
-# this solver to (tests/test_batch_native.py). The plain step agrees with
-# the JAX oracle to within about one ulp, but XLA also contracts
-# multiply-adds inside the jitted scan, and float32 drift over 2,224 / 8,899 nonlinear steps turns
-# those ulps into the deviations this test prints (`-s`) on these thetas:
-# coarse 0.019 min (one step) / 1.0e-3, fine 0.024 min / 8.2e-3 (arrival
-# / max height, PERF.md). The coarse height bound is tightened to 5e-3 (5x
-# the measurement); the fine level keeps the reference's bounds, since its
-# arrival deviation is already half of 0.05 min.
-SOLVE_TOL = {0: dict(arrival=0.05, height_rtol=5e-3),
-             1: dict(arrival=0.05, height_rtol=5e-2)}
+# Full-solve bounds and their reason: `_torch_parity.SOLVE_TOL`.
 
 
 @pytest.mark.parametrize("level,n_cells,smoothed", LEVELS)
