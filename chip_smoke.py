@@ -32,8 +32,10 @@ user calls:
   reduced qwen3-0.6b in float32, as the port's tests run it, serving a
   level-2 sparse grid through the fabric.
 
-The build phase is followed by the count of HGMMA (wgmma) instructions in
-the tensor-core kernel's SASS.
+The build phase is followed by the count of the tensor-core instructions in
+the SASS of the two kernels that use them: HGMMA (wgmma) in the bf16 flash
+kernel, HMMA (mma.sync, TF32) in the SSD kernel, with the SSD kernel's
+registers and spills from its build log.
 
 Each launch count is set to 0 just before a path and read just after. Each
 phase prints one JSON line; any failed check raises and the script exits
@@ -62,6 +64,7 @@ SRC = ROOT / "src"
 # published peaks of one H100 SXM (NVIDIA data sheet; dense, no sparsity)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 # float operations per (cell, lane) of one SWE step, counting each face and
 # each velocity once: velocity 10, face flux 48, divergence + update 9
@@ -154,10 +157,33 @@ def phase_build() -> None:
     libs = _build.build()
     emit("build", seconds=time.perf_counter() - t0,
          libraries={k: str(v.relative_to(ROOT)) for k, v in libs.items()})
-    # evidence that the bf16 flash kernel runs on the tensor cores: its SASS
-    # holds HGMMA (warpgroup MMA) instructions
+    # evidence that the bf16 flash kernel and the SSD kernel run on the
+    # tensor cores: HGMMA (warpgroup MMA) and HMMA (mma.sync) in their SASS
+    # (every function of the flash library; every instance of the SSD kernel)
+    for stem, op, kernel in (("flash_attention_wgmma", "HGMMA", ""),
+                             ("ssd", "HMMA", "ssd_chunk_scan_kernel")):
+        counts = sass_counts(libs[stem], op)
+        kernels = {f: n for f, n in counts.items() if kernel in f}
+        if not kernels or min(kernels.values()) == 0:
+            raise AssertionError(f"a tensor-core kernel without {op}: {counts}")
+        fields = {}
+        if stem == "ssd":
+            # registers and spills of each instance (-Xptxas -v, SOURCE_FLAGS)
+            log = libs[stem].with_suffix(".log").read_text().splitlines()
+            fields["ptxas"] = [line.strip() for line in log
+                               if "registers" in line or "spill" in line]
+        emit("sass", library=str(libs[stem].relative_to(ROOT)),
+             **{f"{op.lower()}_instructions": sum(kernels.values()),
+                f"{op.lower()}_by_function": kernels}, **fields)
+
+
+def sass_counts(library: Path, op: str) -> dict:
+    """Instructions whose opcode starts with `op`, by function, in the SASS
+    of `library` (`cuobjdump -sass`)."""
+    from repro_torch.kernels import _build
+
     cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(libs["flash_attention_wgmma"])],
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library)],
                           capture_output=True, text=True, timeout=120, check=True).stdout
     by_function: dict[str, int] = {}
     function = ""
@@ -165,13 +191,9 @@ def phase_build() -> None:
         if "Function : " in line:
             function = line.split("Function : ")[1].strip()
             by_function[function] = 0
-        elif "HGMMA" in line:
+        elif op in line:
             by_function[function] = by_function.get(function, 0) + 1
-    hgmma = sum(by_function.values())
-    if not by_function or min(by_function.values()) == 0:
-        raise AssertionError(f"a tensor-core flash kernel without HGMMA: {by_function}")
-    emit("sass", library=str(libs["flash_attention_wgmma"].relative_to(ROOT)),
-         hgmma_instructions=hgmma, hgmma_by_function=by_function)
+    return by_function
 
 
 def phase_kernel_vs_plain(torch, dev) -> dict:
@@ -512,7 +534,9 @@ def ssd_work(B: int, H: int, G: int, S: int, P: int, N: int) -> dict:
     Q = 128 and head, the causal triangle of C B^T (Q(Q+1)/2 N multiply-
     adds) and of scores X (Q(Q+1)/2 P), plus C S and the state update
     (2 Q N P). `flops_square` counts the full [Q, Q] products instead, as
-    the Pallas kernel computes them."""
+    the Pallas kernel computes them. The kernel computes these products on
+    the tensor cores in 3xTF32 (three TF32 products for each float32 one),
+    so its work there is 3 x `flops`."""
     Q = 128
     chunks = B * H * (S // Q)
     tri = Q * (Q + 1) // 2
@@ -560,7 +584,11 @@ def phase_ssd_kernel_vs_plain(torch, dev) -> dict:
 
 def phase_ssd_times(torch, dev, smi: str) -> dict:
     """Device time of one SSD launch at the main path's shapes, beside its
-    bound and the plain version's time."""
+    bound and the plain version's time. The bound is the larger of the
+    bytes at the HBM rate and the 3xTF32 work (3 x flops) at the TF32
+    tensor-core peak; `fp32_cuda_core_ops_ms` is the float32 work at the
+    CUDA cores' peak, the bound of the kernel before it used the tensor
+    cores."""
     from repro_torch.kernels.ssd import ssd_chunk_scan, ssd_chunked_ref
     from repro_torch.kernels.ssd import testing as T
 
@@ -573,18 +601,23 @@ def phase_ssd_times(torch, dev, smi: str) -> dict:
         # ~300 PyTorch kernels a call
         plain_ms = _device_ms(torch, lambda: ssd_chunked_ref(*inputs), calls=1, windows=3)
         work = ssd_work(B, H, G, S, P, N)
-        t_bytes, t_ops = work["bytes"] / HBM_BYTES_PER_S, work["flops"] / FP32_FLOPS
+        t_bytes, t_tc = work["bytes"] / HBM_BYTES_PER_S, 3 * work["flops"] / TF32_FLOPS
+        t_fp32 = work["flops"] / FP32_FLOPS
+        bound_ms = max(t_bytes, t_tc) * 1e3
         shapes.append({
             "shape": [B, H, S, P, N], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes_ms": t_bytes * 1e3, "ops_ms": t_ops * 1e3,
-            "square_ops_ms": work["flops_square"] / FP32_FLOPS * 1e3,
-            "fraction_of_fp32_peak": t_ops * 1e3 / ms, **work,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_tc else "operations",
+            "bytes_ms": t_bytes * 1e3, "tc_ops_ms": t_tc * 1e3,
+            "share_of_bound": bound_ms / ms,
+            "fp32_cuda_core_ops_ms": t_fp32 * 1e3,
+            "fp32_cuda_core_square_ops_ms": work["flops_square"] / FP32_FLOPS * 1e3,
+            "share_of_fp32_cuda_core_peak": t_fp32 * 1e3 / ms, **work,
         })
         del inputs
         torch.cuda.empty_cache()
     emit("ssd_times", kernel="ssd",
+         bound="max(bytes at 3.35 TB/s, 3 x flops at the 495 TFLOP/s TF32 peak)",
          timer="one CUDA event pair around back-to-back launches (40 // B, at least 2; "
                "plain: 1), per launch, median of 5 windows (plain: 3)",
          shapes=shapes, library_ms=None,

@@ -10,13 +10,15 @@ build takes seconds), for Hopper only:
 The per-source flags are `SOURCE_FLAGS`. `swe_step.cu` and `swe_solve.cu`
 are built with `-fmad=false`: every multiply and add stays separately
 rounded, as in the eager plain PyTorch version, which is what their
-bit-equality with that version rests on. `ssd.cu` lets the compiler contract multiply-adds: its
-products sum in another order than the plain version's, so they cannot be
-bit-equal anyway. `flash_attention_wgmma.cu` (wgmma, TMA, `setmaxnreg`:
-sm_90a only) needs no flag of its own and no library beyond the runtime:
-it looks up `cuTensorMapEncodeTiled` at run time through
-`cudaGetDriverEntryPoint`, so nothing links `-lcuda`, and it uses no
-CUTLASS header. Libraries land in `build/repro_torch_kernels/` at
+bit-equality with that version rests on. `ssd.cu` lets the compiler
+contract multiply-adds: its products sum in another order than the plain
+version's, so they cannot be bit-equal anyway. It is built with
+`-Xptxas -v`, and each build's compiler output (registers, spills) is kept
+beside its library as `lib<stem>_<hash>.log`. `flash_attention_wgmma.cu`
+(wgmma, TMA, `setmaxnreg`: sm_90a only) needs no flag of its own and no
+library beyond the runtime: it looks up `cuTensorMapEncodeTiled` at run
+time through `cudaGetDriverEntryPoint`, so nothing links `-lcuda`, and it
+uses no CUTLASS header. Libraries land in `build/repro_torch_kernels/` at
 the root of the checkout, named by a hash of the source and its flags, so an
 edited source is rebuilt and an unchanged one is reused. Each build writes a
 temporary file and renames it into place, so a cut build never leaves a
@@ -42,7 +44,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 #: flags of one source on top of NVCC_FLAGS, by stem
-SOURCE_FLAGS = {"swe_step": ("-fmad=false",), "swe_solve": ("-fmad=false",)}
+SOURCE_FLAGS = {"swe_step": ("-fmad=false",), "swe_solve": ("-fmad=false",),
+                "ssd": ("-Xptxas", "-v")}
 
 _lock = named_lock("kernels.build")
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -106,6 +109,7 @@ def build(stems=None) -> dict[str, Path]:
             tmp.unlink(missing_ok=True)
             continue
         os.replace(tmp, paths[s])
+        paths[s].with_suffix(".log").write_text(out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return paths

@@ -2,8 +2,11 @@
 `repro.kernels.ssd.ops.ssd` and `repro.kernels.ssd.ssd.ssd_kernel`).
 
 `ssd_chunk_scan` takes the kernel layout. A CUDA tensor goes to the
-hand-written Hopper kernel (`csrc/ssd.cu`) or the call raises; a CPU tensor
-goes to the plain version (`ref.ssd_chunked_ref`). There is no switch and no
+hand-written Hopper kernel (`csrc/ssd.cu`: its four products on the tensor
+cores, mma.sync in 3xTF32 with float32 sums, so float32 accuracy) or the
+call raises; a CPU tensor goes to the plain version
+(`ref.ssd_chunked_ref`). On every device N and P must be multiples of 8,
+as the kernel's m16n8k8 tiles need. There is no switch and no
 fallback. `ssd` adapts the model's layout to it, as the JAX package's
 adapter does. `ssd.launches` counts kernel launches, so a run can show that
 its path went through the kernel.
@@ -26,9 +29,12 @@ _fn = None
 
 
 def smem_bytes(N: int, P: int) -> int:
-    """Shared memory of one kernel block: C and B transposed, x, the state,
-    half a score tile and four [Q] vectors, in float32 (as `csrc/ssd.cu`)."""
-    return 4 * (2 * N * CHUNK + CHUNK * P + N * P + CHUNK // 2 * CHUNK + 4 * CHUNK)
+    """Shared memory of one kernel block, in float32 (as `csrc/ssd.cu`): C
+    and B [Q][N + 4], x [Q][P + 4], the transposed state [P][N + 4] (the
+    paddings keep the fragment loads free of bank conflicts), four [Q]
+    vectors and the cumulative sum's four warp sums. 205,840 B at
+    mamba2-1.3b's N = 128, P = 64."""
+    return 4 * (2 * CHUNK * (N + 4) + CHUNK * (P + 4) + P * (N + 4) + 4 * CHUNK + CHUNK // 32)
 
 
 def _kernel():
@@ -65,7 +71,7 @@ def ssd_chunk_scan(x, dt, Bm, Cm, A, init_state):
     """Chunked SSD scan in the kernel layout: ``x [B,H,S,P]``, ``dt [B,H,S]``
     (post-softplus), ``Bm, Cm [B,G,S,N]``, ``A [H]`` (negative),
     ``init_state [B,H,N,P]``, all float32 and contiguous, S a multiple of
-    128. Returns ``(y [B,H,S,P], final state [B,H,N,P])``."""
+    128, N and P multiples of 8. Returns ``(y [B,H,S,P], final state [B,H,N,P])``."""
     if not isinstance(x, torch.Tensor) or x.dim() != 4:
         raise ValueError("ssd: x must be a [B, H, S, P] tensor")
     Bsz, H, S, P = x.shape
@@ -82,12 +88,14 @@ def ssd_chunk_scan(x, dt, Bm, Cm, A, init_state):
         raise ValueError(f"ssd: {H} heads do not split into {G} groups")
     if S == 0 or S % CHUNK:
         raise ValueError(f"ssd: S={S} is not a positive multiple of {CHUNK}")
+    if N == 0 or N % 8 or P == 0 or P % 8:
+        raise ValueError(f"ssd: the kernel needs N and P divisible by 8, got N={N}, P={P}")
     if device.type == "cpu":
         return ssd_chunked_ref(x, dt, Bm, Cm, A, init_state)
     if device.type != "cuda":
         raise ValueError(f"ssd: no kernel for device {device}")
-    if N % 4 or P % 4:
-        raise ValueError(f"ssd: the kernel needs N and P divisible by 4, got N={N}, P={P}")
+    if P > 128:
+        raise ValueError(f"ssd: the kernel holds a row of y in one warp, P <= 128, got P={P}")
     if smem_bytes(N, P) > MAX_SMEM_BYTES:
         raise ValueError(f"ssd: N={N}, P={P} need {smem_bytes(N, P)} B of shared "
                          f"memory, more than a block's {MAX_SMEM_BYTES}")
@@ -99,7 +107,7 @@ def ssd_chunk_scan(x, dt, Bm, Cm, A, init_state):
     s_out = torch.empty_like(init_state)
     tensors = (x, dt, Bm, Cm, A, init_state, y, s_out)
     if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("ssd: the kernel reads float4s; every tensor must be 16-byte aligned")
+        raise ValueError("ssd: the kernel copies 16-byte pieces; every tensor must be 16-byte aligned")
     err = _kernel()(
         *(t.data_ptr() for t in tensors), Bsz, H, G, S, N, P,
         torch.cuda.current_stream().cuda_stream,

@@ -20,6 +20,7 @@ from repro.kernels.ssd.ssd import ssd_kernel as jax_ssd_kernel
 from repro.models import ssm as jax_ssm
 from repro_torch.configs import get_config
 from repro_torch.kernels.ssd import ops, ssd, ssd_chunk_scan, ssd_chunked_ref, ssd_ref
+from repro_torch.kernels.ssd import testing as ssd_testing
 from repro_torch.kernels.ssd.testing import assert_close, kernel_inputs
 from repro_torch.models import ssm
 
@@ -146,6 +147,12 @@ def test_wrapper_checks_its_inputs():
         ssd_chunk_scan(x, dt, Bm, Cm, A, s0.transpose(2, 3).contiguous().transpose(2, 3))
     with pytest.raises(ValueError, match="groups"):
         ssd_chunk_scan(x, dt, torch.cat([Bm] * 3, 1), torch.cat([Cm] * 3, 1), A, s0)
+    # the kernel's m16n8k8 tiles need N and P divisible by 8, on every device
+    with pytest.raises(ValueError, match="divisible by 8"):
+        ssd_chunk_scan(x, dt, Bm[..., :12].contiguous(), Cm[..., :12].contiguous(), A,
+                       s0[:, :, :12].contiguous())
+    with pytest.raises(ValueError, match="divisible by 8"):
+        ssd_chunk_scan(x[..., :20].contiguous(), dt, Bm, Cm, A, s0[..., :20].contiguous())
     # a tensor on a device that has no kernel raises instead of falling back
     meta = tuple(t.to("meta") for t in (x, dt, Bm, Cm, A, s0))
     with pytest.raises(ValueError, match="no kernel"):
@@ -153,7 +160,9 @@ def test_wrapper_checks_its_inputs():
 
 
 def test_kernel_shared_memory_fits_the_main_path():
-    # mamba2-1.3b's N = 128, P = 64 is the widest the kernel holds in one block
+    # mamba2-1.3b's N = 128, P = 64 is the widest the kernel holds in one
+    # block: the sum csrc/ssd.cu states
+    assert ops.smem_bytes(128, 64) == 205_840
     assert ops.smem_bytes(128, 64) <= ops.MAX_SMEM_BYTES
     assert ops.smem_bytes(128, 128) > ops.MAX_SMEM_BYTES
 
@@ -172,3 +181,49 @@ def test_kernel_check_sees_a_wrong_decay_or_mask():
     y_nodiag = want[0] - x * dt[..., None] * (Cm * Bm).sum(-1).repeat_interleave(8, 1)[..., None]
     with pytest.raises(AssertionError, match="relative error"):
         assert_close((y_nodiag, want[1]), want, "mask")
+
+
+#: (bit pattern in, bit pattern out) of cvt.rna.tf32.f32: round to nearest
+#: on the low 13 bits, ties away from zero
+TF32_PATTERNS = [
+    (0x3F800000, 0x3F800000),  # 1.0 is a TF32 value
+    (0x3F800FFF, 0x3F800000),  # just below the tie: down
+    (0x3F801000, 0x3F802000),  # 1 + 2^-11, a tie: away from zero
+    (0x3F803000, 0x3F804000),  # a tie above an odd mantissa: away, not to even
+    (0xBF801000, 0xBF802000),  # a negative tie: away from zero
+    (0xBF800FFF, 0xBF800000),  # a negative value below the tie
+    (0x3FFFF000, 0x40000000),  # 2 - 2^-12: the carry runs into the exponent
+    (0x00001000, 0x00002000),  # a subnormal tie
+    (0x7F800000, 0x7F800000),  # inf
+]
+
+
+@pytest.mark.parametrize("bits_in,bits_out", TF32_PATTERNS, ids=lambda b: f"{b:08x}")
+def test_tf32_rna_rounds_as_cvt_rna(bits_in, bits_out):
+    signed = bits_in - 2**32 if bits_in >= 2**31 else bits_in
+    x = torch.tensor([signed], dtype=torch.int32)
+    got = ssd_testing.tf32_rna(x.view(torch.float32)).view(torch.int32).item() & 0xFFFFFFFF
+    assert got == bits_out, f"{bits_in:08x} -> {got:08x}, expected {bits_out:08x}"
+
+
+#: the CASES shapes that run on the CPU in seconds, and one head block at
+#: mamba2-1.3b's widths (64 heads, N = 128, P = 64; S = 256, B = 1), from a
+#: zero and a non-zero state
+EMULATION_CASES = [*ssd_testing.CASES[:4], (1, 64, 1, 256, 64, 128, False),
+                   (1, 64, 1, 256, 64, 128, True)]
+
+
+@pytest.mark.parametrize("case", EMULATION_CASES, ids=ssd_testing.case_name)
+def test_3xtf32_emulation_meets_the_kernel_bound(case):
+    """The kernel's precision scheme on the CPU: all four products in 3xTF32
+    (`ssd_chunked_tf32`) stay within the kernel's REL_TOL of the plain
+    version, for y and the final state. One TF32 pass is printed beside it
+    (with -s) and not asserted."""
+    inputs = kernel_inputs(case, "cpu", seed=EMULATION_CASES.index(case))
+    want = ssd_chunked_ref(*inputs)
+    report = assert_close(ssd_testing.ssd_chunked_tf32(*inputs), want, "3xTF32")
+    one = ssd_testing.ssd_chunked_tf32(*inputs, split=False)
+    print(f"{ssd_testing.case_name(case)}: 3xTF32 y {report['y']['rel_err']:.3g}, state "
+          f"{report['state']['rel_err']:.3g}; one TF32 pass y "
+          f"{ssd_testing.rel_err(one[0], want[0]):.3g}, state "
+          f"{ssd_testing.rel_err(one[1], want[1]):.3g}")
