@@ -14,7 +14,14 @@ user calls:
   `EvaluationFabric(ModelBackend(TsunamiModel()))`, every wave (all its
   time steps and the buoy reduction) one launch of the SWE solve kernel;
   and the SWE step kernel on its own path, `solve_batch(step=swe_step)`,
-  one launch per time step;
+  one launch per time step; then the model's derivative surface: a fused
+  value-and-gradient, a JVP and an HVP wave of 16 lanes per level (wall,
+  busy share under the profiler, peak memory, no kernel launch: the
+  kernel is forward-only, derivative waves are PyTorch ops under autograd,
+  as the JAX package's are scan ops), the gradient-informed campaign
+  (`coarse_sampler="mala"`: coarse subchains on fused value-and-gradient
+  waves, fine waves on the solve kernel) and the Laplace preview on the
+  coarse level with both curvature modes;
 * the LM-as-UQ-model serving flow of `examples/serve_uq.py` on two
   full-width models from seeded random weights (bf16): mamba2-1.3b (48
   layers), every layer of every forward one launch of the SSD chunk-scan
@@ -464,25 +471,14 @@ def phase_profile(torch) -> dict:
     return {"device_busy_share": share}
 
 
-def phase_main_path(torch) -> dict:
+def phase_main_path(torch, dev) -> dict:
     from repro_torch.apps.tsunami import TsunamiModel
     from repro_torch.core.fabric import EvaluationFabric, ModelBackend
-    from repro_torch.kernels.swe.testing import SOURCE_BOX, sources
+    from repro_torch.kernels.swe.testing import sources
     from repro_torch.uq.mlda import ensemble_mlda
 
     model = TsunamiModel()
-    rng = np.random.default_rng(SEED)
-    data = np.asarray(model([list(TRUE_THETA)], {"level": 1})[0])
-    data = data + rng.standard_normal(4) * NOISE_SD * 0.5
-    (x_lo, x_hi), (a_lo, a_hi) = SOURCE_BOX
-
-    def logprior(theta):
-        x0, A = float(theta[0]), float(theta[1])
-        return 0.0 if x_lo <= x0 <= x_hi and a_lo <= A <= a_hi else -np.inf
-
-    def loglik(obs):
-        return float(-0.5 * np.sum(((np.asarray(obs) - data) / NOISE_SD) ** 2))
-
+    _, logprior, loglik, _ = tsunami_problem(torch, model, dev)
     K = 16
     x0s = sources(K, 11).astype(float)
     prop_cov = np.diag([8.0**2, 0.25**2])
@@ -526,6 +522,291 @@ def phase_main_path(torch) -> dict:
          posterior_mean=res.samples.reshape(-1, 2).mean(0).tolist(),
          backend=tel["backend"])
     return {"launches": launches}
+
+
+def tsunami_problem(torch, model, dev):
+    """The §4.3 inverse problem of the main paths: synthetic data from the
+    true source at the fine level, and its Gaussian log-likelihood, the
+    likelihood's gradient in the outputs (torch: it rides the fused
+    value-and-gradient wave) and the uniform prior."""
+    from repro_torch.kernels.swe.testing import SOURCE_BOX
+
+    rng = np.random.default_rng(SEED)
+    data = np.asarray(model([list(TRUE_THETA)], {"level": 1})[0])
+    data = data + rng.standard_normal(4) * NOISE_SD * 0.5
+    (x_lo, x_hi), (a_lo, a_hi) = SOURCE_BOX
+    data_t = torch.as_tensor(data, dtype=torch.float32, device=dev)
+    var_t = torch.as_tensor(NOISE_SD**2, dtype=torch.float32, device=dev)
+
+    def logprior(theta):
+        x0, A = float(theta[0]), float(theta[1])
+        return 0.0 if x_lo <= x0 <= x_hi and a_lo <= A <= a_hi else -np.inf
+
+    def loglik(obs):
+        return float(-0.5 * np.sum(((np.asarray(obs) - data) / NOISE_SD) ** 2))
+
+    def grad_loglik(y):
+        return -(y - data_t) / var_t
+
+    return data, logprior, loglik, grad_loglik
+
+
+#: time steps of a profiled derivative wave: a whole one traces ~10^6
+#: kernels, whose export alone takes minutes
+PROFILED_STEPS = 256
+
+
+def _profiled(torch, fn, wall: float, n_steps: int) -> dict:
+    """`fn()`, a derivative wave, under torch.profiler with its time loop cut
+    to its first `PROFILED_STEPS` steps (every step runs the same kernels
+    on the same shapes): the device's busy time a step (kernels, copies and
+    memsets, summed; one stream, so they never overlap), its share of the
+    cut wave's profiled wall, and its share of `wall`, the whole wave's
+    unprofiled wall, as busy a step x `n_steps` over `wall`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.apps import tsunami
+
+    level_grid = tsunami.level_grid
+    tsunami.level_grid = lambda n: (*level_grid(n)[:1], PROFILED_STEPS, *level_grid(n)[2:])
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+    finally:
+        tsunami.level_grid = level_grid
+    trace = ROOT / "build" / "chip_smoke_derivative_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    prof.export_chrome_trace(str(trace))
+    busy_us, n_kernels = 0.0, 0
+    for ev in json.loads(trace.read_text()).get("traceEvents", []):
+        if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and ev.get("ph") == "X":
+            busy_us += float(ev.get("dur", 0.0))
+            n_kernels += ev.get("cat") == "kernel"
+    trace.unlink()
+    if n_kernels == 0:
+        raise AssertionError("the profiler saw no device kernel in a derivative wave")
+    busy_per_step = busy_us / 1e6 / PROFILED_STEPS
+    return {"profiled_steps": PROFILED_STEPS, "profiled_wall_s": prof_wall,
+            "device_busy_s": busy_us / 1e6, "device_busy_ms_per_step": busy_per_step * 1e3,
+            "device_busy_share": busy_us / 1e6 / prof_wall,
+            "device_busy_share_unprofiled": busy_per_step * n_steps / wall,
+            "device_kernels_per_step": n_kernels / PROFILED_STEPS,
+            "trace_seconds": time.perf_counter() - t0}
+
+
+def _derivative_waves_vs_cpu(torch, config, thetas, senss, vecs, card: dict) -> dict:
+    """Hold the card's gradient, JVP and HVP rows `card` on (thetas, senss,
+    vecs) to `TsunamiModel(device="cpu")` on the same float32 inputs, the
+    HVP lane by lane against the float64 HVP (`derivative_errors`); -> the
+    errors and the CPU's wall."""
+    from repro_torch.apps import tsunami
+    from repro_torch.kernels.swe.testing import derivative_errors
+
+    t0 = time.perf_counter()
+    cpu = tsunami.TsunamiModel(device="cpu")
+    want = {"gradient": cpu.gradient_batch(thetas, senss, config),
+            "apply_jacobian": cpu.apply_jacobian_batch(thetas, vecs, config),
+            "apply_hessian": cpu.apply_hessian_batch(thetas, senss, vecs, config)}
+    level = config["level"]
+    f64 = [torch.as_tensor(a.astype(np.float32).astype(float)) for a in (thetas, senss, vecs)]
+    hvp64 = tsunami._hvp_batch(*f64, cpu.N_CELLS[level], level == 0).numpy()
+    errors = derivative_errors(card, want, hvp64)
+    return {"lanes": len(thetas), "errors": errors, "cpu_wall_s": time.perf_counter() - t0}
+
+
+def phase_derivative_waves(torch, dev, smi: str) -> dict:
+    """One fused value-and-gradient wave, one JVP wave and one HVP wave of
+    16 lanes at both published levels through `TsunamiModel`: each wave's
+    wall, its kernel launches (none: derivative waves run PyTorch ops under
+    autograd, as the JAX package's run its scan; the kernel is
+    forward-only) and peak device memory; then the same three waves again
+    under the profiler, for the device's busy time. Checks: the fused
+    wave's primal equals the evaluate wave (one `swe_solve` launch) bit for
+    bit; sens.(J v) == (J^T sens).v within the JAX package's bound
+    (tests/test_capabilities.py); every value finite; and at the coarse
+    level, the card's waves (each step a replayed CUDA graph) on two lanes
+    against the same model on the CPU (the eager step the JAX-parity tests
+    pin), within the float32 bounds of `kernels.swe.testing` (the fine
+    level's CPU waves would take minutes; tests/test_torch_gpu.py holds
+    both levels of the small hierarchy)."""
+    from repro_torch.apps import tsunami
+    from repro_torch.kernels.swe.testing import sources
+
+    class Warm(tsunami.TsunamiModel):
+        N_CELLS = {0: 16, 1: 16}
+
+    model = tsunami.TsunamiModel(device="cuda")
+    _, _, _, grad_loglik = tsunami_problem(torch, model, dev)
+    lanes = 16
+    thetas = sources(lanes, 11)
+    vecs = np.random.default_rng(SEED).standard_normal((lanes, 2))
+    warm = Warm(device="cuda")  # every code path once, at 16 cells
+    warm.value_and_gradient_batch(thetas[:2], grad_loglik)
+    warm.apply_hessian_batch(thetas[:2], np.ones((2, 4)), vecs[:2])
+    out = {}
+    for level, n_cells in enumerate(model.N_CELLS.values()):
+        c = {"level": level}
+        n_steps = tsunami.level_grid(n_cells)[1]
+        reset_launches()
+        ev = model.evaluate_batch(thetas, c)
+        if read_launches()["swe_solve"] != 1:
+            raise AssertionError(f"level {level}: the evaluate wave was not one swe_solve launch")
+        senss = None  # the HVP's: the likelihood's gradient at the fused wave's outputs
+        calls = {
+            "value_and_gradient": lambda: model.value_and_gradient_batch(thetas, grad_loglik, c),
+            "apply_jacobian": lambda: model.apply_jacobian_batch(thetas, vecs, c),
+            "apply_hessian": lambda: model.apply_hessian_batch(thetas, senss, vecs, c),
+        }
+        waves, results = {}, {}
+        for kind, call in calls.items():
+            reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = call()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            if sum(launches.values()) != 0:
+                raise AssertionError(f"level {level} {kind}: kernel launches {launches}")
+            for r in (res if isinstance(res, tuple) else (res,)):
+                if not np.isfinite(r).all():
+                    raise AssertionError(f"level {level} {kind}: non-finite values")
+            results[kind] = res
+            if kind == "value_and_gradient":
+                ys, gs = res
+                # the primal of the derivative wave IS the kernel's wave
+                np.testing.assert_array_equal(ys, ev, err_msg=f"level {level}: fused primal")
+                senss = (grad_loglik(torch.as_tensor(ys, dtype=torch.float32, device=dev))
+                         .cpu().numpy().astype(float))
+            waves[kind] = {"wall_s": wall, "ms_per_step": wall / n_steps * 1e3,
+                           "launches": launches,
+                           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        # VJP/JVP duality through the fused wave's gradient (sens = the
+        # likelihood's gradient at the wave's own outputs)
+        _, gs = results["value_and_gradient"]
+        jv = results["apply_jacobian"]
+        lhs, rhs = (jv * senss).sum(1), (gs * vecs).sum(1)
+        np.testing.assert_allclose(lhs, rhs, rtol=5e-2, atol=1e-4,
+                                   err_msg=f"level {level}: VJP/JVP duality")
+        # the device's busy time, one more wave of each kind under the profiler
+        for kind, call in calls.items():
+            waves[kind]["profile"] = _profiled(torch, call, waves[kind]["wall_s"], n_steps)
+        out[level] = {"n_cells": n_cells, "n_steps": n_steps, "lanes": lanes,
+                      "duality_max_rel": float(np.max(np.abs(lhs - rhs) / np.maximum(np.abs(rhs), 1e-30))),
+                      "primal_equals_evaluate": True, "waves": waves}
+        if level == 0:
+            out[level]["vs_cpu"] = _derivative_waves_vs_cpu(
+                torch, c, thetas[:2], senss[:2], vecs[:2],
+                {"gradient": gs[:2], "apply_jacobian": jv[:2],
+                 "apply_hessian": results["apply_hessian"][:2]})
+        emit("derivative_waves", level=level, **out[level], card=smi)
+    return out
+
+
+def phase_mala_main_path(torch, dev) -> dict:
+    """`ensemble_mlda(coarse_sampler="mala")` through
+    `EvaluationFabric(ModelBackend(TsunamiModel()))` with `main_path`'s
+    settings: every coarse subchain step one fused value-and-gradient wave
+    (PyTorch ops), every fine wave one `swe_solve` launch."""
+    from repro_torch.apps.tsunami import TsunamiModel
+    from repro_torch.core.fabric import EvaluationFabric, ModelBackend
+    from repro_torch.kernels.swe.testing import sources
+    from repro_torch.uq.mlda import ensemble_mlda
+
+    model = TsunamiModel()
+    _, logprior, loglik, grad_loglik = tsunami_problem(torch, model, dev)
+    K = 16
+    x0s = sources(K, 11).astype(float)
+    fabric = EvaluationFabric(ModelBackend(model), cache_size=8192)
+    try:
+        # every launch count starts at 0 right before the path
+        reset_launches()
+        stats0, waves0 = dict(model.stats), dict(model.waves)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ensemble_mlda(
+            None, x0s, n_samples=4, subsampling=[5], prop_cov=np.diag([4.0, 0.01]),
+            rng=np.random.default_rng(501), fabric=fabric,
+            level_configs=[{"level": 0}, {"level": 1}], loglik=loglik,
+            logprior=logprior, coarse_sampler="mala", mala_step=1.0,
+            grad_loglik=grad_loglik, grad_logprior=lambda th: np.zeros(2),
+        )
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+        tel = fabric.telemetry()
+    finally:
+        fabric.shutdown()
+    evaluate_waves = {lvl: model.waves[lvl] - waves0[lvl] for lvl in (0, 1)}
+    solves = {lvl: model.stats[lvl] - stats0[lvl] for lvl in (0, 1)}
+    pc = tel["per_capability"]
+    vg_waves = pc.get("value_and_gradient", {}).get("waves", 0)
+    if not np.isfinite(res.samples).all() or res.samples.shape != (K, 4, 2):
+        raise AssertionError(f"bad samples {res.samples.shape}")
+    if not all(0.0 < r <= 1.0 for r in res.accept_rates):
+        raise AssertionError(f"acceptance rates {res.accept_rates}")
+    if vg_waves < 1 or evaluate_waves[0] != 0:
+        raise AssertionError(f"level 0: {vg_waves} value-and-gradient waves and "
+                             f"{evaluate_waves[0]} evaluate waves, expected >= 1 and 0")
+    if counts["swe_solve"] != evaluate_waves[1] or evaluate_waves[1] < 1 or counts["swe_step"]:
+        raise AssertionError(f"kernel launches {counts}, expected one swe_solve per fine "
+                             f"evaluate wave ({evaluate_waves[1]}) and no swe_step")
+    emit("mala_main_path", chains=K, n_samples=4, subsampling=[5], coarse_sampler="mala",
+         n_waves=res.n_waves, evals_per_level=res.evals_per_level,
+         model_solves_per_level=solves, evaluate_waves_per_level=evaluate_waves,
+         value_and_gradient_waves=vg_waves, accept_rates=res.accept_rates, wall_s=wall,
+         swe_solve_launches=counts["swe_solve"], launches=counts,
+         posterior_mean=res.samples.reshape(-1, 2).mean(0).tolist(),
+         per_capability=pc)
+    return {"launches": counts["swe_solve"], "wall_s": wall}
+
+
+def phase_laplace_path(torch, dev) -> dict:
+    """`laplace_preview` on the coarse level with both curvature modes
+    (benchmarks/second_order.py's settings, 4 iterations): "full" rides the
+    HVP waves (reverse-over-forward), "gn" is the Jacobian-only control."""
+    from repro_torch.apps.tsunami import TsunamiModel
+    from repro_torch.core.fabric import EvaluationFabric, ModelBackend
+    from repro_torch.uq.inference import laplace_preview
+
+    model = TsunamiModel()
+    data, *_ = tsunami_problem(torch, model, dev)
+    out = {}
+    for curvature in ("gn", "full"):
+        with EvaluationFabric(ModelBackend(model), cache_size=0) as fab:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = laplace_preview(
+                fab, data, np.diag(NOISE_SD**2), TRUE_THETA + [5.0, -0.3],
+                np.diag([100.0, 0.25]), curvature=curvature, n_ensemble=4, n_iters=4,
+                rng=np.random.default_rng(0), config={"level": 0},
+            )
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            pc = fab.telemetry()["per_capability"]
+        if not np.isfinite(res.mean).all() or not np.isfinite(res.cov).all():
+            raise AssertionError(f"{curvature}: non-finite MAP or covariance")
+        if not np.allclose(res.cov, res.cov.T) or np.linalg.eigvalsh(res.cov).min() <= 0:
+            raise AssertionError(f"{curvature}: covariance not SPD: {res.cov}")
+        hessian_waves = pc.get("apply_hessian", {}).get("waves", 0)
+        if (hessian_waves > 0) != (curvature == "full"):
+            raise AssertionError(f"{curvature}: {hessian_waves} Hessian waves")
+        out[curvature] = {"wall_s": wall, "map": res.mean.tolist(),
+                          "posterior_sd": np.sqrt(np.diag(res.cov)).tolist(),
+                          "n_iters": res.n_iters, "waves": res.waves,
+                          "hessian_waves": hessian_waves,
+                          "value_grad_waves": pc["value_and_gradient"]["waves"],
+                          "jacobian_waves": pc["apply_jacobian"]["waves"]}
+    agreement = float(np.max(np.abs(np.asarray(out["full"]["map"]) - out["gn"]["map"])))
+    emit("laplace_path", level=0, n_ensemble=4, n_iters=4, **out,
+         map_agreement_gn_vs_full=agreement)
+    return out
 
 
 def ssd_work(B: int, H: int, G: int, S: int, P: int, N: int) -> dict:
@@ -1142,7 +1423,10 @@ def main() -> int:
     times = phase_times(torch, dev, probe["smi"])
     solves = phase_full_solves(torch, dev)
     phase_profile(torch)
-    main_path = phase_main_path(torch)
+    main_path = phase_main_path(torch, dev)
+    phase_derivative_waves(torch, dev, probe["smi"])
+    mala = phase_mala_main_path(torch, dev)
+    phase_laplace_path(torch, dev)
     ssd_check = phase_ssd_kernel_vs_plain(torch, dev)
     ssd_times = phase_ssd_times(torch, dev, probe["smi"])
     lm = run_lm_path(torch, SSM_ARCH)
@@ -1176,6 +1460,9 @@ def main() -> int:
         "replaces": "src/repro/kernels/swe/swe.py:54",
         "replaces_scan": "src/repro/apps/tsunami.py:172",
         "launches": main_path["launches"],
+        # the gradient-informed campaign's fine waves (its coarse waves are
+        # derivative waves, PyTorch ops: the kernel is forward-only)
+        "launches_mala_main_path": mala["launches"],
         "max_abs_err": check["solve_max_abs_err"],
         "ms": fine_wave["ms"],
         "plain_ms": fine_wave["plain_ms"],

@@ -7,8 +7,9 @@ forward pass. theta parameterizes a model perturbation:
     theta = (embedding_scale, logit_temperature)
     F(theta) = mean eval NLL on a fixed batch under the perturbed model
 
-The port advertises `evaluate` and `evaluate_batch` only: its gradient waits
-for `TorchModel` (ROADMAP queue 1, item 6).
+The port advertises `evaluate` and `evaluate_batch` only: its gradient is
+ROADMAP queue 1, item 13 (the `torch.func` machinery of `TorchModel` is in
+place).
 """
 from __future__ import annotations
 

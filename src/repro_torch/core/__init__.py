@@ -1,4 +1,4 @@
-from repro_torch.core.interface import Model  # noqa: F401
+from repro_torch.core.interface import Model, TorchModel  # noqa: F401
 from repro_torch.core.pool import ThreadedPool  # noqa: F401
 from repro_torch.core.fabric import (  # noqa: F401
     BudgetExhausted,

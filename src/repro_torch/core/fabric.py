@@ -1074,14 +1074,15 @@ class FabricRouter(FabricBackend):
             b.close()
 
 
-#: backend sources the port does not serve yet -> the ROADMAP item that
-#: ports them (queue 1); matched by type name, since the types themselves
-#: live only in the JAX package so far
+#: backend sources the port does not serve -> what to do instead (the
+#: ROADMAP item that ports them, queue 1); matched by type name, since the
+#: types themselves live only in the JAX package
 _UNPORTED_BACKENDS = {
     "str": "HTTPBackend over UM-Bridge URLs: ROADMAP queue 1, item 8 (wire)",
     "HTTPModel": "HTTPBackend over UM-Bridge URLs: ROADMAP queue 1, item 8 (wire)",
     "ModelPool": "SPMDBackend over a device pool: ROADMAP queue 1, item 4",
-    "JAXModel": "SPMDBackend over an AD-derived model: ROADMAP queue 1, item 6",
+    "JAXModel": "a JAX function; write it in PyTorch and wrap it in "
+                "repro_torch.core.interface.TorchModel",
 }
 
 
@@ -1106,6 +1107,9 @@ def as_backend(obj) -> FabricBackend:
     _refuse_unported(obj)
     if isinstance(obj, ThreadedPool):
         return ThreadedBackend(obj)
+    # a TorchModel lands here too: the JAX package serves its JAXModel
+    # through SPMDBackend(ModelPool(...)), whose port is ROADMAP queue 1,
+    # item 4; until then the model's own vmapped waves serve it in-process
     if isinstance(obj, Model):
         return ModelBackend(obj)
     if isinstance(obj, (list, tuple)):

@@ -13,10 +13,13 @@ server/client — reads instead of probing ad-hoc `supports_*` methods. UQ
 drivers negotiate against the descriptor: a gradient-based sampler refuses
 an evaluate-only backend up front instead of failing mid-wave.
 
-Models that implement no derivatives still get batched derivatives: the
-base class ships a finite-difference fallback with RELATIVE step sizing
-(h scales with |theta|), issued as one `evaluate_batch` wave. (The AD-derived
-model wrapper of the JAX package waits for its `torch.func` counterpart.)
+`TorchModel` lowers the entry bar further than the paper: the model expert
+writes ONE pure PyTorch function, and all eight operations (per-point and
+batched) derive from it through `torch.func` — in the paper each operation
+must be hand-implemented by the model server author. Models that cannot
+autodiff still get batched derivatives: the base class ships a
+finite-difference fallback with RELATIVE step sizing (h scales with
+|theta|), issued as one `evaluate_batch` wave.
 
 The list-of-lists parameter layout mirrors the UM-Bridge HTTP protocol: a
 model may take several input vectors (blocks); most UQ methods use one block.
@@ -31,9 +34,10 @@ from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass
-from typing import Callable, ClassVar
+from typing import Callable, ClassVar, Sequence
 
 import numpy as np
+import torch
 
 
 class UnsupportedCapability(RuntimeError):
@@ -153,6 +157,26 @@ def model_capabilities(model, config: dict | None = None) -> Capabilities:
 
 def _warn_deprecated(msg: str):
     warnings.warn(msg, DeprecationWarning, stacklevel=3)
+
+
+def sens_fn_traceable(sens_fn: Callable, m: int, dtype=torch.float32, device="cpu") -> bool:
+    """Can `sens_fn` ([m] output row -> [m] sensitivity row) run on `device`
+    tensors under `torch.func.vmap`, as a fused wave applies it? Probed on
+    fake tensors (no data, no FLOPs; real tensors it closes over take part
+    by shape, dtype and device), so fused-wave implementations decide the
+    fused-vs-two-wave route up front instead of inferring it from runtime
+    exceptions: a transient error inside a real dispatch must NOT
+    permanently blacklist a perfectly traceable sens_fn. A sens_fn that
+    converts its row to numpy is host-side."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    try:
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            row = torch.empty((1, m), dtype=dtype, device=device)
+            out = torch.func.vmap(sens_fn)(row)
+        return out.numel() == m
+    except Exception:  # noqa: BLE001 — any trace failure means "host-side"
+        return False
 
 
 class Model:
@@ -420,6 +444,150 @@ class Model:
         return np.asarray(rows)
 
 
+class TorchModel(Model):
+    """Wrap a pure PyTorch function f(theta [n]) -> out [m] as an UM-Bridge
+    model.
+
+    All eight operations (per-point and batched) derive from `f` through
+    `torch.func`: `vmap` for the batched forms, `vjp` for the gradient, `jvp`
+    for the Jacobian action, and the JVP of the VJP for the Hessian action.
+    `config_keys` lists config entries passed to `f` as keyword arguments
+    (`defaults` fills the ones a request leaves out), mirroring UM-Bridge
+    config dicts. Runs on `device` (default: the GPU; raises if there is
+    none) in float32 (`DTYPE`). Eager PyTorch keeps no trace cache, so a
+    wave runs at its own width, unpadded.
+    """
+
+    DTYPE = torch.float32
+
+    def __init__(
+        self,
+        fn: Callable,
+        n_inputs: int,
+        n_outputs: int,
+        name: str = "forward",
+        config_keys: Sequence[str] = (),
+        defaults: dict | None = None,
+        *,
+        device=None,
+    ):
+        from repro_torch.core.device import resolve_device
+
+        super().__init__(name)
+        self._fn = fn
+        self._n = int(n_inputs)
+        self._m = int(n_outputs)
+        self._config_keys = tuple(config_keys)
+        self._defaults = dict(defaults or {})
+        self.device = resolve_device(device)
+
+    # -- metadata -----------------------------------------------------------
+    def get_input_sizes(self, config=None) -> list[int]:
+        return [self._n]
+
+    def get_output_sizes(self, config=None) -> list[int]:
+        return [self._m]
+
+    def capabilities(self, config=None) -> Capabilities:
+        return Capabilities(
+            evaluate=True, gradient=True, apply_jacobian=True, apply_hessian=True,
+            evaluate_batch=True, gradient_batch=True,
+            apply_jacobian_batch=True, apply_hessian_batch=True,
+        )
+
+    # -- machinery ----------------------------------------------------------
+    def _cfg_fn(self, config: dict | None) -> Callable:
+        """theta -> out [m] with this request's config bound."""
+        merged = {**self._defaults, **(config or {})}
+        kw = {k: merged.get(k) for k in self._config_keys}
+        return lambda th: self._fn(th, **kw).reshape(self._m)
+
+    def _t(self, a, rows: bool = False) -> torch.Tensor:
+        a = np.atleast_2d(np.asarray(a, float)) if rows else np.asarray(a, float)
+        return torch.as_tensor(a, dtype=self.DTYPE, device=self.device)
+
+    @staticmethod
+    def _np(t: torch.Tensor) -> np.ndarray:
+        return t.detach().cpu().numpy()
+
+    def _grad_fn(self, f):
+        def one(theta, sens):  # sens^T J
+            return torch.func.vjp(f, theta)[1](sens)[0]
+        return one
+
+    def _jvp_fn(self, f):
+        def one(theta, vec):  # J vec
+            return torch.func.jvp(f, (theta,), (vec,))[1]
+        return one
+
+    def _hvp_fn(self, f):
+        def one(theta, sens, vec):  # d/de [J(theta + e vec)^T sens]
+            grad = self._grad_fn(f)
+            return torch.func.jvp(lambda th: grad(th, sens), (theta,), (vec,))[1]
+        return one
+
+    # -- operations ---------------------------------------------------------
+    def __call__(self, parameters, config=None):
+        out = self._cfg_fn(config)(self._t(parameters[0]))
+        return [self._np(out).ravel().tolist()]
+
+    def evaluate_batch(self, thetas, config=None) -> np.ndarray:
+        """[N, n] -> [N, m] as ONE vmapped program."""
+        return self._np(torch.func.vmap(self._cfg_fn(config))(self._t(thetas, True)))
+
+    def gradient(self, out_wrt, in_wrt, parameters, sens, config=None):
+        out = self._grad_fn(self._cfg_fn(config))(self._t(parameters[in_wrt]), self._t(sens))
+        return self._np(out).ravel().tolist()
+
+    def gradient_batch(self, thetas, senss, config=None) -> np.ndarray:
+        """[N, n] x [N, m] -> [N, n] as ONE vmapped VJP program."""
+        one = self._grad_fn(self._cfg_fn(config))
+        return self._np(torch.func.vmap(one)(self._t(thetas, True), self._t(senss, True)))
+
+    def apply_jacobian(self, out_wrt, in_wrt, parameters, vec, config=None):
+        out = self._jvp_fn(self._cfg_fn(config))(self._t(parameters[in_wrt]), self._t(vec))
+        return self._np(out).ravel().tolist()
+
+    def apply_jacobian_batch(self, thetas, vecs, config=None) -> np.ndarray:
+        """[N, n] x [N, n] -> [N, m] as ONE vmapped JVP program."""
+        one = self._jvp_fn(self._cfg_fn(config))
+        return self._np(torch.func.vmap(one)(self._t(thetas, True), self._t(vecs, True)))
+
+    def value_and_gradient_batch(self, thetas, sens_fn, config=None):
+        """Fused (ys, grads) in ONE vmapped program when `sens_fn` runs on
+        tensors under vmap (the VJP computes the primal for free); falls
+        back to the two-wave default otherwise. The route is probed
+        abstractly (`sens_fn_traceable`), so real dispatch errors propagate
+        instead of silently downgrading the fused path."""
+        if not sens_fn_traceable(sens_fn, self._m, self.DTYPE, self.device):
+            return super().value_and_gradient_batch(thetas, sens_fn, config)
+        f = self._cfg_fn(config)
+
+        def one(theta):
+            y, pull = torch.func.vjp(f, theta)
+            return y, pull(sens_fn(y).to(y))[0]
+
+        ys, grads = torch.func.vmap(one)(self._t(thetas, True))
+        return self._np(ys), self._np(grads)
+
+    def apply_hessian(self, out_wrt, in_wrt1, in_wrt2, parameters, sens, vec, config=None):
+        out = self._hvp_fn(self._cfg_fn(config))(
+            self._t(parameters[in_wrt1]), self._t(sens), self._t(vec)
+        )
+        return self._np(out).ravel().tolist()
+
+    def apply_hessian_batch(self, thetas, senss, vecs, config=None) -> np.ndarray:
+        """[N, n] x [N, m] x [N, n] -> [N, n] as ONE vmapped HVP program."""
+        one = self._hvp_fn(self._cfg_fn(config))
+        return self._np(torch.func.vmap(one)(
+            self._t(thetas, True), self._t(senss, True), self._t(vecs, True)
+        ))
+
+    @property
+    def raw_fn(self) -> Callable:
+        return self._fn
+
+
 def next_pow2(n: int) -> int:
     """Smallest power of two >= n (the batch-shape bucket boundary)."""
     return 1 if n <= 1 else 1 << (int(n) - 1).bit_length()
@@ -432,3 +600,13 @@ def pad_to_bucket(thetas: np.ndarray, bucket: int) -> tuple[np.ndarray, int]:
     if pad <= 0:
         return thetas, 0
     return np.concatenate([thetas, np.repeat(thetas[-1:], pad, 0)], 0), pad
+
+
+def as_torch_callable(model: Model, config: dict | None = None) -> Callable:
+    """Plain theta -> output callable view of any Model (numpy in/out)."""
+
+    def f(theta):
+        out = model([np.asarray(theta).ravel().tolist()], config)
+        return np.asarray(out[0])
+
+    return f

@@ -1,7 +1,8 @@
 """Inputs and the checks that hold the SWE kernels against their plain
 versions: the step kernel against `swe_step_ref`, the solve kernel against
-`swe_solve_ref`. `chip_smoke.py` and the port's tests both use them, so the
-card and the test suite run the same cases against the same bound.
+`swe_solve_ref`; and the float32 bounds of the tsunami derivative waves
+(`derivative_errors`). `chip_smoke.py` and the port's tests both use them,
+so the card and the test suite run the same cases against the same bound.
 
 The bound is bit equality. The kernel repeats the plain version's
 operations term by term and in the same order. It is compiled with
@@ -49,6 +50,23 @@ SOLVE_CASES = (*(f"solve_{k}" for k in SWE_KINDS),
                *(f"wave_{C}x{N}" for C, N in SOLVE_SHAPES))
 #: the §4.3 campaign's uniform prior box: x0 [km], amplitude [m]
 SOURCE_BOX = ((30.0, 150.0), (0.5, 4.0))
+#: float32 bound of a first-order derivative wave (gradient, JVP, the fused
+#: gradient) against the same wave computed another way, on the largest
+#: entry: two float32 solvers that round differently drift apart over the
+#: steps. Measured between the port and the JAX package (whose XLA scan
+#: contracts multiply-adds) over 278 / 556 steps: up to 3.8e-4 (gradient,
+#: JVP; 128 cells) and 1.25e-3 (the fused wave, whose sensitivity also
+#: reads the drifted heights); 5e-3 is 4x that
+GRAD_RTOL32 = 5e-3
+#: A float32 HVP is not that close to the exact one: a float32 rounding can
+#: move the step at which a buoy's running max is attained, and with it the
+#: second derivative. Measured against the float64 HVP (which the port and
+#: the JAX package agree on to 1e-14): up to 8.1e-2 relative to the largest
+#: entry in both packages, lane by lane; in one lane the JAX package is
+#: 4.2e-2 off where the port is 3e-7 off. So each lane of a float32 HVP is
+#: held to the float64 HVP within twice the other float32 HVP's error in
+#: that lane, plus this
+HVP32_FLOOR = 1e-5
 
 
 def swe_state(kind: str, C: int = 48, N: int = 32):
@@ -182,3 +200,34 @@ def assert_solve_equal(got: tuple, want: tuple, what: str) -> dict:
                 f"{what}, {key}: the kernel differs from the plain version: {report[key]}"
             )
     return report
+
+
+def derivative_errors(got: dict, want: dict, hvp64: np.ndarray) -> dict:
+    """Hold float32 derivative waves `got` to `want`, the same waves on the
+    same inputs computed another way, both {op: [N, .] array}: every
+    first-order op ("gradient", "apply_jacobian", "value_and_gradient",
+    whichever `want` has) within GRAD_RTOL32 of its largest entry, and each
+    lane of "apply_hessian" to `hvp64`, the float64 HVP, within twice
+    `want`'s own error in that lane plus HVP32_FLOOR. Returns the errors
+    and raises AssertionError, naming the op, if one is out of bounds."""
+    errors = {}
+    for op in ("gradient", "apply_jacobian", "value_and_gradient"):
+        if op not in want:
+            continue
+        g, w = np.asarray(got[op], float), np.asarray(want[op], float)
+        if g.shape != w.shape:
+            raise AssertionError(f"{op}: shape {g.shape}, expected {w.shape}")
+        err = float(np.max(np.abs(g - w)) / np.max(np.abs(w)))
+        errors[op] = err
+        if not err <= GRAD_RTOL32:
+            raise AssertionError(f"{op}: error {err:.3g} of the largest entry "
+                                 f"(bound {GRAD_RTOL32})")
+    scale = np.max(np.abs(hvp64))
+    e_got = np.max(np.abs(np.asarray(got["apply_hessian"]) - hvp64), axis=1) / scale
+    e_want = np.max(np.abs(np.asarray(want["apply_hessian"]) - hvp64), axis=1) / scale
+    errors["apply_hessian_vs_float64"] = e_got.tolist()
+    errors["apply_hessian_reference_vs_float64"] = e_want.tolist()
+    if not np.all(e_got <= 2 * e_want + HVP32_FLOOR):
+        raise AssertionError(f"apply_hessian: lane errors {e_got} vs the float64 HVP, "
+                             f"bound 2 x {e_want} + {HVP32_FLOOR}")
+    return errors

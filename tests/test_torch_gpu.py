@@ -9,17 +9,25 @@ main-path shape. Flash attention runs bf16 on the tensor-core kernel and
 float32 on the CUDA-core kernel (the per-kernel launch counts show which),
 through strides at the model's layout, and inside reduced qwen3-0.6b
 forwards in float32 and in bf16; its check rejects the tensor-core
-kernel's output against a 1%-off scale or a dropped diagonal.
+kernel's output against a 1%-off scale or a dropped diagonal. The tsunami
+derivative waves (PyTorch ops, no kernel, each step a replayed CUDA graph)
+compute the kernel wave's values bit for bit and a finite HVP, equal the
+eager loop bit for bit, agree with the same waves on the CPU within the
+float32 bounds of `kernels.swe.testing`, and survive evaluate waves run
+from another thread while their graphs are captured.
 Every test here is marked `gpu` and skips without a CUDA device. The file imports neither JAX nor the JAX package, so it also
 runs on a GPU machine that has no JAX:
 
     PYTHONPATH=src python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
 
 from _torch_parity import cuda_or_skip
+from repro_torch.apps import tsunami
 from repro_torch.apps.tsunami import level_grid, solve_batch
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import flash_attention
@@ -43,6 +51,7 @@ from repro_torch.kernels.swe.testing import (
     assert_solve_equal,
     assert_step_equal,
     case_inputs,
+    derivative_errors,
     solve_case_inputs,
     sources,
 )
@@ -268,3 +277,127 @@ def test_reduced_qwen3_bf16_forward_runs_the_wgmma_kernel():
         **before, "flash_attention_wgmma": before["flash_attention_wgmma"] + cfg.n_layers}
     want = nll(cfg.replace(attn_impl="plain"))
     assert abs(got / want - 1.0) <= 1e-3, (got, want)
+
+
+@pytest.mark.gpu
+def test_fused_wave_primal_equals_the_kernel_wave_on_cuda():
+    """A coarse 16-lane fused value-and-gradient wave (PyTorch ops under
+    autograd, no kernel launch) computes the evaluate wave's values (one
+    launch of the solve kernel) bit for bit, and a finite gradient."""
+    from repro_torch.apps.tsunami import TsunamiModel
+
+    dev = cuda_or_skip()
+    model = TsunamiModel(device=dev)
+    thetas = sources(16, 11)
+    solves = swe_solve.launches
+    ev = model.evaluate_batch(thetas, {"level": 0})
+    assert swe_solve.launches == solves + 1
+    data = torch.as_tensor(ev[0] + 0.1, dtype=torch.float32, device=dev)
+    ys, gs = model.value_and_gradient_batch(thetas, lambda y: -(y - data), {"level": 0})
+    assert swe_solve.launches == solves + 1 and model.waves[0] == 1
+    np.testing.assert_array_equal(ys, ev)
+    assert gs.shape == (16, 2) and np.isfinite(gs).all()
+
+
+@pytest.mark.gpu
+def test_hvp_wave_is_finite_on_cuda():
+    from repro_torch.apps.tsunami import TsunamiModel
+
+    dev = cuda_or_skip()
+    model = TsunamiModel(device=dev)
+    rng = np.random.default_rng(0)
+    hv = model.apply_hessian_batch(sources(4, 11), rng.normal(size=(4, 4)),
+                                   rng.normal(size=(4, 2)), {"level": 0})
+    assert hv.shape == (4, 2) and np.isfinite(hv).all() and np.abs(hv).max() > 0
+
+
+class _SmallTsunami(tsunami.TsunamiModel):
+    N_CELLS = {0: 64, 1: 128}
+
+
+def _derivative_waves(model, thetas, senss, vecs, level):
+    """The model's gradient, JVP, HVP and fused-gradient waves, by op."""
+    c = {"level": level}
+    data = model.evaluate_batch(thetas[:1], c)[0] + 0.1
+    data_t = torch.as_tensor(data, dtype=torch.float32, device=model.device)
+    return {
+        "gradient": model.gradient_batch(thetas, senss, c),
+        "apply_jacobian": model.apply_jacobian_batch(thetas, vecs, c),
+        "apply_hessian": model.apply_hessian_batch(thetas, senss, vecs, c),
+        "value_and_gradient": model.value_and_gradient_batch(
+            thetas, lambda y: -(y - data_t), c)[1],
+    }
+
+
+def _wave_inputs(lanes):
+    rng = np.random.default_rng(3)
+    return sources(lanes, 11), rng.normal(size=(lanes, 4)), rng.normal(size=(lanes, 2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("level", [0, 1])
+def test_derivative_waves_on_cuda_match_the_cpu(level):
+    """The card's waves step through captured CUDA graphs, the CPU's run the
+    same step eagerly (the path the JAX-parity tests pin): on the same
+    float32 inputs they agree within the float32 bounds, the HVP lane by
+    lane against the float64 HVP."""
+    dev = cuda_or_skip()
+    thetas, senss, vecs = _wave_inputs(5)
+    got = _derivative_waves(_SmallTsunami(device=dev), thetas, senss, vecs, level)
+    want = _derivative_waves(_SmallTsunami(device="cpu"), thetas, senss, vecs, level)
+    f64 = [torch.as_tensor(a.astype(np.float32).astype(float)) for a in (thetas, senss, vecs)]
+    hvp64 = tsunami._hvp_batch(*f64, _SmallTsunami.N_CELLS[level], level == 0).numpy()
+    derivative_errors(got, want, hvp64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("level", [0, 1])
+def test_captured_sweeps_equal_the_eager_loop_on_cuda(monkeypatch, level):
+    """Replaying one captured graph a step computes what running the step's
+    ops eagerly computes, bit for bit, in every derivative wave."""
+    dev = cuda_or_skip()
+    thetas, senss, vecs = _wave_inputs(4)
+    model = _SmallTsunami(device=dev)
+    graphed = _derivative_waves(model, thetas, senss, vecs, level)
+
+    def eager(body, n, mutated):
+        for _ in range(n):
+            body()
+
+    monkeypatch.setattr(tsunami, "_replay", eager)
+    for op, want in _derivative_waves(model, thetas, senss, vecs, level).items():
+        np.testing.assert_array_equal(graphed[op], want, err_msg=op)
+
+
+@pytest.mark.gpu
+def test_evaluate_waves_from_another_thread_during_a_derivative_wave():
+    """The fabric runs evaluate waves (a synchronous copy to the card, a
+    kernel launch) from its collector thread while a caller thread runs a
+    derivative wave, whose step graphs are captured meanwhile: neither
+    breaks the other, and both compute what they compute alone."""
+    dev = cuda_or_skip()
+    model = tsunami.TsunamiModel(device=dev)
+    thetas, senss, vecs = _wave_inputs(16)
+    alone = model.apply_hessian_batch(thetas, senss, vecs)
+    evaluated = model.evaluate_batch(thetas)
+    stop, ys, errors = threading.Event(), [], []
+
+    def evaluate_meanwhile():
+        try:
+            while not stop.is_set():
+                ys.append(model.evaluate_batch(thetas))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    worker = threading.Thread(target=evaluate_meanwhile)
+    worker.start()
+    try:
+        hv = model.apply_hessian_batch(thetas, senss, vecs)
+    finally:
+        stop.set()
+        worker.join()
+    assert not errors, errors
+    assert len(ys) >= 10
+    np.testing.assert_array_equal(hv, alone)
+    for y in ys:
+        np.testing.assert_array_equal(y, evaluated)

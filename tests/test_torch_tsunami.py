@@ -1,6 +1,7 @@
 """PyTorch port: the tsunami forward path against the JAX package on the
 CPU — bathymetry, the lockstep solver at both published levels, and the
-model's device and capability contract."""
+model's device and capability contract (its derivative surface:
+`test_torch_tsunami_grad.py`)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -71,11 +72,16 @@ def test_evaluate_batch_pads_trims_and_point_call(monkeypatch):
     assert m.waves == {0: 2, 1: 0}
 
 
-def test_model_advertises_only_evaluate():
+def test_model_advertises_all_eight():
     m = tsunami.TsunamiModel(device="cpu")
     assert m.device == torch.device("cpu")
-    assert m.capabilities() == Capabilities(evaluate=True, evaluate_batch=True)
-    assert not m.capabilities().op_supported("gradient")
+    assert m.capabilities() == Capabilities(
+        evaluate=True, evaluate_batch=True, gradient=True, gradient_batch=True,
+        apply_jacobian=True, apply_jacobian_batch=True,
+        apply_hessian=True, apply_hessian_batch=True,
+    )
+    for op in Capabilities.OPS:
+        assert m.capabilities().batched(op)
 
 
 def test_default_device_is_the_gpu_and_never_falls_back(monkeypatch):
