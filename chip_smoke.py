@@ -21,7 +21,13 @@ user calls:
   as the JAX package's are scan ops), the gradient-informed campaign
   (`coarse_sampler="mala"`: coarse subchains on fused value-and-gradient
   waves, fine waves on the solve kernel) and the Laplace preview on the
-  coarse level with both curvature modes;
+  coarse level with both curvature modes; then the GP level of the
+  hierarchy (`gp_level`: a 128-point Sobol' design solved as one coarse
+  wave, four GPs fitted on the card), the paper's three-level ensemble
+  MLDA over GP, smoothed and fully resolved levels through a
+  `MultilevelModel` (`three_level_path`), and three-stage delayed
+  acceptance behind a GP screen trained from the fabric's own coarse
+  waves, against the blind run (`surrogate_da_path`);
 * the LM-as-UQ-model serving flow of `examples/serve_uq.py` on two
   full-width models from seeded random weights (bf16): mamba2-1.3b (48
   layers), every layer of every forward one launch of the SSD chunk-scan
@@ -556,29 +562,19 @@ def tsunami_problem(torch, model, dev):
 PROFILED_STEPS = 256
 
 
-def _profiled(torch, fn, wall: float, n_steps: int) -> dict:
-    """`fn()`, a derivative wave, under torch.profiler with its time loop cut
-    to its first `PROFILED_STEPS` steps (every step runs the same kernels
-    on the same shapes): the device's busy time a step (kernels, copies and
-    memsets, summed; one stream, so they never overlap), its share of the
-    cut wave's profiled wall, and its share of `wall`, the whole wave's
-    unprofiled wall, as busy a step x `n_steps` over `wall`."""
+def _device_busy(torch, fn, what: str) -> dict:
+    """`fn()` under torch.profiler: its profiled wall, and the device's busy
+    time (kernels, copies and memsets, summed; one stream, so they never
+    overlap) and kernel count from the exported trace."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.apps import tsunami
-
-    level_grid = tsunami.level_grid
-    tsunami.level_grid = lambda n: (*level_grid(n)[:1], PROFILED_STEPS, *level_grid(n)[2:])
-    try:
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            prof_wall = time.perf_counter() - t0
-    finally:
-        tsunami.level_grid = level_grid
-    trace = ROOT / "build" / "chip_smoke_derivative_trace.json"
+        prof_wall = time.perf_counter() - t0
+    trace = ROOT / "build" / "chip_smoke_trace.json"
     trace.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     prof.export_chrome_trace(str(trace))
@@ -589,14 +585,32 @@ def _profiled(torch, fn, wall: float, n_steps: int) -> dict:
             n_kernels += ev.get("cat") == "kernel"
     trace.unlink()
     if n_kernels == 0:
-        raise AssertionError("the profiler saw no device kernel in a derivative wave")
-    busy_per_step = busy_us / 1e6 / PROFILED_STEPS
-    return {"profiled_steps": PROFILED_STEPS, "profiled_wall_s": prof_wall,
-            "device_busy_s": busy_us / 1e6, "device_busy_ms_per_step": busy_per_step * 1e3,
-            "device_busy_share": busy_us / 1e6 / prof_wall,
+        raise AssertionError(f"the profiler saw no device kernel in {what}")
+    return {"profiled_wall_s": prof_wall, "device_busy_s": busy_us / 1e6,
+            "kernels": n_kernels, "trace_seconds": time.perf_counter() - t0}
+
+
+def _profiled(torch, fn, wall: float, n_steps: int) -> dict:
+    """`fn()`, a derivative wave, under torch.profiler with its time loop cut
+    to its first `PROFILED_STEPS` steps (every step runs the same kernels
+    on the same shapes): the device's busy time a step, its share of the
+    cut wave's profiled wall, and its share of `wall`, the whole wave's
+    unprofiled wall, as busy a step x `n_steps` over `wall`."""
+    from repro_torch.apps import tsunami
+
+    level_grid = tsunami.level_grid
+    tsunami.level_grid = lambda n: (*level_grid(n)[:1], PROFILED_STEPS, *level_grid(n)[2:])
+    try:
+        p = _device_busy(torch, fn, "a derivative wave")
+    finally:
+        tsunami.level_grid = level_grid
+    busy_per_step = p["device_busy_s"] / PROFILED_STEPS
+    return {"profiled_steps": PROFILED_STEPS, "profiled_wall_s": p["profiled_wall_s"],
+            "device_busy_s": p["device_busy_s"], "device_busy_ms_per_step": busy_per_step * 1e3,
+            "device_busy_share": p["device_busy_s"] / p["profiled_wall_s"],
             "device_busy_share_unprofiled": busy_per_step * n_steps / wall,
-            "device_kernels_per_step": n_kernels / PROFILED_STEPS,
-            "trace_seconds": time.perf_counter() - t0}
+            "device_kernels_per_step": p["kernels"] / PROFILED_STEPS,
+            "trace_seconds": p["trace_seconds"]}
 
 
 def _derivative_waves_vs_cpu(torch, config, thetas, senss, vecs, card: dict) -> dict:
@@ -807,6 +821,305 @@ def phase_laplace_path(torch, dev) -> dict:
     emit("laplace_path", level=0, n_ensemble=4, n_iters=4, **out,
          map_agreement_gn_vs_full=agreement)
     return out
+
+
+# the GP level of the §4.3 hierarchy (benchmarks/mlda_tsunami.py:131-190):
+# a Sobol' design of the coarse level and one GP per observable
+GP_TRAIN = 128
+GP_ITERS = 250
+GP_TEST = 64  # fresh Sobol' points (skip=GP_TRAIN) the GP is scored on
+#: bound on a card-fitted GP's predictive mean against the same fit on the
+#: CPU, in units of y's standard deviation: `tests/_torch_parity.py::FIT_TOL`,
+#: the bound the port's fits are held to against the JAX package's
+GP_FIT_TOL = 2e-3
+L0, L1 = {"level": 0}, {"level": 1}
+
+
+def gp_design(n: int, skip: int = 0) -> np.ndarray:
+    """[n, 2] points of the Sobol' sequence scrambled with seed `SEED`, over
+    the prior box: the GP level's training design (`skip=0`), as
+    benchmarks/mlda_tsunami.py builds it."""
+    from repro_torch.kernels.swe.testing import SOURCE_BOX
+    from repro_torch.uq.qmc import sobol
+
+    u = sobol(n, 2, scramble_seed=SEED, skip=skip)
+    (x_lo, x_hi), (a_lo, a_hi) = SOURCE_BOX
+    return np.stack([x_lo + u[:, 0] * (x_hi - x_lo), a_lo + u[:, 1] * (a_hi - a_lo)], axis=1)
+
+
+def gp_outputs(gps):
+    """The GP level as a batched model, [K, 2] -> [K, 4]: one `predict` per
+    GP for all K points (the reference benchmark predicts point by point;
+    tests/test_torch_hierarchy.py shows the two give the same values)."""
+    return lambda X: np.stack([gp.predict(X) for gp in gps], axis=1)
+
+
+def three_level_logposts(gps, ml, loglik, logprior) -> list:
+    """The paper's three levels as batched log-posteriors, coarsest first:
+    the GP emulator, then the smoothed and the fully resolved SWE through
+    the `MultilevelModel` `ml` (and so through its fabric)."""
+    from repro_torch.uq.mcmc import batched_logpost
+
+    pde = [batched_logpost(lambda X, lvl=lvl: ml.evaluate_batch(lvl, X), loglik, logprior)
+           for lvl in range(ml.n_levels)]
+    return [batched_logpost(gp_outputs(gps), loglik, logprior), *pde]
+
+
+def phase_gp_level(torch, dev) -> dict:
+    """The offline GP level: the 128-point design solved as ONE coarse wave
+    (one `swe_solve` launch; the reference solves it point by point, to the
+    same values), four GPs fitted on the card (250 Adam steps each, one host
+    sync a step), their `predict` walls, their error against the coarse
+    model on 64 fresh Sobol' points, and one fit held to the same fit on
+    the CPU."""
+    from repro_torch.apps.tsunami import TsunamiModel
+    from repro_torch.uq.gp import GP
+
+    model = TsunamiModel()
+    X = gp_design(GP_TRAIN)
+    reset_launches()
+    waves0 = dict(model.waves)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Y = model.evaluate_batch(X, L0)
+    torch.cuda.synchronize()
+    design_wall = time.perf_counter() - t0
+    counts = read_launches()
+    if Y.shape != (GP_TRAIN, 4) or not np.isfinite(Y).all():
+        raise AssertionError(f"design wave: shape {Y.shape}, finite {np.isfinite(Y).all()}")
+    if counts["swe_solve"] != 1 or counts["swe_step"] or model.waves[0] - waves0[0] != 1:
+        raise AssertionError(f"the design is one coarse wave and one swe_solve launch: {counts}")
+    gps, fits = [], []
+    for j in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gp = GP.fit(X, Y[:, j], n_iters=GP_ITERS, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if gp.device.type != "cuda" or not (gp._Xt.is_cuda and gp._ls_t.is_cuda):
+            raise AssertionError(f"GP {j} is not on the card: {gp.device}")
+        gps.append(gp)
+        fits.append({"output": j, "wall_s": wall, "steps": gp.fit_steps,
+                     "ms_per_step": 1e3 * wall / max(gp.fit_steps, 1),
+                     "log_params": gp.log_params.tolist()})
+    # one 50-step fit under the profiler: the device's share of a step
+    prof = _device_busy(torch, lambda: GP.fit(X, Y[:, 0], n_iters=50, device=dev),
+                        "a GP fit")
+    profile = {"steps": 50, "profiled_wall_s": prof["profiled_wall_s"],
+               "device_busy_ms_per_step": prof["device_busy_s"] / 50 * 1e3,
+               "device_busy_share": prof["device_busy_s"] / prof["profiled_wall_s"],
+               "kernels_per_step": prof["kernels"] / 50}
+    predict = {}
+    for Q in (16, 256):
+        q = gp_design(Q, skip=GP_TRAIN + GP_TEST)
+        for name, fn in (("one_gp", lambda: gps[0].predict(q)),
+                         ("one_gp_with_var", lambda: gps[0].predict(q, return_var=True)),
+                         ("four_gps", lambda: gp_outputs(gps)(q))):
+            fn()
+            walls = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                fn()
+                walls.append(time.perf_counter() - t0)
+            predict[f"{name}_{Q}_ms"] = 1e3 * statistics.median(walls)
+    X_test = gp_design(GP_TEST, skip=GP_TRAIN)
+    Y_test = model.evaluate_batch(X_test, L0)
+    pred = gp_outputs(gps)(X_test)
+    arrival = np.abs(pred[:, [0, 2]] - Y_test[:, [0, 2]])
+    height = np.abs(pred[:, [1, 3]] - Y_test[:, [1, 3]]) / np.abs(Y_test[:, [1, 3]])
+    height_m = np.abs(pred[:, [1, 3]] - Y_test[:, [1, 3]])
+    if not np.isfinite(pred).all():
+        raise AssertionError("the GP level predicted non-finite observables")
+    # a useful level 0 emulates the coarse level within the data's noise
+    rms = np.sqrt(np.mean(np.stack([arrival, height_m]) ** 2, axis=(1, 2)))
+    if not (rms < NOISE_SD[:2]).all():
+        raise AssertionError(f"GP rms error {rms} (arrival min, height m) exceeds the "
+                             f"data noise {NOISE_SD[:2]}")
+    # the card's fit against the same fit on the CPU
+    t0 = time.perf_counter()
+    cpu_gp = GP.fit(X, Y[:, 0], n_iters=GP_ITERS, device="cpu")
+    cpu_fit_wall = time.perf_counter() - t0
+    vs_cpu = float(np.max(np.abs(gps[0].predict(X_test) - cpu_gp.predict(X_test)))
+                   / Y[:, 0].std())
+    if vs_cpu > GP_FIT_TOL:
+        raise AssertionError(f"card fit vs CPU fit: {vs_cpu} y sd > {GP_FIT_TOL}")
+    emit("gp_level", n_train=GP_TRAIN, n_iters=GP_ITERS, design_wave_wall_s=design_wall,
+         design_launches=counts, fits=fits, fit_profile=profile, predict=predict,
+         error_vs_coarse={"n_points": GP_TEST,
+                          "arrival_min_max": arrival.max(0).tolist(),
+                          "arrival_min_rms": np.sqrt((arrival**2).mean(0)).tolist(),
+                          "height_rel_max": height.max(0).tolist(),
+                          "height_rel_rms": np.sqrt((height**2).mean(0)).tolist(),
+                          "height_m_rms": np.sqrt((height_m**2).mean(0)).tolist()},
+         output_0_vs_cpu_fit_y_sd=vs_cpu, cpu_fit_wall_s=cpu_fit_wall,
+         cpu_fit_steps=cpu_gp.fit_steps)
+    return {"gps": gps, "launches": counts["swe_solve"]}
+
+
+def phase_three_level_path(torch, dev, gps) -> dict:
+    """The paper's three-level ensemble MLDA (examples/mlda_inversion.py's
+    hierarchy: GP <- smoothed <- fully resolved, subsampling [10, 2]), K =
+    16 chains: the GP level predicts each step's points in one `predict`
+    per GP; the PDE levels go through one `EvaluationFabric` with a
+    `MultilevelModel` bound to it, every wave one `swe_solve` launch."""
+    from repro_torch.apps.tsunami import TsunamiModel
+    from repro_torch.core.fabric import EvaluationFabric, ModelBackend
+    from repro_torch.core.hierarchy import MultilevelModel
+    from repro_torch.kernels.swe.testing import sources
+    from repro_torch.uq.mlda import ensemble_mlda
+
+    model = TsunamiModel()
+    _, logprior, loglik, _ = tsunami_problem(torch, model, dev)
+    K = 16
+    fabric = EvaluationFabric(ModelBackend(model), cache_size=8192)
+    try:
+        ml = MultilevelModel(fabric=fabric, configs=[L0, L1])
+        lps = three_level_logposts(gps, ml, loglik, logprior)
+        reset_launches()
+        waves0 = dict(model.waves)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ensemble_mlda(lps, sources(K, 11).astype(float), n_samples=4,
+                            subsampling=[10, 2], prop_cov=np.diag([8.0**2, 0.25**2]),
+                            rng=np.random.default_rng(501))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+        report = ml.report()
+        tel = fabric.telemetry()
+    finally:
+        fabric.shutdown()
+    waves = {lvl: model.waves[lvl] - waves0[lvl] for lvl in (0, 1)}
+    if not np.isfinite(res.samples).all() or res.samples.shape != (K, 4, 2):
+        raise AssertionError(f"bad samples {res.samples.shape}")
+    if not all(0.0 < r <= 1.0 for r in res.accept_rates):
+        raise AssertionError(f"acceptance rates {res.accept_rates}")
+    if min(waves.values()) <= 0 or sum(waves.values()) != tel["backend"]["native_batches"]:
+        raise AssertionError(f"model waves per level {waves}, backend {tel['backend']}")
+    if counts["swe_solve"] != sum(waves.values()) or counts["swe_step"]:
+        raise AssertionError(f"kernel launches {counts}, expected {sum(waves.values())} of "
+                             f"swe_solve and none of swe_step")
+    if report["counts"] != [lp.points_evaluated for lp in lps[1:]]:
+        raise AssertionError(f"MultilevelModel counts {report['counts']}")
+    emit("three_level_path", chains=K, n_samples=4, subsampling=[10, 2], wall_s=wall,
+         n_waves=res.n_waves, evals_per_level=res.evals_per_level,
+         gp_level_points=lps[0].points_evaluated, model_waves_per_level=waves,
+         multilevel_report=report, accept_rates=res.accept_rates,
+         swe_solve_launches=counts["swe_solve"], launches=counts,
+         posterior_mean=res.samples.reshape(-1, 2).mean(0).tolist(), backend=tel["backend"])
+    return {"launches": counts["swe_solve"]}
+
+
+def _pooled_min_ess(samples: np.ndarray) -> float:
+    """Per-chain ESS summed over chains, the least over dimensions
+    (benchmarks/grad_mcmc.py)."""
+    from repro_torch.uq.mcmc import effective_sample_size
+
+    K, _, d = samples.shape
+    return float(min(sum(effective_sample_size(samples[k, :, j]) for k in range(K))
+                     for j in range(d)))
+
+
+def phase_surrogate_da_path(torch, dev) -> dict:
+    """benchmarks/surrogate_da.py's quick run at the published widths: 8
+    chains, 40 lockstep RWM warm-up steps on the coarse level, then two-level
+    `ensemble_mlda` with subsampling 5 for 40 fine steps, once blind and once
+    behind a GP screen (`SurrogateScreen.from_fabric`, on the card) trained
+    by the warm-up's own coarse waves and frozen before the measured run."""
+    from repro_torch.apps.tsunami import TsunamiModel
+    from repro_torch.core.fabric import EvaluationFabric, ModelBackend
+    from repro_torch.kernels.swe.testing import SOURCE_BOX
+    from repro_torch.uq.mcmc import batched_logpost, ensemble_random_walk_metropolis
+    from repro_torch.uq.mlda import ensemble_mlda
+    from repro_torch.uq.surrogate import SurrogateScreen
+
+    model = TsunamiModel()
+    _, logprior, loglik, _ = tsunami_problem(torch, model, dev)
+    n_chains, n_warm, n_fine, sub = 8, 40, 40, 5
+    prop_cov = np.diag([8.0**2, 0.25**2])
+    out, launches = {}, 0
+    for run in ("blind", "screened"):
+        fab = EvaluationFabric(ModelBackend(model), cache_size=8192)
+        fab.label_config(L0, "coarse")
+        fab.label_config(L1, "fine")
+        try:
+            screen = None
+            if run == "screened":
+                screen = SurrogateScreen.from_fabric(
+                    fab, target=lambda th, y: loglik(y), config=L0, logprior=logprior,
+                    window=256, min_train=48, hyper_iters=120, refit_every=64)
+            rng = np.random.default_rng(11)
+            x0s = np.stack([rng.uniform(*SOURCE_BOX[0], n_chains),
+                            rng.uniform(*SOURCE_BOX[1], n_chains)], axis=1)
+            reset_launches()
+            waves0 = dict(model.waves)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            burn = ensemble_random_walk_metropolis(
+                batched_logpost(fab, loglik, logprior, L0), x0s, n_warm,
+                (2.38**2 / 2) * prop_cov, rng)
+            torch.cuda.synchronize()
+            warm_wall = time.perf_counter() - t0
+            warm_counts = read_launches()
+            warm_waves = model.waves[0] - waves0[0]
+            if warm_counts["swe_solve"] != warm_waves or warm_counts["swe_step"]:
+                raise AssertionError(f"warm-up: {warm_counts} for {warm_waves} waves")
+            if screen is not None:
+                if not screen.active:
+                    raise AssertionError(f"warm-up traffic ({screen.store.n_points} points) "
+                                         "did not reach min_train")
+                screen.freeze()
+                trained = screen.store.n_points
+                if not screen.gp.frozen:
+                    raise AssertionError("the screen did not freeze")
+            pre = {k: dict(v) for k, v in fab.telemetry()["per_label"].items()}
+            reset_launches()
+            waves0 = dict(model.waves)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = ensemble_mlda(
+                None, burn.samples[:, -1, :], n_fine, [sub], prop_cov,
+                np.random.default_rng(100), fabric=fab, loglik=loglik, logprior=logprior,
+                level_configs=[L0, L1], surrogate=screen)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_launches()
+            tel = fab.telemetry()
+        finally:
+            fab.shutdown()
+        waves = {lvl: model.waves[lvl] - waves0[lvl] for lvl in (0, 1)}
+        if counts["swe_solve"] != sum(waves.values()) or counts["swe_step"]:
+            raise AssertionError(f"{run}: kernel launches {counts} for waves {waves}")
+        if not np.isfinite(res.samples).all() or res.samples.shape != (n_chains, n_fine, 2):
+            raise AssertionError(f"{run}: bad samples {res.samples.shape}")
+        launches += counts["swe_solve"]
+        coarse = tel["per_label"]["coarse"]["points"] - pre["coarse"]["points"]
+        fine = tel["per_label"]["fine"]["points"] - pre["fine"]["points"]
+        ess = _pooled_min_ess(res.samples)
+        out[run] = {"wall_s": wall, "warm_up_wall_s": warm_wall, "warm_up_waves": warm_waves,
+                    "coarse_model_points": coarse, "fine_model_points": fine,
+                    "model_waves_per_level": waves, "n_waves": res.n_waves,
+                    "coarse_evals_requested": res.evals_per_level[0], "ess": ess,
+                    "coarse_points_per_ess": coarse / max(ess, 1e-9),
+                    "accept_rates": res.accept_rates, "swe_solve_launches": counts["swe_solve"],
+                    "posterior_mean": res.samples.reshape(-1, 2).mean(0).tolist()}
+        if screen is not None:
+            s = screen.stats()
+            if not s["screened"] or s["pass_rate"] is None or not 0.0 < s["pass_rate"] < 1.0:
+                raise AssertionError(f"the frozen screen screened nothing useful: {s}")
+            # the GP took the warm-up's tap traffic and nothing after freeze()
+            if s["gp"]["n_seen"] != trained or s["gp"]["hyper_fits"] < 1:
+                raise AssertionError(f"the screen's GP saw {s['gp']['n_seen']} points, the "
+                                     f"warm-up's tap {trained}: {s}")
+            out[run]["screen"] = {k: s[k] for k in ("screened", "passed", "pass_rate", "skipped")}
+            out[run]["gp"] = s["gp"]
+            out[run]["store"] = s["store"]
+            out[run]["fabric_screen_pass_rate"] = tel["screen_pass_rate"]
+    emit("surrogate_da_path", chains=n_chains, warm_up_steps=n_warm, fine_steps=n_fine,
+         subsampling=[sub], **out,
+         coarse_points_per_ess_ratio=out["blind"]["coarse_points_per_ess"]
+         / max(out["screened"]["coarse_points_per_ess"], 1e-9))
+    return {"launches": launches}
 
 
 def ssd_work(B: int, H: int, G: int, S: int, P: int, N: int) -> dict:
@@ -1427,6 +1740,9 @@ def main() -> int:
     phase_derivative_waves(torch, dev, probe["smi"])
     mala = phase_mala_main_path(torch, dev)
     phase_laplace_path(torch, dev)
+    gp_level = phase_gp_level(torch, dev)
+    three_level = phase_three_level_path(torch, dev, gp_level["gps"])
+    surrogate_da = phase_surrogate_da_path(torch, dev)
     ssd_check = phase_ssd_kernel_vs_plain(torch, dev)
     ssd_times = phase_ssd_times(torch, dev, probe["smi"])
     lm = run_lm_path(torch, SSM_ARCH)
@@ -1463,6 +1779,11 @@ def main() -> int:
         # the gradient-informed campaign's fine waves (its coarse waves are
         # derivative waves, PyTorch ops: the kernel is forward-only)
         "launches_mala_main_path": mala["launches"],
+        # the GP level's design wave, and the three-level and surrogate-DA
+        # campaigns (their warm-ups apart): every PDE wave one launch
+        "launches_gp_level": gp_level["launches"],
+        "launches_three_level_path": three_level["launches"],
+        "launches_surrogate_da_path": surrogate_da["launches"],
         "max_abs_err": check["solve_max_abs_err"],
         "ms": fine_wave["ms"],
         "plain_ms": fine_wave["plain_ms"],

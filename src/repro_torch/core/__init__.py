@@ -11,3 +11,4 @@ from repro_torch.core.fabric import (  # noqa: F401
     ThreadedBackend,
     as_backend,
 )
+from repro_torch.core.hierarchy import MultilevelModel  # noqa: F401

@@ -14,7 +14,11 @@ derivative waves (PyTorch ops, no kernel, each step a replayed CUDA graph)
 compute the kernel wave's values bit for bit and a finite HVP, equal the
 eager loop bit for bit, agree with the same waves on the CPU within the
 float32 bounds of `kernels.swe.testing`, and survive evaluate waves run
-from another thread while their graphs are captured.
+from another thread while their graphs are captured. The GP level
+(`uq/gp.py`: float32 Adam and Matérn matrices on the card) predicts what
+the same fit predicts on the CPU within `_torch_parity.FIT_TOL`, and an
+online GP screen trains on the card from a fabric's collector thread while
+a three-stage sampler predicts from its own.
 Every test here is marked `gpu` and skips without a CUDA device. The file imports neither JAX nor the JAX package, so it also
 runs on a GPU machine that has no JAX:
 
@@ -26,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import cuda_or_skip
+from _torch_parity import FIT_TOL, cuda_or_skip
 from repro_torch.apps import tsunami
 from repro_torch.apps.tsunami import level_grid, solve_batch
 from repro_torch.configs import get_config
@@ -37,7 +41,11 @@ from repro_torch.kernels.rmsnorm import rmsnorm_fused, rmsnorm_ref
 from repro_torch.kernels.rmsnorm import testing as rms_testing
 from repro_torch.kernels.ssd import ssd, ssd_chunk_scan, ssd_chunked_ref
 from repro_torch.kernels.ssd import testing as ssd_testing
+from repro_torch.core.fabric import EvaluationFabric
 from repro_torch.models import model, transformer
+from repro_torch.uq.gp import GP
+from repro_torch.uq.mlda import ensemble_mlda
+from repro_torch.uq.surrogate import SurrogateScreen
 from repro_torch.kernels.swe import (
     swe_solve,
     swe_solve_ref,
@@ -401,3 +409,74 @@ def test_evaluate_waves_from_another_thread_during_a_derivative_wave():
     np.testing.assert_array_equal(hv, alone)
     for y in ys:
         np.testing.assert_array_equal(y, evaluated)
+
+
+def _gp_set(n: int = 128):
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-1, 1, (n, 2))
+    return X, np.sin(2 * X[:, 0]) + X[:, 1] ** 2, rng.uniform(-1.2, 1.2, (48, 2))
+
+
+@pytest.mark.gpu
+def test_gp_fit_on_cuda_matches_the_cpu():
+    """GP.fit with its Adam loop and Matérn matrices on the card, against
+    the same fit on the CPU: predictive mean and sd within `FIT_TOL` of y's
+    sd (two float32 trajectories, cuSOLVER's Cholesky against LAPACK's)."""
+    dev = cuda_or_skip()
+    X, y, Xq = _gp_set()
+    card = GP.fit(X, y, n_iters=250, device=dev)
+    cpu = GP.fit(X, y, n_iters=250, device="cpu")
+    assert card.device.type == "cuda" and card._Xt.is_cuda and card._ls_t.is_cuda
+    assert card.fit_steps == cpu.fit_steps == 250
+    m_card, v_card = card.predict(Xq, return_var=True)
+    m_cpu, v_cpu = cpu.predict(Xq, return_var=True)
+    assert np.all(v_card > 0) and np.isfinite(m_card).all()
+    np.testing.assert_allclose(m_card, m_cpu, rtol=0, atol=FIT_TOL * y.std())
+    np.testing.assert_allclose(np.sqrt(v_card), np.sqrt(v_cpu), rtol=0, atol=FIT_TOL * y.std())
+    # fixed hyperparameters: one float32 Matérn matrix on each device
+    fixed = GP.from_params(X, y, cpu.log_params, device=dev)
+    np.testing.assert_allclose(fixed.predict(Xq), m_cpu, rtol=0, atol=FIT_TOL * y.std())
+
+
+@pytest.mark.gpu
+def test_gp_default_device_is_the_card():
+    cuda_or_skip()
+    X, y, _ = _gp_set(16)
+    assert GP.fit(X, y, n_iters=5).device.type == "cuda"
+
+
+@pytest.mark.gpu
+def test_online_gp_screen_trains_and_screens_on_cuda():
+    """The three-stage sampler over a toy two-level fabric: the screen's GP
+    (default device, the card) trains from the collector thread's waves,
+    then screens each step with one batched prediction."""
+    cuda_or_skip()
+    shifts = {0: -0.5, 1: 1.0}
+
+    def level_model(thetas, config):
+        return ((np.asarray(thetas) - shifts[config["level"]]) ** 2).sum(1, keepdims=True)
+
+    def loglik(y):
+        return -0.5 * float(y[0])
+
+    fab = EvaluationFabric(level_model, cache_size=4096)
+    fab.label_config({"level": 0}, "coarse")
+    screen = SurrogateScreen.from_fabric(
+        fab, target=lambda th, y: loglik(y), config={"level": 0},
+        window=256, min_train=48, hyper_iters=60, refit_every=64)
+    kw = dict(fabric=fab, loglik=loglik, level_configs=[{"level": 0}, {"level": 1}])
+    rng = np.random.default_rng(0)
+    try:
+        warm = ensemble_mlda(None, rng.standard_normal((8, 2)) * 0.3 + 1.0, 20, [3],
+                             0.7 * np.eye(2), rng, surrogate=screen, **kw)
+        assert screen.active and screen.gp.device.type == "cuda"
+        screen.freeze()
+        res = ensemble_mlda(None, warm.samples[:, -1, :], 60, [3], 0.7 * np.eye(2), rng,
+                            surrogate=screen, **kw)
+        tel = fab.telemetry()
+    finally:
+        fab.shutdown()
+    assert screen.gp._gp.device.type == "cuda" and screen.gp.n_hyper_fits >= 1
+    assert screen.store.n_points == tel["per_label"]["coarse"]["points"]
+    assert np.isfinite(res.samples).all()
+    assert res.surrogate["screened"] > 0 and 0.0 < tel["screen_pass_rate"] < 1.0
