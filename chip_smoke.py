@@ -27,7 +27,15 @@ user calls:
   MLDA over GP, smoothed and fully resolved levels through a
   `MultilevelModel` (`three_level_path`), and three-stage delayed
   acceptance behind a GP screen trained from the fabric's own coarse
-  waves, against the blind run (`surrogate_da_path`);
+  waves, against the blind run (`surrogate_da_path`); then the fused
+  sampler blocks (`uq/fused.py`: S sampler steps a CUDA-graph replay, on
+  the tsunami S `swe_solve` launches): steps/s of the fused block, the
+  per-step reference and the host loop on benchmarks/fused_sampler.py's
+  Gaussian and on the coarse tsunami posterior, fused == per-step bit for
+  bit (`fused_sampler`), two fused steps through the kernel against the
+  same steps through the plain loop (`fused_kernel_vs_plain`),
+  `main_path`'s campaign with fused coarse subchains (`fused_main_path`)
+  and a fused MALA kill-and-resume (`fused_checkpoint`);
 * the LM-as-UQ-model serving flow of `examples/serve_uq.py` on two
   full-width models from seeded random weights (bf16): mamba2-1.3b (48
   layers), every layer of every forward one launch of the SSD chunk-scan
@@ -527,7 +535,7 @@ def phase_main_path(torch, dev) -> dict:
          launches=counts,
          posterior_mean=res.samples.reshape(-1, 2).mean(0).tolist(),
          backend=tel["backend"])
-    return {"launches": launches}
+    return {"launches": launches, "wall_s": wall, "n_waves": res.n_waves}
 
 
 def tsunami_problem(torch, model, dev):
@@ -1120,6 +1128,296 @@ def phase_surrogate_da_path(torch, dev) -> dict:
          coarse_points_per_ess_ratio=out["blind"]["coarse_points_per_ess"]
          / max(out["screened"]["coarse_points_per_ess"], 1e-9))
     return {"launches": launches}
+
+
+# fused sampler blocks (`uq.fused`), as benchmarks/fused_sampler.py measures
+# them: its Gaussian (d = 4, K = 8, S = 200) and the tsunami posterior at the
+# coarse level (512 cells, smoothed; K = 16, S = 50) with the main path's
+# data, noise, prior box and proposal
+FUSED_GAUSS_D, FUSED_GAUSS_K, FUSED_GAUSS_S = 4, 8, 200
+FUSED_TSUNAMI_K, FUSED_TSUNAMI_S = 16, 50
+MAIN_PROP_COV = np.diag([8.0**2, 0.25**2])
+
+
+def _generator(torch, dev, seed: int):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def coarse_target(torch, model, dev, step=None):
+    """The coarse level's posterior as a tensor program: the Gaussian
+    likelihood of `tsunami_problem`'s data over `solve_batch` at 512 cells
+    (smoothed) and the prior box; `step=` as in `solve_batch`."""
+    from functools import partial
+
+    from repro_torch.apps.tsunami import solve_batch
+    from repro_torch.kernels.swe.testing import SOURCE_BOX
+    from repro_torch.uq.fused import gaussian_likelihood_target
+
+    data, logprior, loglik, _ = tsunami_problem(torch, model, dev)
+    forward = partial(solve_batch, n_cells=512, smoothed=True, step=step)
+    return gaussian_likelihood_target(forward, data, NOISE_SD, SOURCE_BOX), logprior, loglik
+
+
+def _timed(torch, fn):
+    """(wall of fn() ending in a device sync, its result)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _fused_vs_per_step_vs_host(torch, dev, lp, host_lp, x0s, cov, S, n_fused, n_per_step,
+                               n_host, what: str) -> dict:
+    """Steps/s of the fused block (n_fused steps), the per-step reference
+    (`per_step=True`, n_per_step steps) and the host loop through
+    `ensemble_random_walk_metropolis` over `host_lp` (n_host steps), each
+    after a warm call (the capture); the fused and per-step samples of the
+    same stream held equal bit for bit. Launch counts start at 0 right
+    before the timed fused run."""
+    from repro_torch.uq.fused import fused_ensemble_rwm
+    from repro_torch.uq.mcmc import ensemble_random_walk_metropolis
+
+    def fused(n, per_step=False, seed=0):
+        return fused_ensemble_rwm(lp, x0s, n, cov, _generator(torch, dev, seed),
+                                  fused_steps=S, per_step=per_step)
+
+    fused(S)  # warm: the capture of the S-step graph
+    fused(1, per_step=True)  # and of the one-step graph
+    reset_launches()
+    fused_wall, got = _timed(torch, lambda: fused(n_fused))
+    counts = read_launches()
+    per_wall, want = _timed(torch, lambda: fused(n_per_step, per_step=True))
+    n = min(n_fused, n_per_step)
+    for name in ("samples", "logposts"):
+        np.testing.assert_array_equal(getattr(got, name)[:, :n], getattr(want, name)[:, :n],
+                                      err_msg=f"{what}: fused vs per-step {name}")
+    if not np.isfinite(got.samples).all() or not np.all(got.accept_rates > 0):
+        raise AssertionError(f"{what}: accept rates {got.accept_rates}")
+    ensemble_random_walk_metropolis(host_lp, x0s, 2, cov, np.random.default_rng(0))
+    host_wall, _ = _timed(torch, lambda: ensemble_random_walk_metropolis(
+        host_lp, x0s, n_host, cov, np.random.default_rng(0)))
+    rates = {"fused": n_fused / fused_wall, "per_step": n_per_step / per_wall,
+             "host_fabric": n_host / host_wall}
+    return {"fused_steps": S, "chains": len(x0s), "n_steps": {"fused": n_fused,
+            "per_step": n_per_step, "host_fabric": n_host},
+            "walls_s": {"fused": fused_wall, "per_step": per_wall, "host_fabric": host_wall},
+            "steps_per_s": rates,
+            "speedup_vs_per_step": rates["fused"] / rates["per_step"],
+            "speedup_vs_host_fabric": rates["fused"] / rates["host_fabric"],
+            "fused_launches": counts, "accept_rate": got.accept_rate,
+            "bitexact_steps": n}
+
+
+def phase_fused_sampler(torch, dev) -> dict:
+    """benchmarks/fused_sampler.py's two posteriors on the card: steps/s of
+    the fused block (S steps a CUDA-graph replay), the per-step reference
+    (the same body, S = 1, a replay and a host pull a step) and the host
+    loop over an `EvaluationFabric`; fused == per-step bit for bit; on the
+    tsunami, `swe_solve` launches == blocks x S + the initial wave, none of
+    `swe_step`; and the device's busy share over one profiled block."""
+    from repro_torch.apps.tsunami import TsunamiModel
+    from repro_torch.core.fabric import EvaluationFabric, ModelBackend
+    from repro_torch.kernels.swe.testing import sources
+    from repro_torch.uq.fused import fused_ensemble_rwm, gaussian_target
+    from repro_torch.uq.mcmc import batched_logpost
+
+    d, K, S = FUSED_GAUSS_D, FUSED_GAUSS_K, FUSED_GAUSS_S
+    lp = gaussian_target(np.ones(d))
+
+    def gauss_batch(thetas, cfg=None):
+        xs = torch.as_tensor(np.atleast_2d(thetas), dtype=torch.float32, device=dev)
+        return lp(xs).cpu().numpy()[:, None]
+
+    fabric = EvaluationFabric(gauss_batch)
+    try:
+        gauss = _fused_vs_per_step_vs_host(
+            torch, dev, lp, batched_logpost(fabric, lambda y: float(np.ravel(y)[0])),
+            np.random.default_rng(0).normal(size=(K, d)), (2.4**2 / d) * np.eye(d), S,
+            n_fused=10 * S, n_per_step=2 * S, n_host=2 * S, what="gaussian")
+    finally:
+        fabric.shutdown()
+
+    model = TsunamiModel()
+    lp_t, logprior, loglik = coarse_target(torch, model, dev)
+    S, x0t = FUSED_TSUNAMI_S, sources(FUSED_TSUNAMI_K, 11).astype(float)
+    fabric = EvaluationFabric(ModelBackend(model), cache_size=8192)
+    try:
+        tsunami = _fused_vs_per_step_vs_host(
+            torch, dev, lp_t, batched_logpost(fabric, loglik, logprior, L0), x0t,
+            MAIN_PROP_COV, S, n_fused=2 * S, n_per_step=2 * S, n_host=S, what="tsunami")
+    finally:
+        fabric.shutdown()
+    counts = tsunami["fused_launches"]
+    want = {"swe_solve": 2 * S + 1, "swe_step": 0}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"tsunami fused run: launches {counts}, expected {want} "
+                             f"(2 blocks x {S} steps + the initial wave)")
+    busy = _device_busy(torch, lambda: fused_ensemble_rwm(
+        lp_t, x0t, S, MAIN_PROP_COV, _generator(torch, dev, 1), fused_steps=S),
+        "a fused block")
+    tsunami["profiled_block"] = {**busy, "device_busy_share":
+                                 busy["device_busy_s"] / busy["profiled_wall_s"]}
+    emit("fused_sampler", gaussian=gauss, tsunami_coarse=tsunami,
+         timer="host clock around a whole run ending in a device sync (the "
+               "initial wave and the host pulls included), after a warm run")
+    return {"launches": counts["swe_solve"], "gaussian": gauss, "tsunami": tsunami}
+
+
+def phase_fused_kernel_vs_plain(torch, dev) -> dict:
+    """The solve kernel inside the fused path against its plain version:
+    two fused RWM steps of 16 lanes at the coarse level from one generator
+    state, once as a captured block over `solve_batch` (the kernel, in the
+    graph) and once as the same step body run eagerly over
+    `solve_batch(..., step=swe_step_ref_into)` (the plain loop). Samples,
+    log-densities and accept counts equal bit for bit: the kernel equals
+    the plain loop bit for bit, and the graph draws what the eager body
+    draws from the same generator state."""
+    from repro_torch.apps.tsunami import TsunamiModel
+    from repro_torch.kernels.swe import swe_step_ref_into
+    from repro_torch.kernels.swe.testing import sources
+    from repro_torch.uq.fused import _rwm_step, fused_ensemble_rwm
+
+    model = TsunamiModel()
+    lp_kernel, _, _ = coarse_target(torch, model, dev)
+    lp_plain, _, _ = coarse_target(torch, model, dev, step=swe_step_ref_into)
+    x0t, n = sources(FUSED_TSUNAMI_K, 11).astype(float), 2
+    got = fused_ensemble_rwm(lp_kernel, x0t, n, MAIN_PROP_COV, _generator(torch, dev, 7),
+                             fused_steps=n)
+    t0 = time.perf_counter()
+    gen = _generator(torch, dev, 7)
+    step = _rwm_step(lp_plain, np.linalg.cholesky(MAIN_PROP_COV), dev)
+    xs = torch.as_tensor(x0t, dtype=torch.float32, device=dev)
+    carry = {"xs": xs, "lps": lp_plain(xs), "acc": torch.zeros_like(xs[:, 0])}
+    samples, lps = [], []
+    for _ in range(n):
+        carry, (xs, lp) = step(carry, gen)
+        samples.append(xs.cpu().numpy())
+        lps.append(lp.cpu().numpy())
+    plain_wall = time.perf_counter() - t0
+    plain_samples = np.stack(samples, 1).astype(float)
+    err = float(np.max(np.abs(got.samples - plain_samples)))
+    np.testing.assert_array_equal(got.samples, plain_samples,
+                                  err_msg="fused samples, kernel vs plain")
+    np.testing.assert_array_equal(got.logposts, np.stack(lps, 1).astype(float),
+                                  err_msg="fused log-densities, kernel vs plain")
+    np.testing.assert_array_equal(got.accept_rates * n, carry["acc"].cpu().numpy(),
+                                  err_msg="fused accept counts, kernel vs plain")
+    emit("fused_kernel_vs_plain", kernel="swe_solve", steps=n, chains=len(x0t),
+         bound="bit for bit (samples, log-densities, accept counts)",
+         accepted=carry["acc"].cpu().numpy().tolist(), max_abs_err=err,
+         plain_wall_s=plain_wall)
+    return {"max_abs_err": err}
+
+
+def phase_fused_main_path(torch, dev, main_path: dict) -> dict:
+    """`main_path`'s campaign (K = 16, 4 fine samples, subsampling [5],
+    rng 501) with `fused_level0=` the coarse level's tensor-program
+    posterior: each coarse subchain one wave for its start log-densities
+    plus one 5-step block (a graph replay), the fine waves through the
+    fabric. `swe_solve` launches == fine waves + 4 x (1 + 5) + the
+    capture's 5-step warm-up."""
+    from repro_torch.apps.tsunami import TsunamiModel
+    from repro_torch.core.fabric import EvaluationFabric, ModelBackend
+    from repro_torch.kernels.swe.testing import sources
+    from repro_torch.uq.mlda import ensemble_mlda
+
+    model = TsunamiModel()
+    lp_coarse, logprior, loglik = coarse_target(torch, model, dev)
+    K, n_samples, sub = 16, 4, 5
+    fabric = EvaluationFabric(ModelBackend(model), cache_size=8192)
+    try:
+        reset_launches()
+        waves0 = dict(model.waves)
+        wall, res = _timed(torch, lambda: ensemble_mlda(
+            None, sources(K, 11).astype(float), n_samples=n_samples, subsampling=[sub],
+            prop_cov=MAIN_PROP_COV, rng=np.random.default_rng(501), fabric=fabric,
+            level_configs=[L0, L1], loglik=loglik, logprior=logprior,
+            fused_level0=lp_coarse))
+        counts = read_launches()
+    finally:
+        fabric.shutdown()
+    waves = {lvl: model.waves[lvl] - waves0[lvl] for lvl in (0, 1)}
+    if not np.isfinite(res.samples).all() or res.samples.shape != (K, n_samples, 2):
+        raise AssertionError(f"bad samples {res.samples.shape}")
+    if not all(0.0 < r <= 1.0 for r in res.accept_rates):
+        raise AssertionError(f"acceptance rates {res.accept_rates}")
+    want = waves[1] + n_samples * (1 + sub) + sub
+    if waves[0] != 0 or counts["swe_solve"] != want or counts["swe_step"]:
+        raise AssertionError(f"kernel launches {counts} for model waves {waves}, expected "
+                             f"{want} of swe_solve and no coarse fabric wave")
+    emit("fused_main_path", chains=K, n_samples=n_samples, subsampling=[sub], wall_s=wall,
+         n_waves=res.n_waves, evals_per_level=res.evals_per_level,
+         model_waves_per_level=waves, accept_rates=res.accept_rates,
+         swe_solve_launches=counts["swe_solve"], launches=counts,
+         posterior_mean=res.samples.reshape(-1, 2).mean(0).tolist(),
+         main_path={"wall_s": main_path["wall_s"], "n_waves": main_path["n_waves"],
+                    "swe_solve_launches": main_path["launches"]})
+    return {"launches": counts["swe_solve"], "wall_s": wall}
+
+
+class _Preempted(RuntimeError):
+    """The simulated kill of `phase_fused_checkpoint`."""
+
+
+def phase_fused_checkpoint(torch, dev) -> dict:
+    """tests/test_fused.py's MALA kill-and-resume on the card (S = 5, 20
+    adaptation steps, a save every 10 steps, killed after the second): the
+    resumed run gives the uninterrupted run's samples, log-densities and
+    adapted step size bit for bit; and the fused MALA block equals its
+    per-step reference bit for bit."""
+    import shutil
+
+    from repro_torch.core.fleet import CampaignCheckpoint
+    from repro_torch.uq.fused import fused_ensemble_mala, gaussian_target
+
+    mean, cov = np.array([1.0, -0.5]), np.array([[0.8, 0.3], [0.3, 0.5]])
+    lp = gaussian_target(mean, cov)
+    x0s = np.random.default_rng(3).normal(size=(6, 2))
+    kw = dict(fused_steps=5, adapt_steps=20, precond=cov)
+    want = fused_ensemble_mala(lp, x0s, 40, 0.6, _generator(torch, dev, 23), **kw)
+    per_step = fused_ensemble_mala(lp, x0s, 40, 0.6, _generator(torch, dev, 23),
+                                   per_step=True, **kw)
+    np.testing.assert_array_equal(want.samples, per_step.samples, err_msg="MALA per step")
+    if want.final_step_size != per_step.final_step_size:
+        raise AssertionError("MALA's adapted step size differs per step")
+    where = ROOT / "build" / "fused_checkpoint"
+    shutil.rmtree(where, ignore_errors=True)
+
+    class DieAfter:
+        def __init__(self, ckpt, n):
+            self.ckpt, self.n, self.saves = ckpt, n, 0
+
+        def resume(self):
+            return self.ckpt.resume()
+
+        def save(self, step, arrays, meta):
+            self.ckpt.save(step, arrays, meta)
+            self.saves += 1
+            if self.saves >= self.n:
+                raise _Preempted("simulated preemption")
+
+    try:
+        fused_ensemble_mala(lp, x0s, 40, 0.6, _generator(torch, dev, 23),
+                            checkpoint=DieAfter(CampaignCheckpoint(str(where)), 2),
+                            checkpoint_every=10, **kw)
+        raise AssertionError("the campaign was not killed")
+    except _Preempted:
+        pass
+    _, meta, step = CampaignCheckpoint(str(where)).resume()
+    got = fused_ensemble_mala(lp, x0s, 40, 0.6, _generator(torch, dev, 999),
+                              checkpoint=CampaignCheckpoint(str(where)),
+                              checkpoint_every=10, **kw)
+    shutil.rmtree(where)
+    np.testing.assert_array_equal(got.samples, want.samples, err_msg="resumed samples")
+    np.testing.assert_array_equal(got.logposts, want.logposts, err_msg="resumed lps")
+    if got.final_step_size != want.final_step_size:
+        raise AssertionError(f"resumed step size {got.final_step_size}, "
+                             f"uninterrupted {want.final_step_size}")
+    emit("fused_checkpoint", sampler="mala", fused_steps=5, n_steps=40, resumed_at=step,
+         key_device=meta["key_device"], final_step_size=got.final_step_size,
+         bound="bit for bit (samples, log-densities, step size; and fused == per step)")
+    return {}
 
 
 def ssd_work(B: int, H: int, G: int, S: int, P: int, N: int) -> dict:
@@ -1743,6 +2041,10 @@ def main() -> int:
     gp_level = phase_gp_level(torch, dev)
     three_level = phase_three_level_path(torch, dev, gp_level["gps"])
     surrogate_da = phase_surrogate_da_path(torch, dev)
+    fused = phase_fused_sampler(torch, dev)
+    fused_check = phase_fused_kernel_vs_plain(torch, dev)
+    fused_main = phase_fused_main_path(torch, dev, main_path)
+    phase_fused_checkpoint(torch, dev)
     ssd_check = phase_ssd_kernel_vs_plain(torch, dev)
     ssd_times = phase_ssd_times(torch, dev, probe["smi"])
     lm = run_lm_path(torch, SSM_ARCH)
@@ -1784,7 +2086,12 @@ def main() -> int:
         "launches_gp_level": gp_level["launches"],
         "launches_three_level_path": three_level["launches"],
         "launches_surrogate_da_path": surrogate_da["launches"],
+        # the fused samplers: a timed run of 2 blocks x 50 steps + its
+        # initial wave, and the fused-subchain campaign (`fused_level0`)
+        "launches_fused_sampler": fused["launches"],
+        "launches_fused_main_path": fused_main["launches"],
         "max_abs_err": check["solve_max_abs_err"],
+        "max_abs_err_fused_path": fused_check["max_abs_err"],
         "ms": fine_wave["ms"],
         "plain_ms": fine_wave["plain_ms"],
         "bound_ms": fine_wave["bound_ms"],

@@ -85,6 +85,22 @@ def _bathymetry_cached(n_cells: int, smoothed: bool) -> np.ndarray:
     return np.asarray(bathymetry(x, smoothed), np.float32)
 
 
+@lru_cache(maxsize=None)
+def _level_constants(
+    n_cells: int, smoothed: bool, device: torch.device
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cell centres x [C, 1], b [C, 1]): the level's constants on
+    `device`, float32, copied there once per (n_cells, smoothed, device). A
+    wave then makes no copy from the host, so a CUDA graph can hold it
+    (`uq.fused`)."""
+    dx = L_DOMAIN / n_cells
+    x = torch.as_tensor(
+        ((np.arange(n_cells) + 0.5) * dx).astype(np.float32), device=device
+    )[:, None]
+    b = torch.as_tensor(_bathymetry_cached(n_cells, smoothed), device=device)[:, None]
+    return x, b.contiguous()
+
+
 def _relu(x: torch.Tensor) -> torch.Tensor:
     """max(x, 0) with slope 1/2 at 0, as `jnp.maximum(x, 0.0)` has;
     `torch.clamp_min` computes the same values with slope 1 there."""
@@ -105,19 +121,14 @@ def initial_state(
     """[N, 2] sources -> (h, hu: [C, N], b: [C, 1]) on thetas' device: b is
     float32, the state float32 or thetas' wider dtype. Differentiable in
     thetas."""
-    device = thetas.device
-    dx = L_DOMAIN / n_cells
-    x = torch.as_tensor(
-        ((np.arange(n_cells) + 0.5) * dx).astype(np.float32), device=device
-    )[:, None]
-    b = torch.as_tensor(_bathymetry_cached(n_cells, smoothed), device=device)[:, None]
+    x, b = _level_constants(n_cells, smoothed, thetas.device)
     h0s = torch.clamp_min(-b, 0.0)
     x0 = thetas[None, :, 0] * 1e3  # [1, N]
     amp = thetas[None, :, 1]
     z = (x - x0) / 25e3
     eta0 = amp * torch.exp(-(z * z))  # [C, N]
     h = _relu(h0s + eta0 * (h0s > H_DRY))
-    return h.contiguous(), torch.zeros_like(h), b.contiguous()
+    return h.contiguous(), torch.zeros_like(h), b
 
 
 def solve_batch(
@@ -133,11 +144,18 @@ def solve_batch(
     (the signature of `kernels.swe.swe_step`) the wave runs the per-step
     loop `kernels.swe.swe_solve_ref` instead: `swe_step_ref_into` is the
     plain path, `swe_step` one step-kernel launch per step. Those two hold
-    the solve kernel against the plain version and the step kernel."""
+    the solve kernel against the plain version and the step kernel.
+
+    The wave copies nothing from the host (the level's constants are made
+    on the device once, `_level_constants`, and the buoy rows are read by
+    integer indexing), so a CUDA graph can hold it:
+    the fused samplers (`uq.fused`) capture S of them in one graph."""
     dt, n_steps, buoy_rows = level_grid(n_cells)
     dt_dx = dt / (L_DOMAIN / n_cells)
     h, hu, b = initial_state(thetas.to(torch.float32), n_cells, smoothed)
-    h0_rows = torch.clamp_min(-b, 0.0)[list(buoy_rows), 0]  # [2] depth at rest
+    # [2] depth at rest: integer indexing is a view, no index copied from the host
+    h0s = torch.clamp_min(-b[:, 0], 0.0)
+    h0_rows = torch.stack([h0s[r] for r in buoy_rows])
     kw = dict(dt_dx=dt_dx, n_steps=n_steps, rows=buoy_rows, h0_rows=h0_rows)
     if step is None:
         mx, arr = swe_solve(h, hu, b, **kw)

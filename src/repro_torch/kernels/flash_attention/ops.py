@@ -25,8 +25,7 @@ import ctypes
 
 import torch
 
-from repro_torch.analysis.races import named_lock
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, launches
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 #: head dims the kernels are built for
@@ -38,7 +37,6 @@ _CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: strides and bases the kernels read: 16-byte vectors and TMA boxes
 ALIGN_BYTES = 16
 
-_count_lock = named_lock("flash_attention.launches")
 _fns: dict = {}
 
 
@@ -107,9 +105,7 @@ def launch(stem: str, q, k, v, o, causal: bool) -> None:
                            f"CUresult {err - 10000}")
     if err != 0:
         raise RuntimeError(f"flash_attention: {stem}: kernel launch failed, cudaError {err}")
-    with _count_lock:
-        flash_attention.launches += 1
-        flash_attention.launches_by_kernel[stem] += 1
+    launches.count(flash_attention, stem)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

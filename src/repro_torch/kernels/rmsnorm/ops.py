@@ -14,14 +14,12 @@ import ctypes
 
 import torch
 
-from repro_torch.analysis.races import named_lock
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, launches
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 #: dtype codes of the C entry point
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-_count_lock = named_lock("rmsnorm.launches")
 _fn = None
 
 
@@ -82,8 +80,7 @@ def rmsnorm_fused(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.
     )
     if err != 0:
         raise RuntimeError(f"rmsnorm_fused: kernel launch failed, cudaError {err}")
-    with _count_lock:
-        rmsnorm_fused.launches += 1
+    launches.count(rmsnorm_fused)
     return y
 
 

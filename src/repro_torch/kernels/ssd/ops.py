@@ -17,14 +17,12 @@ import ctypes
 
 import torch
 
-from repro_torch.analysis.races import named_lock
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, launches
 from repro_torch.kernels.ssd.ref import CHUNK, ssd_chunked_ref
 
 #: dynamic shared memory a block may use on Hopper (227 KB)
 MAX_SMEM_BYTES = 232_448
 
-_count_lock = named_lock("ssd.launches")
 _fn = None
 
 
@@ -114,8 +112,7 @@ def ssd_chunk_scan(x, dt, Bm, Cm, A, init_state):
     )
     if err != 0:
         raise RuntimeError(f"ssd: kernel launch failed, cudaError {err}")
-    with _count_lock:
-        ssd.launches += 1
+    launches.count(ssd)
     return y, s_out
 
 

@@ -11,7 +11,11 @@ CPU tensor goes to the plain version (`ref.swe_step_ref`,
 `ref.swe_solve_ref`). There is no switch and no fallback: on the card the
 kernel is the step, or the solve. `swe_step.launches` and
 `swe_solve.launches` count kernel launches, so a run can show that its path
-went through the kernel.
+went through the kernel; a launch captured into a CUDA graph counts once
+per replay of the graph (`kernels.launches`).
+
+On the CPU the plain version runs under `torch.no_grad()`: neither kernel
+has an autograd rule, on any device.
 """
 from __future__ import annotations
 
@@ -20,8 +24,7 @@ import operator
 
 import torch
 
-from repro_torch.analysis.races import named_lock
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, launches
 from repro_torch.kernels.swe.ref import (
     ARRIVAL_THRESH,
     G,
@@ -40,8 +43,6 @@ MAX_CELLS = 2048
 #: steps of one solve, at most: `arr` holds the step index in float32
 MAX_STEPS = 2**24
 
-_count_lock = named_lock("swe_step.launches")
-_solve_count_lock = named_lock("swe_solve.launches")
 _fn = None
 _solve_fn = None
 
@@ -123,9 +124,10 @@ def swe_step(
         if {out[0].data_ptr(), out[1].data_ptr()} & {h.data_ptr(), hu.data_ptr()}:
             raise ValueError("swe_step: out= buffers must not alias h or hu")
     if device.type == "cpu":
-        if out is None:
-            return swe_step_ref(h, hu, b, dt_dx, g=g, h_dry=h_dry)
-        return swe_step_ref_into(h, hu, b, dt_dx=dt_dx, g=g, h_dry=h_dry, out=out)
+        with torch.no_grad():
+            if out is None:
+                return swe_step_ref(h, hu, b, dt_dx, g=g, h_dry=h_dry)
+            return swe_step_ref_into(h, hu, b, dt_dx=dt_dx, g=g, h_dry=h_dry, out=out)
     if device.type != "cuda":
         raise ValueError(f"swe_step: no kernel for device {device}")
     if C * N >= 2**31:
@@ -143,12 +145,12 @@ def swe_step(
     )
     if err != 0:
         raise RuntimeError(f"swe_step: kernel launch failed, cudaError {err}")
-    with _count_lock:
-        swe_step.launches += 1
+    launches.count(swe_step)
     return h_new, hu_new
 
 
-#: kernel launches since the last reset (CPU calls never count)
+#: kernel launches since the last reset (CPU calls never count; a captured
+#: launch counts at each replay, `kernels.launches`)
 swe_step.launches = 0
 
 
@@ -187,7 +189,8 @@ def swe_solve(
         _check(name, t, shape, device, "swe_solve")
     kw = dict(dt_dx=dt_dx, n_steps=n_steps, rows=rows, h0_rows=h0_rows)
     if device.type == "cpu":
-        return swe_solve_ref(h, hu, b, **kw)
+        with torch.no_grad():
+            return swe_solve_ref(h, hu, b, **kw)
     if device.type != "cuda":
         raise ValueError(f"swe_solve: no kernel for device {device}")
     if C > MAX_CELLS:
@@ -207,10 +210,10 @@ def swe_solve(
     )
     if err != 0:
         raise RuntimeError(f"swe_solve: kernel launch failed, cudaError {err}")
-    with _solve_count_lock:
-        swe_solve.launches += 1
+    launches.count(swe_solve)
     return mx, arr
 
 
-#: kernel launches since the last reset (CPU calls never count)
+#: kernel launches since the last reset (CPU calls never count; a captured
+#: launch counts at each replay, `kernels.launches`)
 swe_solve.launches = 0

@@ -242,13 +242,19 @@ def batched_value_grad_logpost(
     return value_grad
 
 
-def _fused_unported(option: str):
-    """The device-resident block samplers (`fused_steps=`, `fused_level0=`)
-    are not ported yet: the host loops are the only path in this package."""
-    raise NotImplementedError(
-        f"{option}= (device-resident block sampling) is not ported to "
-        "PyTorch yet: ROADMAP queue 1, item 7"
-    )
+def _fused_key(fused_key, rng: np.random.Generator):
+    """Generator of the fused path's stream: explicit `fused_key` wins
+    (reproducible key-manifest workflows, and the device the block runs
+    on); otherwise one on the card seeded from the host rng, so
+    `rng`-seeded callers stay deterministic."""
+    if fused_key is not None:
+        return fused_key
+    import torch
+
+    from repro_torch.core.device import resolve_device
+
+    gen = torch.Generator(device=resolve_device(None))
+    return gen.manual_seed(int(rng.integers(0, 2**31 - 1)))
 
 
 def ensemble_random_walk_metropolis(
@@ -282,10 +288,29 @@ def ensemble_random_walk_metropolis(
     `sd * pooled_cov + eps I` (sd defaults to Haario's 2.4^2/d). The pooled
     estimate warms up K-fold faster than single-chain adaptation.
 
-    `fused_steps=` (the device-resident block sampler) is not ported yet
-    and raises `NotImplementedError` (ROADMAP queue 1, item 7)."""
+    `fused_steps=S` switches to the device-resident block sampler
+    (`uq.fused`): `logpost_batch` must then be a ``[K, d] -> [K]`` tensor
+    program (see `uq.fused.gaussian_likelihood_target`), proposals are
+    drawn from a `torch.Generator` seeded from `rng` on the card (or
+    `fused_key`, whose device the block runs on), and S steps run per
+    dispatch, one CUDA-graph replay on the card — the host loop here stays
+    the reference path and the only one for non-tensor backends.
+    Incompatible with `adaptive=` (per-block covariance refits would change
+    the kernel mid-block)."""
     if fused_steps is not None:
-        _fused_unported("fused_steps")
+        if adaptive:
+            raise ValueError(
+                "fused_steps= and adaptive= are incompatible: Haario "
+                "adaptation refits the proposal on the host every step"
+            )
+        from repro_torch.uq import fused as _fused
+
+        return _fused.fused_ensemble_rwm(
+            logpost_batch, x0s, n_steps, prop_cov,
+            _fused_key(fused_key, rng), fused_steps=fused_steps, ctx=ctx,
+            telemetry=telemetry, checkpoint=checkpoint,
+            checkpoint_every=checkpoint_every,
+        )
     from repro_torch.core.fabric import BudgetExhausted
 
     xs = np.atleast_2d(np.asarray(x0s, float)).copy()
@@ -346,10 +371,18 @@ def ensemble_pcn(
     """K lockstep pCN chains (Gaussian priors; dimension-robust); ONE model
     wave per step. `prior_sample(rng, K)` draws [K, d] prior samples.
 
-    `fused_steps=` (the device-resident block sampler) is not ported yet
-    and raises `NotImplementedError` (ROADMAP queue 1, item 7)."""
+    `fused_steps=S` runs the device-resident block sampler instead:
+    `loglik_batch` must be a tensor program, the (centered) Gaussian prior
+    is given by its Cholesky factor `prior_chol` (default I) and sampled
+    on-device, and `prior_sample` is unused."""
     if fused_steps is not None:
-        _fused_unported("fused_steps")
+        from repro_torch.uq import fused as _fused
+
+        return _fused.fused_ensemble_pcn(
+            loglik_batch, x0s, n_steps, beta, _fused_key(fused_key, rng),
+            prior_chol=prior_chol, fused_steps=fused_steps, ctx=ctx,
+            telemetry=telemetry,
+        )
     xs = np.atleast_2d(np.asarray(x0s, float)).copy()
     K, _ = xs.shape
     note = getattr(loglik_batch, "note_steps", None)
@@ -414,10 +447,22 @@ def ensemble_mala(
     — a killed run re-invoked with the same checkpoint resumes exactly
     (same rng stream → identical trajectory).
 
-    `fused_steps=` (the device-resident block sampler) is not ported yet
-    and raises `NotImplementedError` (ROADMAP queue 1, item 7)."""
+    `fused_steps=S` switches to the device-resident block sampler:
+    `value_grad_logpost` must then be a ``[K, d] -> [K]`` LOG-POSTERIOR
+    tensor program that torch autograd differentiates (not a
+    value-and-grad pair) — the drift gradients are taken on-device with
+    one backward pass per step — and checkpoints land at block boundaries
+    with the generator state instead of every step."""
     if fused_steps is not None:
-        _fused_unported("fused_steps")
+        from repro_torch.uq import fused as _fused
+
+        return _fused.fused_ensemble_mala(
+            value_grad_logpost, x0s, n_steps, step_size,
+            _fused_key(fused_key, rng), precond=precond,
+            adapt_steps=adapt_steps, target_accept=target_accept,
+            fused_steps=fused_steps, ctx=ctx, telemetry=telemetry,
+            checkpoint=checkpoint, checkpoint_every=checkpoint_every,
+        )
     xs = np.atleast_2d(np.asarray(x0s, float)).copy()
     K, d = xs.shape
     C = np.eye(d) if precond is None else np.atleast_2d(np.asarray(precond, float))

@@ -46,7 +46,7 @@ from repro_torch.uq.mcmc import (
     ChainResult,
     PooledCovarianceAdapter,
     batched_logpost,
-    _fused_unported,
+    _fused_key,
     batched_value_grad_logpost,
 )
 
@@ -253,7 +253,8 @@ class _EnsembleLevelSampler:
     def __init__(self, logpost_batches, subsampling, prop_cov, rng, K,
                  adaptive: bool = False, adapt_start: int = 50,
                  adapt_interval: int = 1, sd: float | None = None,
-                 surrogate=None, coarse_vg=None, mala_step: float = 0.5):
+                 surrogate=None, fused_level0=None, fused_key=None,
+                 coarse_vg=None, mala_step: float = 0.5):
         self.logposts = list(logpost_batches)
         self.subsampling = list(subsampling)
         self.rng = rng
@@ -275,6 +276,13 @@ class _EnsembleLevelSampler:
             C = self.chol @ self.chol.T
             self._mala_C = C
             self._mala_Cinv = np.linalg.inv(C)
+        # device-resident level-0 subchains (`uq.fused`): the whole coarse
+        # subchain between two level-1 acceptance tests becomes ONE device
+        # dispatch (one CUDA-graph replay on the card) against this
+        # tensor-program logpost, drawing from the `fused_key` generator
+        self.fused_level0 = fused_level0
+        self._fused_key = fused_key
+        self._fused_run = None
         self.adapter = PooledCovarianceAdapter(self.d, sd=sd) if adaptive else None
         self.adapt_start = int(adapt_start)
         self.adapt_interval = max(1, int(adapt_interval))
@@ -372,7 +380,29 @@ class _EnsembleLevelSampler:
             return xs, lps, accept
         # K coarse subchains advanced in lockstep, started from xs
         sub = self.subsampling[level - 1]
-        if level == 1 and self.coarse_vg is not None:
+        if level == 1 and self.fused_level0 is not None:
+            # device-resident subchain: `sub` coarse RWM steps for all K
+            # chains in ONE dispatch — the DA ratio below uses lp_start/lp_ys
+            # from the SAME coarse tensor-program logpost, so the correction
+            # is exact; only the fine test pays a fabric wave
+            if self._fused_run is None:
+                from repro_torch.uq.fused import make_fused_rwm_subchain
+
+                self._fused_run = make_fused_rwm_subchain(
+                    self.fused_level0, sub, self.chol
+                )
+            ys, lp_ys_coarse, lp_start_coarse, sub_acc, self._fused_key = (
+                self._fused_run(xs, self._fused_key)
+            )
+            moved = sub_acc > 0
+            self.evals[0] += K * (sub + 1)
+            self.waves += 2  # start-lps wave + the fused block
+            self.acc[0] += sub_acc.sum()
+            self.tot[0] += K * sub
+            note = getattr(self.logposts[0], "note_steps", None)
+            if note is not None:
+                note(sub, waves=1)
+        elif level == 1 and self.coarse_vg is not None:
             # gradient-informed coarse subchain: `sub` lockstep MALA steps,
             # each ONE fused value-and-gradient wave. All coarse log-
             # posterior values entering the DA ratio (lp_start, lp_ys) come
@@ -483,8 +513,16 @@ def ensemble_mlda(
     is restored exactly, reproduces the uninterrupted run sample for
     sample.
 
-    `fused_level0=` (device-resident level-0 subchains) is not ported yet
-    and raises `NotImplementedError` (ROADMAP queue 1, item 7).
+    `fused_level0=` (a ``[K, d] -> [K]`` coarse log-posterior tensor
+    program, e.g. `uq.fused.gaussian_likelihood_target` over the coarse
+    solver's `apps.tsunami.solve_batch`) runs each level-0 subchain as ONE
+    device-resident dispatch (on the card one CUDA-graph replay of
+    `subsampling[0]` steps) instead of `subsampling[0]` host waves — the
+    `uq.fused` generator (seeded on the card from `rng`, or passed as
+    `fused_key=`) rides checkpoints as the `fused_key` leaf so resume stays
+    bit-exact. Incompatible with `adaptive=` (the host adaptation path runs
+    inside the level-0 loop this replaces) and `surrogate=` (the GP screen
+    taps host-side coarse traffic that no longer exists).
 
     `coarse_sampler="mala"` makes the coarse subchains GRADIENT-INFORMED:
     each level-0 subchain step is one lockstep preconditioned-MALA step
@@ -501,18 +539,22 @@ def ensemble_mlda(
     `fabric=` pass `grad_loglik=` (and optionally `grad_logprior=`) and it
     is built automatically. Requires at least two levels and a
     gradient-capable coarse backend; incompatible with `adaptive=`,
-    `surrogate=` (both act inside the blind level-0 path this
-    replaces)."""
-    if fused_level0 is not None:
-        _fused_unported("fused_level0")
+    `surrogate=` and `fused_level0=` (all act inside the blind level-0
+    path this replaces)."""
+    if fused_level0 is not None and (adaptive or surrogate is not None):
+        raise ValueError(
+            "fused_level0= is incompatible with adaptive= and surrogate=: "
+            "both act inside the host level-0 loop that fused subchains "
+            "replace (run them on the host path, or freeze/disable them)"
+        )
     if coarse_sampler not in ("rwm", "mala"):
         raise ValueError(f"coarse_sampler must be 'rwm' or 'mala', got {coarse_sampler!r}")
     if coarse_sampler == "mala":
-        if adaptive or surrogate is not None:
+        if adaptive or surrogate is not None or fused_level0 is not None:
             raise ValueError(
-                "coarse_sampler='mala' is incompatible with adaptive= and "
-                "surrogate=: both act inside the blind level-0 random-walk "
-                "path that MALA subchains replace"
+                "coarse_sampler='mala' is incompatible with adaptive=, "
+                "surrogate= and fused_level0=: all three act inside the "
+                "blind level-0 random-walk path that MALA subchains replace"
             )
         if coarse_value_grad is None:
             if fabric is None or grad_loglik is None:
@@ -541,12 +583,15 @@ def ensemble_mlda(
             "kernel drives the coarse SUBCHAINS below a DA acceptance test "
             "(for single-level gradient-based sampling use uq.mcmc.ensemble_mala)"
         )
+    if fused_level0 is not None:
+        fused_key = _fused_key(fused_key, rng)
     xs = np.atleast_2d(np.asarray(x0s, float)).copy()
     K, d = xs.shape
     sampler = _EnsembleLevelSampler(
         logpost_batches, subsampling, prop_cov, rng, K,
         adaptive=adaptive, adapt_start=adapt_start,
         adapt_interval=adapt_interval, sd=adapt_sd, surrogate=surrogate,
+        fused_level0=fused_level0, fused_key=fused_key,
         coarse_vg=coarse_value_grad, mala_step=mala_step,
     )
     top = len(logpost_batches) - 1
@@ -564,6 +609,13 @@ def ensemble_mlda(
             "level0_steps": int(sampler._level0_steps),
             "rng_state": rng.bit_generator.state,
         }
+        if sampler._fused_key is not None:
+            # the fused subchains' generator rides as its state, with its
+            # device type — restoring it replays the identical proposals
+            from repro_torch.core.fleet import CampaignCheckpoint
+
+            arrays["fused_key"] = CampaignCheckpoint.pack_key(sampler._fused_key)
+            meta["fused_key_device"] = sampler._fused_key.device.type
         if sampler.adapter is not None:
             arrays["adapter_mean"] = sampler.adapter.mean
             arrays["adapter_scatter"] = sampler.adapter._scatter
@@ -588,6 +640,11 @@ def ensemble_mlda(
             sampler.adapter.mean = np.array(arrays["adapter_mean"])
             sampler.adapter._scatter = np.array(arrays["adapter_scatter"])
             sampler.adapter.n = int(meta["adapter_n"])
+        if "fused_key" in arrays:
+            from repro_torch.core.fleet import CampaignCheckpoint
+
+            sampler._fused_key = CampaignCheckpoint.unpack_key(
+                arrays["fused_key"], meta["fused_key_device"])
         # exact-stream resume: the generator continues precisely where the
         # snapshot left it, so the resumed trajectory matches the
         # uninterrupted one sample for sample

@@ -18,13 +18,18 @@ from another thread while their graphs are captured. The GP level
 (`uq/gp.py`: float32 Adam and Matérn matrices on the card) predicts what
 the same fit predicts on the CPU within `_torch_parity.FIT_TOL`, and an
 online GP screen trains on the card from a fabric's collector thread while
-a three-stage sampler predicts from its own.
+a three-stage sampler predicts from its own. The fused sampler blocks
+(`uq/fused.py`: S steps a CUDA-graph replay) equal their per-step
+reference and their eager step body bit for bit, resume a killed run bit
+for bit, hold S `swe_solve` launches a replay on the coarse tsunami, and
+survive evaluate waves run from another thread while they are captured.
 Every test here is marked `gpu` and skips without a CUDA device. The file imports neither JAX nor the JAX package, so it also
 runs on a GPU machine that has no JAX:
 
     PYTHONPATH=src python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -480,3 +485,196 @@ def test_online_gp_screen_trains_and_screens_on_cuda():
     assert screen.store.n_points == tel["per_label"]["coarse"]["points"]
     assert np.isfinite(res.samples).all()
     assert res.surrogate["screened"] > 0 and 0.0 < tel["screen_pass_rate"] < 1.0
+
+
+# -- the fused sampler blocks (`uq.fused`): S steps a CUDA-graph replay ---------
+
+MEAN2 = np.array([1.0, -0.5])
+COV2 = np.array([[0.8, 0.3], [0.3, 0.5]])
+X0S = np.random.default_rng(3).normal(size=(6, 2))
+
+
+def _fused_run(kind: str, dev, seed: int, **kw):
+    from repro_torch.uq import fused
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "rwm":
+        return fused.fused_ensemble_rwm(fused.gaussian_target(MEAN2, COV2), X0S, 30,
+                                        0.4 * COV2, gen, fused_steps=5, **kw)
+    if kind == "pcn":
+        return fused.fused_ensemble_pcn(fused.gaussian_target(MEAN2), X0S, 24, 0.3, gen,
+                                        fused_steps=6, **kw)
+    return fused.fused_ensemble_mala(fused.gaussian_target(MEAN2, COV2), X0S, 30, 0.6, gen,
+                                     fused_steps=5, adapt_steps=15, precond=COV2, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["rwm", "pcn", "mala"])
+def test_fused_block_equals_per_step_on_cuda(kind):
+    """One S-step graph replayed per block draws the generator's Philox
+    stream at the offsets S replays of the one-step graph draw: fused ==
+    per-step bit for bit, MALA's adapted step size included; and the
+    caller's generator ends where the stream ends."""
+    dev = cuda_or_skip()
+    got = _fused_run(kind, dev, 7)
+    want = _fused_run(kind, dev, 7, per_step=True)
+    np.testing.assert_array_equal(got.samples, want.samples)
+    np.testing.assert_array_equal(got.logposts, want.logposts)
+    np.testing.assert_array_equal(got.accept_rates, want.accept_rates)
+    assert got.final_step_size == want.final_step_size
+    assert np.all(got.accept_rates > 0) and np.isfinite(got.samples).all()
+    # a repeat call replays the memoised graph and reproduces the run
+    np.testing.assert_array_equal(_fused_run(kind, dev, 7).samples, got.samples)
+
+
+@pytest.mark.gpu
+def test_fused_graph_draws_what_the_eager_body_draws():
+    """The captured block against its own step body run eagerly on the card
+    from the same generator state: the same samples bit for bit."""
+    from repro_torch.uq import fused
+
+    dev = cuda_or_skip()
+    lp = fused.gaussian_target(MEAN2, COV2)
+    got = fused.fused_ensemble_rwm(lp, X0S, 10, 0.4 * COV2,
+                                   torch.Generator(device=dev).manual_seed(3), fused_steps=5)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    step = fused._rwm_step(lp, np.linalg.cholesky(0.4 * COV2), dev)
+    xs = torch.as_tensor(X0S, dtype=torch.float32, device=dev)
+    carry = {"xs": xs, "lps": lp(xs), "acc": torch.zeros_like(xs[:, 0])}
+    eager = []
+    for _ in range(10):
+        carry, (xs, _) = step(carry, gen)
+        eager.append(xs.cpu().numpy())
+    np.testing.assert_array_equal(got.samples, np.stack(eager, 1).astype(float))
+
+
+@pytest.mark.gpu
+def test_fused_kill_and_resume_on_cuda(tmp_path):
+    """tests/test_fused.py's MALA kill-and-resume on the card: the generator
+    state packed after k replays is the state block k + 1 starts from."""
+    from repro_torch.core.fleet import CampaignCheckpoint
+
+    dev = cuda_or_skip()
+    want = _fused_run("mala", dev, 23)
+
+    class Killed(RuntimeError):
+        pass
+
+    class DieAfter:
+        def __init__(self, ckpt):
+            self.ckpt, self.saves = ckpt, 0
+
+        def resume(self):
+            return self.ckpt.resume()
+
+        def save(self, step, arrays, meta):
+            self.ckpt.save(step, arrays, meta)
+            self.saves += 1
+            if self.saves == 2:
+                raise Killed
+
+    with pytest.raises(Killed):
+        _fused_run("mala", dev, 23, checkpoint=DieAfter(CampaignCheckpoint(str(tmp_path))),
+                   checkpoint_every=10)
+    _, meta, step = CampaignCheckpoint(str(tmp_path)).resume()
+    assert step == 20 and meta["key_device"] == "cuda"
+    got = _fused_run("mala", dev, 999, checkpoint=CampaignCheckpoint(str(tmp_path)),
+                     checkpoint_every=10)
+    np.testing.assert_array_equal(got.samples, want.samples)
+    np.testing.assert_array_equal(got.logposts, want.logposts)
+    assert got.final_step_size == want.final_step_size
+
+
+def _coarse_tsunami_target(dev):
+    from functools import partial
+
+    from repro_torch.kernels.swe.testing import SOURCE_BOX
+    from repro_torch.uq.fused import gaussian_likelihood_target
+
+    forward = partial(solve_batch, n_cells=512, smoothed=True)
+    data = forward(torch.tensor([[90.0, 2.5]], device=dev))[0].cpu().numpy()
+    return gaussian_likelihood_target(forward, data, [0.5, 0.05, 0.5, 0.05], SOURCE_BOX)
+
+
+@pytest.mark.gpu
+def test_fused_tsunami_block_is_one_graph_of_S_launches():
+    """A fused RWM block over the coarse tsunami (512 cells, 16 lanes): the
+    capture counts nothing, its warm-up S launches, and each replay adds S
+    `swe_solve` launches; none of `swe_step`. Fused == per-step bit for
+    bit through the kernel too."""
+    from repro_torch.uq import fused
+
+    dev = cuda_or_skip()
+    lp = _coarse_tsunami_target(dev)
+    x0s, S = sources(16, 11).astype(float), 5
+    prop = np.diag([8.0**2, 0.25**2])
+
+    def run(n, **kw):
+        return fused.fused_ensemble_rwm(lp, x0s, n, prop,
+                                        torch.Generator(device=dev).manual_seed(5),
+                                        fused_steps=S, **kw)
+
+    fused._BLOCK_MEMO.clear()  # the first run captures its graph
+    before = (swe_solve.launches, swe_step.launches)
+    first = run(2 * S)
+    (block,) = [b for b in fused._BLOCK_MEMO.values() if isinstance(b, fused._Block)]
+    # the initial wave, the warm-up's S, two replays of S; the capture none
+    assert block.graph is not None and block.held == {(swe_solve, None): S}
+    assert (swe_solve.launches - before[0], swe_step.launches - before[1]) == (1 + 3 * S, 0)
+    before = swe_solve.launches
+    again = run(2 * S)  # memoised: no warm-up, no capture
+    assert swe_solve.launches - before == 1 + 2 * S
+    np.testing.assert_array_equal(again.samples, first.samples)
+    per_step = run(2 * S, per_step=True)
+    np.testing.assert_array_equal(per_step.samples, first.samples)
+    assert np.isfinite(first.samples).all()
+    assert np.all((first.accept_rates > 0) & (first.accept_rates <= 1))
+
+
+@pytest.mark.gpu
+def test_fused_capture_survives_evaluate_waves_from_another_thread():
+    """The fabric runs evaluate waves of the same model (a synchronous copy
+    to the card, a kernel launch) from its collector thread while a fused
+    block is captured: neither breaks the other, and both compute what they
+    compute alone."""
+    from repro_torch.uq import fused
+
+    dev = cuda_or_skip()
+    model = tsunami.TsunamiModel(device=dev)
+    lp = _coarse_tsunami_target(dev)
+    x0s, prop = sources(16, 11).astype(float), np.diag([8.0**2, 0.25**2])
+    thetas = sources(16, 3)
+    evaluated = model.evaluate_batch(thetas)
+
+    def run():
+        return fused.fused_ensemble_rwm(lp, x0s, 8, prop,
+                                        torch.Generator(device=dev).manual_seed(9),
+                                        fused_steps=4)
+
+    stop, ys, errors = threading.Event(), [], []
+
+    def evaluate_meanwhile():
+        try:
+            while not stop.is_set():
+                ys.append(model.evaluate_batch(thetas))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    fused._BLOCK_MEMO.clear()  # the run below captures its graph
+    worker = threading.Thread(target=evaluate_meanwhile)
+    worker.start()
+    try:
+        deadline = time.monotonic() + 60
+        while not ys and not errors and time.monotonic() < deadline:
+            time.sleep(0.001)  # the worker's waves are under way
+        started = len(ys)
+        during = run()
+        waves_during = len(ys) - started
+    finally:
+        stop.set()
+        worker.join(timeout=60)
+    assert not worker.is_alive() and not errors, errors
+    assert started >= 1 and waves_during >= 1
+    for y in ys:
+        np.testing.assert_array_equal(y, evaluated)
+    np.testing.assert_array_equal(run().samples, during.samples)  # a replay, alone

@@ -2,6 +2,8 @@
 is host numpy code in both packages, so with the same inputs and the same
 numpy `rng` the two must take identical steps; the tsunami campaign then
 runs end to end through each package's fabric and model."""
+from functools import partial
+
 import numpy as np
 import pytest
 import torch
@@ -11,6 +13,7 @@ import repro.core.fabric as jax_fabric
 import repro.uq.mlda as jax_mlda
 import repro_torch.apps.tsunami as tsunami
 import repro_torch.core.fabric as fabric
+import repro_torch.uq.fused as fused
 import repro_torch.uq.mcmc as mcmc
 import repro_torch.uq.mlda as mlda
 
@@ -53,15 +56,23 @@ def test_ensemble_mlda_exact_parity_with_jax_package(adaptive):
 
 
 def test_fused_paths_name_their_roadmap_item():
-    x0s = np.zeros((2, 2))
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        mlda.ensemble_mlda(_gaussian_levels(), x0s, 2, [2], np.eye(2),
-                           np.random.default_rng(0), fused_level0=lambda X: X)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+    """The fused samplers run (tests/test_torch_fused.py); what they cannot
+    do yet names its ROADMAP row: a device mesh (`ctx=`, queue 1, item 14)
+    and fused MALA over a forward that autograd cannot differentiate, the
+    tsunami, whose SWE solve kernel has no autograd rule (queue 1, item 7b,
+    after the hand-written adjoint)."""
+    x0s = np.array([[84.0, 2.3], [97.0, 2.7]])
+    gen = torch.Generator().manual_seed(0)
+    target = fused.gaussian_likelihood_target(
+        partial(tsunami.solve_batch, n_cells=64, smoothed=True),
+        np.zeros(4), np.ones(4))
+    with pytest.raises(NotImplementedError, match="queue 1, item 14"):
         mcmc.ensemble_random_walk_metropolis(
-            _gaussian_levels()[1], x0s, 2, np.eye(2), np.random.default_rng(0),
-            fused_steps=2,
-        )
+            target, x0s, 2, np.eye(2), np.random.default_rng(0),
+            fused_steps=2, fused_key=gen, ctx=object())
+    with pytest.raises(NotImplementedError, match="queue 1, item 7b"):
+        mcmc.ensemble_mala(target, x0s, 2, 0.5, np.random.default_rng(0),
+                           fused_steps=2, fused_key=gen)
 
 
 # -- the slice as a whole: the §4.3 campaign through fabric and model ---------
