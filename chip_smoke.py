@@ -35,7 +35,16 @@ user calls:
   bit (`fused_sampler`), two fused steps through the kernel against the
   same steps through the plain loop (`fused_kernel_vs_plain`),
   `main_path`'s campaign with fused coarse subchains (`fused_main_path`)
-  and a fused MALA kill-and-resume (`fused_checkpoint`);
+  and a fused MALA kill-and-resume (`fused_checkpoint`); then the same
+  campaign behind UM-Bridge HTTP model servers in this process
+  (`core/server.py`): through `HTTPBackend` and a router of two servers
+  (`wire_main_path`), two tenants at once under `UQService`
+  (`service_path`), and a router whose second member dies halfway, under
+  a `FleetManager` (`fleet_path`), each equal to `main_path`'s samples
+  bit for bit; every wave width those paths gave the solve kernel that
+  the fixed shapes do not cover, held against the plain loop as launched
+  (`wave_widths_vs_plain`); and the paper's §4.1 L2-Sea sparse grid over
+  the wire (`l2sea_wire`);
 * the LM-as-UQ-model serving flow of `examples/serve_uq.py` on two
   full-width models from seeded random weights (bf16): mamba2-1.3b (48
   layers), every layer of every forward one launch of the SSD chunk-scan
@@ -69,11 +78,13 @@ outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -115,8 +126,13 @@ NOISE_SD = np.array([0.5, 0.05, 0.5, 0.05])  # arrival [min], height [m]
 SEED = 3
 
 
+#: the script's start: each phase line carries its seconds since then
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}, default=float), flush=True)
+    print(json.dumps({"phase": phase, **fields, "t_s": time.perf_counter() - T_START},
+                     default=float), flush=True)
 
 
 def kernel_wrappers() -> dict:
@@ -146,6 +162,59 @@ def read_launches() -> dict:
     for name, wrapper in kernel_wrappers().items():
         counts.update(getattr(wrapper, "launches_by_kernel", {name: wrapper.launches}))
     return counts
+
+
+class WaveWidths:
+    """Records, while `installed`, every wave that `apps.tsunami.solve_batch`
+    hands the solve kernel (the `swe_solve` name it calls): the distinct
+    [cells, lanes] of each phase, and for each width its first wave, the
+    inputs and the kernel's outputs, so that `phase_wave_widths_vs_plain`
+    can hold exactly those launches against the plain version. The model's
+    waves run unpadded, so a campaign gives widths that `SOLVE_SHAPES` does
+    not list. The kernel's count is its wrapper's, untouched; a wave
+    captured into a CUDA graph is not recorded (it runs at replay)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.by_phase: dict[str, set] = {}
+        self.first: dict[tuple, tuple] = {}
+        self.phase = None
+        self._lock = threading.Lock()
+
+    @contextlib.contextmanager
+    def installed(self):
+        import repro_torch.apps.tsunami as tsunami
+
+        kernel = tsunami.swe_solve
+
+        def recording(h, hu, b, **kw):
+            out = kernel(h, hu, b, **kw)
+            if not (h.is_cuda and self.torch.cuda.is_current_stream_capturing()):
+                self._note(h, hu, b, kw, out)
+            return out
+
+        tsunami.swe_solve = recording
+        try:
+            yield self
+        finally:
+            tsunami.swe_solve = kernel
+
+    def run(self, phase: str, fn, *args):
+        """`fn(*args)`, its waves recorded under `phase`."""
+        self.phase = phase
+        try:
+            return fn(*args)
+        finally:
+            self.phase = None
+
+    def _note(self, h, hu, b, kw, out) -> None:
+        key = tuple(h.shape)
+        with self._lock:
+            self.by_phase.setdefault(self.phase, set()).add(key)
+            if key not in self.first:
+                inputs = {k: v.clone() if self.torch.is_tensor(v) else v for k, v in kw.items()}
+                self.first[key] = (dict(h=h.clone(), hu=hu.clone(), b=b.clone(), **inputs),
+                                   tuple(t.clone() for t in out))
 
 
 def nvidia_smi() -> str:
@@ -535,7 +604,8 @@ def phase_main_path(torch, dev) -> dict:
          launches=counts,
          posterior_mean=res.samples.reshape(-1, 2).mean(0).tolist(),
          backend=tel["backend"])
-    return {"launches": launches, "wall_s": wall, "n_waves": res.n_waves}
+    return {"launches": launches, "wall_s": wall, "n_waves": res.n_waves,
+            "samples": res.samples}
 
 
 def tsunami_problem(torch, model, dev):
@@ -1420,6 +1490,569 @@ def phase_fused_checkpoint(torch, dev) -> dict:
     return {}
 
 
+# -- the wire, the service tier and the fleet (UM-Bridge over HTTP) -------------
+
+
+def _serve(*models):
+    """A port server in this process on a free port (port 0, read back):
+    (server, its URL). The models pick the device: on the card here."""
+    from repro_torch.core.server import serve_models
+
+    server, _ = serve_models(list(models), 0, background=True)
+    return server, f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def _stop(servers) -> None:
+    for server, _ in servers:
+        server.shutdown()
+        server.server_close()
+
+
+def _get_json(url: str, path: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(url + path, timeout=30.0) as resp:
+        return json.loads(resp.read())
+
+
+def _assert_no_server_errors(urls) -> list:
+    """Every server's `stats` from `/Health`: a model exception (a CUDA
+    fault included) answers HTTP 400 and counts in `errors`, so a fault
+    must not hide in that counter."""
+    stats = [_get_json(url, "/Health")["stats"] for url in urls]
+    if any(st["errors"] for st in stats):
+        raise AssertionError(f"server errors: {dict(zip(urls, stats))}")
+    return stats
+
+
+def _main_path_campaign(fabric, logprior, loglik, seed: int = 501):
+    """`main_path`'s campaign (K = 16 chains from `sources(16, 11)`, 4 fine
+    samples, subsampling [5], `rng=default_rng(seed)`) on any evaluator."""
+    from repro_torch.kernels.swe.testing import sources
+    from repro_torch.uq.mlda import ensemble_mlda
+
+    return ensemble_mlda(
+        None, sources(16, 11).astype(float), n_samples=4, subsampling=[5],
+        prop_cov=MAIN_PROP_COV, rng=np.random.default_rng(seed), fabric=fabric,
+        level_configs=[L0, L1], loglik=loglik, logprior=logprior,
+    )
+
+
+def _waves(models) -> list:
+    return [dict(m.waves) for m in models]
+
+
+def _waves_since(models, before) -> list:
+    return [{lvl: m.waves[lvl] - b[lvl] for lvl in (0, 1)} for m, b in zip(models, before)]
+
+
+def _join(threads, what: str, timeout_s: float = 600.0) -> None:
+    deadline = time.monotonic() + timeout_s
+    for t in threads:
+        t.join(max(0.0, deadline - time.monotonic()))
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"{what}: threads still running after {timeout_s} s")
+
+
+def _same_bits(got, want, what: str) -> None:
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape or not np.array_equal(got, want):
+        diff = (np.abs(got - want).max() if got.shape == want.shape else "shape")
+        raise AssertionError(f"{what}: not bit for bit ({got.shape} vs {want.shape}, "
+                             f"max abs diff {diff})")
+
+
+def _two_waves_side_by_side(torch, model, repeats: int = 10) -> dict:
+    """Median wall of two 16-lane coarse waves (16 of the card's SMs each):
+    one after the other; from two threads on the legacy default stream, as
+    two servers in one process run them; from two threads each on its own
+    stream; and from one thread on device tensors, on one stream and on two.
+    Measures whether the waves could overlap; the servers keep the default
+    stream."""
+    from repro_torch.apps.tsunami import solve_batch
+    from repro_torch.kernels.swe.testing import sources
+
+    thetas = [sources(16, 41 + i).astype(float) for i in (0, 1)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    want = [model.evaluate_batch(t, L0) for t in thetas]
+
+    def wave(i, stream):
+        if stream is None:
+            return model.evaluate_batch(thetas[i], L0)
+        with torch.cuda.stream(stream):
+            return model.evaluate_batch(thetas[i], L0)
+
+    def in_threads(own_streams: bool):
+        out = [None, None]
+
+        def run(i):
+            out[i] = wave(i, streams[i] if own_streams else None)
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in (0, 1)]
+        for t in threads:
+            t.start()
+        _join(threads, "side-by-side waves")
+        return out
+
+    # the same two waves from one thread with no host copy in between
+    # (`solve_batch` on device tensors): whether the card overlaps them at all
+    on_card = [torch.as_tensor(t, dtype=torch.float32, device="cuda") for t in thetas]
+
+    def device_waves(own_streams: bool):
+        out = []
+        for st in streams:
+            st.wait_stream(torch.cuda.current_stream())
+        for i in (0, 1):
+            with torch.cuda.stream(streams[i] if own_streams else torch.cuda.current_stream()):
+                out.append(solve_batch(on_card[i], 512, True))
+        for st in streams:
+            torch.cuda.current_stream().wait_stream(st)
+        return [o.cpu().numpy().astype(float) for o in out]
+
+    ways = {"serial": lambda: [wave(0, None), wave(1, None)],
+            "threads_default_stream": lambda: in_threads(False),
+            "threads_own_streams": lambda: in_threads(True),
+            "device_serial": lambda: device_waves(False),
+            "device_two_streams": lambda: device_waves(True)}
+    walls = {}
+    for name, fn in ways.items():
+        fn()  # warm
+        ts = []
+        for _ in range(repeats):
+            wall, out = _timed(torch, fn)
+            ts.append(wall)
+            for i in (0, 1):
+                _same_bits(out[i], want[i], f"side-by-side waves ({name})")
+        walls[name + "_ms"] = 1e3 * statistics.median(ts)
+    return walls
+
+
+def _wire_fixed_cost(url: str, calls: int = 50) -> dict:
+    """Median ms of what every request pays before any model work: a TCP
+    connect and close to the server (the client opens one connection per
+    request, as the reference's does), and a whole POST /OutputSizes round
+    trip (connect, handler thread, JSON both ways)."""
+    import socket
+    from urllib.parse import urlsplit
+
+    from repro_torch.core.client import _post
+
+    where = urlsplit(url)
+    connect, post = [], []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        socket.create_connection((where.hostname, where.port), timeout=10.0).close()
+        t1 = time.perf_counter()
+        _post(url, "/OutputSizes", {"name": "forward"})
+        connect.append(t1 - t0)
+        post.append(time.perf_counter() - t1)
+    return {"connect_close_ms": 1e3 * statistics.median(connect),
+            "post_output_sizes_ms": 1e3 * statistics.median(post)}
+
+
+#: lanes of the timed /EvaluateBatch calls, and calls per width and level
+WIRE_LANES = (16, 64, 512)
+WIRE_CALLS = 50
+
+
+def phase_wire_main_path(torch, dev, main_path: dict) -> dict:
+    """The §4.3 campaign through the wire: two port servers in this process
+    on the card, each with its own `TsunamiModel`. `main_path`'s campaign
+    runs (a) through `EvaluationFabric(HTTPBackend([url0]))` and (b)
+    through `EvaluationFabric(register_servers([url0, url1]))`, a router
+    over both; each gives `main_path`'s samples bit for bit (JSON carries
+    float64 by repr, and a lane of `swe_solve` does not depend on its
+    wave), and `swe_solve` launches == the waves the servers' models
+    solved. Then /EvaluateBatch timed against the in-process wave at 16, 64
+    and 512 lanes per level, a 16-lane coarse /GradientBatch and
+    /ApplyJacobianBatch == the in-process waves, and the same
+    /GradientBatch from two client threads at once == the serial one."""
+    from repro_torch.apps.tsunami import TsunamiModel
+    from repro_torch.core.client import HTTPModel, probe_health, register_servers
+    from repro_torch.core.fabric import EvaluationFabric, HTTPBackend
+    from repro_torch.kernels.swe.testing import sources
+
+    models = [TsunamiModel(), TsunamiModel()]
+    servers = [_serve(m) for m in models]
+    urls = [url for _, url in servers]
+    try:
+        _, logprior, loglik, _ = tsunami_problem(torch, TsunamiModel(), dev)
+        caps = TsunamiModel().capabilities().to_json()
+        for url in urls:
+            doc = probe_health(url)
+            if (doc is None or doc["status"] != "ok" or doc["models"] != ["forward"]
+                    or doc["capabilities"] != {"forward": caps}):
+                raise AssertionError(f"/Health of {url}: {doc}")
+            if HTTPModel(url).capabilities().to_json() != caps:  # /ModelInfo
+                raise AssertionError(f"/ModelInfo of {url} is not {caps}")
+        runs = {}
+        for name, make in (("http_backend", lambda: HTTPBackend([urls[0]])),
+                           ("router", lambda: register_servers(urls))):
+            backend = make()
+            clients = backend.clients if name == "http_backend" else [
+                c for b in backend for c in b.clients]
+            trips0 = sum(c.round_trips for c in clients)
+            fabric = EvaluationFabric(backend, cache_size=8192)
+            try:
+                # every launch count starts at 0 right before the path
+                reset_launches()
+                waves0 = _waves(models)
+                wall, res = _timed(torch, lambda: _main_path_campaign(fabric, logprior, loglik))
+                counts = read_launches()
+                tel = fabric.telemetry()
+            finally:
+                fabric.shutdown()
+            waves = _waves_since(models, waves0)
+            n_waves = sum(sum(w.values()) for w in waves)
+            _same_bits(res.samples, main_path["samples"], f"wire campaign ({name})")
+            if counts["swe_solve"] != n_waves or counts["swe_step"] != 0:
+                raise AssertionError(f"{name}: kernel launches {counts}, expected {n_waves} "
+                                     f"of swe_solve (server waves {waves}) and no swe_step")
+            trips = sum(c.round_trips for c in clients) - trips0
+            runs[name] = dict(wall_s=wall, round_trips=trips, n_waves=res.n_waves,
+                              waves_per_server=waves, swe_solve_launches=counts["swe_solve"],
+                              launches=counts,
+                              wire_s_per_round_trip=(wall - main_path["wall_s"]) / trips,
+                              router=({k: tel["backend"][k] for k in ("waves", "steals")}
+                                      if name == "router" else None))
+        # the wire's cost per call: /EvaluateBatch against the in-process wave
+        # on the same model, interleaved call by call
+        client, model = HTTPModel(urls[0]), models[0]
+        timing = []
+        for cfg in (L0, L1):
+            for n in WIRE_LANES:
+                thetas = sources(n, 100 + n).astype(float)
+                _same_bits(client.evaluate_batch(thetas, cfg), model.evaluate_batch(thetas, cfg),
+                           f"/EvaluateBatch at {n} lanes, level {cfg['level']}")
+                wire_s, local_s = [], []
+                for _ in range(WIRE_CALLS):
+                    t0 = time.perf_counter()
+                    client.evaluate_batch(thetas, cfg)
+                    t1 = time.perf_counter()
+                    model.evaluate_batch(thetas, cfg)
+                    local_s.append(time.perf_counter() - t1)
+                    wire_s.append(t1 - t0)
+                timing.append(dict(
+                    level=cfg["level"], lanes=n, calls=WIRE_CALLS,
+                    evals_per_s_wire=n * WIRE_CALLS / sum(wire_s),
+                    evals_per_s_in_process=n * WIRE_CALLS / sum(local_s),
+                    median_wire_ms=1e3 * statistics.median(wire_s),
+                    median_in_process_ms=1e3 * statistics.median(local_s),
+                    median_wire_cost_ms=1e3 * statistics.median(
+                        w - l for w, l in zip(wire_s, local_s))))
+        side_by_side = _two_waves_side_by_side(torch, model)
+        fixed_cost = _wire_fixed_cost(urls[1])
+        # derivative waves over the wire, serial and from two threads at once
+        rng = np.random.default_rng(17)
+        thetas = sources(16, 7).astype(float)
+        senss, vecs = rng.standard_normal((16, 4)), rng.standard_normal((16, 2))
+        want_g = model.gradient_batch(thetas, senss, L0)
+        want_j = model.apply_jacobian_batch(thetas, vecs, L0)
+        t0 = time.perf_counter()
+        got_g = client.gradient_batch(thetas, senss, L0)
+        grad_wall = time.perf_counter() - t0
+        _same_bits(got_g, want_g, "/GradientBatch")
+        _same_bits(client.apply_jacobian_batch(thetas, vecs, L0), want_j, "/ApplyJacobianBatch")
+        both, errors = [None, None], []
+
+        def send(i):
+            try:
+                both[i] = HTTPModel(urls[0]).gradient_batch(thetas, senss, L0)
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=send, args=(i,)) for i in (0, 1)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        _join(threads, "concurrent /GradientBatch")
+        concurrent_wall = time.perf_counter() - t0
+        if errors:
+            raise AssertionError(f"concurrent /GradientBatch: {errors}")
+        for i in (0, 1):
+            _same_bits(both[i], want_g, f"concurrent /GradientBatch, thread {i}")
+        stats = _assert_no_server_errors(urls)
+    finally:
+        _stop(servers)
+    emit("wire_main_path", servers=2, runs=runs, main_path_wall_s=main_path["wall_s"],
+         evaluate_batch_timing=timing, wire_fixed_cost=fixed_cost,
+         two_coarse_waves=side_by_side,
+         gradient_batch_16_wall_s=grad_wall,
+         concurrent_gradient_batch_wall_s=concurrent_wall, server_stats=stats,
+         bound="bit for bit (samples == main_path's; derivative waves == in-process; "
+               "concurrent == serial)")
+    return {"launches": runs["router"]["swe_solve_launches"],
+            "launches_http_backend": runs["http_backend"]["swe_solve_launches"], "runs": runs}
+
+
+#: the two tenants of `service_path`: priority, DRR weight, campaign rng seed
+SERVICE_TENANTS = {"alice": ("high", 2.0, 601), "bob": ("low", 1.0, 602)}
+
+
+def phase_service_path(torch, dev) -> dict:
+    """A `UQService` over the router of two port servers runs two tenants at
+    once (priorities high and low, weights 2 : 1), each `main_path`'s
+    campaign with its own rng seed in its own thread. Each campaign's
+    samples == its solo in-process run's bit for bit. The service stamps
+    its wire requests with one identity (`X-UQ-Tenant: uq-service`; the
+    fabric's per-tenant identity does not reach the HTTP client, in either
+    package): each tenant's points charged == its fabric accounting (cache
+    hits + misses + coalesced), and the points the fabric dispatched == the
+    servers' /Tenants points == the models' solves."""
+    from repro_torch.apps.tsunami import TsunamiModel
+    from repro_torch.core.client import register_servers
+    from repro_torch.core.fabric import EvaluationFabric, ModelBackend
+    from repro_torch.core.service import UQService
+
+    _, logprior, loglik, _ = tsunami_problem(torch, TsunamiModel(), dev)
+    solo = {}
+    for tenant, (_, _, seed) in SERVICE_TENANTS.items():
+        fabric = EvaluationFabric(ModelBackend(TsunamiModel()), cache_size=8192)
+        try:
+            solo[tenant] = _main_path_campaign(fabric, logprior, loglik, seed).samples
+        finally:
+            fabric.shutdown()
+    models = [TsunamiModel(), TsunamiModel()]
+    servers = [_serve(m) for m in models]
+    urls = [url for _, url in servers]
+    try:
+        svc = UQService(EvaluationFabric(register_servers(urls, tenant="uq-service"),
+                                         cache_size=8192), max_concurrent_waves=2)
+        out, errors = {}, []
+
+        def run(tenant):
+            priority, weight, seed = SERVICE_TENANTS[tenant]
+            try:
+                camp = svc.open_campaign(tenant, priority=priority, weight=weight)
+                t0 = time.perf_counter()
+                res = _main_path_campaign(camp, logprior, loglik, seed)
+                out[tenant] = (time.perf_counter() - t0, res, camp.points_charged)
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=run, args=(t,)) for t in SERVICE_TENANTS]
+        try:
+            reset_launches()
+            waves0, stats0 = _waves(models), [dict(m.stats) for m in models]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            _join(threads, "service campaigns")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_launches()
+            tel = svc.telemetry()
+        finally:
+            svc.close()
+            svc.fabric.shutdown()
+        if errors:
+            raise AssertionError(f"service campaigns: {errors}")
+        waves = _waves_since(models, waves0)
+        solves = sum(m.stats[lvl] - s[lvl] for m, s in zip(models, stats0) for lvl in (0, 1))
+        wire_points = sum(_get_json(url, "/Tenants")["tenants"].get(
+            "uq-service", {}).get("points", 0) for url in urls)
+        stats = _assert_no_server_errors(urls)
+    finally:
+        _stop(servers)
+    per_tenant = {}
+    for tenant in SERVICE_TENANTS:
+        t_wall, res, charged = out[tenant]
+        _same_bits(res.samples, solo[tenant], f"tenant {tenant} against its solo run")
+        fab = tel["fabric_per_tenant"][tenant]
+        accounted = fab["cache_hits"] + fab["cache_misses"] + fab["coalesced"]
+        if charged != accounted:
+            raise AssertionError(f"tenant {tenant}: {charged} points charged, {accounted} "
+                                 f"accounted ({fab})")
+        sched = tel["tenants"][tenant]
+        per_tenant[tenant] = dict(priority=sched["priority"], weight=sched["weight"],
+                                  wall_s=t_wall, p99_wave_s=sched["p99_wave_s"],
+                                  p50_wave_s=sched["p50_wave_s"],
+                                  granted_waves=sched["granted_waves"], points_charged=charged,
+                                  points_dispatched=fab["points"], fabric_waves=fab["waves"])
+    dispatched = sum(t["points_dispatched"] for t in per_tenant.values())
+    n_waves = sum(sum(w.values()) for w in waves)
+    if not dispatched == wire_points == solves:
+        raise AssertionError(f"points dispatched {dispatched}, on the wire {wire_points}, "
+                             f"solved {solves}")
+    if counts["swe_solve"] != n_waves or counts["swe_step"] != 0:
+        raise AssertionError(f"kernel launches {counts}, expected {n_waves} of swe_solve "
+                             f"(server waves {waves})")
+    emit("service_path", tenants=per_tenant, wall_s=wall, waves_per_server=waves,
+         points_solved=solves, points_on_the_wire=wire_points,
+         swe_solve_launches=counts["swe_solve"], launches=counts, server_stats=stats,
+         bound="bit for bit (each tenant's samples == its solo in-process run)")
+    return {"launches": counts["swe_solve"], "wall_s": wall}
+
+
+def phase_fleet_path(torch, dev, main_path: dict, wire: dict) -> dict:
+    """`main_path`'s campaign over a router (round robin) of two
+    `FaultInjector(HTTPBackend([url]))` members, a `FleetManager` ticking
+    beside it; the second member dies (`kill_after=`) halfway through the
+    campaign: after half the dispatches it took in `wire_main_path`'s
+    uninterrupted run over a router of the same two servers. The campaign
+    finishes with `main_path`'s samples bit for bit; the manager drains the
+    dead member; revived, one `tick()` reinstates it."""
+    from repro_torch.apps.tsunami import TsunamiModel
+    from repro_torch.core.fabric import EvaluationFabric, FabricRouter, HTTPBackend
+    from repro_torch.core.fleet import FaultInjector, FleetManager
+
+    _, logprior, loglik, _ = tsunami_problem(torch, TsunamiModel(), dev)
+    models = [TsunamiModel(), TsunamiModel()]
+    servers = [_serve(m) for m in models]
+    urls = [url for _, url in servers]
+    share = sum(wire["runs"]["router"]["waves_per_server"][1].values())
+    kill_after = share // 2
+    try:
+        members = [FaultInjector(HTTPBackend([urls[0]])),
+                   FaultInjector(HTTPBackend([urls[1]]), kill_after=kill_after)]
+        router = FabricRouter(members, policy="round_robin", backoff_s=0.05,
+                              backoff_max_s=0.5)
+        fabric = EvaluationFabric(router, cache_size=8192)
+        mgr = FleetManager(fabric, retire_streak=3)
+        try:
+            reset_launches()
+            waves0 = _waves(models)
+            mgr.start(interval_s=0.01)
+            wall, res = _timed(torch, lambda: _main_path_campaign(fabric, logprior, loglik))
+            mgr.stop()
+            counts = read_launches()
+            rstats = router.stats()
+            dead = [m.stats() for m in members]
+            drained = list(mgr.events)
+            members[1].revive()
+            report = mgr.tick()
+            admin = router.admin_states()
+        finally:
+            mgr.stop()
+            fabric.shutdown()
+        stats = _assert_no_server_errors(urls)
+    finally:
+        _stop(servers)
+    waves = _waves_since(models, waves0)
+    n_waves = sum(sum(w.values()) for w in waves)
+    _same_bits(res.samples, main_path["samples"], "failover campaign")
+    if not dead[1]["dead"] or not any(e["event"] == "drain" and e["backend"] == 1
+                                      for e in drained):
+        raise AssertionError(f"member 1 was not killed and drained: {dead[1]}, {drained}")
+    if report["reinstated"] != [1] or admin != ["live", "live"]:
+        raise AssertionError(f"revived member not reinstated: {report}, {admin}")
+    if counts["swe_solve"] != n_waves or counts["swe_step"] != 0:
+        raise AssertionError(f"kernel launches {counts}, expected {n_waves} of swe_solve "
+                             f"(server waves {waves})")
+    failures = [pb["failures"] for pb in rstats["per_backend"]]
+    emit("fleet_path", wall_s=wall, main_path_wall_s=main_path["wall_s"],
+         member_1_uninterrupted_dispatches=share, kill_after=kill_after,
+         campaign_waves=rstats["waves"], dispatches=[d["dispatches"] for d in dead],
+         events=[{k: v for k, v in e.items() if k != "t"} for e in drained],
+         failovers={"steals": rstats["steals"], "failures_per_member": failures},
+         waves_per_server=waves, swe_solve_launches=counts["swe_solve"], launches=counts,
+         reinstated=report["reinstated"], server_stats=stats,
+         bound="bit for bit (samples == main_path's)")
+    return {"launches": counts["swe_solve"], "wall_s": wall}
+
+
+def phase_wave_widths_vs_plain(torch, dev, widths: WaveWidths) -> dict:
+    """The solve kernel against its plain version at every [cells, lanes]
+    width the model gave it on the recorded paths that `kernel_vs_plain`
+    does not already hold (`SOLVE_SHAPES`): the first wave of each such
+    width as its path launched it, its inputs through `swe_solve_ref`, bit
+    for bit. The plain loops run one after another: each is bound by
+    launching its ~40 operations a step, and four at once from four
+    threads took 4.7x longer in all (PERF.md)."""
+    from repro_torch.kernels.swe import swe_solve_ref
+    from repro_torch.kernels.swe.testing import SOLVE_SHAPES, assert_solve_equal
+
+    held = sorted(set(widths.first) - set(SOLVE_SHAPES))
+    report = {}
+    t0 = time.perf_counter()
+    for key in held:
+        (inputs, got), name = widths.first[key], f"{key[0]}x{key[1]}"
+        inputs = dict(inputs)
+        h, hu, b = inputs.pop("h"), inputs.pop("hu"), inputs.pop("b")
+        t1 = time.perf_counter()
+        want = swe_solve_ref(h, hu, b, **inputs)
+        report[name] = dict(assert_solve_equal(got, want, f"path wave {name}"),
+                            plain_s=time.perf_counter() - t1)
+    wall = time.perf_counter() - t0
+    worst = max((r[k]["max_abs"] for r in report.values() for k in ("mx", "arr")), default=0.0)
+    emit("wave_widths_vs_plain", kernel="swe_solve", bound="bit for bit (mx, arr; NaN matches NaN)",
+         widths_by_phase={ph: [list(k) for k in sorted(ks)]
+                          for ph, ks in widths.by_phase.items()},
+         already_held=[list(k) for k in sorted(set(widths.first) & set(SOLVE_SHAPES))],
+         cases=report, wall_s=wall)
+    return {"max_abs_err": worst, "held": [list(k) for k in held]}
+
+
+#: the paper's §4.1 grid (benchmarks/sparse_grid_l2sea.py): levels, config
+L2SEA_LEVELS = (5, 10, 15)
+L2SEA_CONFIG = {"fidelity": 3}
+
+
+def phase_l2sea_wire(torch, dev) -> dict:
+    """The paper's §4.1 sparse grid of the L2-Sea model served on the card
+    (`eval_cost_s=0`) through `HTTPBackend`: triangular x Beta(10, 10) Leja
+    knots, nested levels 5, 10 and 15 (only new points evaluated), fidelity
+    3, rebuilt with the port's `uq/sparse_grid.py`. Each level's values ==
+    the in-process grid's bit for bit; one /GradientBatch == in-process."""
+    from repro_torch.apps.l2sea import DRAFT_RANGE, FROUDE_RANGE, L2SeaModel, make_inputs
+    from repro_torch.core.client import HTTPModel
+    from repro_torch.core.fabric import EvaluationFabric, HTTPBackend, ModelBackend
+    from repro_torch.uq import sparse_grid as sg
+
+    knots = [sg.knots_triangular_leja(*FROUDE_RANGE),
+             sg.knots_beta_leja(10.0, 10.0, *DRAFT_RANGE)]
+
+    def grid(backend):
+        fabric = EvaluationFabric(backend, cache_size=1024)
+        rows, prev = [], None
+        try:
+            for w in L2SEA_LEVELS:
+                Sr = sg.reduce_sparse_grid(sg.smolyak_grid(2, w, knots))
+                new = []
+
+                def f(pts):
+                    new.append(len(pts))
+                    return fabric.evaluate_batch(make_inputs(pts), L2SEA_CONFIG)
+
+                wall, vals = _timed(torch, lambda: sg.evaluate_on_sparse_grid(f, Sr, previous=prev))
+                prev = (Sr, vals)
+                rows.append(dict(level=w, points=len(Sr.points), new_points=sum(new),
+                                 wall_s=wall, values=vals))
+        finally:
+            fabric.shutdown()
+        return rows
+
+    served = _serve(L2SeaModel(eval_cost_s=0.0))
+    url = served[1]
+    try:
+        local_model = L2SeaModel()
+        warm = make_inputs(np.array([[0.3, -6.0]]))
+        HTTPModel(url).evaluate_batch(warm, L2SEA_CONFIG)  # first calls outside the walls
+        local_model.evaluate_batch(warm, L2SEA_CONFIG)
+        wire = grid(HTTPBackend([url]))
+        local = grid(ModelBackend(local_model))
+        pts = make_inputs(np.asarray(sg.reduce_sparse_grid(
+            sg.smolyak_grid(2, L2SEA_LEVELS[-1], knots)).points))
+        senss = np.ones((len(pts), 1))
+        _same_bits(HTTPModel(url).gradient_batch(pts, senss, L2SEA_CONFIG),
+                   L2SeaModel().gradient_batch(pts, senss, L2SEA_CONFIG), "/GradientBatch")
+        stats = _assert_no_server_errors([url])
+    finally:
+        _stop([served])
+    for w, l in zip(wire, local):
+        _same_bits(w["values"], l["values"], f"level {w['level']} of the grid")
+        if not np.isfinite(w["values"]).all() or (w["values"] <= 0).any():
+            raise AssertionError(f"level {w['level']}: resistance not finite and positive")
+    emit("l2sea_wire", config=L2SEA_CONFIG, gradient_points=len(pts),
+         levels=[{k: v for k, v in w.items() if k != "values"} | {
+             "in_process_wall_s": l["wall_s"], "r_t_range_kn": [float(w["values"].min()),
+                                                                 float(w["values"].max())]}
+             for w, l in zip(wire, local)],
+         server_stats=stats, bound="bit for bit (grid values, /GradientBatch)")
+    return {}
+
+
 def ssd_work(B: int, H: int, G: int, S: int, P: int, N: int) -> dict:
     """Bytes the SSD scan must move (each input read once, each output
     written once, float32) and the float operations it needs: per chunk of
@@ -2034,17 +2667,28 @@ def main() -> int:
     times = phase_times(torch, dev, probe["smi"])
     solves = phase_full_solves(torch, dev)
     phase_profile(torch)
-    main_path = phase_main_path(torch, dev)
-    phase_derivative_waves(torch, dev, probe["smi"])
-    mala = phase_mala_main_path(torch, dev)
-    phase_laplace_path(torch, dev)
-    gp_level = phase_gp_level(torch, dev)
-    three_level = phase_three_level_path(torch, dev, gp_level["gps"])
-    surrogate_da = phase_surrogate_da_path(torch, dev)
-    fused = phase_fused_sampler(torch, dev)
-    fused_check = phase_fused_kernel_vs_plain(torch, dev)
-    fused_main = phase_fused_main_path(torch, dev, main_path)
-    phase_fused_checkpoint(torch, dev)
+    # every wave the paths hand the solve kernel, by width, for
+    # `wave_widths_vs_plain`
+    widths = WaveWidths(torch)
+    with widths.installed():
+        main_path = widths.run("main_path", phase_main_path, torch, dev)
+        widths.run("derivative_waves", phase_derivative_waves, torch, dev, probe["smi"])
+        mala = widths.run("mala_main_path", phase_mala_main_path, torch, dev)
+        widths.run("laplace_path", phase_laplace_path, torch, dev)
+        gp_level = widths.run("gp_level", phase_gp_level, torch, dev)
+        three_level = widths.run("three_level_path", phase_three_level_path, torch, dev,
+                                 gp_level["gps"])
+        surrogate_da = widths.run("surrogate_da_path", phase_surrogate_da_path, torch, dev)
+        fused = widths.run("fused_sampler", phase_fused_sampler, torch, dev)
+        fused_check = widths.run("fused_kernel_vs_plain", phase_fused_kernel_vs_plain, torch,
+                                 dev)
+        fused_main = widths.run("fused_main_path", phase_fused_main_path, torch, dev, main_path)
+        widths.run("fused_checkpoint", phase_fused_checkpoint, torch, dev)
+        wire = widths.run("wire_main_path", phase_wire_main_path, torch, dev, main_path)
+        service = widths.run("service_path", phase_service_path, torch, dev)
+        fleet = widths.run("fleet_path", phase_fleet_path, torch, dev, main_path, wire)
+    width_check = phase_wave_widths_vs_plain(torch, dev, widths)
+    phase_l2sea_wire(torch, dev)
     ssd_check = phase_ssd_kernel_vs_plain(torch, dev)
     ssd_times = phase_ssd_times(torch, dev, probe["smi"])
     lm = run_lm_path(torch, SSM_ARCH)
@@ -2090,8 +2734,18 @@ def main() -> int:
         # initial wave, and the fused-subchain campaign (`fused_level0`)
         "launches_fused_sampler": fused["launches"],
         "launches_fused_main_path": fused_main["launches"],
+        # the same campaign behind HTTP model servers: through a router of
+        # two servers, two tenants under the service tier, and a router
+        # whose second member dies halfway
+        "launches_wire_main_path": wire["launches"],
+        "launches_wire_main_path_http_backend": wire["launches_http_backend"],
+        "launches_service_path": service["launches"],
+        "launches_fleet_path": fleet["launches"],
         "max_abs_err": check["solve_max_abs_err"],
         "max_abs_err_fused_path": fused_check["max_abs_err"],
+        # every other width the paths above gave it, each held as launched
+        "max_abs_err_path_widths": width_check["max_abs_err"],
+        "path_widths_held": width_check["held"],
         "ms": fine_wave["ms"],
         "plain_ms": fine_wave["plain_ms"],
         "bound_ms": fine_wave["bound_ms"],

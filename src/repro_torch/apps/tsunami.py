@@ -40,23 +40,14 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.races import named_lock
-from repro_torch.core.device import resolve_device
-from repro_torch.core.interface import (
-    Capabilities,
-    Model,
-    next_pow2,
-    pad_to_bucket,
-    sens_fn_traceable,
-)
+from repro_torch.core.device import CAPTURE_LOCK, resolve_device
+from repro_torch.core.interface import Capabilities, Model, sens_fn_traceable
 from repro_torch.kernels.swe import swe_solve, swe_solve_ref
 from repro_torch.kernels.swe.ref import _SQRT2, ARRIVAL_THRESH, G, H_DRY, _pow4, _sq
 
 L_DOMAIN = 400e3  # m
 T_END = 2600.0  # s
 BUOYS_KM = (150.0, 250.0)
-
-#: smallest wave the solver runs: waves are padded to next_pow2(max(N, 4))
-_WAVE_MIN = 4
 
 
 def bathymetry(x: np.ndarray, smoothed: bool) -> np.ndarray:
@@ -314,27 +305,31 @@ def _replay(body, n: int, mutated) -> None:
     times: one launch a step instead of the step's hundreds of eager ops,
     each of which costs the host ~25 µs on an H100 machine (PERF.md §6).
     The replays run the captured kernels, so they compute what the eager
-    loop computes, bit for bit. Elsewhere the body runs eagerly."""
+    loop computes, bit for bit. Elsewhere the body runs eagerly. The
+    warm-up and the capture hold `CAPTURE_LOCK`: waves that other threads
+    run at once (a server answers each request on its own thread) take
+    turns to capture, then replay side by side."""
     if n == 0:
         return
     if not mutated[0].is_cuda:
         for _ in range(n):
             body()
         return
-    before = [t.clone() for t in mutated]
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        body()
-    torch.cuda.current_stream().wait_stream(side)
-    for t, b in zip(mutated, before):
-        t.copy_(b)
     graph = torch.cuda.CUDAGraph()
-    # captured on the wave's own stream, and only this thread's unsafe calls
-    # (a malloc, a synchronous copy) break the capture: the fabric runs
-    # other waves of the same model from other threads meanwhile
-    with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
-        body()
+    with CAPTURE_LOCK:
+        before = [t.clone() for t in mutated]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            body()
+        torch.cuda.current_stream().wait_stream(side)
+        for t, b in zip(mutated, before):
+            t.copy_(b)
+        # captured on the wave's own stream, and only this thread's unsafe
+        # calls (a malloc, a synchronous copy) break the capture: the fabric
+        # runs evaluate waves of the same model from other threads meanwhile
+        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            body()
     for _ in range(n):
         graph.replay()
 
@@ -561,16 +556,17 @@ class TsunamiModel(Model):
     config: {"level": 0 (coarse/smoothed, default) | 1 (fully resolved)}.
 
     Runs on `device` (default: the GPU; raises if there is none). Native
-    batched evaluate: a wave of N sources is padded to a power of two and
-    solved as ONE lockstep wave on the device: on the GPU, one launch of the
-    SWE solve kernel. Native batched gradient, apply_jacobian and
+    batched evaluate: a wave of N sources is solved as ONE lockstep wave of
+    exactly N lanes on the device: on the GPU, one launch of the SWE solve
+    kernel, one block a lane. Native batched gradient, apply_jacobian and
     apply_hessian, and the fused value-and-gradient wave gradient-based
     samplers ride: lockstep AD through the differentiable solver, in chunks
     of at most `GRAD_CHUNK_MAX` lanes run one after another, unpadded."""
 
     N_CELLS = {0: 512, 1: 2048}
-    # pads internally (see evaluate_batch) — dispatcher-level pow2 padding
-    # would only add wasted solves on top
+    # lanes are independent and the solver keeps no trace cache, so a wave
+    # runs at its own width: dispatcher-level pow2 padding would only add
+    # wasted solves
     batch_bucket = False
     #: lanes of one derivative wave: the reverse sweep keeps every step's
     #: state (and the HVP its tangent too), so memory bounds the width
@@ -604,7 +600,8 @@ class TsunamiModel(Model):
 
     def evaluate_batch(self, thetas, config=None) -> np.ndarray:
         """[N, 2] -> [N, 4] float64: one lockstep solve of the whole wave,
-        padded to next_pow2(max(N, 4)) lanes by repeating the last source."""
+        N lanes, unpadded (the JAX package pads to bound its jit cache; the
+        lanes are independent, so the values are the same bit for bit)."""
         level = int((config or {}).get("level", 0))
         n_cells, smoothed = self.N_CELLS[level], (level == 0)
         thetas = np.atleast_2d(np.asarray(thetas, np.float32))
@@ -612,9 +609,8 @@ class TsunamiModel(Model):
         with self._lock:
             self.stats[level] += N
             self.waves[level] += 1
-        padded, _ = pad_to_bucket(thetas, next_pow2(max(N, _WAVE_MIN)))
-        out = solve_batch(torch.as_tensor(padded, device=self.device), n_cells, smoothed)
-        return out.cpu().numpy().astype(float)[:N]
+        out = solve_batch(torch.as_tensor(thetas, device=self.device), n_cells, smoothed)
+        return out.cpu().numpy().astype(float)
 
     # -- batched derivative surface -------------------------------------------
     def _derivative_wave(self, wave, config, *arrays) -> tuple[np.ndarray, ...]:

@@ -6,9 +6,16 @@ from repro_torch.core.fabric import (  # noqa: F401
     EvaluationFabric,
     FabricBackend,
     FabricRouter,
+    HTTPBackend,
     ModelBackend,
     Overloaded,
     ThreadedBackend,
     as_backend,
 )
+from repro_torch.core.fleet import (  # noqa: F401
+    CampaignCheckpoint,
+    FaultInjector,
+    FleetManager,
+)
+from repro_torch.core.service import Campaign, UQService  # noqa: F401
 from repro_torch.core.hierarchy import MultilevelModel  # noqa: F401

@@ -4,6 +4,19 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis.races import named_rlock
+
+#: Held while a CUDA graph is warmed up and captured, by every capture of
+#: the port (`apps.tsunami._replay`, `uq.fused`). Entering
+#: `torch.cuda.graph` synchronizes the device and empties the allocator's
+#: cache, which breaks a capture that another thread of the process has
+#: under way, whichever model or block it belongs to (on an H100, two
+#: handler threads of one server capturing gradient waves at once failed
+#: with cudaErrorStreamCaptureUnsupported and ...Invalidated). Replays do
+#: not take it: captured graphs still run side by side. Reentrant, so a
+#: capture started under it fails as CUDA fails it and never hangs.
+CAPTURE_LOCK = named_rlock("cuda.capture")
+
 
 def resolve_device(device=None) -> torch.device:
     """`None` means the GPU. A CUDA device without a usable GPU raises: the

@@ -7,7 +7,7 @@ evaluation paths (SPMD `ModelPool`, HAProxy-style `ThreadedPool`, per-point
 `BatchingExecutor`) that every driver wired up by hand. The fabric unifies
 them behind one async-capable API:
 
-    fabric = EvaluationFabric(backend)      # pool / model / callable
+    fabric = EvaluationFabric(backend)      # pool / model / url(s) / callable
     fut  = fabric.submit(theta, config)     # per-point, batched transparently
     ys   = fabric.evaluate_batch(thetas, config)  # vectorized fast path
     gs   = fabric.gradient_batch(thetas, senss, config)   # batched VJP wave
@@ -15,9 +15,10 @@ them behind one async-capable API:
 
 with
 
-  * pluggable backends — `ThreadedPool`, any UM-Bridge `Model`, or a plain
-    batched callable (the PyTorch port has no device-pool or HTTP fan-out
-    backend yet: `as_backend` names the ROADMAP item for each);
+  * pluggable backends — `ThreadedPool`, `HTTPModel` fan-out over several
+    servers (one `/EvaluateBatch` round-trip each), any UM-Bridge `Model`,
+    or a plain batched callable (the PyTorch port has no device-pool
+    backend yet: `as_backend` names the ROADMAP item);
   * CAPABILITY-TYPED dispatch — every backend advertises a `Capabilities`
     descriptor (evaluate / gradient / apply_jacobian / apply_hessian, each
     with a batched variant); derivative waves route only to backends that
@@ -27,7 +28,7 @@ with
   * heterogeneous clusters — a LIST of backends becomes a `FabricRouter`:
     latency-aware weighted dispatch (EWMA service time, join-shortest-queue
     tie-break) with per-backend failure backoff and retry-on-another-backend,
-    so mixed resources serve one fabric — and a stolen
+    so mixed threaded/HTTP resources serve one fabric — and a stolen
     gradient shard only lands on another gradient-capable backend;
   * adaptive batching — per-point submits are packed into waves; the linger
     window and max wave size self-tune from observed wave latency;
@@ -345,6 +346,84 @@ class ModelBackend(FabricBackend):
         if rt is not None:
             s["round_trips"] = rt
         return s
+
+
+class HTTPBackend(FabricBackend):
+    """Fan a wave out over several UM-Bridge servers: the batch is split into
+    contiguous chunks, one `/EvaluateBatch` (or `/GradientBatch` /
+    `/ApplyJacobianBatch`) round-trip per server (the paper's k8s replicas,
+    minus one round-trip per *point*). The advertised capability set is the
+    INTERSECTION over the clients' — a wave must be servable by every server
+    it may shard onto."""
+
+    name = "http"
+
+    def __init__(self, clients: Sequence):
+        from repro_torch.core.client import HTTPModel
+
+        self.clients = [
+            c if isinstance(c, Model) else HTTPModel(str(c)) for c in clients
+        ]
+        self.n_instances = len(self.clients)
+        caps = model_capabilities(self.clients[0])
+        for c in self.clients[1:]:
+            caps = caps.intersection(model_capabilities(c))
+        self._caps = caps
+        self._ex = ThreadPoolExecutor(max_workers=self.n_instances)
+
+    def capabilities(self) -> Capabilities:
+        return self._caps
+
+    def _fan_out(self, thetas, call):
+        thetas = np.atleast_2d(np.asarray(thetas, float))
+        k = min(self.n_instances, len(thetas))
+        chunks = np.array_split(np.arange(len(thetas)), k)
+        futs = [self._ex.submit(call, self.clients[i], idx) for i, idx in enumerate(chunks)]
+        return np.concatenate([np.atleast_2d(f.result()) for f in futs], axis=0)
+
+    def evaluate(self, thetas, config):
+        thetas = np.atleast_2d(np.asarray(thetas, float))
+        return self._fan_out(
+            thetas, lambda c, idx: c.evaluate_batch(thetas[idx], config)
+        )
+
+    def dispatch(self, op, thetas, extra, config):
+        if op == "evaluate":
+            return self.evaluate(thetas, config)
+        if not _backend_op_ok(self, op):
+            raise UnsupportedCapability(f"http backend: servers advertise no {op!r}")
+        thetas = np.atleast_2d(np.asarray(thetas, float))
+        if op == "apply_hessian":
+            senss = np.atleast_2d(np.asarray(extra[0], float))
+            vecs = np.atleast_2d(np.asarray(extra[1], float))
+            return self._fan_out(
+                thetas,
+                lambda c, idx: c.apply_hessian_batch(
+                    thetas[idx], senss[idx], vecs[idx], config
+                ),
+            )
+        extra = np.atleast_2d(np.asarray(extra, float))
+        if op == "gradient":
+            return self._fan_out(
+                thetas, lambda c, idx: c.gradient_batch(thetas[idx], extra[idx], config)
+            )
+        if op == "apply_jacobian":
+            return self._fan_out(
+                thetas,
+                lambda c, idx: c.apply_jacobian_batch(thetas[idx], extra[idx], config),
+            )
+        raise UnsupportedCapability(op)
+
+    def stats(self):
+        return {
+            "kind": self.name,
+            "round_trips": int(
+                sum(getattr(c, "round_trips", 0) for c in self.clients)
+            ),
+        }
+
+    def close(self):
+        self._ex.shutdown(wait=False)
 
 
 def _backend_op_ok(backend: FabricBackend, op: str) -> bool:
@@ -1078,8 +1157,6 @@ class FabricRouter(FabricBackend):
 #: ROADMAP item that ports them, queue 1); matched by type name, since the
 #: types themselves live only in the JAX package
 _UNPORTED_BACKENDS = {
-    "str": "HTTPBackend over UM-Bridge URLs: ROADMAP queue 1, item 8 (wire)",
-    "HTTPModel": "HTTPBackend over UM-Bridge URLs: ROADMAP queue 1, item 8 (wire)",
     "ModelPool": "SPMDBackend over a device pool: ROADMAP queue 1, item 4",
     "JAXModel": "a JAX function; write it in PyTorch and wrap it in "
                 "repro_torch.core.interface.TorchModel",
@@ -1097,11 +1174,14 @@ def _refuse_unported(obj) -> None:
 
 
 def as_backend(obj) -> FabricBackend:
-    """Coerce pools / models / callables into a FabricBackend; a list/tuple
-    containing backends or pools becomes a `FabricRouter` over them
-    (heterogeneous multi-backend dispatch). Sources whose backend is not
-    ported yet (URLs, device pools) raise `TypeError` naming the ROADMAP
+    """Coerce pools / models / urls / callables into a FabricBackend; a
+    list/tuple containing backends or pools becomes a `FabricRouter` over
+    them (heterogeneous multi-backend dispatch), a list of URLs and
+    `HTTPModel`s one `HTTPBackend` over those servers. Sources whose backend
+    is not ported yet (device pools) raise `TypeError` naming the ROADMAP
     item that ports them."""
+    from repro_torch.core.client import HTTPModel
+
     if isinstance(obj, FabricBackend):
         return obj
     _refuse_unported(obj)
@@ -1112,6 +1192,8 @@ def as_backend(obj) -> FabricBackend:
     # item 4; until then the model's own vmapped waves serve it in-process
     if isinstance(obj, Model):
         return ModelBackend(obj)
+    if isinstance(obj, str):
+        return HTTPBackend([obj])
     if isinstance(obj, (list, tuple)):
         for o in obj:
             if not isinstance(o, FabricBackend):
@@ -1120,6 +1202,8 @@ def as_backend(obj) -> FabricBackend:
         # pool) makes the list a router over N independent backends
         if any(isinstance(o, (FabricBackend, ThreadedPool)) for o in obj):
             return FabricRouter(obj)
+        if all(isinstance(o, (str, HTTPModel)) for o in obj):
+            return HTTPBackend(obj)
         return ThreadedBackend(ThreadedPool(list(obj)))
     if callable(obj):
         return CallableBackend(obj)

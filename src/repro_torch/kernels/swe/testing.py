@@ -40,10 +40,11 @@ CASES = (*SWE_KINDS, *(f"main_{C}x{N}" for C, N in MAIN_PATH_SHAPES))
 #: the limiter cases' solve: steps and buoy rows (dam-break and dry-bed
 #: cross the limiter branches for many steps)
 CASE_SOLVE_STEPS, CASE_SOLVE_ROWS = 300, (5, 40)
-#: [cells, lanes] of the whole waves the solve kernel is held at: both
-#: published levels at every width the model gives it (its waves are padded
-#: to next_pow2(max(N, 4)): 4 and 8 after cache hits, the campaign's 16, and
-#: 64), one source, and 13 lanes (not a power of two)
+#: [cells, lanes] of the whole waves the solve kernel is held at, at both
+#: published levels: one source (a point call), 4, 8, 13 (not a power of
+#: two), the campaign's 16, and 64. The model's waves run unpadded, so a
+#: campaign gives other widths too (cache hits, a router's split):
+#: chip_smoke.py records them and holds each one as it was launched
 SOLVE_SHAPES = tuple((C, N) for C in (512, 2048) for N in (1, 4, 8, 13, 16, 64))
 #: every case of the solve check, by name
 SOLVE_CASES = (*(f"solve_{k}" for k in SWE_KINDS),

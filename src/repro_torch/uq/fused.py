@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.races import named_lock
+from repro_torch.core.device import CAPTURE_LOCK
 from repro_torch.kernels import launches
 from repro_torch.uq.mcmc import EnsembleResult
 
@@ -325,23 +326,27 @@ class _Block:
                 self.static[k].copy_(v)
             return out
 
-        side = torch.cuda.Stream(device=self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            body()  # warm-up: lazy state (cuBLAS, autograd, the kernels' libraries)
-        torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         # a generator other than the default one is tied into the capture
         # only when registered: its Philox seed and offset are then read
         # from the device at each replay, and each replay advances the
         # offset by what the graph draws
         graph.register_generator_state(self.gen)
-        with launches.capturing() as held:
-            # captured on the block's own stream, and only this thread's
-            # unsafe calls (a malloc, a synchronous copy) break the capture:
-            # the fabric runs waves of the same model from other threads
-            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
-                self.out = body()
+        # one capture at a time in the process (`CAPTURE_LOCK`)
+        with CAPTURE_LOCK:
+            side = torch.cuda.Stream(device=self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                body()  # warm-up: lazy state (cuBLAS, autograd, the kernels' libraries)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            with launches.capturing() as held:
+                # captured on the block's own stream, and only this thread's
+                # unsafe calls (a malloc, a synchronous copy) break the
+                # capture: the fabric runs waves of the same model from
+                # other threads
+                with torch.cuda.graph(graph, stream=side,
+                                      capture_error_mode="thread_local"):
+                    self.out = body()
         self.graph, self.held = graph, held
 
     def load(self, carry: dict, gen: torch.Generator) -> None:

@@ -8,6 +8,8 @@ time, so every xdist worker collects the same tests.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 import numpy as np
 import pytest
 import torch
@@ -76,3 +78,16 @@ def cuda_or_skip() -> torch.device:
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+@contextmanager
+def serving(serve_models, *models):
+    """Serve `models` with `serve_models` (either package's) on a free port
+    (the server binds port 0 and the bound port is read back, so files that
+    run side by side never collide); yields the server's URL."""
+    server, _ = serve_models(list(models), 0, background=True)
+    try:
+        yield f"http://127.0.0.1:{server.server_address[1]}"
+    finally:
+        server.shutdown()
+        server.server_close()

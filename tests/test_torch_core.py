@@ -318,10 +318,16 @@ def test_as_backend_ports_and_refusals():
         assert isinstance(as_backend(tp), ThreadedBackend)
     finally:
         tp.shutdown()
+    # UM-Bridge URLs (and lists of them) become an HTTPBackend over a port
+    # server (port 0, read back)
+    from _torch_parity import serving
+    from repro_torch.core.fabric import HTTPBackend
+    from repro_torch.core.server import serve_models
+
+    with serving(serve_models, _NativeDouble()) as url:
+        assert isinstance(as_backend(url), HTTPBackend)
+        both = as_backend([url, url])
+        assert isinstance(both, HTTPBackend) and both.n_instances == 2
     # backends the port has not reached yet name the ROADMAP item
-    with pytest.raises(TypeError, match="item 8"):
-        as_backend("http://localhost:4242")
-    with pytest.raises(TypeError, match="item 8"):
-        as_backend(["http://a:1", "http://b:2"])
     with pytest.raises(TypeError, match="item 4"):
         as_backend(ModelPool())

@@ -14,7 +14,8 @@ derivative waves (PyTorch ops, no kernel, each step a replayed CUDA graph)
 compute the kernel wave's values bit for bit and a finite HVP, equal the
 eager loop bit for bit, agree with the same waves on the CPU within the
 float32 bounds of `kernels.swe.testing`, and survive evaluate waves run
-from another thread while their graphs are captured. The GP level
+from another thread while their graphs are captured, and derivative
+waves from several threads at once equal the serial wave. The GP level
 (`uq/gp.py`: float32 Adam and Matérn matrices on the card) predicts what
 the same fit predicts on the CPU within `_torch_parity.FIT_TOL`, and an
 online GP screen trains on the card from a fabric's collector thread while
@@ -23,7 +24,8 @@ a three-stage sampler predicts from its own. The fused sampler blocks
 reference and their eager step body bit for bit, resume a killed run bit
 for bit, hold S `swe_solve` launches a replay on the coarse tsunami, and
 survive evaluate waves run from another thread while they are captured.
-Every test here is marked `gpu` and skips without a CUDA device. The file imports neither JAX nor the JAX package, so it also
+A port server on the card answers /EvaluateBatch bit for bit like the
+in-process model (one launch a served wave). Every test here is marked `gpu` and skips without a CUDA device. The file imports neither JAX nor the JAX package, so it also
 runs on a GPU machine that has no JAX:
 
     PYTHONPATH=src python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -416,6 +418,38 @@ def test_evaluate_waves_from_another_thread_during_a_derivative_wave():
         np.testing.assert_array_equal(y, evaluated)
 
 
+@pytest.mark.gpu
+def test_derivative_waves_from_threads_at_once_equal_serial():
+    """A server answers each request on its own thread, so derivative waves
+    of one model, and of another model in the same process, capture their
+    step graphs at once. Entering a capture synchronizes the device, which
+    broke a capture under way on another thread (an H100 run failed with
+    cudaErrorStreamCaptureUnsupported); `core.device.CAPTURE_LOCK` makes
+    the captures take turns. Three rounds of three threads (two on one
+    model, one on a second) each equal the serial wave bit for bit."""
+    dev = cuda_or_skip()
+    models = [tsunami.TsunamiModel(device=dev), tsunami.TsunamiModel(device=dev)]
+    thetas, senss, _ = _wave_inputs(16)
+    want = models[0].gradient_batch(thetas, senss)
+    for _ in range(3):
+        got, errors = [None] * 3, []
+
+        def run(i):
+            try:
+                got[i] = models[i // 2].gradient_batch(thetas, senss)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert not errors, errors
+        for g in got:
+            np.testing.assert_array_equal(g, want)
+
+
 def _gp_set(n: int = 128):
     rng = np.random.default_rng(0)
     X = rng.uniform(-1, 1, (n, 2))
@@ -678,3 +712,29 @@ def test_fused_capture_survives_evaluate_waves_from_another_thread():
     for y in ys:
         np.testing.assert_array_equal(y, evaluated)
     np.testing.assert_array_equal(run().samples, during.samples)  # a replay, alone
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("level", [0, 1])
+def test_served_tsunami_model_answers_bit_for_bit(level):
+    """A port server on the card: /EvaluateBatch of a 13-lane wave (not a
+    power of two) equals the in-process wave bit for bit, and the server
+    counts no error (a model exception, a CUDA fault included, would answer
+    HTTP 400 and count there)."""
+    cuda_or_skip()
+    from _torch_parity import serving
+    from repro_torch.core.client import HTTPModel, probe_health
+    from repro_torch.core.server import serve_models
+    from repro_torch.kernels.swe.testing import sources
+
+    thetas = sources(13, 5).astype(float)
+    served = tsunami.TsunamiModel()
+    launches0 = swe_solve.launches
+    with serving(serve_models, served) as url:
+        got = HTTPModel(url).evaluate_batch(thetas, {"level": level})
+        assert probe_health(url)["stats"]["errors"] == 0
+    assert swe_solve.launches - launches0 == 1  # the served wave: one launch
+    assert served.waves[level] == 1 and served.stats[level] == 13
+    want = tsunami.TsunamiModel().evaluate_batch(thetas, {"level": level})
+    assert got.shape == (13, 4) and np.isfinite(got).all()
+    np.testing.assert_array_equal(got, want)
