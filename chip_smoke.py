@@ -5,8 +5,8 @@
 
 Builds the port's CUDA kernels from `src/repro_torch/kernels/*/csrc/*.cu`
 (into `build/repro_torch_kernels/`), holds each kernel against its plain
-PyTorch version on the card at every shape the main paths give it, and
-times it. Then it drives the port's two paths through the entry points a
+PyTorch version on the card at every shape the main paths give it (the SWE
+solve at every thread block cluster size it runs), and times it. Then it drives the port's two paths through the entry points a
 user calls:
 
 * the paper's §4.3 tsunami inversion: full tsunami waves at both published
@@ -101,6 +101,9 @@ BF16_FLOPS = 989e12
 # float operations per (cell, lane) of one SWE step, counting each face and
 # each velocity once: velocity 10, face flux 48, divergence + update 9
 SWE_OPS_PER_CELL_LANE = 67
+# the solve's planned cluster size may take at most this much longer than
+# one block a lane at a timed shape: the windows' spread is ~1-3%
+PLAN_SLACK = 1.10
 
 # the LM paths: examples/serve_uq.py's flow on full-width mamba2-1.3b and
 # qwen3-0.6b (the model the example serves)
@@ -290,11 +293,16 @@ def phase_kernel_vs_plain(torch, dev) -> dict:
     """Both SWE kernels against their plain versions on the card, bit for
     bit (the bound and its reason: `repro_torch.kernels.swe.testing`): the
     step kernel on the four limiter cases and at every [cells, lanes] shape
-    the main path runs; the solve kernel on the limiter cases over 300 steps
-    and on whole waves at both levels (1, 4, 8, 13, 16 and 64 lanes)."""
+    the main path runs; the solve kernel on the limiter cases over 300 steps,
+    on whole waves at both levels (1, 4, 8, 13, 16 and 64 lanes) and on a
+    2,047-cell wave with its buoy rows on a slice edge, each at the plan's
+    cluster size and at every other size the kernel runs, against one plain
+    loop."""
+    from repro_torch.kernels.swe import ops as swe_ops
     from repro_torch.kernels.swe import swe_solve, swe_solve_ref, swe_step, swe_step_ref
     from repro_torch.kernels.swe.testing import (
         CASES,
+        CLUSTER_SIZES,
         SOLVE_CASES,
         assert_solve_equal,
         assert_step_equal,
@@ -314,13 +322,20 @@ def phase_kernel_vs_plain(torch, dev) -> dict:
     for case in SOLVE_CASES:
         kw = solve_case_inputs(case, dev)
         h, hu, b = kw.pop("h"), kw.pop("hu"), kw.pop("b")
-        got = swe_solve(h, hu, b, **kw)
-        torch.cuda.synchronize()
-        solves[case] = dict(assert_solve_equal(got, swe_solve_ref(h, hu, b, **kw), case),
-                            shape=list(h.shape), n_steps=kw["n_steps"])
-    solve_worst = max(r[key]["max_abs"] for r in solves.values() for key in ("mx", "arr"))
+        C, N = h.shape
+        want = swe_solve_ref(h, hu, b, **kw)
+        by_cluster = {}
+        for cluster in (None, *(cs for cs in CLUSTER_SIZES if cs <= C)):
+            got = swe_solve(h, hu, b, **kw, cluster=cluster)
+            torch.cuda.synchronize()
+            by_cluster["plan" if cluster is None else str(cluster)] = assert_solve_equal(
+                got, want, f"{case}, cluster {cluster}")
+        solves[case] = dict(shape=[C, N], n_steps=kw["n_steps"], rows=list(kw["rows"]),
+                            plan=swe_ops.cluster_plan(C, N), by_cluster=by_cluster)
+    solve_worst = max(r[key]["max_abs"] for c in solves.values()
+                      for r in c["by_cluster"].values() for key in ("mx", "arr"))
     emit("kernel_vs_plain", kernel="swe_solve", bound="bit for bit (mx, arr; NaN matches NaN)",
-         cases=solves)
+         cluster_sizes=list(CLUSTER_SIZES), cases=solves)
     return {"max_abs_err": worst, "solve_max_abs_err": solve_worst}
 
 
@@ -358,11 +373,20 @@ def solve_work(C: int, N: int, n_steps: int, R: int) -> dict:
 def phase_times(torch, dev, smi: str) -> dict:
     """Device time of one step-kernel launch at the main path's shapes, and
     of one solve-kernel launch (a whole wave) at both levels and 16, 64 and
-    512 lanes, each beside its bound; the solve beside the step kernel's
-    loop over the same wave (n_steps x the step's time) and the plain
-    loop's device time."""
+    512 lanes, each beside its bound, at every cluster size and the plan's
+    (with the card's count of resident clusters of each size); the solve
+    beside the step kernel's loop over the same wave (n_steps x the step's
+    time) and the plain loop's device time. At 16 lanes every cluster size
+    is held against the plain loop bit for bit."""
+    from repro_torch.kernels.swe import ops as swe_ops
     from repro_torch.kernels.swe import swe_solve, swe_solve_ref, swe_step, swe_step_ref
-    from repro_torch.kernels.swe.testing import main_path_state, wave_inputs
+    from repro_torch.kernels.swe.testing import (
+        CLUSTER_SIZES,
+        TIMED_SHAPES,
+        assert_solve_equal,
+        main_path_state,
+        wave_inputs,
+    )
 
     shapes = []
     for C in (512, 2048):
@@ -398,32 +422,50 @@ def phase_times(torch, dev, smi: str) -> dict:
          shapes=shapes, library_ms=None, card=smi)
     step_ms = {tuple(s["shape"]): s["ms"] for s in shapes}
     waves = []
-    for C in (512, 2048):
-        for N in (16, 64, 512):
-            kw = wave_inputs(C, N, dev)
-            h, hu, b = kw.pop("h"), kw.pop("hu"), kw.pop("b")
-            n_steps = kw["n_steps"]
-            ms = _device_ms(torch, lambda: swe_solve(h, hu, b, **kw), calls=5)
-            # one loop a window: its ~50 small kernels a step overrun the
-            # launch queue, so the host's issue rate enters, as it does on
-            # the plain path
-            plain_ms = _device_ms(torch, lambda: swe_solve_ref(h, hu, b, **kw),
-                                  calls=1, windows=1)
-            work = solve_work(C, N, n_steps, len(kw["rows"]))
-            t_bytes, t_ops = work["bytes"] / HBM_BYTES_PER_S, work["ops"] / FP32_FLOPS
-            waves.append({
-                "shape": [C, N], "n_steps": n_steps, "ms": ms,
-                "ms_per_step": ms / n_steps,
-                "step_kernel_loop_ms": n_steps * step_ms[(C, N)],
-                "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops) * 1e3,
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "fraction_of_fp32_peak": t_ops * 1e3 / ms, **work,
-            })
+    for C, N in TIMED_SHAPES:
+        kw = wave_inputs(C, N, dev)
+        h, hu, b = kw.pop("h"), kw.pop("hu"), kw.pop("b")
+        n_steps = kw["n_steps"]
+        plan = swe_ops.cluster_plan(C, N)
+        resident = {cs: swe_ops.max_active_clusters(C, cs) for cs in CLUSTER_SIZES}
+        ms_by_cluster = {
+            cs: _device_ms(torch, lambda: swe_solve(h, hu, b, **kw, cluster=cs), calls=5)
+            for cs in CLUSTER_SIZES}
+        # one loop a window: its ~50 small kernels a step overrun the
+        # launch queue, so the host's issue rate enters, as it does on
+        # the plain path
+        plain = []
+        plain_ms = _device_ms(torch, lambda: plain.append(swe_solve_ref(h, hu, b, **kw)),
+                              calls=1, windows=1)
+        if N == 16:
+            # every cluster size against the plain loop, bit for bit
+            for cs in CLUSTER_SIZES:
+                got = swe_solve(h, hu, b, **kw, cluster=cs)
+                torch.cuda.synchronize()
+                assert_solve_equal(got, plain[-1], f"solve_times {C}x{N}, cluster {cs}")
+        ms = ms_by_cluster[plan]
+        if ms > PLAN_SLACK * ms_by_cluster[1]:
+            raise AssertionError(f"solve_times {C}x{N}: the plan's cluster {plan} takes "
+                                 f"{ms:.3f} ms, one block a lane {ms_by_cluster[1]:.3f} ms")
+        work = solve_work(C, N, n_steps, len(kw["rows"]))
+        t_bytes, t_ops = work["bytes"] / HBM_BYTES_PER_S, work["ops"] / FP32_FLOPS
+        waves.append({
+            "shape": [C, N], "n_steps": n_steps, "cluster": plan, "ms": ms,
+            "ms_per_step": ms / n_steps,
+            "plan_vs_one_block_a_lane": ms / ms_by_cluster[1],
+            "ms_by_cluster": {str(cs): v for cs, v in ms_by_cluster.items()},
+            "max_active_clusters": {str(cs): v for cs, v in resident.items()},
+            "held_bit_for_bit_at_every_cluster": N == 16,
+            "step_kernel_loop_ms": n_steps * step_ms[(C, N)],
+            "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "fraction_of_fp32_peak": t_ops * 1e3 / ms, **work,
+        })
     emit("solve_times", kernel="swe_solve",
          timer="one CUDA event pair around 5 back-to-back solves (one wave each), per "
-               "solve, median of 5 windows; plain: one CUDA event pair around one "
-               "plain loop",
+               "solve, median of 5 windows, at every cluster size; plain: one CUDA event "
+               "pair around one plain loop",
          waves=waves, library_ms=None, card=smi)
     return {"shapes": shapes, "waves": waves}
 
@@ -2753,6 +2795,11 @@ def main() -> int:
         "library_ms": None,
         "shape": fine_wave["shape"],
         "n_steps": fine_wave["n_steps"],
+        # the plan's cluster size at this shape, and the same wave's time
+        # at every cluster size ("1": one block a lane, the design before
+        # clusters)
+        "cluster": fine_wave["cluster"],
+        "ms_by_cluster": fine_wave["ms_by_cluster"],
         "step_kernel_loop_ms": fine_wave["step_kernel_loop_ms"],
         "by_shape": times["waves"],
         "launches_per_wave": {k: v["launches"]["swe_solve"]

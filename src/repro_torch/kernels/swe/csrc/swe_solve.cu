@@ -17,49 +17,84 @@
 // (cell, lane, step), so a coarse 16-lane wave (512 x 16 x 2,224) is 1.2e9
 // operations, 18 us at the float32 peak, and a fine one (2,048 x 16 x 8,899)
 // 2.0e10, 0.29 ms; the bytes (the state read once, [R, N] written once) are
-// negligible. But lanes are few: at 16 lanes only 16 of the 132 SMs have
-// work, and every step is a chain of dependent phases (a face needs its
-// neighbours' velocities, a cell its neighbour face), so a step costs the
-// latency of two block barriers and of the IEEE sqrt and division chains,
-// not the throughput of the SM. That latency times n_steps is the wave's
-// time; the per-step launch (and the host work around it) that the step
-// kernel paid is gone.
+// negligible. But lanes are few, and every step is a chain of dependent
+// phases (a face needs its neighbours' velocities, a cell its neighbour
+// face). With one block a lane, 16 lanes keep 16 of the 132 SMs busy: a
+// fine step (2,048 cells on one SM) is bound by that SM's issue rate, a
+// coarse one by the latency of the barriers and of the IEEE sqrt and
+// division chains.
 //
 // What the design does about it: lanes are independent and the stencil only
-// couples neighbouring cells of one lane, so one block owns one lane for the
-// whole solve and nothing leaves the SM between steps. Thread t owns cells
-// t, t + T, ... (T = min(1024, C rounded up to a warp), CPT = ceil(C / T)
-// cells each) and keeps their h, hu, u, b and its own face terms in
-// registers; shared memory holds what neighbours read: h and u per cell, and
-// the face terms Fh and B per face (4 C floats, 32 KB at 2,048 cells, the
-// fine level: C <= 2,048, so CPT <= 2). Device
-// memory is read once at the start and [R, N] is written once at the end.
-// A step is two phases: (1) every face once (owner of its left cell): Fh, A,
-// B; barrier; (2) every cell: divergence from its own face and its left
-// neighbour's, limiter, update in place, and the new velocity; barrier.
-// Computing each face once, where swe_step.cu computes each twice, gives the
-// same bits: the same expression on the same inputs. After (2) threads 0
-// and 1 read the new h of the two buoy rows r0 and r1. Built with
-// -fmad=false and IEEE sqrtf and division (no fast math), so the solve
-// equals the plain PyTorch loop bit for bit. Splitting a fine column over a
-// thread block cluster (halo cells through distributed shared memory) would
-// shorten each step's chain; that is a later redesign (ROADMAP queue 2).
+// couples neighbouring cells, so nothing leaves the SMs of a lane between
+// steps, and a lane's column is split over a thread block cluster of cs
+// blocks (cs = 1, 2, 4 or 8, Hopper's portable cluster sizes; the wrapper's
+// plan picks it from C, N and the card, `cluster=` forces it). At cs = 1 one block owns one lane, for
+// waves whose lanes fill the card.
+//
+// Cluster rank r owns the contiguous cells [lo, lo + n) of its lane (C / cs
+// each, the first C % cs ranks one more), and also computes k ghost cells
+// on each side that has a neighbour (k = min(32, C / cs); none at cs = 1):
+// an extended slice of n + 2k cells at most. Its thread t owns extended
+// cells t, t + T, ... (CPT = 1 or 2 cells each; T = the largest extended
+// slice over CPT, rounded up to a warp, and at cs = 1 min(1024, C rounded
+// up to a warp)) and keeps their h, hu, u, b and its own face terms in
+// registers; shared memory holds what neighbours read: h
+// and u per cell and the face terms Fh and B per face. A step is two
+// phases, as with one block a lane: (1) every face once (owner of its left
+// cell): Fh, A, B; block barrier; (2) every cell: divergence from its own
+// face and its left neighbour's, limiter, update in place, and the new
+// velocity; block barrier; then the owner of each buoy row reads its new h.
+// The extended slice's ends are treated as walls: a ghost cell at distance
+// d from an end is wrong after d steps and an owned cell (distance >= k) is
+// exact for k steps, so the blocks exchange only every k steps, not every
+// step. Each block then pushes its first and last k owned cells (h, hu)
+// into the neighbours' ghost slots of that round's parity through
+// distributed shared memory (st.async, which completes 8 bytes on the
+// slot's mbarrier: posted stores, no remote load), and each ghost thread
+// waits on its side's mbarrier phase before taking its cell (and computing
+// its velocity, the same expression on the same inputs as the owner's, so
+// the same bits). A block cannot push into a slot before the neighbour has
+// read it: the push ends a round that needed the neighbour's push, which
+// came after its read. One cluster.sync() comes before the first push
+// (every block has started and armed its mbarriers) and one before any
+// block exits (no push into its shared memory is in flight). On an H100 a
+// cluster-wide barrier a step (barrier.cluster), and an exchange of one
+// edge cell a step, each measured slower (PERF.md).
+//
+// Device memory is read once at the start and [R, N] is written once at the
+// end. Built with -fmad=false and IEEE sqrtf and division (no fast math), so
+// the solve equals the plain PyTorch loop bit for bit at every cs.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxThreads = 1024;
 constexpr int kRows = 2;  // buoy rows a solve reduces (wrapper: N_ROWS)
+constexpr int kGhost = 32;  // ghost cells a side of a cluster's block: steps between exchanges
 
 __device__ __forceinline__ float pow4(float x) {
   const float x2 = x * x;  // (x^2)^2, as jax.lax.integer_pow lowers x**4
   return x2 * x2;
 }
 
-// desingularized velocity (no division blow-up at the shoreline)
+// desingularized velocity (no division blow-up at the shoreline). A zero
+// numerator (a cell at rest) gives its own signed zero, which is what the
+// division gives (the denominator is at least h_dry^2 > 0), without the IEEE
+// division's slow path for a zero dividend.
 __device__ __forceinline__ float velocity(float h, float hu, float h_dry) {
   const float sqrt2 = 1.41421356237309515f;
-  return sqrt2 * h * hu / sqrtf(pow4(h) + pow4(fmaxf(h, h_dry)));
+  const float num = sqrt2 * h * hu;
+  const float den = sqrtf(pow4(h) + pow4(fmaxf(h, h_dry)));
+  return num == 0.0f ? num : num / den;
+}
+
+// sqrtf(x), with a zero (a dry face) returned as it is, as sqrtf returns it,
+// without the IEEE square root's slow path for zero
+__device__ __forceinline__ float sqrt_or_zero(float x) {
+  return x == 0.0f ? x : sqrtf(x);
 }
 
 struct Face {
@@ -78,7 +113,8 @@ __device__ __forceinline__ Face face(float hl, float ul, float bl, float hr,
   const float hsR = fmaxf(hr + br - bstar, 0.0f);
   const float mL = hsL * ul;
   const float mR = hsR * ur;
-  const float a = fmaxf(fabsf(ul) + sqrtf(g * hsL), fabsf(ur) + sqrtf(g * hsR));
+  const float a =
+      fmaxf(fabsf(ul) + sqrt_or_zero(g * hsL), fabsf(ur) + sqrt_or_zero(g * hsR));
   Face f;
   f.Fh = 0.5f * (mL + mR) - 0.5f * a * (hsR - hsL);
   const float Fq =
@@ -95,7 +131,60 @@ __device__ __forceinline__ float maximum_nan(float a, float b) {
   return a < b ? b : a;
 }
 
-template <int CPT>
+// The ghost cells' transport. Shared-memory addresses are 32-bit
+// (`.shared::cta` of this block; `.shared::cluster` after `mapa`, of another
+// block). An mbarrier's phase completes when its one expected arrival (the
+// consumer arming it for the bytes of one side's ghost cells) and those
+// bytes, 8 a cell from the producer's st.async, have all come, in any order.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ unsigned map_rank(unsigned addr, int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ void mbar_init(unsigned bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(1u) : "memory");
+}
+// one arrival that also expects `bytes` (the ghost cells of one side)
+__device__ __forceinline__ void mbar_arm(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(bar), "r"(parity)
+      : "memory");
+}
+// (h, hu) of one cell into another block's ghost slot, completing 8 bytes
+// on its mbarrier
+__device__ __forceinline__ void push(unsigned remote, float h, float hu,
+                                     unsigned remote_bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];"
+      ::"r"(remote), "f"(h), "f"(hu), "r"(remote_bar)
+      : "memory");
+}
+
+// k, the ghost cells a side of a cluster's block (none at cs = 1), and the
+// largest extended slice of a C-cell column cut in cs: every block of a
+// cluster lays its shared memory out for it, so that an offset means the
+// same thing in every block.
+__host__ __device__ inline int ghost_cells(int C, int cs) {
+  return cs == 1 ? 0 : (C / cs < kGhost ? C / cs : kGhost);
+}
+__host__ __device__ inline int max_extended(int C, int cs) {
+  return (C + cs - 1) / cs + 2 * ghost_cells(C, cs);
+}
+
+template <int CPT, bool kCluster>
 __global__ void __launch_bounds__(kMaxThreads)
     swe_solve_kernel(const float* __restrict__ h, const float* __restrict__ hu,
                      const float* __restrict__ b,
@@ -103,130 +192,323 @@ __global__ void __launch_bounds__(kMaxThreads)
                      float* __restrict__ mx_out, float* __restrict__ arr_out,
                      int C, int N, int n_steps, int r0, int r1,
                      float dt_dx, float g, float h_dry, float thresh) {
-  extern __shared__ float smem[];
-  float* sh_h = smem;           // [C] depth after the last update
-  float* sh_u = smem + C;       // [C] velocity of that state
-  float* sh_Fh = smem + 2 * C;  // [C - 1] mass flux per face
-  float* sh_B = smem + 3 * C;   // [C - 1] momentum term seen from the right
+  int cs = 1, rank = 0;
+  if constexpr (kCluster) {
+    cs = (int)cg::this_cluster().num_blocks();
+    rank = (int)cg::this_cluster().block_rank();
+  }
+  const int lane = blockIdx.x / cs;
+  // this block's slice [lo, hi): C / cs cells, the first C % cs ranks one
+  // more; extended by k ghost cells on each side that has a neighbour
+  const int q = C / cs, rem = C % cs;
+  const int lo = rank * q + (rank < rem ? rank : rem);
+  const int n = q + (rank < rem ? 1 : 0);
+  const int hi = lo + n;
+  const int k = ghost_cells(C, cs);
+  const int gl = lo > 0 ? k : 0, gr = hi < C ? k : 0;
+  const int elo = lo - gl;     // global index of extended cell 0
+  const int nE = gl + n + gr;  // extended cells
 
-  const int lane = blockIdx.x;
+  const int SE = max_extended(C, cs);
+  extern __shared__ unsigned long long smem_bars[];
+  // [2 sides][2 parities] mbarriers: of the left ghost cells (side 0), of the right
+  unsigned long long* bars = smem_bars;
+  float* sh_h = reinterpret_cast<float*>(smem_bars + 4);  // [SE] depth after the last update
+  float* sh_u = sh_h + SE;                 // [SE] velocity of that state
+  float* sh_Fh = sh_h + 2 * SE;            // [SE + 1] mass flux of face e | e + 1 at e + 1
+  float* sh_B = sh_h + 3 * SE + 1;         // [SE + 1] momentum term seen from the right
+  float* ghost = sh_h + 4 * SE + 2;        // [2 parities][2 sides][k][h, hu]
+
   const int t = threadIdx.x;
   const int T = blockDim.x;
   const float hg = 0.5f * g;
 
   float hc[CPT], huc[CPT], uc[CPT], bc[CPT], br[CPT], Fh[CPT], A[CPT];
 #pragma unroll
-  for (int k = 0; k < CPT; ++k) {
-    const int i = t + k * T;
-    if (i < C) {
+  for (int m = 0; m < CPT; ++m) {
+    const int e = t + m * T;
+    if (e < nE) {
+      const int i = elo + e;
       const long long idx = (long long)i * N + lane;
-      hc[k] = h[idx];
-      huc[k] = hu[idx];
-      bc[k] = b[i];
-      br[k] = (i + 1 < C) ? b[i + 1] : 0.0f;
-      uc[k] = velocity(hc[k], huc[k], h_dry);
-      sh_h[i] = hc[k];
-      sh_u[i] = uc[k];
+      hc[m] = h[idx];
+      huc[m] = hu[idx];
+      bc[m] = b[i];
+      br[m] = (i + 1 < C) ? b[i + 1] : 0.0f;
+      uc[m] = velocity(hc[m], huc[m], h_dry);
+      sh_h[e] = hc[m];
+      sh_u[e] = uc[m];
     }
   }
-  // buoy slot t (threads 0 and 1): its row, depth at rest and reductions
+  // the neighbours' ghost slots, by side, and their mbarriers; ours armed
+  // for their first push (the round 0 -> 1 exchange fills parity 1)
+  unsigned push_left = 0, push_left_bar = 0, push_right = 0, push_right_bar = 0;
+  if constexpr (kCluster) {
+    const unsigned side_bytes = 8u * (unsigned)k;
+    if (t == 0) {
+      for (int side = 0; side < 2; ++side) {
+        if (side == 0 ? gl == 0 : gr == 0) continue;
+        for (int par = 0; par < 2; ++par) {
+          mbar_init(smem_addr(&bars[side * 2 + par]));
+          mbar_arm(smem_addr(&bars[side * 2 + par]), side_bytes);
+        }
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    // our first k owned cells are the left neighbour's right ghosts (side
+    // 1), our last k the right neighbour's left ghosts (side 0)
+    if (gl > 0) {
+      push_left = map_rank(smem_addr(&ghost[(0 * 2 + 1) * k * 2]), rank - 1);
+      push_left_bar = map_rank(smem_addr(&bars[2]), rank - 1);
+    }
+    if (gr > 0) {
+      push_right = map_rank(smem_addr(&ghost[0]), rank + 1);
+      push_right_bar = map_rank(smem_addr(&bars[0]), rank + 1);
+    }
+  }
+  // buoy slot t (threads 0 and 1): its row, if this block owns it, its depth
+  // at rest and reductions
   const int row = t == 0 ? r0 : (t == 1 ? r1 : -1);
-  const float h0 = t < kRows ? h0_rows[t] : 0.0f;
+  const int erow = (t < kRows && row >= lo && row < hi) ? row - elo : -1;
+  const float h0 = erow >= 0 ? h0_rows[t] : 0.0f;
   float mx = __int_as_float(0xff800000);  // -inf
   float arr = -1.0f;
-  __syncthreads();
+  // every block of the cluster has started and armed its mbarriers before
+  // any block pushes into it
+  if constexpr (kCluster) cg::this_cluster().sync();
+  else __syncthreads();
 
+  // the exchange rounds (clustered): round `round` computes steps
+  // [round k, round k + k) from the ghost cells of state round k; `left`
+  // steps of it remain (counted down: no division in the step loop)
+  int round = 0, left = k;
   for (int s = 0; s < n_steps; ++s) {
+    if constexpr (kCluster) {
+      if (left == 0) {
+        // a new round: the ghost cells of state s, pushed at the end of the
+        // last round into the slots of parity round & 1, the
+        // ((round - 1) / 2)-th phase of their mbarriers
+        ++round;
+        left = k;
+        const int par = round & 1;
+        const unsigned parity = (unsigned)((round - 1) >> 1) & 1u;
+#pragma unroll
+        for (int m = 0; m < CPT; ++m) {
+          const int e = t + m * T;
+          if (e < nE && (e < gl || e >= gl + n)) {
+            const int side = e < gl ? 0 : 1;
+            const int slot = e < gl ? e : e - gl - n;
+            const unsigned bar = smem_addr(&bars[side * 2 + par]);
+            mbar_wait(bar, parity);
+            // the first ghost thread of each side arms it for its next push
+            if (e == 0 || e == nE - 1) mbar_arm(bar, 8u * (unsigned)k);
+            const float* cell = &ghost[((par * 2 + side) * k + slot) * 2];
+            hc[m] = cell[0];
+            huc[m] = cell[1];
+            uc[m] = velocity(hc[m], huc[m], h_dry);
+            sh_h[e] = hc[m];
+            sh_u[e] = uc[m];
+          }
+        }
+        __syncthreads();
+      }
+    }
     // (1) each face once, by the owner of its left cell
 #pragma unroll
-    for (int k = 0; k < CPT; ++k) {
-      const int i = t + k * T;
-      if (i < C - 1) {
-        const Face f = face(hc[k], uc[k], bc[k], sh_h[i + 1], sh_u[i + 1], br[k], g);
-        Fh[k] = f.Fh;
-        A[k] = f.A;
-        sh_Fh[i] = f.Fh;
-        sh_B[i] = f.B;
+    for (int m = 0; m < CPT; ++m) {
+      const int e = t + m * T;
+      if (e + 1 < nE) {
+        const Face f = face(hc[m], uc[m], bc[m], sh_h[e + 1], sh_u[e + 1], br[m], g);
+        Fh[m] = f.Fh;
+        A[m] = f.A;
+        sh_Fh[e + 1] = f.Fh;
+        sh_B[e + 1] = f.B;
       }
     }
     __syncthreads();
-    // (2) divergence, limiter and update of each cell, in place
+    // (2) divergence, limiter and update of each cell, in place; the
+    // extended slice's ends as walls (the column's own walls at cells 0 and
+    // C - 1)
 #pragma unroll
-    for (int k = 0; k < CPT; ++k) {
-      const int i = t + k * T;
-      if (i < C) {
+    for (int m = 0; m < CPT; ++m) {
+      const int e = t + m * T;
+      if (e < nE) {
         float div_h, div_hu;
-        if (i == 0) {
+        if (e == 0) {
           // reflective left wall: zero mass flux, hydrostatic pressure g/2 h^2
-          div_h = Fh[k];
-          div_hu = A[k] - hg * (hc[k] * hc[k]);
-        } else if (i == C - 1) {
+          div_h = Fh[m];
+          div_hu = A[m] - hg * (hc[m] * hc[m]);
+        } else if (e == nE - 1) {
           // reflective right wall
-          div_h = -sh_Fh[i - 1];
-          div_hu = hg * (hc[k] * hc[k]) - sh_B[i - 1];
+          div_h = -sh_Fh[e];
+          div_hu = hg * (hc[m] * hc[m]) - sh_B[e];
         } else {
-          div_h = Fh[k] - sh_Fh[i - 1];
-          div_hu = A[k] - sh_B[i - 1];
+          div_h = Fh[m] - sh_Fh[e];
+          div_hu = A[m] - sh_B[e];
         }
         // positivity / dry-cell limiter, applied last
-        const float h_new = fmaxf(hc[k] - dt_dx * div_h, 0.0f);
-        const float hu_new = (h_new > h_dry) ? (huc[k] - dt_dx * div_hu) : 0.0f;
-        hc[k] = h_new;
-        huc[k] = hu_new;
-        uc[k] = velocity(h_new, hu_new, h_dry);
-        sh_h[i] = h_new;
-        sh_u[i] = uc[k];
+        const float h_new = fmaxf(hc[m] - dt_dx * div_h, 0.0f);
+        const float hu_new = (h_new > h_dry) ? (huc[m] - dt_dx * div_hu) : 0.0f;
+        hc[m] = h_new;
+        huc[m] = hu_new;
+        uc[m] = velocity(h_new, hu_new, h_dry);
+        sh_h[e] = h_new;
+        sh_u[e] = uc[m];
+      }
+    }
+    if constexpr (kCluster) {
+      if (--left == 0 && s + 1 < n_steps) {
+        // the end of a round: our edge cells of state s + 1 into the
+        // neighbours' ghost slots of the next round's parity
+        const int par = (round + 1) & 1;
+        const unsigned slots = (unsigned)(par * 2 * k * 2 * sizeof(float));
+        const unsigned bar = 8u * (unsigned)par;
+#pragma unroll
+        for (int m = 0; m < CPT; ++m) {
+          const int e = t + m * T;
+          const int own = e - gl;  // owned cell index
+          if (gl > 0 && own >= 0 && own < k)
+            push(push_left + slots + 8u * own, hc[m], huc[m], push_left_bar + bar);
+          if (gr > 0 && own >= n - k && own < n)
+            push(push_right + slots + 8u * (own - (n - k)), hc[m], huc[m],
+                 push_right_bar + bar);
+        }
       }
     }
     __syncthreads();
     // buoy reduction of step s; sh_h is not written again before the next
-    // step's barrier
-    if (row >= 0) {
-      const float eta = sh_h[row] - h0;
+    // step's block barrier
+    if (erow >= 0) {
+      const float eta = sh_h[erow] - h0;
       mx = maximum_nan(mx, eta);
       if (fabsf(eta) > thresh && arr < 0.0f) arr = (float)s;
     }
   }
-  if (t < kRows) {
+  // no block exits while a push into its shared memory may be in flight
+  if constexpr (kCluster) cg::this_cluster().sync();
+  if (erow >= 0) {
     mx_out[(long long)t * N + lane] = mx;
     arr_out[(long long)t * N + lane] = arr;
   }
 }
 
+// Block size, cells per thread and dynamic shared memory of a solve of C
+// cells cut in cs: 4 mbarriers, 4 floats a cell of the largest extended
+// slice, 2 more faces, and 2 parities x 2 sides of k ghost cells (33 KB at
+// most, at cs = 1: within the 48 KB a launch gets by default).
+struct Shape {
+  int threads, cpt;
+  size_t smem;
+};
+
+Shape shape_of(int C, int cs) {
+  const int SE = max_extended(C, cs);
+  // one block a lane: min(1,024, C rounded up to a warp) threads; a
+  // cluster's block: the same number of cells for every thread
+  const int cpt = (SE + kMaxThreads - 1) / kMaxThreads;
+  const int threads = cs == 1 ? (SE < kMaxThreads ? (SE + 31) / 32 * 32 : kMaxThreads)
+                              : ((SE + cpt - 1) / cpt + 31) / 32 * 32;
+  return {threads, (SE + threads - 1) / threads,
+          4 * sizeof(unsigned long long) +
+              (4 * (size_t)SE + 2 + 8 * (size_t)ghost_cells(C, cs)) * sizeof(float)};
+}
+
+cudaLaunchConfig_t cluster_config(int blocks, int cs, const Shape& sh,
+                                  cudaLaunchAttribute* attr, cudaStream_t stream) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(sh.threads);
+  cfg.dynamicSmemBytes = sh.smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 template <int CPT>
-int launch(const float* h, const float* hu, const float* b,
-           const float* h0_rows, float* mx, float* arr, int C, int N,
-           int n_steps, int r0, int r1, float dt_dx, float g, float h_dry,
-           float thresh, int threads, cudaStream_t stream) {
-  // 4 C floats: 32 KB at most, within the 48 KB a launch gets by default
-  const size_t smem = 4 * (size_t)C * sizeof(float);
-  swe_solve_kernel<CPT><<<N, threads, smem, stream>>>(
-      h, hu, b, h0_rows, mx, arr, C, N, n_steps, r0, r1, dt_dx, g, h_dry,
-      thresh);
-  return (int)cudaGetLastError();
+cudaError_t launch(const float* h, const float* hu, const float* b,
+                   const float* h0_rows, float* mx, float* arr, int C, int N,
+                   int n_steps, int r0, int r1, float dt_dx, float g,
+                   float h_dry, float thresh, int cs, const Shape& sh,
+                   cudaStream_t stream) {
+  if (cs == 1) {
+    swe_solve_kernel<CPT, false><<<N, sh.threads, sh.smem, stream>>>(
+        h, hu, b, h0_rows, mx, arr, C, N, n_steps, r0, r1, dt_dx, g, h_dry,
+        thresh);
+    return cudaGetLastError();
+  }
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(N * cs, cs, sh, &attr, stream);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, swe_solve_kernel<CPT, true>, h, hu, b, h0_rows, mx, arr, C, N, n_steps,
+      r0, r1, dt_dx, g, h_dry, thresh);
+  // read and clear the launch error either way, so that it is not reported
+  // later against another kernel
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
+bool valid_cluster(int C, int cs) {
+  return cs >= 1 && (cs & (cs - 1)) == 0 && cs <= C;
 }
 
 }  // namespace
 
 // C entry point, bound with ctypes. h, hu: [C, N] row-major; b: [C];
 // h0_rows: [2], the depths at rest of buoy rows r0 and r1; mx, arr: [2, N]
-// outputs. Launches on `stream` and returns cudaGetLastError() (0 on
-// success); it never synchronises. The wrapper checks the arguments; this
-// rejects what the kernel cannot take (2 <= C <= 2048, N >= 1,
-// 0 <= n_steps, r0 and r1 in [0, C)).
+// outputs; cs: the cluster size, blocks a lane (a power of two, at most C;
+// a Hopper card schedules at most 8, the portable limit). Launches on `stream` and returns the launch's
+// cudaError (0 on success); it never synchronises. The wrapper checks the
+// arguments; this rejects what the kernel cannot take (2 <= C <= 2048,
+// N >= 1, 0 <= n_steps, r0 and r1 in [0, C)). A cluster size the card
+// refuses is returned as the launch's error, never retried at another.
 extern "C" int swe_solve_f32(const float* h, const float* hu, const float* b,
                              const float* h0_rows, float* mx, float* arr,
                              int C, int N, int n_steps, int r0, int r1,
                              float dt_dx, float g, float h_dry, float thresh,
-                             void* stream) {
+                             int cs, void* stream) {
   if (C < 2 || C > 2 * kMaxThreads || N < 1 || n_steps < 0 || r0 < 0 ||
-      r0 >= C || r1 < 0 || r1 >= C)
+      r0 >= C || r1 < 0 || r1 >= C || !valid_cluster(C, cs))
     return (int)cudaErrorInvalidValue;
-  const int threads = C < kMaxThreads ? (C + 31) / 32 * 32 : kMaxThreads;
+  const Shape sh = shape_of(C, cs);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (C <= threads)
-    return launch<1>(h, hu, b, h0_rows, mx, arr, C, N, n_steps, r0, r1, dt_dx,
-                     g, h_dry, thresh, threads, s);
-  return launch<2>(h, hu, b, h0_rows, mx, arr, C, N, n_steps, r0, r1, dt_dx, g,
-                   h_dry, thresh, threads, s);
+  if (sh.cpt == 1)
+    return (int)launch<1>(h, hu, b, h0_rows, mx, arr, C, N, n_steps, r0, r1,
+                          dt_dx, g, h_dry, thresh, cs, sh, s);
+  return (int)launch<2>(h, hu, b, h0_rows, mx, arr, C, N, n_steps, r0, r1,
+                        dt_dx, g, h_dry, thresh, cs, sh, s);
+}
+
+// How many clusters of cs blocks of a C-cell solve the current device holds
+// at once (cudaOccupancyMaxActiveClusters; at cs = 1, blocks a SM times the
+// SMs), into *out. Returns the cudaError (0 on success).
+extern "C" int swe_solve_max_active_clusters(int C, int cs, int* out) {
+  if (C < 2 || C > 2 * kMaxThreads || !valid_cluster(C, cs))
+    return (int)cudaErrorInvalidValue;
+  const Shape sh = shape_of(C, cs);
+  cudaError_t err;
+  if (cs == 1) {
+    int device, sms, per_sm;
+    err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = sh.cpt == 1
+                ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      &per_sm, swe_solve_kernel<1, false>, sh.threads, sh.smem)
+                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      &per_sm, swe_solve_kernel<2, false>, sh.threads, sh.smem);
+    if (err == cudaSuccess) *out = per_sm * sms;
+  } else {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(cs, cs, sh, &attr, nullptr);
+    err = sh.cpt == 1
+              ? cudaOccupancyMaxActiveClusters(out, swe_solve_kernel<1, true>, &cfg)
+              : cudaOccupancyMaxActiveClusters(out, swe_solve_kernel<2, true>, &cfg);
+  }
+  cudaGetLastError();  // clear it: the caller gets it as the return value
+  return (int)err;
 }

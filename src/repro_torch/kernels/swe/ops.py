@@ -4,7 +4,9 @@
 `csrc/swe_step.cu`. `swe_solve` is a whole wave, all its steps with the
 buoy reduction, in one launch of `csrc/swe_solve.cu`: the counterpart of
 the JAX package's `lax.scan` over `swe_step_kernel`
-(`repro.apps.tsunami._solve_batch`).
+(`repro.apps.tsunami._solve_batch`). The solve splits each lane's column
+over a thread block cluster of `cs` blocks; `cluster_plan` picks `cs` from
+the wave's shape and the card (`_cluster_plan`), and `cluster=` forces it.
 
 A CUDA tensor goes to the hand-written Hopper kernel or the call raises; a
 CPU tensor goes to the plain version (`ref.swe_step_ref`,
@@ -42,9 +44,17 @@ N_ROWS = 2
 MAX_CELLS = 2048
 #: steps of one solve, at most: `arr` holds the step index in float32
 MAX_STEPS = 2**24
+#: cluster sizes the plan picks from, largest first: Hopper's portable sizes
+PLAN_CLUSTERS = (8, 4, 2)
+#: cells a block owns at least under the plan: one warp of cells
+MIN_SLICE = 32
 
 _fn = None
 _solve_fn = None
+_occupancy_fn = None
+#: the plan of each (device, C, N), computed at its first solve: a graph
+#: captured with a plan replays it
+_plans: dict[tuple[int, int, int], int] = {}
 
 
 def _kernel():
@@ -75,11 +85,82 @@ def _solve_kernel():
             ctypes.c_int, ctypes.c_int,  # buoy rows r0, r1
             ctypes.c_float, ctypes.c_float,  # dt_dx, g
             ctypes.c_float, ctypes.c_float,  # h_dry, arrival threshold
+            ctypes.c_int,  # cluster size
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
         _solve_fn = fn
     return _solve_fn
+
+
+def _occupancy_kernel():
+    global _occupancy_fn
+    if _occupancy_fn is None:
+        fn = _build.load("swe_solve").swe_solve_max_active_clusters
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        _occupancy_fn = fn
+    return _occupancy_fn
+
+
+def _cluster_plan(C: int, N: int, sm_count: int, max_active_clusters) -> int:
+    """The cluster size of a wave of N lanes of C cells on a card of
+    `sm_count` SMs: 1 when the lanes alone fill the SMs, else the largest
+    of PLAN_CLUSTERS that gives each of the N x cs blocks an SM of its own,
+    leaves every block at least MIN_SLICE cells, and whose N clusters are
+    all resident at once (`max_active_clusters(cs)`, the card's count for
+    that size, >= N); 1 if none does."""
+    if N >= sm_count:
+        return 1
+    for cs in PLAN_CLUSTERS:
+        if (N * cs <= sm_count and C // cs >= MIN_SLICE
+                and max_active_clusters(cs) >= N):
+            return cs
+    return 1
+
+
+def max_active_clusters(C: int, cs: int) -> int:
+    """How many clusters of `cs` blocks of a C-cell solve the current CUDA
+    device holds at once (cudaOccupancyMaxActiveClusters; at cs = 1 blocks
+    a SM times the SMs)."""
+    out = ctypes.c_int(0)
+    err = _occupancy_kernel()(C, cs, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"swe_solve: occupancy query for cluster {cs} at {C} cells "
+                           f"failed, cudaError {err}")
+    return out.value
+
+
+def cluster_plan(C: int, N: int) -> int:
+    """The cluster size `swe_solve` launches a [C, N] wave with on the
+    current CUDA device: `_cluster_plan` on its SM count and occupancy,
+    cached per (device, C, N). Fill it before capturing a graph (a warm-up
+    solve does): the query is no stream work."""
+    key = (torch.cuda.current_device(), C, N)
+    cs = _plans.get(key)
+    if cs is None:
+        sm_count = torch.cuda.get_device_properties(key[0]).multi_processor_count
+        cs = _plans[key] = _cluster_plan(C, N, sm_count,
+                                         lambda c: max_active_clusters(C, c))
+    return cs
+
+
+def _check_cluster(cluster, C: int):
+    """`cluster=` of `swe_solve`: None (the plan) or a power of two in
+    [1, C] (every block owns a cell); whether the card schedules it is the
+    launch's answer."""
+    if cluster is None:
+        return None
+    if isinstance(cluster, bool):
+        raise TypeError(f"swe_solve: cluster must be None or an int, got {cluster!r}")
+    try:
+        cluster = operator.index(cluster)
+    except TypeError:
+        raise TypeError(f"swe_solve: cluster must be None or an int, got {cluster!r}") from None
+    if cluster < 1 or cluster & (cluster - 1) or cluster > C:
+        raise ValueError(f"swe_solve: cluster {cluster} must be a power of two in "
+                         f"[1, {C}] (C = {C} cells)")
+    return cluster
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device,
@@ -163,12 +244,15 @@ def swe_solve(
     n_steps: int,
     rows,
     h0_rows: torch.Tensor,  # [2]
+    cluster: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """A whole wave: `n_steps` SWE steps from (h, hu) with the buoy
     reduction of `ref.swe_solve_ref` inside the time loop, for the two buoy
     `rows` (ints in [0, C)) with their depths at rest `h0_rows`. Returns
     (mx, arr), each [2, N] float32; h and hu are left as they are. On the
-    card this is ONE kernel launch, whatever `n_steps` is."""
+    card this is ONE kernel launch, whatever `n_steps` is, with each lane's
+    column split over a cluster of `cluster` blocks (None: `cluster_plan`).
+    A cluster size the card refuses raises; nothing retries at another."""
     if b.dim() == 1:
         b = b[:, None]
     if h.dim() != 2 or h.shape[0] < 2 or h.shape[1] < 1:
@@ -187,6 +271,7 @@ def swe_solve(
     for name, t, shape in (("h", h, (C, N)), ("hu", hu, (C, N)), ("b", b, (C, 1)),
                            ("h0_rows", h0_rows, (len(rows),))):
         _check(name, t, shape, device, "swe_solve")
+    cluster = _check_cluster(cluster, C)
     kw = dict(dt_dx=dt_dx, n_steps=n_steps, rows=rows, h0_rows=h0_rows)
     if device.type == "cpu":
         with torch.no_grad():
@@ -200,16 +285,17 @@ def swe_solve(
     if device.index is not None and device.index != torch.cuda.current_device():
         # the C entry point launches on the current device's context
         with torch.cuda.device(device):
-            return swe_solve(h, hu, b, **kw)
+            return swe_solve(h, hu, b, **kw, cluster=cluster)
+    cs = cluster_plan(C, N) if cluster is None else cluster
     mx, arr = h.new_empty((len(rows), N)), h.new_empty((len(rows), N))
     err = _solve_kernel()(
         h.data_ptr(), hu.data_ptr(), b.data_ptr(), h0_rows.data_ptr(),
         mx.data_ptr(), arr.data_ptr(), C, N, n_steps, *rows,
-        float(dt_dx), G, H_DRY, ARRIVAL_THRESH,
+        float(dt_dx), G, H_DRY, ARRIVAL_THRESH, cs,
         torch.cuda.current_stream().cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"swe_solve: kernel launch failed, cudaError {err}")
+        raise RuntimeError(f"swe_solve: kernel launch failed (cluster {cs}), cudaError {err}")
     launches.count(swe_solve)
     return mx, arr
 

@@ -17,6 +17,13 @@ step. Only an exact comparison sees such a fault there
 way: its (mx, arr) outputs bit for bit, a NaN matching a NaN
 (tests/test_torch_swe_solve.py checks that the check sees a dt 1e-6 off,
 one step fewer and a buoy row off by one).
+
+The solve kernel splits each lane's column over a thread block cluster
+(`ops.cluster_plan`), and every cluster size gives the same bits: each is
+held at every case (`CLUSTER_SIZES`), one case (`edge_2047x13`) with a C
+that no cluster size divides and its buoy rows on either side of a slice
+edge. `H100_MAX_ACTIVE_CLUSTERS` and `H100_PLAN` are the occupancy the card
+reported and the plan it gives at the timed shapes (`TIMED_SHAPES`).
 """
 from __future__ import annotations
 
@@ -46,9 +53,32 @@ CASE_SOLVE_STEPS, CASE_SOLVE_ROWS = 300, (5, 40)
 #: campaign gives other widths too (cache hits, a router's split):
 #: chip_smoke.py records them and holds each one as it was launched
 SOLVE_SHAPES = tuple((C, N) for C in (512, 2048) for N in (1, 4, 8, 13, 16, 64))
+#: [cells, lanes] of a wave whose C no cluster size divides (slices of two
+#: sizes), its buoy rows the last cell of one slice and the first of the
+#: next at every cluster size above 1 (the edge at cell 1,024), and its
+#: steps: enough for every source's wave to pass the rows
+EDGE_SHAPE, EDGE_ROWS, EDGE_STEPS = (2047, 13), (1023, 1024), 3000
 #: every case of the solve check, by name
 SOLVE_CASES = (*(f"solve_{k}" for k in SWE_KINDS),
-               *(f"wave_{C}x{N}" for C, N in SOLVE_SHAPES))
+               *(f"wave_{C}x{N}" for C, N in SOLVE_SHAPES),
+               "edge_{}x{}".format(*EDGE_SHAPE))
+#: every cluster size the solve kernel runs on a Hopper card (the portable
+#: sizes), each held at every case where it is at most C
+CLUSTER_SIZES = (1, 2, 4, 8)
+#: a cluster size the wrapper passes on and a Hopper card refuses (16 blocks
+#: are not portable, and the kernel does not opt in): its launch must raise,
+#: not fall back
+REFUSED_CLUSTER = 16
+#: [cells, lanes] of the waves chip_smoke.py's `solve_times` times at every
+#: cluster size
+TIMED_SHAPES = tuple((C, N) for C in (512, 2048) for N in (16, 64, 512))
+#: clusters of each size an H100 (132 SMs) holds at once, by cells
+#: (`ops.max_active_clusters`, chip_smoke.py's `solve_times`)
+H100_MAX_ACTIVE_CLUSTERS = {512: {1: 528, 2: 264, 4: 248, 8: 124},
+                            2048: {1: 132, 2: 132, 4: 62, 8: 62}}
+#: the plan's cluster size at each timed shape on that card
+H100_PLAN = {(512, 16): 8, (512, 64): 2, (512, 512): 1,
+             (2048, 16): 8, (2048, 64): 2, (2048, 512): 1}
 #: the §4.3 campaign's uniform prior box: x0 [km], amplitude [m]
 SOURCE_BOX = ((30.0, 150.0), (0.5, 4.0))
 #: float32 bound of a first-order derivative wave (gradient, JVP, the fused
@@ -130,11 +160,25 @@ def wave_inputs(n_cells: int, N: int, device) -> dict:
                 rows=rows, h0_rows=torch.clamp_min(-b, 0.0)[list(rows), 0])
 
 
+def slices(C: int, cs: int) -> list[tuple[int, int]]:
+    """The cells [lo, hi) that each block of a `cs`-block cluster owns in a
+    C-cell column, by cluster rank: C // cs each, the first C % cs ranks
+    one more, as csrc/swe_solve.cu cuts it."""
+    q, rem = divmod(C, cs)
+    bounds = [r * q + min(r, rem) for r in range(cs + 1)]
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
 def solve_case_inputs(case: str, device) -> dict:
     """`swe_solve`'s keyword inputs of one entry of `SOLVE_CASES` on `device`."""
     if case.startswith("wave_"):
         C, N = (int(v) for v in case[len("wave_"):].split("x"))
         return wave_inputs(C, N, device)
+    if case.startswith("edge_"):
+        kw = wave_inputs(*EDGE_SHAPE, device)
+        b = kw["b"]
+        return dict(kw, n_steps=EDGE_STEPS, rows=EDGE_ROWS,
+                    h0_rows=torch.clamp_min(-b, 0.0)[list(EDGE_ROWS), 0])
     h, hu, b = swe_state_from_numpy(*swe_state(case[len("solve_"):]), device)
     return dict(h=h, hu=hu, b=b, dt_dx=CASE_DT_DX, n_steps=CASE_SOLVE_STEPS,
                 rows=CASE_SOLVE_ROWS,

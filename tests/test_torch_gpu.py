@@ -1,6 +1,7 @@
 """PyTorch port on the card: each CUDA kernel against its plain PyTorch
-version. The SWE step and the SWE solve (a whole wave in one launch), and
-whole waves through `solve_batch`, bit for bit (the bound and its reason:
+version. The SWE step and the SWE solve (a whole wave in one launch, at
+every thread block cluster size, a refused size raising), and whole waves
+through `solve_batch`, bit for bit (the bound and its reason:
 `repro_torch.kernels.swe.testing`); the SSD chunk scan within its
 relative bound (`repro_torch.kernels.ssd.testing`), alone and inside a
 reduced mamba2 forward; flash attention and RMSNorm within theirs
@@ -60,9 +61,14 @@ from repro_torch.kernels.swe import (
     swe_step_ref,
     swe_step_ref_into,
 )
+from repro_torch.kernels.swe import ops as swe_ops
 from repro_torch.kernels.swe.testing import (
     CASES,
+    CLUSTER_SIZES,
+    H100_PLAN,
+    REFUSED_CLUSTER,
     SOLVE_CASES,
+    TIMED_SHAPES,
     assert_solve_equal,
     assert_step_equal,
     case_inputs,
@@ -88,16 +94,61 @@ def test_kernel_matches_plain_on_cuda(case):
 @pytest.mark.parametrize("case", SOLVE_CASES)
 def test_solve_kernel_matches_plain_on_cuda(case):
     """One launch of the solve kernel against the plain loop
-    (`swe_solve_ref`), bit for bit: the limiter cases over 300 steps, and
-    whole waves at both published levels."""
+    (`swe_solve_ref`), bit for bit: the limiter cases over 300 steps, whole
+    waves at both published levels, and a 2,047-cell wave with its buoy rows
+    on a slice edge; at the plan's cluster size and at every cluster size
+    the kernel runs (`CLUSTER_SIZES`, those at most C), one launch each, h
+    and hu untouched."""
     dev = cuda_or_skip()
     kw = solve_case_inputs(case, dev)
     h, hu, b = kw.pop("h"), kw.pop("hu"), kw.pop("b")
+    h0, hu0 = h.clone(), hu.clone()
+    want = swe_solve_ref(h, hu, b, **kw)
+    for cluster in (None, *(cs for cs in CLUSTER_SIZES if cs <= h.shape[0])):
+        before = swe_solve.launches
+        got = swe_solve(h, hu, b, **kw, cluster=cluster)
+        torch.cuda.synchronize()
+        assert swe_solve.launches == before + 1
+        assert_solve_equal(got, want, f"{case}, cluster {cluster}")
+    assert torch.equal(h, h0) and torch.equal(hu, hu0)
+
+
+@pytest.mark.gpu
+def test_refused_cluster_raises_on_cuda():
+    """A cluster size the card refuses (16 blocks: not portable, and the
+    kernel does not opt in) raises with the launch's cudaError and counts no
+    launch: no retry at another size, no plain version."""
+    dev = cuda_or_skip()
+    kw = solve_case_inputs("wave_512x16", dev)
+    h, hu, b = kw.pop("h"), kw.pop("hu"), kw.pop("b")
     before = swe_solve.launches
+    with pytest.raises(RuntimeError, match=f"cluster {REFUSED_CLUSTER}.*cudaError"):
+        swe_solve(h, hu, b, **kw, cluster=REFUSED_CLUSTER)
+    assert swe_solve.launches == before
+    # the failed launch left no error behind for the next kernel
     got = swe_solve(h, hu, b, **kw)
     torch.cuda.synchronize()
-    assert swe_solve.launches == before + 1
-    assert_solve_equal(got, swe_solve_ref(h, hu, b, **kw), case)
+    assert_solve_equal(got, swe_solve_ref(h, hu, b, **kw), "after a refused launch")
+
+
+@pytest.mark.gpu
+def test_cluster_plan_on_cuda():
+    """The plan at the timed shapes: cached per shape, 1 at 512 lanes
+    (every SM already has a lane), otherwise a size whose clusters are all
+    resident at once and whose blocks own a warp of cells; on an H100 of
+    132 SMs, the plan recorded in `testing.H100_PLAN`."""
+    cuda_or_skip()
+    props = torch.cuda.get_device_properties(torch.cuda.current_device())
+    for C, N in TIMED_SHAPES:
+        cs = swe_ops.cluster_plan(C, N)
+        assert swe_ops.cluster_plan(C, N) == cs
+        if N >= props.multi_processor_count:
+            assert cs == 1
+        elif cs > 1:
+            assert C // cs >= swe_ops.MIN_SLICE
+            assert swe_ops.max_active_clusters(C, cs) >= N
+        if props.multi_processor_count == 132 and "H100" in props.name:
+            assert cs == H100_PLAN[C, N], (C, N, cs)
 
 
 def _solve_kernel_path_matches_plain_path(n_cells: int, smoothed: bool):

@@ -1,6 +1,6 @@
-"""PyTorch port: import hygiene. `repro_torch` and `chip_smoke.py` import
-neither JAX nor anything of the JAX package `repro`, so both run on a GPU
-machine that has no JAX."""
+"""PyTorch port: import hygiene. `repro_torch`, `chip_smoke.py` and the
+port's scripts (`scripts/`) import neither JAX nor anything of the JAX
+package `repro`, so all run on a GPU machine that has no JAX."""
 import ast
 import os
 import subprocess
@@ -12,7 +12,8 @@ PORT = ROOT / "src" / "repro_torch"
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "scripts").glob("*.py")))
 
 
 def _imported_roots(path: Path):

@@ -3,8 +3,12 @@
 `apps.tsunami.solve_batch` ran before it, and against the JAX package's
 solver; the wrapper's checks and dispatch (a CUDA tensor never takes the
 plain version); and the check that holds the kernel to its plain version on
-the card (`testing.assert_solve_equal`) seeing a wrong solve. The kernel
-itself is held against its plain version on the card in test_torch_gpu.py.
+the card (`testing.assert_solve_equal`) seeing a wrong solve; and the
+kernel's cluster plan (`ops._cluster_plan`, `testing.slices`): how a column is
+cut over a cluster's blocks, who owns each buoy row, which cluster size a
+wave gets, and the wrapper's `cluster=` checks. The kernel itself is held
+against its plain version on the card, at every cluster size, in
+test_torch_gpu.py.
 
 Run on the CPU:
 
@@ -22,8 +26,15 @@ from repro_torch.apps.tsunami import L_DOMAIN, initial_state, level_grid, solve_
 from repro_torch.kernels.swe import ops, swe_solve, swe_step, swe_step_ref_into
 from repro_torch.kernels.swe.ref import ARRIVAL_THRESH
 from repro_torch.kernels.swe.testing import (
+    CLUSTER_SIZES,
+    EDGE_ROWS,
+    EDGE_SHAPE,
+    H100_MAX_ACTIVE_CLUSTERS,
+    H100_PLAN,
     SWE_KINDS,
+    TIMED_SHAPES,
     assert_solve_equal,
+    slices,
     solve_case_inputs,
     sources,
 )
@@ -198,6 +209,12 @@ def test_cuda_tensor_never_takes_plain_version(monkeypatch):
     monkeypatch.setattr(ops, "_kernel", lambda: plain)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
+    # the plan of an H100: what its occupancy query answered
+    monkeypatch.setattr(ops, "_plans", {})
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda *a: type("Props", (), {"multi_processor_count": 132}))
+    monkeypatch.setattr(ops, "max_active_clusters",
+                        lambda C, cs: H100_MAX_ACTIVE_CLUSTERS[C][cs])
     monkeypatch.setattr(tsunami, "initial_state",
                         lambda *a: tuple(t.as_subclass(_OnCuda) for t in state(*a)))
     solves, steps = swe_solve.launches, swe_step.launches
@@ -209,6 +226,14 @@ def test_cuda_tensor_never_takes_plain_version(monkeypatch):
     C, N, n, r0, r1 = launched[0][6:11]
     assert (C, N, n) == (512, 16, n_steps)
     assert (r0, r1) == rows
+    assert launched[0][15] == H100_PLAN[512, 16]  # the plan's cluster size
+    assert ops._plans == {(0, 512, 16): H100_PLAN[512, 16]}
+    # a forced cluster size goes to the kernel as it is
+    h, hu, b = (t.as_subclass(_OnCuda) for t in state(torch.as_tensor(sources(4, 3)), 512, True))
+    swe_solve(h, hu, b, dt_dx=0.1, n_steps=3, rows=rows,
+              h0_rows=torch.zeros(2).as_subclass(_OnCuda), cluster=16)
+    assert launched[-1][15] == 16 and swe_solve.launches == solves + 2
+    solves += 1
     fake_kernel.err = 9
     with pytest.raises(RuntimeError, match="cudaError 9"):
         solve_batch(torch.as_tensor(sources(16, 3)), 512, True)
@@ -244,3 +269,125 @@ def test_solve_check_matches_nan_to_nan():
     b[0, 1] = 0.0
     with pytest.raises(AssertionError, match="mx"):
         assert_solve_equal((b, a), (a, a), "nan")
+
+
+@pytest.mark.parametrize("C", [2, 3, 48, 512, 2047, 2048])
+@pytest.mark.parametrize("cs", CLUSTER_SIZES)
+def test_slices_own_every_cell_once(C, cs):
+    """A column of C cells cut over a cluster of cs blocks: contiguous
+    slices, in rank order, that cover [0, C) once, C // cs cells each and
+    one more in the first C % cs."""
+    if cs > C:
+        with pytest.raises(ValueError, match="power of two"):
+            ops._check_cluster(cs, C)
+        return
+    cuts = slices(C, cs)
+    assert len(cuts) == cs
+    owned = [i for lo, hi in cuts for i in range(lo, hi)]
+    assert owned == list(range(C))
+    sizes = [hi - lo for lo, hi in cuts]
+    assert sizes == [C // cs + (r < C % cs) for r in range(cs)]
+
+
+def test_slice_bounds_when_cs_does_not_divide_C():
+    assert slices(2047, 8) == [(0, 256), (256, 512), (512, 768), (768, 1024),
+                                   (1024, 1280), (1280, 1536), (1536, 1792), (1792, 2047)]
+    assert slices(50, 4) == [(0, 13), (13, 26), (26, 38), (38, 50)]
+    assert slices(2047, 2) == [(0, 1024), (1024, 2047)]
+    assert slices(512, 1) == [(0, 512)]
+
+
+def _owner(C, cs, row):
+    (rank,) = [r for r, (lo, hi) in enumerate(slices(C, cs)) if lo <= row < hi]
+    return rank
+
+
+@pytest.mark.parametrize("cs", [c for c in CLUSTER_SIZES if c > 1])
+def test_buoy_rows_of_the_edge_case_straddle_a_slice_edge(cs):
+    """The 2,047-cell case's buoy rows are the last cell of one block and
+    the first of the next at every cluster size above 1, so the reduction
+    is read by two blocks; the published levels' rows each have one owner."""
+    C = EDGE_SHAPE[0]
+    r0, r1 = EDGE_ROWS
+    left, right = _owner(C, cs, r0), _owner(C, cs, r1)
+    assert right == left + 1
+    assert slices(C, cs)[left][1] == r1 == slices(C, cs)[right][0]
+    for n_cells in (512, 2048):
+        for row in level_grid(n_cells)[2]:
+            lo, hi = slices(n_cells, cs)[_owner(n_cells, cs, row)]
+            assert lo <= row < hi
+
+
+def test_plan_is_one_when_the_lanes_fill_the_card():
+    """At N >= the SM count every SM already has a lane: cluster size 1,
+    without asking the card."""
+    def never(cs):
+        raise AssertionError("queried")
+
+    assert ops._cluster_plan(2048, 512, 132, never) == 1
+    assert ops._cluster_plan(512, 132, 132, never) == 1
+
+
+def test_plan_takes_the_largest_resident_cluster():
+    """The largest of PLAN_CLUSTERS whose N clusters are all resident, whose
+    N x cs blocks each get an SM and whose blocks own a warp of cells; 1 if
+    none."""
+    asked = []
+
+    def resident(table):
+        def f(cs):
+            asked.append(cs)
+            return table[cs]
+        return f
+
+    assert ops._cluster_plan(2048, 16, 132, resident({8: 16, 4: 99, 2: 99})) == 8
+    assert ops._cluster_plan(2048, 16, 132, resident({8: 15, 4: 16, 2: 99})) == 4
+    assert ops._cluster_plan(2048, 64, 132, resident({8: 63, 4: 63, 2: 64})) == 2
+    assert ops._cluster_plan(2048, 64, 132, resident({8: 1, 4: 1, 2: 1})) == 1
+    # a block an SM: 20 lanes x 8 blocks would need 160 of the 132
+    assert ops._cluster_plan(2048, 20, 132, resident({8: 999, 4: 999, 2: 999})) == 4
+    # a block keeps at least a warp of cells: 48 cells never split, 64 in 2
+    asked.clear()
+    assert ops._cluster_plan(48, 4, 132, resident({8: 99, 4: 99, 2: 99})) == 1
+    assert asked == []
+    assert ops._cluster_plan(64, 4, 132, resident({8: 99, 4: 99, 2: 99})) == 2
+    assert ops.MIN_SLICE == 32 and max(ops.PLAN_CLUSTERS) <= max(CLUSTER_SIZES)
+
+
+@pytest.mark.parametrize("C,N", TIMED_SHAPES)
+def test_plan_on_an_h100(C, N):
+    """On the occupancy an H100 reported (`testing.H100_MAX_ACTIVE_CLUSTERS`),
+    the plan is `testing.H100_PLAN`: 1 at 512 lanes."""
+    got = ops._cluster_plan(C, N, 132, lambda cs: H100_MAX_ACTIVE_CLUSTERS[C][cs])
+    assert got == H100_PLAN[C, N]
+    if N == 512:
+        assert got == 1
+
+
+BAD_CLUSTERS = {0: ValueError, -2: ValueError, 3: ValueError, 6: ValueError,
+                64: ValueError, True: TypeError, 2.0: TypeError, "8": TypeError}
+
+
+@pytest.mark.parametrize("cluster", list(BAD_CLUSTERS), ids=repr)
+def test_cluster_checks_raise_on_cpu(cluster):
+    """`cluster=` is None or a power of two in [1, C], checked on every
+    device (48 cells here)."""
+    kw = solve_case_inputs("solve_moving", "cpu")
+    h, hu, b = kw.pop("h"), kw.pop("hu"), kw.pop("b")
+    with pytest.raises(BAD_CLUSTERS[cluster], match="cluster"):
+        swe_solve(h, hu, b, **kw, cluster=cluster)
+
+
+def test_cluster_on_cpu_takes_the_plain_version(monkeypatch):
+    """A valid `cluster=` on a CPU tensor still runs the plain version: the
+    same bits at every size, no kernel, no plan."""
+    def no_kernel(*a, **k):
+        raise AssertionError("the kernel or its plan was reached on the CPU")
+
+    monkeypatch.setattr(ops, "_solve_kernel", no_kernel)
+    monkeypatch.setattr(ops, "cluster_plan", no_kernel)
+    kw = solve_case_inputs("solve_dry_bed", "cpu")
+    h, hu, b = kw.pop("h"), kw.pop("hu"), kw.pop("b")
+    want = swe_solve(h, hu, b, **kw)
+    for cluster in (1, 2, 16, 32):
+        assert_solve_equal(swe_solve(h, hu, b, **kw, cluster=cluster), want, f"{cluster}")
