@@ -2095,6 +2095,266 @@ def phase_l2sea_wire(torch, dev) -> dict:
     return {}
 
 
+# §4.2 protocol (benchmarks/qmc_defects.py): the truncated normal prior of
+# the defect theta = (position across, position along, diameter) [mm], 256
+# scrambled Sobol' points, 4 full solves against the ROM
+COMPOSITE_PRIOR_MEAN = np.array([77.5, 210.0, 10.0])
+COMPOSITE_PRIOR_SD = np.sqrt(np.array([8000.0, 4800.0, 2.0]))
+COMPOSITE_QMC_POINTS, COMPOSITE_FULL_CHECKS = 256, 4
+# the ROM's bound against the full solve (tests/test_apps.py), held at the
+# protocol's first 4 points (most QMC defects miss the resin interlayer, and
+# there the ROM reproduces the full solve) and at tests/test_apps.py's two
+# defects that meet it
+COMPOSITE_ROM_RTOL = 5e-3
+COMPOSITE_DEFECTS = np.array([[77.5, 210.0, 10.0], [78.0, 180.0, 30.0]])
+COMPOSITE_FULL_WAVES = (16, 64)
+
+
+def composite_thetas(n: int) -> np.ndarray:
+    """The first n scrambled Sobol' points (seed 11) through the truncated
+    normal prior, cut at the part (benchmarks/qmc_defects.py:23-37)."""
+    from scipy.special import ndtri
+
+    from repro_torch.apps.composite import LENGTH_MM, WIDTH_MM
+    from repro_torch.uq.qmc import sobol
+
+    z = ndtri(np.clip(sobol(n, 3, scramble_seed=11), 1e-9, 1 - 1e-9))
+    th = COMPOSITE_PRIOR_MEAN + COMPOSITE_PRIOR_SD * z
+    th[:, 0] = np.clip(th[:, 0], 0.0, WIDTH_MM)
+    th[:, 1] = np.clip(th[:, 1], 0.0, LENGTH_MM)
+    th[:, 2] = np.clip(th[:, 2], 0.5, 60.0)
+    return th
+
+
+def phase_composite_qmc_path(torch, smi: str) -> dict:
+    """The paper's §4.2 protocol at its full size: `CompositeModel()` on the
+    card (its offline stage: 16 local eigenproblems and one CG solve), 256
+    QMC points through `EvaluationFabric(ModelBackend(model), cache_size=0)`
+    in ROM mode (one wave), then 4 full solves as point calls. One 16-point
+    chunk of the ROM wave again, split into its host part (per-theta basis
+    rebuilds on the subdomains the defect meets, B's assembly, the copy to
+    the card) and its device program (Galerkin projection, batched solve,
+    energy). The ROM must stay within 5e-3 of the full solve."""
+    from repro_torch.apps import composite as tc
+    from repro_torch.core.fabric import EvaluationFabric, ModelBackend
+
+    offline_s, model = _timed(torch, tc.CompositeModel)
+    thetas = composite_thetas(COMPOSITE_QMC_POINTS)
+    fabric = EvaluationFabric(ModelBackend(model), cache_size=0)
+    try:
+        rom_s, energies = _timed(torch, lambda: fabric.evaluate_batch(thetas, {"mode": "rom"}))
+        tel = fabric.telemetry()
+    finally:
+        fabric.shutdown()
+    energies = energies[:, 0]
+    full_s, full = _timed(torch, lambda: np.array(
+        [model([list(t)], {"mode": "full"})[0][0] for t in thetas[:COMPOSITE_FULL_CHECKS]]))
+    rel = np.abs(full - energies[:COMPOSITE_FULL_CHECKS]) / np.abs(full)
+    at_defects = [(model([list(t)], {"mode": "full"})[0][0], model([list(t)])[0][0])
+                  for t in COMPOSITE_DEFECTS]
+    rel_defects = np.array([abs(r - f) / abs(f) for f, r in at_defects])
+    # one ROM chunk, host prep apart from the device program
+    part = thetas[: model.BATCH_CHUNK]
+
+    systems_s, sys = _timed(torch, lambda: [model.rom._defect_system(t) for t in part])
+    copy_s, B = _timed(torch, lambda: model._t(np.stack([s[2] for s in sys]).astype(np.float32)))
+    fx, fy = torch.stack([s[0] for s in sys]), torch.stack([s[1] for s in sys])
+    chunk_updated = [len(s[3]) for s in sys]
+    host_s = systems_s + copy_s
+    device_s, chunk = _timed(torch, lambda: tc._rom_energy_batch(fx, fy, B))
+    # locality at the prior mean (a defect off the resin interlayer, as
+    # where the prior's tails clip it to the part's edge, updates none)
+    _, info = model.rom.online(COMPOSITE_PRIOR_MEAN)
+    if energies.shape != (COMPOSITE_QMC_POINTS,) or not np.isfinite(energies).all() \
+            or (energies <= 0).any() or not np.isfinite(full).all():
+        raise AssertionError(f"ROM energies {energies.shape}, finite "
+                             f"{np.isfinite(energies).all()}, full {full}")
+    if max(rel.max(), rel_defects.max()) >= COMPOSITE_ROM_RTOL:
+        raise AssertionError(f"ROM vs full: {rel.tolist()}, at the defects "
+                             f"{rel_defects.tolist()} (bound {COMPOSITE_ROM_RTOL})")
+    _same_bits(chunk.cpu().numpy(), energies[: model.BATCH_CHUNK], "the ROM chunk run again")
+    if not 1 <= len(info["updated_subdomains"]) <= 8 or info["n_red"] != 171:
+        raise AssertionError(f"ROM locality / size: {info}")
+    if tel["backend"]["native_batches"] != 1 or tel["backend"]["padded"] != 0:
+        raise AssertionError(f"the QMC wave was not one unpadded wave: {tel['backend']}")
+    emit("composite_qmc_path", card=smi, points=COMPOSITE_QMC_POINTS, offline_s=offline_s,
+         rom_wave_s=rom_s, rom_ms_per_eval=rom_s / COMPOSITE_QMC_POINTS * 1e3,
+         rom_chunk={"lanes": len(part), "host_s": host_s, "defect_systems_s": systems_s,
+                    "stack_and_copy_s": copy_s, "device_s": device_s,
+                    "host_share": host_s / (host_s + device_s)},
+         full_checks=COMPOSITE_FULL_CHECKS, full_ms_per_eval=full_s / COMPOSITE_FULL_CHECKS * 1e3,
+         online_speedup=(full_s / COMPOSITE_FULL_CHECKS) / (rom_s / COMPOSITE_QMC_POINTS),
+         rom_max_rel_err_vs_full=rel.max(), rom_rel_err_vs_full_at_defects=rel_defects.tolist(),
+         bound=COMPOSITE_ROM_RTOL,
+         energy={"mean": energies.mean(), "sd": energies.std(), "min": energies.min(),
+                 "max": energies.max()},
+         n_red=info["n_red"], updated_subdomains_at_prior_mean=info["updated_subdomains"],
+         updated_subdomains_per_point_in_chunk=chunk_updated, model_stats=dict(model.stats))
+    return {"model": model, "thetas": thetas}
+
+
+def phase_composite_full_waves(torch, model, thetas, smi: str) -> dict:
+    """Full-mode evaluate waves at 16 and 64 lanes (chunks of 16, each one
+    CG whose lanes stop on their own tests, CG_CHECK_EVERY iterations a
+    replay of the chunk shape's cached CUDA graph), and one smooth-mode
+    gradient wave of 16 lanes (the forward CG, the adjoint CG and the
+    matvec's linearisation): wall, device busy share (profiled once more),
+    peak memory. The graph's CG, at its shape's first solve (captured, then
+    replayed) and at the next (replayed), against the eager loop that
+    checks every iteration, bit for bit, on a 16-lane wave; the capture's
+    time; CG iterations a lane. Memory is each wave's peak above
+    what the process held before it (earlier phases' tensors). The adjoint's gradient against
+    central differences of the smooth energy in float64 on the card (the
+    diameter component within 5e-2, every component within 5e-3 of the
+    largest: tests/test_capabilities.py's bounds)."""
+    from repro_torch.apps import composite as tc
+
+    full = {"mode": "full"}
+    waves = {}
+    for n in COMPOSITE_FULL_WAVES:
+        model.evaluate_batch(thetas[:n], full)  # the same program, outside the wall
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        wall, out = _timed(torch, lambda: model.evaluate_batch(thetas[:n], full))
+        if out.shape != (n, 1) or not np.isfinite(out).all():
+            raise AssertionError(f"full wave of {n}: {out.shape}, finite {np.isfinite(out).all()}")
+        waves[n] = {"wall_s": wall, "ms_per_eval": wall / n * 1e3,
+                    "peak_memory_above_held": torch.cuda.max_memory_allocated() - held}
+    n = COMPOSITE_FULL_WAVES[0]
+    busy = _device_busy(torch, lambda: model.evaluate_batch(thetas[:n], full), "a full wave")
+    waves[n]["device_busy_share"] = busy["device_busy_s"] / busy["profiled_wall_s"]
+    waves[n]["profile"] = busy
+    # graph against eager, on the wave's own system
+    ks = [tc.coefficient_field(t) for t in thetas[:n]]
+    fx, fy = tc._face_coeffs(model._t(np.stack([k[0] for k in ks])),
+                             model._t(np.stack([k[1] for k in ks])))
+    rhs = tc._rhs_from_lifting(fx, fy, tc._lifting(fx.dtype, fx.device))
+    # the CG's graph: captured and replayed (cold: the shape's first solve;
+    # with no cache every solve paid it) against replayed only (warm)
+    tc._SOLVERS.clear()
+    cold_s, (x0, k0) = _timed(torch, lambda: tc.cg(fx, fy, rhs))
+    graph_s, (x, k) = _timed(torch, lambda: tc.cg(fx, fy, rhs))
+    eager_s, (x1, k1) = _timed(torch, lambda: tc.cg(fx, fy, rhs, check_every=1))
+    for got, what in ((x0, "cold"), (x, "warm")):
+        _same_bits(got.cpu().numpy(), x1.cpu().numpy(),
+                   f"CG: graph ({what}) vs the eager per-iteration loop")
+    _same_bits(k0.cpu().numpy(), k1.cpu().numpy(), "CG iterations: graph (cold) vs eager")
+    _same_bits(k.cpu().numpy(), k1.cpu().numpy(), "CG iterations: graph (warm) vs eager")
+    k = k.cpu().numpy()
+    # one gradient wave on defects that meet the resin interlayer (most QMC
+    # points miss it, and their gradient is ~0), the first two
+    # tests/test_capabilities.py's
+    soft = tc.DEFECT_SOFTNESS
+    rng = np.random.default_rng(SEED)
+    gthetas = np.concatenate([[[77.5, 210.0, 10.0], [70.0, 205.0, 8.0]], np.stack(
+        [rng.uniform(72.0, 83.0, n - 2), rng.uniform(40.0, 380.0, n - 2),
+         rng.uniform(5.0, 20.0, n - 2)], 1)])
+    senss = np.ones((n, 1))
+    cfg = {"mode": "full", "defect_softness": soft}
+    model.gradient_batch(gthetas, senss, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    grad_s, g = _timed(torch, lambda: model.gradient_batch(gthetas, senss, cfg))
+    grad_peak = torch.cuda.max_memory_allocated() - held
+    gbusy = _device_busy(torch, lambda: model.gradient_batch(gthetas, senss, cfg),
+                         "a gradient wave")
+    pts = gthetas[:2]
+    h = 1e-4 * np.maximum(np.abs(pts), 1.0)
+    shifted = np.concatenate([pts + s * np.eye(3)[i] * h[:, i:i + 1]
+                              for i in range(3) for s in (1.0, -1.0)])
+    th64 = torch.as_tensor(shifted, dtype=torch.float64, device=fx.device)
+    e = tc._smooth_energy_batch(th64, soft).detach().cpu().numpy().reshape(3, 2, 2)
+    fd = ((e[:, 0] - e[:, 1]) / (2 * h.T)).T  # [2 points, 3]
+    ad = g[:2]
+    if not np.isfinite(g).all() or g.shape != (n, 3):
+        raise AssertionError(f"gradient wave {g.shape}, finite {np.isfinite(g).all()}")
+    np.testing.assert_allclose(fd[:, 2], ad[:, 2], rtol=5e-2)
+    np.testing.assert_allclose(fd, ad, atol=5e-3 * np.abs(ad).max())
+    emit("composite_full_waves", card=smi, check_every=tc.CG_CHECK_EVERY,
+         waves={str(w): v for w, v in waves.items()},
+         cg_iterations={"min": int(k.min()), "max": int(k.max()), "lanes": n},
+         cg_graph_cold_s=cold_s, cg_graph_s=graph_s, cg_eager_per_iteration_s=eager_s,
+         capture_s=cold_s - graph_s, capture_share_of_cold=(cold_s - graph_s) / cold_s,
+         graph_vs_eager="bit for bit (x and every lane's iteration count, cold and warm)",
+         gradient_wave={"lanes": n, "softness": soft, "wall_s": grad_s,
+                        "peak_memory_above_held": grad_peak,
+                        "device_busy_share": gbusy["device_busy_s"] / gbusy["profiled_wall_s"],
+                        "profile": gbusy},
+         gradient_vs_central_differences={
+             "points": pts.tolist(), "adjoint_f32": ad.tolist(), "fd_f64": fd.tolist(),
+             "diameter_rel_err": (np.abs(fd[:, 2] - ad[:, 2]) / np.abs(fd[:, 2])).tolist(),
+             "bound": "diameter rtol 5e-2; all atol 5e-3 x max |grad|"},
+         model_stats=dict(model.stats))
+    return {}
+
+
+def phase_pool_path(torch, lm, smi: str) -> dict:
+    """The device pool: 64 per-point submits through
+    `BatchingExecutor(ModelPool(TorchModel(...)))` on the card (fewer than
+    64 waves; every value == the model's `evaluate_batch` of all 64 bit for
+    bit); `SPMDBackend.dispatch` for each derivative op == the model's own
+    batched op bit for bit; and the qwen3-0.6b level-4 grid (`lm`, the
+    dense LM path's model) through `EvaluationFabric(ModelPool(lm))`, as
+    examples/serve_uq.py serves it, == through `ModelBackend` bit for bit
+    in the same number of waves, with both walls."""
+    from repro_torch.core.fabric import EvaluationFabric, ModelBackend, SPMDBackend
+    from repro_torch.core.interface import TorchModel
+    from repro_torch.core.pool import ModelPool
+    from repro_torch.core.scheduler import BatchingExecutor
+    from repro_torch.uq import sparse_grid as sg
+
+    def elementwise(th):  # no reduction across lanes: a row's value is any width's
+        return torch.stack([th[0] ** 2 + th[1] * th[2], torch.sin(th[0]) * th[1]])
+
+    tm = TorchModel(elementwise, 3, 2)
+    pool = ModelPool(tm)
+    rng = np.random.default_rng(7)
+    X, S, V = rng.standard_normal((64, 3)), rng.standard_normal((64, 2)), rng.standard_normal((64, 3))
+    with BatchingExecutor(pool, linger_s=0.01) as ex:
+        t0 = time.perf_counter()
+        got = np.stack([f.result() for f in [ex.submit(t) for t in X]])
+        submits_s = time.perf_counter() - t0
+        waves = ex.telemetry()["waves"]
+    _same_bits(got, tm.evaluate_batch(X), "64 submits through BatchingExecutor")
+    if waves >= 64 or pool.stats["padded"] != 0:
+        raise AssertionError(f"executor waves {waves}, pool {pool.stats}")
+    backend = SPMDBackend(pool)
+    ops = {"gradient": (S, lambda: tm.gradient_batch(X, S)),
+           "apply_jacobian": (V, lambda: tm.apply_jacobian_batch(X, V)),
+           "apply_hessian": ((S, V), lambda: tm.apply_hessian_batch(X, S, V))}
+    for op, (extra, want) in ops.items():
+        _same_bits(backend.dispatch(op, X, extra, None), want(), f"SPMDBackend {op}")
+    ys, gs = backend.dispatch("value_and_gradient", X, lambda y: 1.0 - y, None)
+    wys, wgs = tm.value_and_gradient_batch(X, lambda y: 1.0 - y)
+    _same_bits(ys, wys, "SPMDBackend value_and_gradient (values)")
+    _same_bits(gs, wgs, "SPMDBackend value_and_gradient (gradients)")
+    # the LM grid, through the pool and through ModelBackend
+    reduced = sg.reduce_sparse_grid(
+        sg.smolyak_grid(2, LM_GRID_LEVEL, [sg.knots_uniform_leja(*LM_BOX)] * 2))
+    lm_runs = {}
+    for name, backend in (("model_pool", ModelPool(lm)), ("model_backend", ModelBackend(lm))):
+        with EvaluationFabric(backend) as fab:
+            wall, vals = _timed(torch, lambda: sg.evaluate_on_sparse_grid(fab, reduced))
+            tel = fab.telemetry()
+        lm_runs[name] = {"wall_s": wall, "waves": tel["waves"], "values": vals,
+                         "backend": {k: v for k, v in tel["backend"].items()
+                                     if k in ("kind", "batches", "native_batches", "padded",
+                                              "bucket_shapes")}}
+    _same_bits(lm_runs["model_pool"]["values"], lm_runs["model_backend"]["values"],
+               "the LM grid through ModelPool vs ModelBackend")
+    if lm_runs["model_pool"]["waves"] != lm_runs["model_backend"]["waves"] \
+            or lm_runs["model_pool"]["backend"]["padded"] != 0:
+        raise AssertionError(f"LM grid waves: {lm_runs}")
+    emit("pool_path", card=smi, n_instances=pool.n_instances, submits=len(X),
+         executor_waves=waves, submits_s=submits_s, pool_stats=dict(pool.stats),
+         derivative_ops=sorted(ops) + ["value_and_gradient"],
+         lm={"arch": lm.cfg.name, "grid_points": len(reduced.points),
+             **{k: {kk: vv for kk, vv in v.items() if kk != "values"}
+                for k, v in lm_runs.items()}},
+         bound="bit for bit (submits, derivative ops, LM grid)")
+    return {}
+
+
 def ssd_work(B: int, H: int, G: int, S: int, P: int, N: int) -> dict:
     """Bytes the SSD scan must move (each input read once, each output
     written once, float32) and the float operations it needs: per chunk of
@@ -2671,12 +2931,15 @@ def phase_flash_f32_path(torch) -> dict:
     return {"launches": launches}
 
 
-def run_lm_path(torch, arch: str) -> dict:
+def run_lm_path(torch, arch: str, smi: str) -> dict:
     """The main path, the kernel-vs-plain wave and the profiled wave of one
-    LM; the model's memory is released afterwards."""
+    LM, and for qwen3-0.6b (the model examples/serve_uq.py serves) the
+    device pool's path; the model's memory is released afterwards."""
     lm = phase_lm_main_path(torch, arch)
     phase_lm_kernel_vs_plain(torch, lm["model"])
     phase_lm_profile(torch, lm["model"], lm["points"], lm["grid_s"])
+    if arch == DENSE_ARCH:
+        phase_pool_path(torch, lm["model"], smi)
     launches = lm["launches"]
     del lm
     torch.cuda.empty_cache()
@@ -2731,16 +2994,19 @@ def main() -> int:
         fleet = widths.run("fleet_path", phase_fleet_path, torch, dev, main_path, wire)
     width_check = phase_wave_widths_vs_plain(torch, dev, widths)
     phase_l2sea_wire(torch, dev)
+    composite = phase_composite_qmc_path(torch, probe["smi"])
+    phase_composite_full_waves(torch, composite["model"], composite["thetas"], probe["smi"])
+    del composite
     ssd_check = phase_ssd_kernel_vs_plain(torch, dev)
     ssd_times = phase_ssd_times(torch, dev, probe["smi"])
-    lm = run_lm_path(torch, SSM_ARCH)
+    lm = run_lm_path(torch, SSM_ARCH, probe["smi"])
     rms_check = phase_rmsnorm_kernel_vs_plain(torch, dev)
     rms_times = phase_rmsnorm_times(torch, dev, probe["smi"])
     rms_path = phase_rmsnorm_path(torch, dev)
     flash_check = phase_flash_kernel_vs_plain(torch, dev)
     flash_times = phase_flash_times(torch, dev, probe["smi"])
     f32_path = phase_flash_f32_path(torch)
-    dense = run_lm_path(torch, DENSE_ARCH)
+    dense = run_lm_path(torch, DENSE_ARCH, probe["smi"])
 
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro.")))
     if leaked or "repro" in sys.modules:

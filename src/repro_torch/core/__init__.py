@@ -1,5 +1,5 @@
 from repro_torch.core.interface import Model, TorchModel  # noqa: F401
-from repro_torch.core.pool import ThreadedPool  # noqa: F401
+from repro_torch.core.pool import ModelPool, ThreadedPool  # noqa: F401
 from repro_torch.core.fabric import (  # noqa: F401
     BudgetExhausted,
     CallableBackend,
@@ -9,6 +9,7 @@ from repro_torch.core.fabric import (  # noqa: F401
     HTTPBackend,
     ModelBackend,
     Overloaded,
+    SPMDBackend,
     ThreadedBackend,
     as_backend,
 )
@@ -19,3 +20,4 @@ from repro_torch.core.fleet import (  # noqa: F401
 )
 from repro_torch.core.service import Campaign, UQService  # noqa: F401
 from repro_torch.core.hierarchy import MultilevelModel  # noqa: F401
+from repro_torch.core.scheduler import BatchingExecutor  # noqa: F401

@@ -15,10 +15,9 @@ them behind one async-capable API:
 
 with
 
-  * pluggable backends — `ThreadedPool`, `HTTPModel` fan-out over several
-    servers (one `/EvaluateBatch` round-trip each), any UM-Bridge `Model`,
-    or a plain batched callable (the PyTorch port has no device-pool
-    backend yet: `as_backend` names the ROADMAP item);
+  * pluggable backends — SPMD `ModelPool`, `ThreadedPool`, `HTTPModel`
+    fan-out over several servers (one `/EvaluateBatch` round-trip each),
+    any UM-Bridge `Model`, or a plain batched callable;
   * CAPABILITY-TYPED dispatch — every backend advertises a `Capabilities`
     descriptor (evaluate / gradient / apply_jacobian / apply_hessian, each
     with a batched variant); derivative waves route only to backends that
@@ -67,12 +66,13 @@ from repro_torch.analysis.races import named_condition, named_lock
 from repro_torch.core.interface import (
     Capabilities,
     Model,
+    TorchModel,
     UnsupportedCapability,
     model_capabilities,
     next_pow2,
     pad_to_bucket,
 )
-from repro_torch.core.pool import ThreadedPool
+from repro_torch.core.pool import ModelPool, ThreadedPool
 from repro_torch.core.protocol import config_key, split_blocks
 
 #: capability families a fabric wave can carry; "value_and_gradient" is the
@@ -345,6 +345,30 @@ class ModelBackend(FabricBackend):
         rt = getattr(self.model, "round_trips", None)
         if rt is not None:
             s["round_trips"] = rt
+        return s
+
+
+class SPMDBackend(ModelBackend):
+    """The device path: one `ModelPool` wave per fabric wave. Derivative
+    waves go straight to the pooled model's batched derivative programs
+    (for a `TorchModel`, its vmapped VJP/JVP/HVP: one program a wave), as
+    `ModelBackend` dispatches them."""
+
+    name = "spmd"
+
+    def __init__(self, pool: ModelPool):
+        super().__init__(pool.model)
+        self.pool = pool
+        self.n_instances = pool.n_instances
+
+    def evaluate(self, thetas, config):
+        return self.pool.evaluate(thetas, config)
+
+    def stats(self):
+        s = {**self.pool.stats, "kind": self.name}
+        with self._lock:
+            if self._op_stats:
+                s["derivative_waves"] = dict(self._op_stats)
         return s
 
 
@@ -1153,11 +1177,9 @@ class FabricRouter(FabricBackend):
             b.close()
 
 
-#: backend sources the port does not serve -> what to do instead (the
-#: ROADMAP item that ports them, queue 1); matched by type name, since the
-#: types themselves live only in the JAX package
+#: backend sources the port does not serve -> what to do instead; matched
+#: by type name, since the type itself lives only in the JAX package
 _UNPORTED_BACKENDS = {
-    "ModelPool": "SPMDBackend over a device pool: ROADMAP queue 1, item 4",
     "JAXModel": "a JAX function; write it in PyTorch and wrap it in "
                 "repro_torch.core.interface.TorchModel",
 }
@@ -1169,7 +1191,7 @@ def _refuse_unported(obj) -> None:
         if why is not None:
             raise TypeError(
                 f"cannot build a fabric backend from {type(obj).__name__}: "
-                f"not ported yet ({why})"
+                f"not ported ({why})"
             )
 
 
@@ -1177,19 +1199,19 @@ def as_backend(obj) -> FabricBackend:
     """Coerce pools / models / urls / callables into a FabricBackend; a
     list/tuple containing backends or pools becomes a `FabricRouter` over
     them (heterogeneous multi-backend dispatch), a list of URLs and
-    `HTTPModel`s one `HTTPBackend` over those servers. Sources whose backend
-    is not ported yet (device pools) raise `TypeError` naming the ROADMAP
-    item that ports them."""
+    `HTTPModel`s one `HTTPBackend` over those servers. A JAX model raises
+    `TypeError`: write it in PyTorch as a `TorchModel`."""
     from repro_torch.core.client import HTTPModel
 
     if isinstance(obj, FabricBackend):
         return obj
     _refuse_unported(obj)
+    if isinstance(obj, ModelPool):
+        return SPMDBackend(obj)
     if isinstance(obj, ThreadedPool):
         return ThreadedBackend(obj)
-    # a TorchModel lands here too: the JAX package serves its JAXModel
-    # through SPMDBackend(ModelPool(...)), whose port is ROADMAP queue 1,
-    # item 4; until then the model's own vmapped waves serve it in-process
+    if isinstance(obj, TorchModel):
+        return SPMDBackend(ModelPool(obj))
     if isinstance(obj, Model):
         return ModelBackend(obj)
     if isinstance(obj, str):
@@ -1200,7 +1222,7 @@ def as_backend(obj) -> FabricBackend:
                 _refuse_unported(o)
         # heterogeneous cluster: any element that is already a backend (or a
         # pool) makes the list a router over N independent backends
-        if any(isinstance(o, (FabricBackend, ThreadedPool)) for o in obj):
+        if any(isinstance(o, (FabricBackend, ModelPool, ThreadedPool)) for o in obj):
             return FabricRouter(obj)
         if all(isinstance(o, (str, HTTPModel)) for o in obj):
             return HTTPBackend(obj)

@@ -1,5 +1,13 @@
 """Parallel model-instance pools — the paper's §3 kubernetes/HAProxy analogue.
 
+Two pools, matching the two deployment modes in the paper:
+
+* `ModelPool` — the device path. A wave of evaluation points is ONE call of
+  the model's own batched program (`model.evaluate_batch`: a `TorchModel`'s
+  vmapped program, an `LMUQModel`'s one forward over the wave's sequences).
+  The UQ driver is completely oblivious to the devices — the paper's
+  separation-of-concerns invariant.
+
 * `ThreadedPool` — the host-side path with literal HAProxy semantics: a queue
   and N worker threads, each representing one model server with AT MOST ONE
   request in flight (paper §3.1.1). Works with any `Model`, including HTTP
@@ -17,9 +25,59 @@ from dataclasses import dataclass, field
 from typing import Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.analysis.races import named_lock
 from repro_torch.core.interface import Model
+
+
+# ---------------------------------------------------------------------------
+# Device pool
+# ---------------------------------------------------------------------------
+
+
+class ModelPool:
+    """Batched evaluation of a model on its device: one wave, one call of
+    the model's batched program, in the model's dtype.
+
+    n_instances = `torch.cuda.device_count()` when the model lives on a
+    CUDA device (its `device`), else 1. A wave runs at its own width: the
+    JAX package pads a wave to a power of two to bound its jit cache, and
+    eager PyTorch keeps no such cache, so `stats["padded"]` stays 0 and
+    `stats["bucket_shapes"]` counts the distinct wave widths. There is no
+    mesh on one card: `ctx=` raises (ROADMAP queue 1, item 14).
+    """
+
+    def __init__(self, model: Model, ctx=None, config: dict | None = None):
+        if ctx is not None:
+            raise NotImplementedError(
+                "a ModelPool over a device mesh (ctx=) is not ported; one card "
+                "has no mesh: ROADMAP queue 1, item 14"
+            )
+        self.model = model
+        self.config = config
+        device = torch.device(getattr(model, "device", "cpu"))
+        self.n_instances = torch.cuda.device_count() if device.type == "cuda" else 1
+        # waves arrive from fabric collector threads and direct batch calls
+        self._lock = named_lock("model_pool.stats")
+        self.stats = {"batches": 0, "evaluations": 0, "padded": 0, "bucket_shapes": 0}
+        self._bucket_shapes: set[int] = set()
+
+    def evaluate(self, thetas: np.ndarray, config: dict | None = None) -> np.ndarray:
+        """[N, n] -> [N, m]: one call of the model's batched program."""
+        config = self.config if config is None else config
+        thetas = np.atleast_2d(np.asarray(thetas, float))
+        out = np.asarray(self.model.evaluate_batch(thetas, config))
+        if out.ndim == 1:
+            out = out[:, None]
+        with self._lock:
+            self._bucket_shapes.add(len(thetas))
+            self.stats["bucket_shapes"] = len(self._bucket_shapes)
+            self.stats["batches"] += 1
+            self.stats["evaluations"] += len(thetas)
+        return out
+
+    __call__ = evaluate
 
 
 # ---------------------------------------------------------------------------

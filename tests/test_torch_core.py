@@ -306,11 +306,14 @@ def test_evaluate_only_fabric_refuses_gradient_waves():
             fab.value_and_gradient_batch(np.ones((2, 2)), lambda y: y)
 
 
-class ModelPool:  # a stand-in with the JAX package's device-pool type name
+class JAXModel:  # a stand-in with the JAX package's model type name
     pass
 
 
 def test_as_backend_ports_and_refusals():
+    from repro_torch.core.fabric import SPMDBackend
+    from repro_torch.core.pool import ModelPool
+
     assert isinstance(as_backend(_NativeDouble()), ModelBackend)
     assert isinstance(as_backend(lambda X: X), CallableBackend)
     tp = ThreadedPool([_Counting()])
@@ -318,6 +321,10 @@ def test_as_backend_ports_and_refusals():
         assert isinstance(as_backend(tp), ThreadedBackend)
     finally:
         tp.shutdown()
+    # a device pool is served by SPMDBackend, as in the JAX package
+    pool = ModelPool(_NativeDouble())
+    backend = as_backend(pool)
+    assert isinstance(backend, SPMDBackend) and backend.pool is pool
     # UM-Bridge URLs (and lists of them) become an HTTPBackend over a port
     # server (port 0, read back)
     from _torch_parity import serving
@@ -328,6 +335,6 @@ def test_as_backend_ports_and_refusals():
         assert isinstance(as_backend(url), HTTPBackend)
         both = as_backend([url, url])
         assert isinstance(both, HTTPBackend) and both.n_instances == 2
-    # backends the port has not reached yet name the ROADMAP item
-    with pytest.raises(TypeError, match="item 4"):
-        as_backend(ModelPool())
+    # a JAX model is refused, naming what to write instead
+    with pytest.raises(TypeError, match="TorchModel"):
+        as_backend(JAXModel())

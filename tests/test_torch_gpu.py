@@ -26,7 +26,10 @@ reference and their eager step body bit for bit, resume a killed run bit
 for bit, hold S `swe_solve` launches a replay on the coarse tsunami, and
 survive evaluate waves run from another thread while they are captured.
 A port server on the card answers /EvaluateBatch bit for bit like the
-in-process model (one launch a served wave). Every test here is marked `gpu` and skips without a CUDA device. The file imports neither JAX nor the JAX package, so it also
+in-process model (one launch a served wave). The composite app (`apps/composite.py`:
+a CG whose iterations replay as a CUDA graph) equals its graph-free loop
+bit for bit and the CPU within float32 bounds, gradient waves included;
+`ModelPool` serves a `TorchModel` on the card. Every test here is marked `gpu` and skips without a CUDA device. The file imports neither JAX nor the JAX package, so it also
 runs on a GPU machine that has no JAX:
 
     PYTHONPATH=src python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -789,3 +792,68 @@ def test_served_tsunami_model_answers_bit_for_bit(level):
     want = tsunami.TsunamiModel().evaluate_batch(thetas, {"level": level})
     assert got.shape == (13, 4) and np.isfinite(got).all()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_composite_full_and_gradient_waves_on_cuda():
+    """The composite app on the card: a full-mode wave of 5 lanes (CG
+    iterations a CUDA-graph replay) equals the graph-free per-iteration CG
+    bit for bit in x and every lane's count, and so does another system of
+    that shape, which replays the same cached graph; the wave's energies
+    equal the CPU's within float32 summation-order noise (1e-5); a
+    smooth-mode gradient wave equals the CPU's within
+    tests/test_capabilities.py's FD-vs-AD bounds."""
+    dev = cuda_or_skip()
+    from repro_torch.apps import composite as tc
+
+    thetas = np.array([[77.5, 210.0, 10.0], [78.0, 180.0, 30.0], [70.0, 205.0, 8.0],
+                       [0.0, 0.0, 0.0], [76.0, 250.0, 45.0]])
+    card, cpu = tc.CompositeModel(), tc.CompositeModel(device="cpu")
+    assert card.device.type == "cuda" and card.rom.fx0.is_cuda
+    ks = [tc.coefficient_field(t) for t in thetas]
+    fx, fy = tc._face_coeffs(card._t(np.stack([k[0] for k in ks])),
+                             card._t(np.stack([k[1] for k in ks])))
+    rhs = tc._rhs_from_lifting(fx, fy, tc._lifting(fx.dtype, dev))
+    x, k = tc.cg(fx, fy, rhs)
+    x1, k1 = tc.cg(fx, fy, rhs, check_every=1)
+    assert torch.equal(k, k1) and torch.equal(x, x1)
+    assert (k < tc.CG_MAXITER).all() and len(set(k.tolist())) > 1
+    # another system of the shape replays the cached graph, and the first
+    # solve's results are the caller's own
+    graphs = {key: s.graph for key, s in tc._SOLVERS.items()}
+    x2, k2 = tc.cg(fx.flip(0), fy.flip(0), rhs.flip(0))
+    x3, k3 = tc.cg(fx.flip(0), fy.flip(0), rhs.flip(0), check_every=1)
+    assert torch.equal(k2, k3) and torch.equal(x2, x3) and torch.equal(k2, k.flip(0))
+    assert all(tc._SOLVERS[key].graph is g for key, g in graphs.items())
+    assert torch.equal(x, x1) and torch.equal(k, k1)
+    full = {"mode": "full"}
+    np.testing.assert_allclose(card.evaluate_batch(thetas, full),
+                               cpu.evaluate_batch(thetas, full), rtol=1e-5)
+    cfg = {"mode": "full", "defect_softness": 1.0}
+    got = card.gradient_batch(thetas[:3], np.ones((3, 1)), cfg)
+    want = cpu.gradient_batch(thetas[:3], np.ones((3, 1)), cfg)
+    np.testing.assert_allclose(got[:, 2], want[:, 2], rtol=5e-2)
+    np.testing.assert_allclose(got, want, atol=5e-3 * np.abs(want).max())
+    np.testing.assert_allclose(card.evaluate_batch(thetas[:3]), cpu.evaluate_batch(thetas[:3]),
+                               rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_model_pool_on_cuda_is_the_models_batched_program():
+    """`ModelPool` over a `TorchModel` on the card: one instance per card,
+    and 24 per-point submits through `BatchingExecutor` equal the model's
+    own wave bit for bit, unpadded."""
+    cuda_or_skip()
+    from repro_torch.core.interface import TorchModel
+    from repro_torch.core.pool import ModelPool
+    from repro_torch.core.scheduler import BatchingExecutor
+
+    tm = TorchModel(lambda th: torch.stack([th[0] ** 2 + th[1] * th[2],
+                                            torch.sin(th[0]) * th[1]]), 3, 2)
+    pool = ModelPool(tm)
+    assert pool.n_instances == torch.cuda.device_count()
+    thetas = np.random.default_rng(4).standard_normal((24, 3))
+    with BatchingExecutor(pool, linger_s=0.01) as ex:
+        got = np.stack([f.result() for f in [ex.submit(t) for t in thetas]])
+    np.testing.assert_array_equal(got, tm.evaluate_batch(thetas))
+    assert pool.stats["evaluations"] == 24 and pool.stats["padded"] == 0

@@ -10,7 +10,7 @@ import torch
 
 import repro.core.fabric as jax_fabric
 from repro.core.interface import JAXModel
-from repro_torch.core.fabric import EvaluationFabric, ModelBackend, as_backend
+from repro_torch.core.fabric import EvaluationFabric, SPMDBackend, as_backend
 from repro_torch.core.interface import (
     Capabilities,
     TorchModel,
@@ -138,15 +138,18 @@ def test_default_device_is_the_gpu_and_never_falls_back(monkeypatch):
 def test_as_backend_serves_a_torchmodel_and_refuses_a_jaxmodel():
     tm, jm = _pair()
     backend = as_backend(tm)
-    assert isinstance(backend, ModelBackend) and backend.model is tm
+    # SPMDBackend(ModelPool(tm)), as the JAX package serves a JAXModel
+    assert isinstance(backend, SPMDBackend) and backend.pool.model is tm
     with pytest.raises(TypeError, match="TorchModel"):
         as_backend(jm)
 
 
 def test_fabric_waves_through_torchmodel_match_the_jax_package():
     tm, jm = _pair()
-    with EvaluationFabric(as_backend(tm), cache_size=0) as fab, \
-            jax_fabric.EvaluationFabric(jax_fabric.as_backend(jm), cache_size=0) as jfab:
+    backend, jbackend = as_backend(tm), jax_fabric.as_backend(jm)
+    assert isinstance(backend, SPMDBackend) and isinstance(jbackend, jax_fabric.SPMDBackend)
+    with EvaluationFabric(backend, cache_size=0) as fab, \
+            jax_fabric.EvaluationFabric(jbackend, cache_size=0) as jfab:
         for name, args in (("evaluate_batch", (X,)), ("gradient_batch", (X, S)),
                            ("apply_jacobian_batch", (X, V)),
                            ("apply_hessian_batch", (X, S, V))):
