@@ -62,6 +62,14 @@ user calls:
   reduced qwen3-0.6b in float32, as the port's tests run it, serving a
   level-2 sparse grid through the fabric.
 
+Last, the port's analysis gate (`analysis_gate`, `repro_torch.analysis`):
+its linter over the port and this script (every rule 0 findings, against
+an empty baseline), its selftest, its race detector's stress harness with
+the tap's online GP on the card, and the detector over the card's own
+locks: evaluate waves from 8 threads through a monitored fabric beside two
+gradient waves that capture their step graphs under the instrumented
+`CAPTURE_LOCK`, every row bit for bit against a serial run.
+
 The build phase is followed by the count of the tensor-core instructions in
 the SASS of the two kernels that use them: HGMMA (wgmma) in the bf16 flash
 kernel, HMMA (mma.sync, TF32) in the SSD kernel, with the SSD kernel's
@@ -2946,6 +2954,213 @@ def run_lm_path(torch, arch: str, smi: str) -> dict:
     return {"launches": launches}
 
 
+#: the analysis gate's card part (`analysis_gate`, part "card_locks"):
+#: caller threads mixing submit and evaluate_batch over the points, each at
+#: least GATE_MIN_ROUNDS rounds and on until the gradient threads are done,
+#: each of which runs one 2-lane gradient wave
+GATE_CALLERS = 8
+GATE_POINTS = 48
+GATE_GRAD_THREADS = 2
+GATE_MIN_ROUNDS = 10
+#: the captured bodies the torch rule must resolve in the port
+GATE_BODIES = ("uq/fused.py::_Block._body", "apps/tsunami.py::_Sweep.forward.body",
+               "apps/tsunami.py::_Sweep.pull.body", "apps/composite.py::_CG.steps")
+
+
+def _gate_card_locks(torch, dev) -> dict:
+    """The race detector over the card's own locks: a fabric over a coarse
+    `TsunamiModel`, both built inside `monitored(LockMonitor(...))`, takes
+    evaluate waves from GATE_CALLERS threads while GATE_GRAD_THREADS threads
+    each run a 2-lane gradient wave through it, whose step graphs are
+    captured under `CAPTURE_LOCK` (built at import, so each module's binding
+    of it is instrumented here, and put back after). Every row is held to a
+    serial run of the same points bit for bit."""
+    from repro_torch.analysis.races import (
+        GuardedDict,
+        LockMonitor,
+        instrument_attr,
+        monitored,
+        watch_fields,
+    )
+    from repro_torch.apps import composite, tsunami
+    from repro_torch.apps.tsunami import TsunamiModel
+    from repro_torch.core import device as core_device
+    from repro_torch.core.fabric import EvaluationFabric, ModelBackend
+    from repro_torch.kernels.swe.testing import SOURCE_BOX
+    from repro_torch.uq import fused
+
+    rng = np.random.default_rng(0)
+    points = np.stack([rng.uniform(*SOURCE_BOX[0], GATE_POINTS),
+                       rng.uniform(*SOURCE_BOX[1], GATE_POINTS)], axis=1)
+    lanes = [points[2 * i:2 * i + 2] for i in range(GATE_GRAD_THREADS)]
+    senss = [rng.standard_normal((2, 4)) for _ in range(GATE_GRAD_THREADS)]
+    serial = TsunamiModel(dev)
+    t0 = time.perf_counter()
+    want = serial.evaluate_batch(points)
+    want_g = [serial.gradient_batch(th, ss) for th, ss in zip(lanes, senss)]
+    serial_s = time.perf_counter() - t0
+
+    mon = LockMonitor(seed=0, perturb=True)
+    bindings = (core_device, tsunami, fused, composite)
+    plain = [mod.CAPTURE_LOCK for mod in bindings]
+    rows, grads, errors, rounds = [], [None] * GATE_GRAD_THREADS, [], [0] * GATE_CALLERS
+    book = threading.Lock()  # the harness's own, outside the monitor
+    grads_left = [GATE_GRAD_THREADS]
+    grads_done = threading.Event()
+    deadline = time.monotonic() + 300.0
+
+    def caller(k: int) -> None:
+        crng = np.random.default_rng(100 + k)
+        try:
+            while (rounds[k] < GATE_MIN_ROUNDS or not grads_done.is_set()) \
+                    and time.monotonic() < deadline:
+                if crng.random() < 0.5:
+                    idx = crng.integers(GATE_POINTS, size=1)
+                    got = np.asarray(fabric.submit(points[idx[0]]).result(timeout=120))[None]
+                else:
+                    idx = crng.integers(GATE_POINTS, size=int(crng.integers(1, 9)))
+                    got = np.asarray(fabric.evaluate_batch(points[idx]))
+                with book:
+                    rows.append((idx, got))
+                rounds[k] += 1
+        except Exception as e:  # noqa: BLE001 — raised after the join
+            errors.append(f"caller {k}: {e!r}")
+
+    def gradient(i: int) -> None:
+        try:
+            grads[i] = fabric.gradient_batch(lanes[i], senss[i])
+        except Exception as e:  # noqa: BLE001 — raised after the join
+            errors.append(f"gradient {i}: {e!r}")
+        finally:
+            with book:
+                grads_left[0] -= 1
+                if grads_left[0] == 0:
+                    grads_done.set()
+
+    with monitored(mon):
+        capture = instrument_attr(core_device, "CAPTURE_LOCK", "cuda.capture", mon)
+        for mod in bindings[1:]:
+            mod.CAPTURE_LOCK = capture
+        try:
+            model = TsunamiModel(dev)
+            model.stats = GuardedDict(mon, "tsunami.stats", model.stats)
+            model.waves = GuardedDict(mon, "tsunami.waves", model.waves)
+            fabric = EvaluationFabric(ModelBackend(model), max_batch=8, linger_s=1e-3,
+                                      cache_size=16)
+            fabric.stats = GuardedDict(mon, "fabric.stats", fabric.stats)
+            threads = ([threading.Thread(target=caller, args=(k,)) for k in range(GATE_CALLERS)]
+                       + [threading.Thread(target=gradient, args=(i,))
+                          for i in range(GATE_GRAD_THREADS)])
+            reset_launches()
+            t0 = time.perf_counter()
+            try:
+                with watch_fields(mon, EvaluationFabric,
+                                  ("linger_s", "max_batch", "_wave_latency_ewma"), tag="fabric"):
+                    for t in threads:
+                        t.start()
+                    _join(threads, "analysis_gate card_locks", timeout_s=360.0)
+            finally:
+                fabric.shutdown()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_launches()
+            tel = fabric.telemetry()
+        finally:
+            for mod, lock in zip(bindings, plain):
+                mod.CAPTURE_LOCK = lock
+    if errors:
+        raise AssertionError(f"analysis_gate card_locks: {errors}")
+    for idx, got in rows:
+        _same_bits(got, want[idx], f"analysis_gate: rows {idx.tolist()} against the serial wave")
+    for i in range(GATE_GRAD_THREADS):
+        _same_bits(grads[i], want_g[i], f"analysis_gate: gradient wave {i} against serial")
+    report = mon.report()
+    captures = report["acquisitions_by_lock"].get("cuda.capture", 0)
+    if report["lock_order_cycles"] or report["unguarded_writes"]:
+        raise AssertionError(f"analysis_gate card_locks: cycles {report['lock_order_cycles']}, "
+                             f"unguarded writes {report['unguarded_writes']}")
+    if captures < GATE_GRAD_THREADS:
+        raise AssertionError(f"cuda.capture taken {captures} times under the monitor: the "
+                             f"gradient waves' captures went unseen")
+    # every evaluate wave one launch of the solve kernel; derivative waves none
+    if counts["swe_solve"] != model.waves[0] or not model.waves[0] or model.waves[1]:
+        raise AssertionError(f"launches {counts} for the model's waves {dict(model.waves)}")
+    return {"rounds": sum(rounds), "rows_checked": sum(len(idx) for idx, _ in rows),
+            "gradient_lanes_checked": 2 * GATE_GRAD_THREADS,
+            "model_waves": dict(model.waves), "swe_solve_launches": counts["swe_solve"],
+            "fabric": {k: tel[k] for k in ("waves", "points", "cache_hits", "coalesced")
+                       if k in tel},
+            "capture_acquisitions": captures, "acquisitions_by_lock": report["acquisitions_by_lock"],
+            "lock_order_edges": report["lock_order_edges"],
+            "lock_order_cycles": report["lock_order_cycles"],
+            "unguarded_writes": report["unguarded_writes"],
+            "serial_s": serial_s, "wall_s": wall}
+
+
+def phase_analysis_gate(torch, dev) -> dict:
+    """The port's analysis gate on the card, one line a part: (a) `lint`:
+    the linter over the port's source and this script against the port's
+    baseline, 0 findings for every rule, and the captured bodies the torch
+    rule resolves; (b) `selftest`; (c) `stress`: the race detector's stress
+    harness with its tap's online GP on the card; (d) `card_locks`: the
+    detector over the card's own locks (`_gate_card_locks`)."""
+    import repro_torch
+    from repro_torch.analysis import (
+        DEFAULT_BASELINE,
+        RULE_IDS,
+        apply_baseline,
+        load_baseline,
+        run_lint,
+    )
+    from repro_torch.analysis.rules.torch_discipline import captured_bodies
+    from repro_torch.analysis.selftest import run_selftest
+    from repro_torch.analysis.stress import run_stress
+
+    t_phase = time.perf_counter()
+    src = Path(repro_torch.__file__).resolve().parent
+    t0 = time.perf_counter()
+    new, old = apply_baseline(run_lint([src, ROOT / "chip_smoke.py"]),
+                              load_baseline(DEFAULT_BASELINE))
+    bodies = captured_bodies([src])
+    lint_s = time.perf_counter() - t0
+    if new:
+        raise AssertionError("analysis_gate lint:\n" + "\n".join(map(str, new)))
+    unresolved = [b for b in GATE_BODIES if not any(x.endswith(f"/{b}") for x in bodies)]
+    if unresolved:
+        raise AssertionError(f"the torch rule resolves no {unresolved} in {sorted(bodies)}")
+    emit("analysis_gate", part="lint", findings_by_rule={r: 0 for r in RULE_IDS},
+         baselined=len(old), captured_bodies=len(bodies), wall_s=lint_s)
+
+    t0 = time.perf_counter()
+    selftest = run_selftest()
+    selftest_s = time.perf_counter() - t0
+    if not selftest["passed"]:
+        raise AssertionError(f"analysis_gate selftest: {json.dumps(selftest)}")
+    emit("analysis_gate", part="selftest", passed=True,
+         bad_findings={r: e["bad_findings"] for r, e in selftest["rules"].items()},
+         wall_s=selftest_s)
+
+    t0 = time.perf_counter()
+    stress = run_stress(n_threads=8, seed=0, device=dev)
+    stress_s = time.perf_counter() - t0
+    tap = stress["scenarios"]["tap_exactly_once"]
+    if not stress["passed"] or not tap["gp_device"].startswith("cuda"):
+        raise AssertionError(f"analysis_gate stress: {json.dumps(stress, default=str)}")
+    emit("analysis_gate", part="stress", passed=True,
+         scenarios={name: {k: v for k, v in sc.items() if k != "violations"}
+                    for name, sc in stress["scenarios"].items()},
+         lock_order_cycles=stress["monitor"]["lock_order_cycles"],
+         unguarded_writes=stress["monitor"]["unguarded_writes"],
+         acquisitions=stress["monitor"]["acquisitions"], locks=stress["monitor"]["locks"],
+         wall_s=stress_s)
+
+    card = _gate_card_locks(torch, dev)
+    emit("analysis_gate", part="card_locks", callers=GATE_CALLERS, points=GATE_POINTS,
+         gradient_threads=GATE_GRAD_THREADS, **card,
+         bound="bit for bit (every row and gradient == the serial run)")
+    return {"wall_s": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     try:
         import torch
@@ -3007,6 +3222,7 @@ def main() -> int:
     flash_times = phase_flash_times(torch, dev, probe["smi"])
     f32_path = phase_flash_f32_path(torch)
     dense = run_lm_path(torch, DENSE_ARCH, probe["smi"])
+    phase_analysis_gate(torch, dev)
 
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro.")))
     if leaked or "repro" in sys.modules:

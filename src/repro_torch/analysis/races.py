@@ -81,6 +81,7 @@ class LockMonitor:
         self._held = threading.local()
         self._n_threads_seen = 0
         self.acquisitions = 0
+        self.acquisitions_by_lock: dict[str, int] = {}
         self.waits = 0
         self.edges: dict[tuple[str, str], int] = {}
         self.lock_names: set[str] = set()
@@ -133,6 +134,7 @@ class LockMonitor:
                 return
         with self._meta:
             self.acquisitions += 1
+            self.acquisitions_by_lock[name] = self.acquisitions_by_lock.get(name, 0) + 1
             self.lock_names.add(name)
             for held, _ in st:
                 key = (held, name)
@@ -256,9 +258,11 @@ class LockMonitor:
             edges = [[a, b, n] for (a, b), n in sorted(self.edges.items())]
             acq, waits = self.acquisitions, self.waits
             names = sorted(self.lock_names)
+            by_lock = dict(sorted(self.acquisitions_by_lock.items()))
         return {
             "locks": names,
             "acquisitions": acq,
+            "acquisitions_by_lock": by_lock,
             "condition_waits": waits,
             "lock_order_edges": edges,
             "lock_order_cycles": self.lock_order_cycles(),

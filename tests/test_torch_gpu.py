@@ -29,7 +29,8 @@ A port server on the card answers /EvaluateBatch bit for bit like the
 in-process model (one launch a served wave). The composite app (`apps/composite.py`:
 a CG whose iterations replay as a CUDA graph) equals its graph-free loop
 bit for bit and the CPU within float32 bounds, gradient waves included;
-`ModelPool` serves a `TorchModel` on the card. Every test here is marked `gpu` and skips without a CUDA device. The file imports neither JAX nor the JAX package, so it also
+`ModelPool` serves a `TorchModel` on the card. The race detector's stress
+harness passes with its tap's online GP on the card. Every test here is marked `gpu` and skips without a CUDA device. The file imports neither JAX nor the JAX package, so it also
 runs on a GPU machine that has no JAX:
 
     PYTHONPATH=src python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -857,3 +858,21 @@ def test_model_pool_on_cuda_is_the_models_batched_program():
         got = np.stack([f.result() for f in [ex.submit(t) for t in thetas]])
     np.testing.assert_array_equal(got, tm.evaluate_batch(thetas))
     assert pool.stats["evaluations"] == 24 and pool.stats["padded"] == 0
+
+
+@pytest.mark.gpu
+def test_stress_harness_on_cuda():
+    """The race detector's stress harness with the tap's online GP on the
+    card (the default device): every scenario passes, with no lock-order
+    cycle and no unguarded write, and the tap ingests every computed row
+    exactly once."""
+    cuda_or_skip()
+    from repro_torch.analysis.stress import run_stress
+
+    report = run_stress(n_threads=8, seed=0)
+    assert report["passed"], report
+    assert report["monitor"]["lock_order_cycles"] == []
+    assert report["monitor"]["unguarded_writes"] == []
+    tap = report["scenarios"]["tap_exactly_once"]
+    assert tap["rows_observed"] == tap["rows_computed"]
+    assert tap["gp_device"].startswith("cuda")
