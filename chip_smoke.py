@@ -58,7 +58,7 @@ user calls:
   profiler;
 * the RMSNorm kernel through its own entry point at qwen3-0.6b's norm
   shapes: as in the JAX package, no model calls it;
-* the float32 flash-attention kernel (CUDA cores) on its own path: the
+* the float32 flash-attention kernel (mma.sync in 3xTF32) on its own path: the
   reduced qwen3-0.6b in float32, as the port's tests run it, serving a
   level-2 sparse grid through the fabric.
 
@@ -71,9 +71,10 @@ gradient waves that capture their step graphs under the instrumented
 `CAPTURE_LOCK`, every row bit for bit against a serial run.
 
 The build phase is followed by the count of the tensor-core instructions in
-the SASS of the two kernels that use them: HGMMA (wgmma) in the bf16 flash
-kernel, HMMA (mma.sync, TF32) in the SSD kernel, with the SSD kernel's
-registers and spills from its build log.
+the SASS of the three kernels that use them: HGMMA (wgmma) in the bf16 flash
+kernel, HMMA (mma.sync, TF32) in the float32 flash kernel and in the SSD
+kernel, with the registers and spills of the last two from their build
+logs.
 
 Each launch count is set to 0 just before a path and read just after. Each
 phase prints one JSON line; any failed check raises and the script exits
@@ -167,8 +168,8 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
-    """Launches by kernel: flash attention's two kernels (the CUDA-core
-    `flash_attention`, the tensor-core `flash_attention_wgmma`) apart."""
+    """Launches by kernel: flash attention's two kernels (the float32
+    `flash_attention`, the bf16 `flash_attention_wgmma`) apart."""
     counts = {}
     for name, wrapper in kernel_wrappers().items():
         counts.update(getattr(wrapper, "launches_by_kernel", {name: wrapper.launches}))
@@ -258,17 +259,19 @@ def phase_build() -> None:
     libs = _build.build()
     emit("build", seconds=time.perf_counter() - t0,
          libraries={k: str(v.relative_to(ROOT)) for k, v in libs.items()})
-    # evidence that the bf16 flash kernel and the SSD kernel run on the
-    # tensor cores: HGMMA (warpgroup MMA) and HMMA (mma.sync) in their SASS
-    # (every function of the flash library; every instance of the SSD kernel)
+    # evidence that the flash kernels and the SSD kernel run on the tensor
+    # cores: HGMMA (warpgroup MMA) in the bf16 flash kernel's SASS, HMMA
+    # (mma.sync) in the float32 one's and the SSD kernel's (every function of
+    # the wgmma library; every instance of the other two kernels)
     for stem, op, kernel in (("flash_attention_wgmma", "HGMMA", ""),
+                             ("flash_attention", "HMMA", "flash_attention_kernel"),
                              ("ssd", "HMMA", "ssd_chunk_scan_kernel")):
         counts = sass_counts(libs[stem], op)
         kernels = {f: n for f, n in counts.items() if kernel in f}
         if not kernels or min(kernels.values()) == 0:
             raise AssertionError(f"a tensor-core kernel without {op}: {counts}")
         fields = {}
-        if stem == "ssd":
+        if stem in ("ssd", "flash_attention"):
             # registers and spills of each instance (-Xptxas -v, SOURCE_FLAGS)
             log = libs[stem].with_suffix(".log").read_text().splitlines()
             fields["ptxas"] = [line.strip() for line in log
@@ -300,8 +303,9 @@ def sass_counts(library: Path, op: str) -> dict:
 def phase_kernel_vs_plain(torch, dev) -> dict:
     """Both SWE kernels against their plain versions on the card, bit for
     bit (the bound and its reason: `repro_torch.kernels.swe.testing`): the
-    step kernel on the four limiter cases and at every [cells, lanes] shape
-    the main path runs; the solve kernel on the limiter cases over 300 steps,
+    step kernel on the four limiter cases, at every [cells, lanes] shape
+    the main path runs and at ragged shapes, each at the plan's strip depth
+    and at every other depth; the solve kernel on the limiter cases over 300 steps,
     on whole waves at both levels (1, 4, 8, 13, 16 and 64 lanes) and on a
     2,047-cell wave with its buoy rows on a slice edge, each at the plan's
     cluster size and at every other size the kernel runs, against one plain
@@ -321,11 +325,15 @@ def phase_kernel_vs_plain(torch, dev) -> dict:
     report = {}
     for case in CASES:
         h, hu, b, dt_dx = case_inputs(case, dev)
-        got = swe_step(h, hu, b, dt_dx=dt_dx)
-        torch.cuda.synchronize()
-        report[case] = assert_step_equal(got, swe_step_ref(h, hu, b, dt_dx), (h, hu), case)
+        want = swe_step_ref(h, hu, b, dt_dx)
+        for strip in (*swe_ops.STRIP_DEPTHS, None):  # the plan's last: its errors are kept
+            got = swe_step(h, hu, b, dt_dx=dt_dx, strip=strip)
+            torch.cuda.synchronize()
+            errors = assert_step_equal(got, want, (h, hu), f"{case}, strip {strip}")
+        report[case] = dict(strip=swe_ops.strip_plan(*h.shape), **errors)
     worst = max(r[key]["max_abs"] for r in report.values() for key in ("h", "hu"))
-    emit("kernel_vs_plain", kernel="swe_step", bound="bit for bit", cases=report)
+    emit("kernel_vs_plain", kernel="swe_step", bound="bit for bit at every strip depth",
+         strip_depths=list(swe_ops.STRIP_DEPTHS), cases=report)
     solves = {}
     for case in SOLVE_CASES:
         kw = solve_case_inputs(case, dev)
@@ -378,32 +386,46 @@ def solve_work(C: int, N: int, n_steps: int, R: int) -> dict:
             "ops": SWE_OPS_PER_CELL_LANE * C * N * n_steps}
 
 
-def phase_times(torch, dev, smi: str) -> dict:
-    """Device time of one step-kernel launch at the main path's shapes, and
-    of one solve-kernel launch (a whole wave) at both levels and 16, 64 and
-    512 lanes, each beside its bound, at every cluster size and the plan's
-    (with the card's count of resident clusters of each size); the solve
-    beside the step kernel's loop over the same wave (n_steps x the step's
-    time) and the plain loop's device time. At 16 lanes every cluster size
-    is held against the plain loop bit for bit."""
+def phase_times(torch, dev, smi: str, solves: dict) -> dict:
+    """Device time of one step-kernel launch at the main path's shapes, at
+    the plan's strip depth and at every depth, beside its bytes bound and
+    its floor (one launch of the smallest step, [2, 1], timed the same
+    way), with the step kernel's own path's wall per wave (`solves`, from
+    `full_solves`); and of one solve-kernel launch (a whole wave) at both
+    levels and 16, 64 and 512 lanes, each beside its bound, at every
+    cluster size and the plan's (with the card's count of resident
+    clusters of each size); the solve beside the step kernel's loop over
+    the same wave (n_steps x the step's time) and the plain loop's device
+    time. At 16 lanes every cluster size is held against the plain loop bit
+    for bit."""
+    from repro_torch.convert import swe_state_from_numpy
     from repro_torch.kernels.swe import ops as swe_ops
     from repro_torch.kernels.swe import swe_solve, swe_solve_ref, swe_step, swe_step_ref
     from repro_torch.kernels.swe.testing import (
+        CASE_DT_DX,
         CLUSTER_SIZES,
         TIMED_SHAPES,
         assert_solve_equal,
         main_path_state,
+        swe_state,
         wave_inputs,
     )
 
+    def time_step(h, hu, b, dt_dx, pair, strip=None):
+        return _device_ms(
+            torch, lambda: swe_step(h, hu, b, dt_dx=dt_dx, out=pair, strip=strip), calls=200)
+
+    # the floor: the smallest step, two cells of one lane
+    h, hu, b = swe_state_from_numpy(*swe_state("moving", 2, 1), dev)
+    floor_ms = time_step(h, hu, b, CASE_DT_DX, (torch.empty_like(h), torch.empty_like(hu)))
     shapes = []
     for C in (512, 2048):
         for N in (4, 16, 64, 512):
             h, hu, b, dt_dx = main_path_state(C, N, dev)
             pair = (torch.empty_like(h), torch.empty_like(hu))
-            ms = _device_ms(
-                torch, lambda: swe_step(h, hu, b, dt_dx=dt_dx, out=pair), calls=200
-            )
+            ms = time_step(h, hu, b, dt_dx, pair)
+            by_strip = {str(d): time_step(h, hu, b, dt_dx, pair, d)
+                        for d in swe_ops.STRIP_DEPTHS}
             # ~45 PyTorch kernels a call: 16 calls fit the launch queue
             plain_ms = _device_ms(torch, lambda: swe_step_ref(h, hu, b, dt_dx), calls=16)
             # host side: wall time per launch of back-to-back steps, as the
@@ -417,17 +439,26 @@ def phase_times(torch, dev, smi: str) -> dict:
             nbytes = (4 * C * N + C) * 4  # h, hu in; h, hu out; b in
             ops = SWE_OPS_PER_CELL_LANE * C * N
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+            bound_ms = max(t_bytes, t_ops) * 1e3
             shapes.append({
-                "shape": [C, N], "ms": ms, "plain_ms": plain_ms,
+                "shape": [C, N], "strip": swe_ops.strip_plan(C, N), "ms": ms,
+                "ms_by_strip": by_strip, "plain_ms": plain_ms,
                 "host_ms_per_launch": host_ms,
-                "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_ms": bound_ms,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "share_of_bound": bound_ms / ms,
+                # below the floor, one launch's own cost sets the time
+                "bound_below_floor": bound_ms < floor_ms,
                 "bytes": nbytes, "ops": ops,
             })
+    path = {k: {"wall_s": v["per_step_kernel_path_wall_s"], "n_steps": v["n_steps"],
+                "wall_ms_per_step": v["per_step_kernel_path_wall_s"] / v["n_steps"] * 1e3}
+            for k, v in solves["waves"].items() if "per_step_kernel_path_wall_s" in v}
     emit("times", kernel="swe_step",
          timer="one CUDA event pair around 200 back-to-back steps (plain: 16), "
                "per step, median of 5 windows",
-         shapes=shapes, library_ms=None, card=smi)
+         floor={"shape": [2, 1], "ms": floor_ms}, shapes=shapes,
+         step_path_wall_by_wave=path, library_ms=None, card=smi)
     step_ms = {tuple(s["shape"]): s["ms"] for s in shapes}
     waves = []
     for C, N in TIMED_SHAPES:
@@ -475,7 +506,7 @@ def phase_times(torch, dev, smi: str) -> dict:
                "solve, median of 5 windows, at every cluster size; plain: one CUDA event "
                "pair around one plain loop",
          waves=waves, library_ms=None, card=smi)
-    return {"shapes": shapes, "waves": waves}
+    return {"shapes": shapes, "waves": waves, "floor_ms": floor_ms, "step_path": path}
 
 
 def phase_full_solves(torch, dev) -> dict:
@@ -2577,7 +2608,8 @@ def flash_work(B: int, nq: int, nkv: int, Sq: int, Sk: int, hd: int, causal: boo
 #: the float32 flash kernel's own path: the reduced qwen3-0.6b (float32, 4 q
 #: heads and 2 kv heads of 32) over a level-2 grid (13 points, one wave)
 F32_LM_BATCH, F32_LM_SEQ, F32_GRID_LEVEL = 2, 512, 2
-#: its attention shape on that path: 13 points x 2 sequences
+#: its attention shape on that path: 13 points x 2 sequences (the first of
+#: the float32 cases of `kernels/flash_attention/testing.py`)
 F32_PATH_CASE = (13 * F32_LM_BATCH, 4, 2, F32_LM_SEQ, F32_LM_SEQ, 32, True, "float32")
 
 
@@ -2590,18 +2622,21 @@ def _model_layout(q, k, v):
 def phase_flash_kernel_vs_plain(torch, dev) -> dict:
     """Both flash kernels against their plain version (`attention_ref`) on
     the card (bound and reason: `repro_torch.kernels.flash_attention.testing`):
-    the JAX package's FLASH_CASES, ragged shapes, and qwen3-0.6b's attention
-    at one point, a wave of 8 and the 41-point grid wave (at its model layout,
-    through strides), and the float32 path's shape. Each case goes through
-    the wrapper to the kernel of its dtype (`flash_attention_wgmma` for bf16,
-    `flash_attention` for float32), and the CUDA-core kernel also runs every
-    bf16 case."""
+    the JAX package's FLASH_CASES, ragged shapes, the float32 path's shape
+    and qwen3-0.6b's width in float32, and qwen3-0.6b's attention at one
+    point, a wave of 8 and the 41-point grid wave (at its model layout,
+    through strides). Each case goes through the wrapper to the kernel of
+    its dtype (`flash_attention_wgmma` for bf16, `flash_attention` for
+    float32), and the float32 kernel also runs every bf16 case."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention import testing as T
 
+    if T.F32_CASES[0] != F32_PATH_CASE:
+        raise AssertionError(f"the float32 path's shape {F32_PATH_CASE} is not the first "
+                             f"float32 case {T.F32_CASES[0]}")
     report = {"flash_attention_wgmma": {}, "flash_attention": {}}
-    for i, case in enumerate(T.CASES + (F32_PATH_CASE,)):
+    for i, case in enumerate(T.CASES):
         name, causal = T.case_name(case), case[6]
         q, k, v = T.case_inputs(case, dev, seed=i)
         if case in T.MODEL_CASES:
@@ -2614,7 +2649,7 @@ def phase_flash_kernel_vs_plain(torch, dev) -> dict:
         if flash_attention.launches_by_kernel[kernel] != before[kernel] + 1:
             raise AssertionError(f"{name}: the wrapper did not launch {kernel}")
         report[kernel][name] = T.assert_close(got, want, f"{kernel} {name}")
-        if kernel != "flash_attention":  # the CUDA-core kernel on the same bf16 inputs
+        if kernel != "flash_attention":  # the float32 kernel's body on the same bf16 inputs
             got = torch.empty_like(q)
             ops.launch("flash_attention", q, k, v, got, causal)
             torch.cuda.synchronize()
@@ -2629,18 +2664,23 @@ def phase_flash_kernel_vs_plain(torch, dev) -> dict:
                "(repro_torch/kernels/flash_attention/testing.py)",
          max_abs_err_by_kernel_and_dtype=worst, cases=report)
     return {"wgmma": worst["flash_attention_wgmma"]["bfloat16"],
-            "cuda_core": worst["flash_attention"]["float32"],
-            "cuda_core_bf16": worst["flash_attention"]["bfloat16"], "by_kernel": worst}
+            "f32_kernel": worst["flash_attention"]["float32"],
+            "f32_kernel_bf16": worst["flash_attention"]["bfloat16"], "by_kernel": worst}
 
 
 def phase_flash_times(torch, dev, smi: str) -> dict:
     """Device time of one launch of each flash kernel at the FLASH_CASES
-    shapes, qwen3-0.6b's main-path shapes (at the model layout, through
-    strides) and the float32 path's shape, beside the bound (operations at
-    the peak of the inputs' type), the plain version's time and
-    `scaled_dot_product_attention`'s. `ms` is the kernel the wrapper takes;
-    at bf16 shapes `cuda_core_ms` is the CUDA-core kernel on the same
-    inputs."""
+    shapes, the float32 cases (the float32 path's shape and qwen3-0.6b's
+    width) and qwen3-0.6b's main-path shapes (at the model layout, through
+    strides), beside the bound, the plain version's time and
+    `scaled_dot_product_attention`'s. `ms` is the kernel the wrapper takes.
+    The bound is the larger of the bytes at the HBM rate and the operations
+    at the tensor cores' rate for the kernel's work: bf16 at its peak, and
+    float32 in 3xTF32 (3 x flops at the TF32 peak), as the SSD's;
+    `fp32_cuda_core_ops_ms` is the float32 work at the CUDA cores' peak, the
+    bound of the float32 kernel before it ran on the tensor cores. At bf16
+    shapes `f32_kernel_ms` is `flash_attention.cu`'s body on the same inputs,
+    the wgmma kernel's yardstick."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention
@@ -2648,7 +2688,7 @@ def phase_flash_times(torch, dev, smi: str) -> dict:
     from repro_torch.kernels.flash_attention import testing as T
 
     shapes = []
-    for i, case in enumerate(T.FLASH_CASES + T.MODEL_CASES + (F32_PATH_CASE,)):
+    for i, case in enumerate(T.FLASH_CASES + T.F32_CASES + T.MODEL_CASES):
         B, nq, nkv, Sq, Sk, hd, causal, dt = case
         q, k, v = T.case_inputs(case, dev, seed=i)
         if case in T.MODEL_CASES:
@@ -2662,33 +2702,39 @@ def phase_flash_times(torch, dev, smi: str) -> dict:
                  "ms": ms}
         if dt == "bfloat16":
             o = torch.empty_like(q)
-            entry["cuda_core_ms"] = _device_ms(
+            entry["f32_kernel_ms"] = _device_ms(
                 torch, lambda: ops.launch("flash_attention", q, k, v, o, causal),
                 calls=2 if big else 50)
         entry["plain_ms"] = _device_ms(torch, lambda: T.plain(q, k, v, causal),
                                        calls=1 if big else 10, windows=3 if big else 5)
         entry["library_ms"] = _device_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal, enable_gqa=True), calls=10 if big else 50)
-        peak = BF16_FLOPS if dt == "bfloat16" else FP32_FLOPS
-        t_bytes, t_ops = work["bytes"] / HBM_BYTES_PER_S, work["flops"] / peak
+        t_bytes = work["bytes"] / HBM_BYTES_PER_S
+        t_ops = work["flops"] / BF16_FLOPS if dt == "bfloat16" else (
+            3 * work["flops"] / TF32_FLOPS)
+        t_fp32 = work["flops"] / FP32_FLOPS
         entry.update({
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes_ms": t_bytes * 1e3, "ops_ms": t_ops * 1e3,
-            "fp32_ops_ms": work["flops"] / FP32_FLOPS * 1e3, **work,
+            "bytes_ms": t_bytes * 1e3, "tc_ops_ms": t_ops * 1e3,
+            "fp32_cuda_core_ops_ms": t_fp32 * 1e3, **work,
         })
+        entry["share_of_bound"] = entry["bound_ms"] / ms
         if dt == "bfloat16":
             entry["fraction_of_bf16_peak"] = t_ops * 1e3 / ms
-            entry["cuda_core_fraction_of_fp32_peak"] = entry["fp32_ops_ms"] / entry["cuda_core_ms"]
+            entry["f32_kernel_fraction_of_fp32_peak"] = t_fp32 * 1e3 / entry["f32_kernel_ms"]
         else:
-            entry["fraction_of_fp32_peak"] = entry["fp32_ops_ms"] / ms
+            entry["fp32_cuda_core_bound_ms"] = max(t_bytes, t_fp32) * 1e3
+            entry["fraction_of_fp32_peak"] = t_fp32 * 1e3 / ms
         shapes.append(entry)
         del q, k, v
         torch.cuda.empty_cache()
     emit("flash_times", kernels=["flash_attention_wgmma", "flash_attention"],
          timer="one CUDA event pair around back-to-back launches (50; 10 above 0.1 TFLOP, "
-               "the CUDA-core kernel 2; plain: 10, or 1 in 3 windows), per launch, median of "
-               "5 windows",
+               "the float32 kernel on bf16 2; plain: 10, or 1 in 3 windows), per launch, "
+               "median of 5 windows",
+         bound="max(bytes at 3.35 TB/s, operations at the tensor cores' peak: bf16 989 "
+               "TFLOP/s; float32 as 3 x flops at the 495 TFLOP/s TF32 peak)",
          library="F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)",
          shapes=shapes, card=smi)
     return {"shapes": shapes}
@@ -2891,7 +2937,7 @@ def phase_flash_f32_path(torch) -> dict:
     float32 (the config the port's parity tests hold to the JAX package)
     as an UM-Bridge model, a level-2 sparse grid of its NLL through
     `EvaluationFabric(ModelBackend(LMUQModel))` as one unpadded wave, and the
-    same wave on the plain path. Every forward launches the CUDA-core flash
+    same wave on the plain path. Every forward launches the float32 flash
     kernel once per layer, at `F32_PATH_CASE`'s shape, and no other kernel."""
     from repro_torch.apps.lm_model import LMUQModel
     from repro_torch.core.fabric import EvaluationFabric, ModelBackend
@@ -3184,8 +3230,8 @@ def main() -> int:
     probe = phase_probe(torch, dev)
     phase_build()
     check = phase_kernel_vs_plain(torch, dev)
-    times = phase_times(torch, dev, probe["smi"])
     solves = phase_full_solves(torch, dev)
+    times = phase_times(torch, dev, probe["smi"], solves)
     phase_profile(torch)
     # every wave the paths hand the solve kernel, by width, for
     # `wave_widths_vs_plain`
@@ -3233,7 +3279,7 @@ def main() -> int:
     # one point: qwen3-0.6b's attention over 2 sequences, and its layer norm;
     # the float32 flash kernel at its own path's shape
     flash_point = next(s for s in flash_times["shapes"]
-                       if s["shape"] == [LM_BATCH, 16, 8, LM_SEQ, 128])
+                       if s["shape"] == [LM_BATCH, 16, 8, LM_SEQ, 128] and s["dtype"] == "bfloat16")
     f32_shape = [F32_PATH_CASE[i] for i in (0, 1, 2, 3, 5)]
     f32_point = next(s for s in flash_times["shapes"]
                      if s["shape"] == f32_shape and s["dtype"] == "float32")
@@ -3303,10 +3349,12 @@ def main() -> int:
         "bound_by": fine["bound_by"],
         "library_ms": None,
         "shape": fine["shape"],
+        "strip": fine["strip"],
+        # one launch of the smallest step, [2, 1]: at and below the 64-lane
+        # shapes the launch, not the bytes, sets the time
+        "floor_ms": times["floor_ms"],
         "by_shape": times["shapes"],
-        "per_step_path_wall_s_per_wave": {k: v["per_step_kernel_path_wall_s"]
-                                          for k, v in solves["waves"].items()
-                                          if "per_step_kernel_path_wall_s" in v},
+        "per_step_path_wall_s_per_wave": {k: v["wall_s"] for k, v in times["step_path"].items()},
         "card": probe["smi"],
     }, {
         "name": "ssd",
@@ -3337,7 +3385,7 @@ def main() -> int:
         "bound_ms": flash_point["bound_ms"],
         "bound_by": flash_point["bound_by"],
         "library_ms": flash_point["library_ms"],
-        "cuda_core_ms": flash_point["cuda_core_ms"],
+        "f32_kernel_ms": flash_point["f32_kernel_ms"],
         "shape": flash_point["shape"],
         "by_shape": [s for s in flash_times["shapes"] if s["dtype"] == "bfloat16"],
         "card": probe["smi"],
@@ -3348,14 +3396,16 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:93",
         "dtype": "float32",
         # its own path: the reduced qwen3-0.6b in float32 (bf16 goes to the
-        # tensor-core kernel)
+        # wgmma kernel)
         "launches": f32_path["launches"],
-        "max_abs_err": flash_check["cuda_core"],
-        "max_abs_err_bf16": flash_check["cuda_core_bf16"],
+        "max_abs_err": flash_check["f32_kernel"],
+        "max_abs_err_bf16": flash_check["f32_kernel_bf16"],
         "ms": f32_point["ms"],
         "plain_ms": f32_point["plain_ms"],
+        # 3xTF32 on the tensor cores; and float32 on the CUDA cores
         "bound_ms": f32_point["bound_ms"],
         "bound_by": f32_point["bound_by"],
+        "fp32_cuda_core_bound_ms": f32_point["fp32_cuda_core_bound_ms"],
         "library_ms": f32_point["library_ms"],
         "shape": f32_point["shape"],
         "by_shape": [s for s in flash_times["shapes"] if s["dtype"] == "float32"],

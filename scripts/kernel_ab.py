@@ -1,0 +1,266 @@
+#!/usr/bin/env python3
+"""The float32 flash-attention kernel and the SWE step kernel of this
+checkout beside those of another checkout, timed in turns on one GPU.
+
+    python3 scripts/kernel_ab.py --parent DIR [--out build/kernel_ab.jsonl]
+
+DIR is the root of another checkout of the repository (for example the
+parent commit, unpacked with `git archive`). Its `flash_attention.cu` and
+`swe_step.cu` are built with this checkout's nvcc flags into
+`build/repro_torch_kernels/`; the parent's step goes through the parent's
+own wrapper (its `kernels/swe/ops.py`), its flash kernel is bound as
+`ops.launch` binds this one; this checkout's kernels go through their
+wrappers. Both sides get the same inputs and must agree: the step bit for
+bit, at every strip depth; flash attention within the float32 bound of
+`kernels/flash_attention/testing.py`, each side also held to the plain
+version. Every time is the median device time of chip_smoke.py's
+`_device_ms`, taken parent, this, this, parent, and each side's two
+readings are kept. Measured:
+
+* `swe_step`: one step at the main path's eight [cells, lanes] shapes and
+  at [2, 1] (the floor: one launch of the smallest step), the plan's strip
+  depth and every depth, beside the bytes bound;
+* the step kernel's own path, `solve_batch(step=...)`: the wall of a 16-
+  and a 512-lane wave at both levels (host clock to a device sync);
+* float32 flash attention at the float32 FLASH_CASES shapes, the float32
+  path's `[26, 4, 2, 512, 32]` and qwen3-0.6b's `[2, 16, 8, 2048, 128]`,
+  beside both bounds (3xTF32 on the tensor cores and float32 on the CUDA
+  cores) and `F.scaled_dot_product_attention`; and the kernel's bf16
+  instance at qwen3-0.6b's shape (its model layout), the yardstick of the
+  bf16 tensor-core kernel.
+
+Prints one JSON line per measurement, writes them all to --out, and exits
+non-zero without a CUDA device or on any disagreement.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+
+#: [cells, lanes] of the timed steps: the main path's and the floor's
+STEP_SHAPES = tuple((C, N) for C in (512, 2048) for N in (4, 16, 64, 512)) + ((2, 1),)
+#: (cells, lanes) of the step path's timed waves
+PATH_WAVES = ((2048, 16), (2048, 512), (512, 16), (512, 512))
+
+
+def build_parent(parent: Path) -> dict:
+    """The parent's two kernel libraries, built together with this
+    checkout's flags; returns {stem: CDLL}."""
+    from repro_torch.kernels import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for stem, sub in (("flash_attention", "flash_attention"), ("swe_step", "swe")):
+        src = parent / "src" / "repro_torch" / "kernels" / sub / "csrc" / f"{stem}.cu"
+        so = _build.BUILD_DIR / f"lib{stem}_parent.so"
+        procs[stem] = (src, so, subprocess.Popen(
+            [_build.nvcc(), *_build.flags(stem), "-o", str(so), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for stem, (src, so, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"parent {stem}: nvcc exited {proc.returncode}\n{out}")
+        libs[stem] = ctypes.CDLL(str(so))
+    return libs
+
+
+def parent_step(parent: Path, lib):
+    """The parent's own wrapper `swe_step` (its `kernels/swe/ops.py`, loaded
+    under another name beside this checkout's modules) launching the
+    parent's library, so that both step paths pay their own wrapper."""
+    import importlib.util
+    import types
+
+    spec = importlib.util.spec_from_file_location(
+        "parent_swe_ops", parent / "src" / "repro_torch" / "kernels" / "swe" / "ops.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod._build = types.SimpleNamespace(load=lambda stem: lib)
+    return mod.swe_step
+
+
+def bind_flash(lib):
+    """The flash kernel of `lib` (its `flash_attention_fwd`), called as
+    `ops.launch` calls this checkout's."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+
+    fn = lib.flash_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(q, k, v, o, causal):
+        B, nq, Sq, hd = q.shape
+        strides = (ctypes.c_longlong * 12)(*[s for t in (q, k, v, o) for s in ops._strides(t)])
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, nq, k.shape[1], Sq,
+                 k.shape[2], hd, ops._CODES[q.dtype], strides, int(causal),
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{lib._name}: flash_attention_fwd: cudaError {err}")
+
+    return launch
+
+
+def in_turns(torch, chip_smoke, parent_fn, this_fn, calls: int) -> dict:
+    """Device ms of one call: parent, this, this, parent."""
+    p1 = chip_smoke._device_ms(torch, parent_fn, calls)
+    t1 = chip_smoke._device_ms(torch, this_fn, calls)
+    t2 = chip_smoke._device_ms(torch, this_fn, calls)
+    p2 = chip_smoke._device_ms(torch, parent_fn, calls)
+    return {"parent_ms": [p1, p2], "ms": [t1, t2]}
+
+
+def step_times(torch, chip_smoke, step) -> list:
+    from repro_torch.convert import swe_state_from_numpy
+    from repro_torch.kernels.swe import ops, swe_step
+    from repro_torch.kernels.swe.testing import main_path_state, swe_state
+
+    rows = []
+    for C, N in STEP_SHAPES:
+        if (C, N) == (2, 1):
+            h, hu, b = swe_state_from_numpy(*swe_state("moving", C, N), "cuda")
+            dt_dx = 0.02
+        else:
+            h, hu, b, dt_dx = main_path_state(C, N, "cuda")
+        mine, theirs = (torch.empty_like(h), torch.empty_like(hu)), (torch.empty_like(h),
+                                                                     torch.empty_like(hu))
+        step(h, hu, b, dt_dx=dt_dx, out=theirs)
+        for strip in (None, *ops.STRIP_DEPTHS):
+            swe_step(h, hu, b, dt_dx=dt_dx, out=mine, strip=strip)
+            torch.cuda.synchronize()
+            if not (torch.equal(mine[0], theirs[0]) and torch.equal(mine[1], theirs[1])):
+                raise AssertionError(f"swe_step {C}x{N}, strip {strip}: differs from the parent")
+        row = {"shape": [C, N], "plan": ops.strip_plan(C, N),
+               **in_turns(torch, chip_smoke, lambda: step(h, hu, b, dt_dx=dt_dx, out=theirs),
+                          lambda: swe_step(h, hu, b, dt_dx=dt_dx, out=mine), 200)}
+        row["ms_by_strip"] = {
+            str(s): chip_smoke._device_ms(
+                torch, lambda s=s: swe_step(h, hu, b, dt_dx=dt_dx, out=mine, strip=s), 200)
+            for s in ops.STRIP_DEPTHS}
+        row["bytes_bound_ms"] = (4 * C * N + C) * 4 / chip_smoke.HBM_BYTES_PER_S * 1e3
+        rows.append(row)
+        emit("step", **row)
+    return rows
+
+
+def path_walls(torch, step) -> list:
+    from repro_torch.apps.tsunami import solve_batch
+    from repro_torch.kernels.swe import swe_step
+    from repro_torch.kernels.swe.testing import sources
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    rows = []
+    for n_cells, lanes in PATH_WAVES:
+        thetas = torch.as_tensor(sources(lanes, 11), device="cuda")
+        theirs = lambda: solve_batch(thetas, n_cells, n_cells == 512, step=step)  # noqa: E731
+        mine = lambda: solve_batch(thetas, n_cells, n_cells == 512, step=swe_step)  # noqa: E731
+        theirs(), mine()  # warm-up
+        p1, want = wall(theirs)
+        t1, got = wall(mine)
+        t2, _ = wall(mine)
+        p2, _ = wall(theirs)
+        if not torch.equal(got, want):
+            raise AssertionError(f"step path {n_cells}x{lanes}: differs from the parent")
+        row = {"wave": [n_cells, lanes], "parent_wall_s": [p1, p2], "wall_s": [t1, t2]}
+        rows.append(row)
+        emit("step_path", **row)
+    return rows
+
+
+def flash_times(torch, chip_smoke, launch) -> list:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention import testing as T
+
+    qwen3 = (2, T.QWEN3_HEADS, T.QWEN3_KV_HEADS, T.MAIN_PATH_SEQ, T.MAIN_PATH_SEQ, T.QWEN3_HD,
+             True)
+    cases = [c for c in T.FLASH_CASES if c[7] == "float32"] + [
+        chip_smoke.F32_PATH_CASE, (*qwen3, "float32"), (*qwen3, "bfloat16")]
+    rows = []
+    for i, case in enumerate(cases):
+        B, nq, nkv, Sq, Sk, hd, causal, dt = case
+        q, k, v = T.case_inputs(case, "cuda", seed=i)
+        if dt == "bfloat16":
+            q, k, v = chip_smoke._model_layout(q, k, v)
+        mine, theirs = torch.empty_like(q), torch.empty_like(q)
+        ops.launch("flash_attention", q, k, v, mine, causal)
+        launch(q, k, v, theirs, causal)
+        torch.cuda.synchronize()
+        want = T.plain(q, k, v, causal)
+        name = T.case_name(case)
+        errs = {"max_abs_err": T.assert_close(mine, want, name)["max_abs_err"],
+                "parent_max_abs_err": T.assert_close(theirs, want, f"parent {name}")["max_abs_err"]}
+        work = chip_smoke.flash_work(B, nq, nkv, Sq, Sk, hd, causal, q.element_size())
+        calls = 10 if work["flops"] > 1e10 else 50
+        row = {"shape": [B, nq, nkv, Sq, hd], "causal": causal, "dtype": dt, **errs,
+               **in_turns(torch, chip_smoke, lambda: launch(q, k, v, theirs, causal),
+                          lambda: ops.launch("flash_attention", q, k, v, mine, causal), calls)}
+        row["library_ms"] = chip_smoke._device_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True), calls)
+        t_bytes = work["bytes"] / chip_smoke.HBM_BYTES_PER_S
+        row["tf32x3_bound_ms"] = max(t_bytes, 3 * work["flops"] / chip_smoke.TF32_FLOPS) * 1e3
+        row["fp32_bound_ms"] = max(t_bytes, work["flops"] / chip_smoke.FP32_FLOPS) * 1e3
+        rows.append(row)
+        emit("flash", **row)
+        del q, k, v, mine, theirs, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+_out = None
+
+
+def emit(what: str, **fields) -> None:
+    line = json.dumps({"measure": what, **fields})
+    print(line, flush=True)
+    if _out is not None:
+        with _out.open("a") as f:
+            f.write(line + "\n")
+
+
+def main() -> int:
+    global _out
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", type=Path, required=True)
+    ap.add_argument("--out", type=Path, default=ROOT / "build" / "kernel_ab.jsonl")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text("")
+    _out = args.out
+    libs = build_parent(args.parent.resolve())
+    emit("card", card=chip_smoke.nvidia_smi(), device=torch.cuda.get_device_name(0))
+    step = parent_step(args.parent.resolve(), libs["swe_step"])
+    step_times(torch, chip_smoke, step)
+    flash_times(torch, chip_smoke, bind_flash(libs["flash_attention"]))
+    path_walls(torch, step)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

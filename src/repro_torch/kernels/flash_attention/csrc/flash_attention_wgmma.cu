@@ -9,9 +9,9 @@
 // with a float32 running max, sum and accumulator per q row (online
 // softmax), the KV tiles wholly above the diagonal skipped, the diagonal
 // tile masked per element, and o = acc / max(l, 1e-30), cast to bf16. Causal
-// needs Sq == Sk (the wrapper raises otherwise). float32 inputs go to the
-// CUDA-core kernel in flash_attention.cu: the f32 bound (2e-5) is below
-// TF32's error. The plain version is
+// needs Sq == Sk (the wrapper raises otherwise). float32 inputs go to
+// flash_attention.cu (mma.sync in 3xTF32: the f32 bound, 2e-5, is below one
+// TF32 pass's error). The plain version is
 // src/repro_torch/kernels/flash_attention/ref.py::attention_ref.
 //
 // What bounds it on this card: operations. qwen3-0.6b's attention over a
@@ -46,7 +46,7 @@
 //   next wgmma, so P never goes to shared memory. V is the B operand with
 //   hd contiguous: the MN-major ("transposed B") descriptor. O is rescaled
 //   by alpha only after wgmma.wait_group has retired the products that
-//   write it. Rounding P to bf16 is the one rounding the CUDA-core kernel
+//   write it. Rounding P to bf16 is the one rounding flash_attention.cu
 //   does not make; the JAX package's model path makes it too
 //   (src/repro/models/attention.py: softmax(...).astype(v.dtype)).
 // * Epilogue: O / l in bf16, stored with 4-byte stores straight into o's

@@ -4,9 +4,10 @@
 
 `flash_attention` has the JAX package's signature and layout. A CUDA
 tensor goes to a hand-written Hopper kernel or the call raises: bfloat16 to
-the tensor-core kernel (`csrc/flash_attention_wgmma.cu`: wgmma and TMA),
-float32 to the CUDA-core kernel (`csrc/flash_attention.cu`: the float32
-bound is below TF32's error). A CPU tensor goes to the plain version
+`csrc/flash_attention_wgmma.cu` (wgmma and TMA), float32 to
+`csrc/flash_attention.cu` (mma.sync in 3xTF32, which keeps float32
+accuracy: one TF32 pass would miss the float32 bound). Both run on the
+tensor cores. A CPU tensor goes to the plain version
 (`ref.attention_ref`). There is no switch and no fallback. Both kernels
 read q, k and v and write o through strides, so the model's
 ``[B, S, n, hd]`` tensors are passed as transposed views without a copy
@@ -32,7 +33,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 HEAD_DIMS = (32, 64, 128)
 #: the kernel (library stem) each dtype goes to on the card
 KERNEL_OF = {torch.float32: "flash_attention", torch.bfloat16: "flash_attention_wgmma"}
-#: dtype codes of the CUDA-core kernel's C entry point (it takes both)
+#: dtype codes of `flash_attention.cu`'s C entry point (it takes both)
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: strides and bases the kernels read: 16-byte vectors and TMA boxes
 ALIGN_BYTES = 16
@@ -90,8 +91,8 @@ def _strides(t: torch.Tensor) -> list[int]:
 
 def launch(stem: str, q, k, v, o, causal: bool) -> None:
     """One launch of kernel `stem` writing o (checked by `flash_attention`;
-    `chip_smoke.py` also calls the CUDA-core kernel on bf16 through here to
-    time it beside the tensor-core one)."""
+    `chip_smoke.py` also calls the float32 kernel on bf16 through here to
+    time it beside the wgmma one)."""
     B, nq, Sq, hd = q.shape
     nkv, Sk = k.shape[1], k.shape[2]
     strides = (ctypes.c_longlong * 12)(*[s for t in (q, k, v, o) for s in _strides(t)])

@@ -5,9 +5,11 @@ the same bound.
 
 The bound is the JAX package's own kernel-vs-oracle tolerance on the
 largest absolute error (tests/test_kernels.py): 2e-5 in float32 and 2e-2 in
-bfloat16. In float32 both sides compute in IEEE float32 from the same inputs
-and differ only in summation order and in the online softmax's rescaling (a
-few float32 ulp of outputs of order 1). In bf16 the tensor-core kernel also
+bfloat16. In float32 the kernel computes both products in 3xTF32 (each
+product to about float32 accuracy) and the plain version in IEEE float32
+from the same inputs; they differ in summation order and in the online
+softmax's rescaling (a few float32 ulp of outputs of order 1; PERF.md
+gives the largest measured on an H100). In bf16 the tensor-core kernel also
 rounds the probabilities to bf16 before P V (relative error <= 2^-9 of
 each term, ~0.002 of an output of order 1, as the JAX package's model path
 does), and both sides round their float32 result to bf16, so they differ by
@@ -41,6 +43,13 @@ EDGE_CASES = (
     (1, 4, 2, 100, 100, 32, True, "bfloat16"),
     (1, 4, 1, 96, 200, 64, False, "float32"),
 )
+#: the float32 kernel's own path (the reduced qwen3-0.6b in float32 over a
+#: 13-point grid wave: 26 sequences of 512, hd 32, chip_smoke.py's
+#: `flash_f32_path`) and qwen3-0.6b's published attention width in float32
+F32_CASES = (
+    (26, 4, 2, 512, 512, 32, True, "float32"),
+    (2, 16, 8, 2048, 2048, 128, True, "float32"),
+)
 #: qwen3-0.6b's attention on the main path (16 q heads, 8 kv heads of 128,
 #: 2,048 tokens, bf16): one point (2 sequences), a wave of 8 (16) and the
 #: 41-point grid as one wave (82)
@@ -48,7 +57,7 @@ MAIN_PATH_BATCHES = (2, 16, 82)
 QWEN3_HEADS, QWEN3_KV_HEADS, QWEN3_HD, MAIN_PATH_SEQ = 16, 8, 128, 2048
 MODEL_CASES = tuple((B, QWEN3_HEADS, QWEN3_KV_HEADS, MAIN_PATH_SEQ, MAIN_PATH_SEQ, QWEN3_HD,
                      True, "bfloat16") for B in MAIN_PATH_BATCHES)
-CASES = FLASH_CASES + EDGE_CASES + MODEL_CASES
+CASES = FLASH_CASES + EDGE_CASES + F32_CASES + MODEL_CASES
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 #: sequences of one plain-version call: the plain version holds the whole

@@ -1,7 +1,9 @@
 """Public wrappers of the SWE kernels.
 
 `swe_step` (counterpart of `repro.kernels.swe.ops.swe_step`) is one step:
-`csrc/swe_step.cu`. `swe_solve` is a whole wave, all its steps with the
+`csrc/swe_step.cu`, each thread a strip of cells of one lane; `strip_plan`
+picks the strip depth from the step's shape and the card (`_strip_plan`),
+and `strip=` forces it. `swe_solve` is a whole wave, all its steps with the
 buoy reduction, in one launch of `csrc/swe_solve.cu`: the counterpart of
 the JAX package's `lax.scan` over `swe_step_kernel`
 (`repro.apps.tsunami._solve_batch`). The solve splits each lane's column
@@ -48,9 +50,17 @@ MAX_STEPS = 2**24
 PLAN_CLUSTERS = (8, 4, 2)
 #: cells a block owns at least under the plan: one warp of cells
 MIN_SLICE = 32
+#: strip depths of the step kernel (cells a thread owns), deepest first
+STRIP_DEPTHS = (8, 4, 2, 1)
+#: threads an SM the step's plan keeps at least, where a shallower strip
+#: gives them: on an H100 (132 SMs) the depth it picks was the fastest of
+#: the four at every main-path shape (scripts/kernel_ab.py, PERF.md)
+STRIP_THREADS_PER_SM = 384
 
 _fn = None
 _solve_fn = None
+#: SMs of each CUDA device, read at its first step
+_sm_counts: dict[int, int] = {}
 _occupancy_fn = None
 #: the plan of each (device, C, N), computed at its first solve: a graph
 #: captured with a plan replays it
@@ -66,6 +76,7 @@ def _kernel():
             ctypes.c_void_p, ctypes.c_void_p,  # h_out, hu_out
             ctypes.c_int, ctypes.c_int,  # C, N
             ctypes.c_float, ctypes.c_float, ctypes.c_float,  # dt_dx, g, h_dry
+            ctypes.c_int,  # strip depth
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -101,6 +112,35 @@ def _occupancy_kernel():
         fn.restype = ctypes.c_int
         _occupancy_fn = fn
     return _occupancy_fn
+
+
+def _strip_plan(C: int, N: int, sm_count: int) -> int:
+    """The strip depth of a [C, N] step on a card of `sm_count` SMs: the
+    deepest of STRIP_DEPTHS whose ceil(C / T) x N threads still give every
+    SM STRIP_THREADS_PER_SM; 1 if none does."""
+    for depth in STRIP_DEPTHS:
+        if -(-C // depth) * N >= STRIP_THREADS_PER_SM * sm_count:
+            return depth
+    return 1
+
+
+def strip_plan(C: int, N: int) -> int:
+    """The strip depth `swe_step` launches a [C, N] step with on the current
+    CUDA device: `_strip_plan` on its SM count."""
+    dev = torch.cuda.current_device()
+    sm_count = _sm_counts.get(dev)
+    if sm_count is None:
+        sm_count = _sm_counts[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _strip_plan(C, N, sm_count)
+
+
+def _check_strip(strip) -> int | None:
+    """`strip=` of `swe_step`: None (the plan) or one of STRIP_DEPTHS."""
+    if strip is None:
+        return None
+    if isinstance(strip, bool) or not isinstance(strip, int) or strip not in STRIP_DEPTHS:
+        raise ValueError(f"swe_step: strip must be None or one of {STRIP_DEPTHS}, got {strip!r}")
+    return strip
 
 
 def _cluster_plan(C: int, N: int, sm_count: int, max_active_clusters) -> int:
@@ -186,11 +226,14 @@ def swe_step(
     g: float = G,
     h_dry: float = H_DRY,
     out: tuple[torch.Tensor, torch.Tensor] | None = None,
+    strip: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One fused Rusanov flux + limiter + update step on a [cells, batch]
     block. `out=(h_new, hu_new)` writes into caller-owned buffers (the
     solver's ping-pong pair); they must not alias the inputs, since every
-    cell reads its neighbours' old state."""
+    cell reads its neighbours' old state. On the card each thread owns a
+    strip of `strip` cells of one lane (None: `strip_plan`); every depth
+    gives the same bits."""
     if b.dim() == 1:
         b = b[:, None]
     if h.dim() != 2 or h.shape[0] < 2:
@@ -204,6 +247,7 @@ def swe_step(
             _check(name, t, (C, N), device)
         if {out[0].data_ptr(), out[1].data_ptr()} & {h.data_ptr(), hu.data_ptr()}:
             raise ValueError("swe_step: out= buffers must not alias h or hu")
+    strip = _check_strip(strip)
     if device.type == "cpu":
         with torch.no_grad():
             if out is None:
@@ -216,16 +260,17 @@ def swe_step(
     if device.index is not None and device.index != torch.cuda.current_device():
         # the C entry point launches on the current device's context
         with torch.cuda.device(device):
-            return swe_step(h, hu, b, dt_dx=dt_dx, g=g, h_dry=h_dry, out=out)
+            return swe_step(h, hu, b, dt_dx=dt_dx, g=g, h_dry=h_dry, out=out, strip=strip)
+    depth = strip_plan(C, N) if strip is None else strip
     h_new, hu_new = out if out is not None else (torch.empty_like(h), torch.empty_like(hu))
     err = _kernel()(
         h.data_ptr(), hu.data_ptr(), b.data_ptr(),
         h_new.data_ptr(), hu_new.data_ptr(),
-        C, N, float(dt_dx), float(g), float(h_dry),
+        C, N, float(dt_dx), float(g), float(h_dry), depth,
         torch.cuda.current_stream().cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"swe_step: kernel launch failed, cudaError {err}")
+        raise RuntimeError(f"swe_step: kernel launch failed (strip {depth}), cudaError {err}")
     launches.count(swe_step)
     return h_new, hu_new
 

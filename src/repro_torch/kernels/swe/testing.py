@@ -42,8 +42,14 @@ CASE_DT_DX = 0.02
 #: waves of the campaign's 16 chains, the narrower waves left after cache
 #: hits, 64 lanes, and 512 lanes
 MAIN_PATH_SHAPES = tuple((C, N) for C in (512, 2048) for N in (4, 8, 16, 64, 512))
-#: every case of the check, by name
-CASES = (*SWE_KINDS, *(f"main_{C}x{N}" for C, N in MAIN_PATH_SHAPES))
+#: [cells, lanes] of ragged steps: C one less and one more than a strip of
+#: the deepest depth and than a whole column of them at the fine level, and
+#: lane counts that fill no warp (and 513, one past the widest wave)
+RAGGED_SHAPES = tuple((C, N) for C in (7, 9, 2047, 2049) for N in (1, 3, 5, 513))
+#: every case of the check, by name; each is held at every strip depth of
+#: the step kernel (`ops.STRIP_DEPTHS`) and at the plan's
+CASES = (*SWE_KINDS, *(f"main_{C}x{N}" for C, N in MAIN_PATH_SHAPES),
+         *(f"ragged_{C}x{N}" for C, N in RAGGED_SHAPES))
 #: the limiter cases' solve: steps and buoy rows (dam-break and dry-bed
 #: cross the limiter branches for many steps)
 CASE_SOLVE_STEPS, CASE_SOLVE_ROWS = 300, (5, 40)
@@ -169,6 +175,13 @@ def slices(C: int, cs: int) -> list[tuple[int, int]]:
     return list(zip(bounds[:-1], bounds[1:]))
 
 
+def strips(C: int, depth: int) -> list[tuple[int, int]]:
+    """The cells [lo, hi) of each strip of a C-cell lane at strip depth
+    `depth`, as csrc/swe_step.cu cuts it: thread s owns [s T, min(s T + T,
+    C)), for s < ceil(C / T)."""
+    return [(lo, min(lo + depth, C)) for lo in range(0, C, depth)]
+
+
 def solve_case_inputs(case: str, device) -> dict:
     """`swe_solve`'s keyword inputs of one entry of `SOLVE_CASES` on `device`."""
     if case.startswith("wave_"):
@@ -190,6 +203,10 @@ def case_inputs(case: str, device) -> tuple:
     if case.startswith("main_"):
         C, N = (int(v) for v in case[len("main_"):].split("x"))
         return main_path_state(C, N, device)
+    if case.startswith("ragged_"):
+        # "moving": every cell's update is non-trivial
+        C, N = (int(v) for v in case[len("ragged_"):].split("x"))
+        return (*swe_state_from_numpy(*swe_state("moving", C, N), device), CASE_DT_DX)
     return (*swe_state_from_numpy(*swe_state(case), device), CASE_DT_DX)
 
 

@@ -192,3 +192,72 @@ def test_kernel_check_sees_a_one_percent_scale_at_the_main_path_shape():
     want = attention_ref(q, k, v, causal=True)
     with pytest.raises(AssertionError, match="max abs error"):
         T.assert_close(T.variant(q, k, v, scale=1.01 * 128 ** -0.5), want, "scale")
+
+
+#: small counterparts of the float32 cases (T.F32_CASES): the float32 path's
+#: [26, 4, 2, 512, 32] at 2 sequences of 128, and qwen3-0.6b's
+#: [2, 16, 8, 2048, 128] at its group size 2, 4 heads and 256 tokens
+F32_SMALL_CASES = ((2, 4, 2, 128, 128, 32, True, "float32"),
+                   (1, 4, 2, 256, 256, 128, True, "float32"))
+
+
+@pytest.mark.parametrize("case", F32_SMALL_CASES, ids=T.case_name)
+def test_plain_matches_jax_kernel_and_oracle_at_the_float32_cases(case):
+    causal = case[6]
+    (jq, jk, jv), (q, k, v) = _inputs(case, seed=sum(case[:6]))
+    got = flash_attention(q, k, v, causal=causal)
+    err_kernel = _err(got, jax_flash(jq, jk, jv, causal=causal, impl="interpret"))
+    err_oracle = _err(got, jax_attention_ref(jq, jk, jv, causal=causal))
+    print(f"{T.case_name(case)}: vs Pallas interpret {err_kernel:.3g}, vs oracle {err_oracle:.3g}")
+    assert err_kernel <= T.ATOL["float32"] and err_oracle <= T.ATOL["float32"]
+
+
+def _split_tf32(x: np.ndarray):
+    """The float32 kernel's split of csrc/flash_attention.cu (ssd.cu's):
+    big = x rounded to TF32 (half an ulp added, low 13 bits cleared); small
+    = x - big with half an ulp added, of which the tensor core reads the
+    top 19 bits. Returns both as the float32 values the tensor core uses."""
+    bits = x.astype(np.float32).view(np.uint32)
+    big = ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+    small_bits = ((x.astype(np.float32) - big).view(np.uint32) + np.uint32(0x1000))
+    small = (small_bits & np.uint32(0xFFFFE000)).view(np.float32)
+    return big, small
+
+
+def _mm(a: np.ndarray, b: np.ndarray, passes: int) -> np.ndarray:
+    """a @ b with TF32 operands: 3 passes (small*big + big*small +
+    big*big) or 1 (big*big); each product of two TF32 values is exact in
+    float32, the sums are taken in float64 here."""
+    (ab, as_), (bb, bs) = _split_tf32(a), _split_tf32(b)
+    terms = [(as_, bb), (ab, bs), (ab, bb)] if passes == 3 else [(ab, bb)]
+    return sum(x.astype(np.float64) @ y.astype(np.float64) for x, y in terms).astype(np.float32)
+
+
+def _attention_tf32(q, k, v, passes: int) -> np.ndarray:
+    """Causal attention with the kernel's arithmetic: q scaled by
+    log2(e) / sqrt(hd) and split, q k^T and P V on TF32 operands, the
+    softmax in float32 (exp2), o = acc / l."""
+    group = q.shape[1] // k.shape[1]
+    k, v = np.repeat(k, group, 1), np.repeat(v, group, 1)
+    S, hd = q.shape[2], q.shape[3]
+    qs = q * np.float32(1.4426950408889634 / np.sqrt(hd))
+    s = _mm(qs, np.swapaxes(k, -1, -2), passes)
+    s = np.where(np.tril(np.ones((S, S), bool)), s, np.float32(-1e30))
+    p = np.exp2(s - s.max(-1, keepdims=True)).astype(np.float32)
+    return _mm(p, v, passes) / p.sum(-1, keepdims=True, dtype=np.float32)
+
+
+def test_3xtf32_keeps_the_float32_bound_where_one_tf32_pass_misses_it():
+    """The float32 kernel's products in 3xTF32 (its split and its three
+    passes, emulated in numpy) stay within the float32 bound of the plain
+    version at the small counterpart of qwen3-0.6b's width; one TF32 pass
+    (big * big) does not, which is why the kernel pays for three."""
+    case = F32_SMALL_CASES[1]
+    _, (q, k, v) = _inputs(case, seed=7)
+    want = attention_ref(q, k, v, causal=True).numpy()
+    qn, kn, vn = q.numpy(), k.numpy(), v.numpy()
+    err3 = float(np.abs(_attention_tf32(qn, kn, vn, 3) - want).max())
+    err1 = float(np.abs(_attention_tf32(qn, kn, vn, 1) - want).max())
+    print(f"{T.case_name(case)}: 3xTF32 {err3:.3g}, one TF32 pass {err1:.3g}")
+    assert err3 <= T.ATOL["float32"] / 4
+    assert err1 > T.ATOL["float32"]

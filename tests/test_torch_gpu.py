@@ -6,8 +6,8 @@ through `solve_batch`, bit for bit (the bound and its reason:
 relative bound (`repro_torch.kernels.ssd.testing`), alone and inside a
 reduced mamba2 forward; flash attention and RMSNorm within theirs
 (`repro_torch.kernels.{flash_attention,rmsnorm}.testing`), at every case and
-main-path shape. Flash attention runs bf16 on the tensor-core kernel and
-float32 on the CUDA-core kernel (the per-kernel launch counts show which),
+main-path shape. Flash attention runs bf16 on the wgmma kernel and
+float32 on the mma.sync kernel (the per-kernel launch counts show which),
 through strides at the model's layout, and inside reduced qwen3-0.6b
 forwards in float32 and in bf16; its check rejects the tensor-core
 kernel's output against a 1%-off scale or a dropped diagonal. The tsunami
@@ -85,13 +85,16 @@ from repro_torch.kernels.swe.testing import (
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", CASES)
 def test_kernel_matches_plain_on_cuda(case):
+    """At the plan's strip depth and at every other one, bit for bit."""
     dev = cuda_or_skip()
     h, hu, b, dt_dx = case_inputs(case, dev)
-    before = swe_step.launches
-    got = swe_step(h, hu, b, dt_dx=dt_dx)
-    torch.cuda.synchronize()
-    assert swe_step.launches == before + 1
-    assert_step_equal(got, swe_step_ref(h, hu, b, dt_dx), (h, hu), case)
+    want = swe_step_ref(h, hu, b, dt_dx)
+    for strip in (None, *swe_ops.STRIP_DEPTHS):
+        before = swe_step.launches
+        got = swe_step(h, hu, b, dt_dx=dt_dx, strip=strip)
+        torch.cuda.synchronize()
+        assert swe_step.launches == before + 1
+        assert_step_equal(got, want, (h, hu), f"{case}, strip {strip}")
 
 
 @pytest.mark.gpu
@@ -230,7 +233,7 @@ def test_flash_kernel_matches_plain_on_cuda(case):
     dev = cuda_or_skip()
     q, k, v = flash_testing.case_inputs(case, dev, seed=1)
     causal = case[6]
-    kernel = KERNEL_OF[q.dtype]  # bf16: the tensor-core kernel; float32: the CUDA-core one
+    kernel = KERNEL_OF[q.dtype]  # bf16: the wgmma kernel; float32: the mma.sync one
     before, by_kernel = flash_attention.launches, dict(flash_attention.launches_by_kernel)
     got = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()

@@ -14,9 +14,11 @@ from repro_torch.kernels.swe import ops, swe_step, swe_step_ref
 from repro_torch.kernels.swe.testing import (
     CASE_DT_DX as DT_DX,
     MAIN_PATH_SHAPES,
+    RAGGED_SHAPES,
     SWE_KINDS,
     assert_step_equal,
     main_path_state,
+    strips,
     swe_state,
 )
 
@@ -114,14 +116,59 @@ def test_cuda_tensor_never_takes_plain_version(monkeypatch):
     monkeypatch.setattr(ops, "_kernel", lambda: fake_kernel)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
+    monkeypatch.setitem(ops._sm_counts, 0, 132)  # the strip plan's SM count, an H100's
     h, hu, b = (t.as_subclass(_OnCuda) for t in swe_state_from_numpy(*swe_state("moving"), "cpu"))
     before = swe_step.launches
     swe_step(h, hu, b, dt_dx=DT_DX)
     assert len(launched) == 1 and swe_step.launches == before + 1
     C, N = h.shape
     assert launched[0][5:7] == (C, N)
+    assert launched[0][10] == ops._strip_plan(C, N, 132)  # the plan's strip depth
     # a non-zero cudaGetLastError() raises and is not counted
     fake_kernel.err = 9
     with pytest.raises(RuntimeError, match="cudaError 9"):
         swe_step(h, hu, b, dt_dx=DT_DX)
     assert swe_step.launches == before + 1
+
+
+@pytest.mark.parametrize("C,N", [(C, N) for C in (7, 9) for N in (1, 3, 5)])
+def test_plain_step_matches_jax_ref_on_ragged_shapes(C, N):
+    # the small counterparts of the ragged cases the kernel is held at on
+    # the card (testing.RAGGED_SHAPES): C one less and one more than a strip
+    # of 8, lane counts that fill no warp
+    h, hu, b = swe_state("moving", C, N)
+    ref_h, ref_hu = jax_swe_step_ref(jnp.asarray(h), jnp.asarray(hu), jnp.asarray(b), DT_DX)
+    out_h, out_hu = swe_step(*swe_state_from_numpy(h, hu, b, "cpu"), dt_dx=DT_DX)
+    np.testing.assert_allclose(out_h.numpy(), np.asarray(ref_h), **STEP_TOL_H)
+    np.testing.assert_allclose(out_hu.numpy(), np.asarray(ref_hu), **STEP_TOL_HU)
+
+
+@pytest.mark.parametrize("sm_count", [1, 16, 132])
+def test_strip_plan_covers_every_cell_of_every_lane_once(sm_count):
+    # every shape the step kernel is launched at (the main path's, the
+    # ragged cases', a point's) and a few more: the plan's depth is one the
+    # kernel is built for, and its strips (csrc/swe_step.cu's cut) cover
+    # [0, C) of each lane exactly once, each strip one thread
+    shapes = {*MAIN_PATH_SHAPES, *RAGGED_SHAPES, (2, 1), (3, 7), (64, 64), (4096, 1024)}
+    for C, N in sorted(shapes):
+        depth = ops._strip_plan(C, N, sm_count)
+        assert depth in ops.STRIP_DEPTHS
+        cut = strips(C, depth)
+        assert [i for lo, hi in cut for i in range(lo, hi)] == list(range(C))
+        assert all(0 < hi - lo <= depth for lo, hi in cut)
+        assert len(cut) == -(-C // depth)  # the kernel's ceil(C / T) threads a lane
+        # the deepest depth that keeps STRIP_THREADS_PER_SM threads an SM, or 1
+        fills = [d for d in ops.STRIP_DEPTHS
+                 if -(-C // d) * N >= ops.STRIP_THREADS_PER_SM * sm_count]
+        assert depth == (fills[0] if fills else 1)
+
+
+def test_strip_argument_is_checked():
+    h, hu, b = swe_state_from_numpy(*swe_state("moving"), "cpu")
+    want = swe_step_ref(h, hu, b, DT_DX)
+    for depth in (None, *ops.STRIP_DEPTHS):  # the CPU takes the plain version at any depth
+        got = swe_step(h, hu, b, dt_dx=DT_DX, strip=depth)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for bad in (0, 3, 16, True, 2.0):
+        with pytest.raises(ValueError, match="strip"):
+            swe_step(h, hu, b, dt_dx=DT_DX, strip=bad)
