@@ -45,17 +45,26 @@ user calls:
   the fixed shapes do not cover, held against the plain loop as launched
   (`wave_widths_vs_plain`); and the paper's §4.1 L2-Sea sparse grid over
   the wire (`l2sea_wire`);
-* the LM-as-UQ-model serving flow of `examples/serve_uq.py` on two
+* the LM-as-UQ-model serving flow of `examples/serve_uq.py` on three
   full-width models from seeded random weights (bf16): mamba2-1.3b (48
   layers), every layer of every forward one launch of the SSD chunk-scan
-  kernel, and qwen3-0.6b (28 layers, the model the example serves), every
+  kernel; qwen3-0.6b (28 layers, the model the example serves), every
   layer one launch of the bf16 tensor-core flash-attention kernel (wgmma
-  and TMA, reading the model's [B, S, n, hd] tensors through strides). Each
-  runs a level-4
-  sparse grid of the NLL over (embedding scale, temperature) through the
-  fabric, the surrogate's Monte Carlo, and 8 per-point submits; then one
-  wave on the kernel path against the plain path, and one wave under the
-  profiler;
+  and TMA, reading the model's [B, S, n, hd] tensors through strides); and
+  deepseek-moe-16b whole (28 layers, 64 routed experts top-6 and 2 shared,
+  30.5 GiB), every layer one flash launch, the experts library GEMMs, each
+  grid point routed on its own. Each runs a level-4 sparse grid of the NLL
+  over (embedding scale, temperature) through the fabric, the surrogate's
+  Monte Carlo, and 8 per-point submits; then one wave on the kernel path
+  against the plain path, and one wave under the profiler;
+* one lighter phase each for the rest of the zoo's families, at full
+  width: zamba2-1.2b (hybrid: 32 SSD scans and 6 flash launches of its
+  shared block a forward), minicpm3-4b (MLA: 62 flash launches, its heads
+  zero-padded to hd 128 at scale 1/sqrt(96)), llama-3.2-vision-90b cut to
+  10 layers (8 causal self-attentions and 2 full cross-attentions of 2,048
+  tokens against 1,601 context tokens) and kimi-k2-1t-a32b cut to 2 layers
+  (one MoE of 384 experts): one wave on the kernel path, exact launches,
+  against the plain path, then under the profiler;
 * the RMSNorm kernel through its own entry point at qwen3-0.6b's norm
   shapes: as in the JAX package, no model calls it;
 * the float32 flash-attention kernel (mma.sync in 3xTF32) on its own path: the
@@ -89,6 +98,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import json
 import statistics
 import subprocess
@@ -114,10 +124,20 @@ SWE_OPS_PER_CELL_LANE = 67
 # one block a lane at a timed shape: the windows' spread is ~1-3%
 PLAN_SLACK = 1.10
 
-# the LM paths: examples/serve_uq.py's flow on full-width mamba2-1.3b and
-# qwen3-0.6b (the model the example serves)
+# the LM paths: examples/serve_uq.py's flow on full-width mamba2-1.3b,
+# qwen3-0.6b (the model the example serves) and deepseek-moe-16b (whole, 28
+# layers, 30.5 GiB of bf16 weights); then one lighter phase each for the
+# hybrid, MLA, vlm and trillion-parameter MoE members of the zoo
 SSM_ARCH = "mamba2-1.3b"
 DENSE_ARCH = "qwen3-0.6b"
+MOE_ARCH = "deepseek-moe-16b"
+ZOO_SSM_ARCH = "zamba2-1.2b"
+#: the lighter phases: (arch, layers kept at full width or None for all,
+#: points in the wave). llama-3.2-vision-90b's 100 layers (163 GiB) and
+#: kimi-k2's 61 (1.9 TiB) do not fit one card: 10 layers (8 self, 2 cross;
+#: 10.68B parameters) and 2 (one dense, one MoE of 384 experts; 19.97B)
+ZOO_PATHS = ((ZOO_SSM_ARCH, None, 8), ("minicpm3-4b", None, 8),
+             ("llama-3.2-vision-90b", 10, 8), ("kimi-k2-1t-a32b", 2, 2))
 LM_BATCH, LM_SEQ = 2, 2048
 LM_BOX = (0.7, 1.3)  # sparse-grid box of (embedding scale, temperature)
 LM_GRID_LEVEL = 4  # 41 points: one 41-point wave of 82 sequences, unpadded
@@ -130,6 +150,18 @@ LM_SUBMITS = 8
 # path rounds the softmax to bf16 before the product with V (as the JAX
 # package's XLA path does) where the flash kernel keeps float32.
 LM_NLL_RTOL = 1e-3
+# the same bound for the rest of the zoo (deepseek-moe-16b, zamba2-1.2b,
+# minicpm3-4b, llama-3.2-vision-90b, kimi-k2). Their random bf16 forwards
+# are far less well conditioned (no qk-norm; in float32 at the reduced size
+# 100-400x qwen3-0.6b's error against float64, tests/_torch_zoo.py): on an
+# H100 (700 W) deepseek's kernel path moved its own NLL by 2.9e-3 between
+# an 8-point wave and one-point forwards (other GEMM tilings, nothing else),
+# and the kernel paths differed from the plain paths by 2.4e-3 to 3.8e-3
+# (PERF.md, PR 26). 1e-2 is 2.6x the largest. A MoE's plain wave replays
+# the kernel wave's experts (`PinnedRouting`). What holds the kernel in
+# these models is `in_situ_attention`, every launch against the plain
+# version on the model's own tensors.
+ZOO_NLL_RTOL = 1e-2
 
 # §4.3 campaign constants (benchmarks/mlda_tsunami.py); the prior box is
 # `repro_torch.kernels.swe.testing.SOURCE_BOX`
@@ -2037,12 +2069,16 @@ def phase_wave_widths_vs_plain(torch, dev, widths: WaveWidths) -> dict:
     """The solve kernel against its plain version at every [cells, lanes]
     width the model gave it on the recorded paths that `kernel_vs_plain`
     does not already hold (`SOLVE_SHAPES`): the first wave of each such
-    width as its path launched it, its inputs through `swe_solve_ref`, bit
-    for bit. The plain loops run one after another: each is bound by
-    launching its ~40 operations a step, and four at once from four
-    threads took 4.7x longer in all (PERF.md)."""
-    from repro_torch.kernels.swe import swe_solve_ref
-    from repro_torch.kernels.swe.testing import SOLVE_SHAPES, assert_solve_equal
+    width as its path launched it, its inputs through the plain solve, bit
+    for bit. The plain solve runs each step as one replayed CUDA graph
+    (`testing.swe_solve_ref_replayed`: `swe_solve_ref`'s operations in its
+    order, one launch a step instead of ~40); the eager loop took 159 s of
+    the run in PR 23. The waves run one after another."""
+    from repro_torch.kernels.swe.testing import (
+        SOLVE_SHAPES,
+        assert_solve_equal,
+        swe_solve_ref_replayed,
+    )
 
     held = sorted(set(widths.first) - set(SOLVE_SHAPES))
     report = {}
@@ -2052,12 +2088,13 @@ def phase_wave_widths_vs_plain(torch, dev, widths: WaveWidths) -> dict:
         inputs = dict(inputs)
         h, hu, b = inputs.pop("h"), inputs.pop("hu"), inputs.pop("b")
         t1 = time.perf_counter()
-        want = swe_solve_ref(h, hu, b, **inputs)
+        want = swe_solve_ref_replayed(h, hu, b, **inputs)
         report[name] = dict(assert_solve_equal(got, want, f"path wave {name}"),
                             plain_s=time.perf_counter() - t1)
     wall = time.perf_counter() - t0
     worst = max((r[k]["max_abs"] for r in report.values() for k in ("mx", "arr")), default=0.0)
     emit("wave_widths_vs_plain", kernel="swe_solve", bound="bit for bit (mx, arr; NaN matches NaN)",
+         plain="swe_solve_ref's step, one replayed CUDA graph a step",
          widths_by_phase={ph: [list(k) for k in sorted(ks)]
                           for ph, ks in widths.by_phase.items()},
          already_held=[list(k) for k in sorted(set(widths.first) & set(SOLVE_SHAPES))],
@@ -2449,8 +2486,9 @@ def phase_ssd_kernel_vs_plain(torch, dev) -> dict:
 
 
 def phase_ssd_times(torch, dev, smi: str) -> dict:
-    """Device time of one SSD launch at the main path's shapes, beside its
-    bound and the plain version's time. The bound is the larger of the
+    """Device time of one SSD launch at the main path's shapes and at
+    zamba2-1.2b's (a wave of 8 points), beside its bound and the plain
+    version's time. The bound is the larger of the
     bytes at the HBM rate and the 3xTF32 work (3 x flops) at the TF32
     tensor-core peak; `fp32_cuda_core_ops_ms` is the float32 work at the
     CUDA cores' peak, the bound of the kernel before it used the tensor
@@ -2460,8 +2498,9 @@ def phase_ssd_times(torch, dev, smi: str) -> dict:
 
     shapes = []
     torch.cuda.reset_peak_memory_stats()
-    for B in T.MAIN_PATH_BATCHES:
-        H, G, S, P, N = T.MAMBA2_HEADS, 1, T.MAIN_PATH_SEQ, T.MAMBA2_P, T.MAMBA2_N
+    cases = [(B, T.MAMBA2_HEADS, 1, T.MAIN_PATH_SEQ, T.MAMBA2_P, T.MAMBA2_N, False)
+             for B in T.MAIN_PATH_BATCHES] + [T.ZAMBA2_CASE]
+    for B, H, G, S, P, N, _ in cases:
         inputs = T.kernel_inputs((B, H, G, S, P, N, False), dev)
         ms = _device_ms(torch, lambda: ssd_chunk_scan(*inputs), calls=max(2, 40 // B))
         # ~300 PyTorch kernels a call
@@ -2471,7 +2510,8 @@ def phase_ssd_times(torch, dev, smi: str) -> dict:
         t_fp32 = work["flops"] / FP32_FLOPS
         bound_ms = max(t_bytes, t_tc) * 1e3
         shapes.append({
-            "shape": [B, H, S, P, N], "ms": ms, "plain_ms": plain_ms,
+            "shape": [B, H, S, P, N], "arch": SSM_ARCH if N == T.MAMBA2_N else ZOO_SSM_ARCH,
+            "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "bytes" if t_bytes >= t_tc else "operations",
             "bytes_ms": t_bytes * 1e3, "tc_ops_ms": t_tc * 1e3,
@@ -2595,14 +2635,15 @@ def phase_rmsnorm_path(torch, dev) -> dict:
 
 
 def flash_work(B: int, nq: int, nkv: int, Sq: int, Sk: int, hd: int, causal: bool,
-               elem: int) -> dict:
+               elem: int, hd_v: int | None = None) -> dict:
     """Bytes flash attention must move (q, k, v read once, o written once)
     and its float operations: two multiply-adds per (q row, key, column)
-    for q k^T and P V, over the (row, key) pairs the mask keeps (S(S+1)/2
-    per head when causal)."""
+    for q k^T (hd columns) and P V (hd_v, default hd), over the (row, key)
+    pairs the mask keeps (S(S+1)/2 per head when causal)."""
+    hd_v = hd if hd_v is None else hd_v
     pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
-    return {"bytes": elem * (2 * B * nq * Sq * hd + 2 * B * nkv * Sk * hd),
-            "flops": 4 * B * nq * hd * pairs}
+    return {"bytes": elem * (B * nq * Sq * (hd + hd_v) + B * nkv * Sk * (hd + hd_v)),
+            "flops": 2 * B * nq * (hd + hd_v) * pairs}
 
 
 #: the float32 flash kernel's own path: the reduced qwen3-0.6b (float32, 4 q
@@ -2627,7 +2668,8 @@ def phase_flash_kernel_vs_plain(torch, dev) -> dict:
     point, a wave of 8 and the 41-point grid wave (at its model layout,
     through strides). Each case goes through the wrapper to the kernel of
     its dtype (`flash_attention_wgmma` for bf16, `flash_attention` for
-    float32), and the float32 kernel also runs every bf16 case."""
+    float32), and the float32 kernel also runs every bf16 case; then the LM
+    zoo's shapes (`T.ZOO_CASES`) on the wgmma kernel."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention import testing as T
@@ -2656,6 +2698,24 @@ def phase_flash_kernel_vs_plain(torch, dev) -> dict:
             report["flash_attention"][name] = T.assert_close(got, want, f"flash_attention {name}")
         del q, k, v, got, want
         torch.cuda.empty_cache()
+    # the LM zoo's shapes on their paths, at the model layout: MLA's padded
+    # heads at its own scale, cross-attention full with Sq != Sk
+    for i, (arch, zoo) in enumerate(T.ZOO_CASES.items()):
+        name, causal = f"{arch}_{T.case_name(zoo.case)}", zoo.case[6]
+        q, k, v = _model_layout(*T.case_inputs(zoo.case, dev, seed=100 + i, widths=zoo.widths))
+        want = T.plain(q, k, v, causal, zoo.scale)
+        before = flash_attention.launches_by_kernel["flash_attention_wgmma"]
+        got = flash_attention(q, k, v, causal=causal, scale=zoo.scale)
+        torch.cuda.synchronize()
+        if flash_attention.launches_by_kernel["flash_attention_wgmma"] != before + 1:
+            raise AssertionError(f"{name}: the wrapper did not launch flash_attention_wgmma")
+        report["flash_attention_wgmma"][name] = dict(
+            T.assert_close(got, want, f"flash_attention_wgmma {name}"), scale=zoo.scale,
+            widths=zoo.widths)
+        if zoo.widths is not None and bool(got[..., zoo.widths[1]:].any()):
+            raise AssertionError(f"{name}: the padded columns of o are not zero")
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
     worst = {kernel: {dt: max((r["max_abs_err"] for n, r in cases.items() if n.endswith(dt)),
                               default=None) for dt in T.ATOL}
              for kernel, cases in report.items()}
@@ -2680,7 +2740,7 @@ def phase_flash_times(torch, dev, smi: str) -> dict:
     `fp32_cuda_core_ops_ms` is the float32 work at the CUDA cores' peak, the
     bound of the float32 kernel before it ran on the tensor cores. At bf16
     shapes `f32_kernel_ms` is `flash_attention.cu`'s body on the same inputs,
-    the wgmma kernel's yardstick."""
+    the wgmma kernel's yardstick. Then the LM zoo's shapes (`T.ZOO_CASES`)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention
@@ -2729,6 +2789,35 @@ def phase_flash_times(torch, dev, smi: str) -> dict:
         shapes.append(entry)
         del q, k, v
         torch.cuda.empty_cache()
+    # the LM zoo's shapes on the wgmma kernel, at the model layout. The bound
+    # is the function's own work: MLA's at its native widths (q.k over 96
+    # columns, v over 64), which the kernel computes zero-padded to 128 (its
+    # `kernel_flops`); SDPA runs at the native widths with MLA's scale
+    for i, (arch, zoo) in enumerate(T.ZOO_CASES.items()):
+        B, nq, nkv, Sq, Sk, hd, causal, dt = zoo.case
+        dqk, dv = zoo.widths or (hd, hd)
+        q, k, v = _model_layout(*T.case_inputs(zoo.case, dev, seed=200 + i, widths=zoo.widths))
+        qn, kn, vn = (t[..., :w].contiguous() for t, w in ((q, dqk), (k, dqk), (v, dv)))
+        work = flash_work(B, nq, nkv, Sq, Sk, dqk, causal, 2, hd_v=dv)
+        ms = _device_ms(torch, lambda: flash_attention(q, k, v, causal=causal, scale=zoo.scale),
+                        calls=10)
+        plain_ms = _device_ms(torch, lambda: T.plain(q, k, v, causal, zoo.scale), calls=1,
+                              windows=3)
+        library_ms = _device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qn, kn, vn, is_causal=causal, enable_gqa=True, scale=zoo.scale), calls=10)
+        t_bytes, t_ops = work["bytes"] / HBM_BYTES_PER_S, work["flops"] / BF16_FLOPS
+        shapes.append({
+            "shape": [B, nq, nkv, Sq, hd], "sk": Sk, "arch": arch, "causal": causal,
+            "dtype": dt, "kernel": "flash_attention_wgmma", "model_layout": True,
+            "scale": zoo.scale, "widths": [dqk, dv], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes * 1e3, "tc_ops_ms": t_ops * 1e3,
+            "share_of_bound": max(t_bytes, t_ops) * 1e3 / ms,
+            "kernel_flops": flash_work(B, nq, nkv, Sq, Sk, hd, causal, 2)["flops"], **work,
+        })
+        del q, k, v, qn, kn, vn
+        torch.cuda.empty_cache()
     emit("flash_times", kernels=["flash_attention_wgmma", "flash_attention"],
          timer="one CUDA event pair around back-to-back launches (50; 10 above 0.1 TFLOP, "
                "the float32 kernel on bf16 2; plain: 10, or 1 in 3 windows), per launch, "
@@ -2740,24 +2829,142 @@ def phase_flash_times(torch, dev, smi: str) -> dict:
     return {"shapes": shapes}
 
 
-#: the kernel each LM path runs once per layer, and its name in a trace
-LM_KERNELS = {SSM_ARCH: ("ssd", "ssd_chunk_scan"),
-              DENSE_ARCH: ("flash_attention_wgmma", "flash_attention_wgmma_kernel")}
+#: each kernel of the LM paths by its name in a trace
+LM_TRACE = {"ssd": "ssd_chunk_scan", "flash_attention_wgmma": "flash_attention_wgmma_kernel"}
 #: the phase names' prefix of each LM path
-LM_PHASE = {SSM_ARCH: "lm", DENSE_ARCH: "dense_lm"}
+LM_PHASE = {SSM_ARCH: "lm", DENSE_ARCH: "dense_lm", MOE_ARCH: "moe_lm",
+            ZOO_SSM_ARCH: "hybrid_lm", "minicpm3-4b": "mla_lm",
+            "llama-3.2-vision-90b": "vlm_lm", "kimi-k2-1t-a32b": "kimi_lm"}
+
+
+def lm_launches(cfg) -> dict:
+    """The launches of one forward of `cfg` on the kernel path, by kernel
+    (`transformer.kernel_launches`: one SSD scan per ssm unit, one flash
+    attention per attention), with every other kernel at 0."""
+    from repro_torch.models import transformer
+
+    want = dict.fromkeys(read_launches(), 0)
+    want.update(transformer.kernel_launches(cfg))
+    return want
+
+
+def check_launches(counts: dict, cfg, forwards: int, what: str) -> dict:
+    """Raises unless `counts` are exactly `forwards` forwards' launches of
+    `cfg` (no other kernel); returns the launched kernels' counts."""
+    want = {k: forwards * n for k, n in lm_launches(cfg).items()}
+    if forwards < 1 or counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {forwards} forwards' {want}")
+    return {k: n for k, n in counts.items() if n}
+
+
+#: bound on each flash launch of a model forward against the plain version
+#: on the same tensors (`in_situ_attention`): the largest error over the
+#: largest output. Both sides round their result to bf16 once (2^-8 of an
+#: output, relative) and the kernel also rounds P; 1e-2 is ~2.5 bf16 ulps of
+#: the largest output. A wrong scale, mask or padding moves outputs by O(1).
+IN_SITU_RTOL = 1e-2
+
+
+def in_situ_attention(torch, model) -> dict:
+    """One point's forward on the kernel path (`model.evaluate_batch` at
+    theta = (1, 1)) with every flash launch of the model held, on the
+    tensors the model hands it (its layout, MLA's padding and scale, the
+    cross-attention's context), against the plain version
+    (`testing.plain`): the attention kernel checked inside the model, where
+    the NLL of a random model sees only gross faults."""
+    from repro_torch.kernels.flash_attention import testing as T
+    from repro_torch.models import attention
+
+    real, seen = attention.flash_attention, []
+
+    def checked(q, k, v, *, causal=True, scale=None):
+        o = real(q, k, v, causal=causal, scale=scale)
+        want = T.plain(q, k, v, causal, scale)
+        seen.append(float((o.float() - want.float()).abs().max() / want.float().abs().max()))
+        return o
+
+    attention.flash_attention = checked
+    try:
+        model.evaluate_batch(np.array([[1.0, 1.0]]))
+    finally:
+        attention.flash_attention = real
+    calls = sum(n for k, n in lm_launches(model.cfg).items() if k.startswith("flash"))
+    worst = max(seen, default=0.0)
+    if len(seen) != calls or not worst <= IN_SITU_RTOL:
+        raise AssertionError(f"in-situ attention: {len(seen)} calls (expected {calls}), "
+                             f"worst {worst:.3g} > {IN_SITU_RTOL}")
+    return {"calls": len(seen), "max_rel_err": worst, "bound": IN_SITU_RTOL}
+
+
+class PinnedRouting:
+    """The experts every MoE layer of one run picked, replayed in a later
+    run. A MoE's top-k is discontinuous: in bf16 the kernel path and the
+    plain path round the residual stream differently, and where two experts'
+    router probabilities nearly tie (64 experts from a random router tie
+    often) the two paths route a token differently; the token then takes
+    another expert's output, and through attention so do the tokens after
+    it. Replaying the kernel path's choices in the plain path (the combine
+    weights still from the plain path's own router probabilities, so
+    capacity drops and dispatch order are the same) leaves the attention
+    path as the one difference. On deepseek-moe-16b (H100, 700 W) that took
+    the two paths' NLL difference from 4.4e-3 to 2.5e-3 (PERF.md, PR 26)."""
+
+    def __init__(self):
+        self.choices: list = []
+
+    @contextlib.contextmanager
+    def recording(self):
+        from repro_torch.models import moe
+
+        real = moe.router_topk
+
+        def record(cfg, params, x):
+            w, idx, aux = real(cfg, params, x)
+            self.choices.append(idx)
+            return w, idx, aux
+
+        moe.router_topk = record
+        try:
+            yield self
+        finally:
+            moe.router_topk = real
+
+    @contextlib.contextmanager
+    def replaying(self):
+        import torch
+
+        from repro_torch.models import moe
+
+        real, pending = moe.router_topk, iter(self.choices)
+
+        def replay(cfg, params, x):
+            idx = next(pending)
+            probs = torch.softmax(x.float() @ params["router"], dim=-1)
+            w = probs.gather(-1, idx)
+            return (w / w.sum(-1, keepdim=True)).to(x.dtype), idx, real(cfg, params, x)[2]
+
+        moe.router_topk = replay
+        try:
+            yield self
+        finally:
+            moe.router_topk = real
+        if next(pending, None) is not None:
+            raise AssertionError("the pinned run took fewer MoE layers than were recorded")
 
 
 def phase_lm_main_path(torch, arch: str) -> dict:
     """examples/serve_uq.py's flow on a full-width LM: a level-4 sparse grid
     of the NLL (41 points, one unpadded wave), the surrogate's 4,000-sample
     Monte Carlo, and 8 per-point submits, all through
-    `EvaluationFabric(ModelBackend(LMUQModel))`. Every forward launches the
-    model's kernel once per layer, and no other kernel."""
+    `EvaluationFabric(ModelBackend(LMUQModel))`. Every forward launches
+    exactly `lm_launches` (the model's kernels once per layer that runs
+    them), and no other kernel."""
     from repro_torch.apps.lm_model import LMUQModel
     from repro_torch.core.fabric import EvaluationFabric, ModelBackend
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer
     from repro_torch.uq import sparse_grid as sg
 
-    kernel = LM_KERNELS[arch][0]
     t0 = time.perf_counter()
     model = LMUQModel(arch, reduced=False, batch=LM_BATCH, seq=LM_SEQ)
     torch.cuda.synchronize()
@@ -2801,13 +3008,10 @@ def phase_lm_main_path(torch, arch: str) -> dict:
     # the surrogate interpolates: it reproduces the grid values at the grid
     np.testing.assert_allclose(sg.interpolate_on_sparse_grid(grid, reduced, vals, reduced.points),
                                vals, rtol=1e-9, atol=1e-9)
-    # every forward the fabric dispatched launched the kernel once per layer
-    launches = counts[kernel]
-    if forwards < 2 or launches != model.cfg.n_layers * forwards:
-        raise AssertionError(f"{kernel} kernel launches {launches}, expected "
-                             f"{model.cfg.n_layers} x {forwards} native batches")
-    if sum(counts.values()) != launches:
-        raise AssertionError(f"other kernels launched on the {arch} path: {counts}")
+    # every forward the fabric dispatched launched its kernels once per layer
+    if forwards < 2:
+        raise AssertionError(f"{forwards} forwards on the {arch} path")
+    launches = check_launches(counts, model.cfg, forwards, f"the {arch} path")
     # no wave is padded: the port has no trace cache for padding to bound
     if tel["backend"]["padded"] != 0:
         raise AssertionError(f"padded waves on the {arch} path: {tel['backend']}")
@@ -2818,7 +3022,8 @@ def phase_lm_main_path(torch, arch: str) -> dict:
          nll_surrogate_mc={"mean": nlls.mean(), "std": nlls.std(),
                            "p95": np.percentile(nlls, 95)},
          nll_vs_embedding_scale=sens.tolist(), forwards=forwards,
-         **{f"{kernel}_launches": launches}, launches=counts, max_memory_allocated=peak,
+         launches_per_forward=transformer.kernel_launches(model.cfg), launches=counts,
+         params=M.n_params(model.cfg), max_memory_allocated=peak,
          backend=tel["backend"],
          fabric={k: tel[k] for k in ("waves", "points", "cache_hits", "mean_wave_size")})
     return {"launches": launches, "model": model, "points": reduced.points, "grid_s": grid_s}
@@ -2835,40 +3040,58 @@ def phase_lm_kernel_vs_plain(torch, model) -> dict:
     from repro_torch.models.layers import lm_head
 
     arch = model.cfg.name
-    kernel = LM_KERNELS[arch][0]
     plain = copy.copy(model)
     plain.cfg = model.cfg.replace(attn_impl="plain")
     thetas = np.array([[1.0 + 0.02 * i, 1.0] for i in range(LM_SUBMITS)])
-    before = read_launches()[kernel]
+    pin = PinnedRouting()
+    before = read_launches()
+    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    got = model.evaluate_batch(thetas)[:, 0]
+    with pin.recording():
+        got = model.evaluate_batch(thetas)[:, 0]
     kernel_s = time.perf_counter() - t0
-    launched = read_launches()[kernel] - before
-    if launched != model.cfg.n_layers:
-        raise AssertionError(f"{launched} {kernel} launches for one forward")
+    kernel_peak = torch.cuda.max_memory_allocated()
+    after = read_launches()
+    check_launches({k: after[k] - before[k] for k in after}, model.cfg, 1,
+                   f"one {arch} wave")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    want = plain.evaluate_batch(thetas)[:, 0]
+    with pin.replaying() if pin.choices else contextlib.nullcontext():
+        want = plain.evaluate_batch(thetas)[:, 0]
     plain_s = time.perf_counter() - t0
     plain_peak = torch.cuda.max_memory_allocated()
     rel = float(np.abs(got / want - 1.0).max())
-    if not rel <= LM_NLL_RTOL:
-        raise AssertionError(f"kernel path NLL {got} vs plain {want}: {rel:.3g} > {LM_NLL_RTOL}")
+    bound = LM_NLL_RTOL if arch in (SSM_ARCH, DENSE_ARCH) else ZOO_NLL_RTOL
+    moe_fields = {}
+    if pin.choices:  # and each path routing on its own: reported, not bounded
+        free = plain.evaluate_batch(thetas)[:, 0]
+        moe_fields = {"routing": "the plain path replays the kernel path's experts",
+                      "nll_plain_own_routing": free.tolist(),
+                      "nll_rel_err_own_routing": float(np.abs(got / free - 1.0).max())}
+    # the same points on the kernel path, one forward each: the model's own
+    # bf16 spread between two wave sizes (other GEMM tilings)
+    single = np.array([model.evaluate_batch(t[None])[0, 0] for t in thetas])
+    in_situ = in_situ_attention(torch, model) if model.cfg.family != "ssm" else None
     # how far the two paths drift apart token by token, at theta = (1, 1)
     token_nll = []
     for m in (model, plain):
         with torch.inference_mode():
-            hidden, _, _ = transformer.forward(m.cfg, m.params, m.batch["tokens"], skip_head=True)
+            hidden, _, _ = transformer.forward(m.cfg, m.params, m.batch["tokens"], skip_head=True,
+                                               ctx_embed=m.batch.get("ctx_embed"))
             logits = M.mask_padded_logits(m.cfg, lm_head(m.params["embed"], hidden).float())
             tgt = torch.gather(logits, -1, m.batch["targets"][..., None])[..., 0]
             token_nll.append(torch.logsumexp(logits, dim=-1) - tgt)
-    emit(f"{LM_PHASE[arch]}_kernel_vs_plain", points=len(thetas), bound=LM_NLL_RTOL,
+    emit(f"{LM_PHASE[arch]}_kernel_vs_plain", points=len(thetas), bound=bound,
          nll_rel_err=rel, nll_kernel=got.tolist(), nll_plain=want.tolist(),
          kernel_wave_s=kernel_s, plain_wave_s=plain_s,
-         plain_max_memory_allocated=plain_peak,
+         kernel_max_memory_allocated=kernel_peak, plain_max_memory_allocated=plain_peak,
          token_nll_max_abs_diff=float((token_nll[0] - token_nll[1]).abs().max()),
-         token_nll_std=float(token_nll[1].std()))
+         token_nll_std=float(token_nll[1].std()),
+         nll_rel_spread_wave_vs_points=float(np.abs(got / single - 1.0).max()),
+         in_situ_attention=in_situ, **moe_fields)
+    if not rel <= bound:
+        raise AssertionError(f"kernel path NLL {got} vs plain {want}: {rel:.3g} > {bound}")
     return {"nll_rel_err": rel}
 
 
@@ -2879,7 +3102,7 @@ def phase_lm_profile(torch, model, points, unprofiled_s: float) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     arch = model.cfg.name
-    kernel, trace_name = LM_KERNELS[arch]
+    per_forward = {k: n for k, n in lm_launches(model.cfg).items() if n}
     thetas = np.asarray(points, float)  # the grid wave as the fabric runs it
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -2890,9 +3113,10 @@ def phase_lm_profile(torch, model, points, unprofiled_s: float) -> dict:
     trace = ROOT / "build" / f"chip_smoke_{LM_PHASE[arch]}_trace.json"
     trace.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(trace))
-    busy = {kernel: 0.0, "gemm": 0.0, "other": 0.0, "memcpy_memset": 0.0}
+    busy = {**dict.fromkeys(per_forward, 0.0), "gemm": 0.0, "other": 0.0, "memcpy_memset": 0.0}
+    in_trace = dict.fromkeys(per_forward, 0)
     by_name: dict[str, list] = {}
-    n_kernels = n_model_kernel = 0
+    n_kernels = 0
     for ev in json.loads(trace.read_text()).get("traceEvents", []):
         if ev.get("ph") != "X":
             continue
@@ -2902,9 +3126,10 @@ def phase_lm_profile(torch, model, points, unprofiled_s: float) -> dict:
         elif cat == "kernel":
             n_kernels += 1
             low = name.lower()
-            if trace_name in low:
-                busy[kernel] += dur
-                n_model_kernel += 1
+            mine = [k for k in per_forward if LM_TRACE[k] in low]
+            if mine:
+                busy[mine[0]] += dur
+                in_trace[mine[0]] += 1
             elif any(k in low for k in ("gemm", "cutlass", "xmma", "nvjet")):  # cuBLAS
                 busy["gemm"] += dur
             else:
@@ -2914,22 +3139,23 @@ def phase_lm_profile(torch, model, points, unprofiled_s: float) -> dict:
             entry[1] += dur
     if not n_kernels:
         raise AssertionError("the profiler recorded no device kernel")
-    # the wave is one forward: one launch of the model's kernel per layer,
-    # under its own name in the trace
-    if n_model_kernel != model.cfg.n_layers:
-        raise AssertionError(f"the trace holds {n_model_kernel} launches of {trace_name}, "
-                             f"expected {model.cfg.n_layers}")
+    # the wave is one forward: its kernels' launches, each under its own
+    # name in the trace
+    if in_trace != per_forward:
+        raise AssertionError(f"the trace holds {in_trace} launches of "
+                             f"{[LM_TRACE[k] for k in per_forward]}, expected {per_forward}")
     device_us = sum(busy.values())
     emit(f"{LM_PHASE[arch]}_profile", wave=f"{len(thetas)} grid points, unpadded",
          wall_ms=wall_us / 1e3, unprofiled_wall_ms=unprofiled_s * 1e3,
          device_kernels=n_kernels, device_busy_ms=device_us / 1e3,
-         **{f"{kernel}_launches_in_trace": n_model_kernel},
+         launches_in_trace=in_trace,
          busy_ms={k: v / 1e3 for k, v in busy.items()},
          share_of_wall={k: v / wall_us for k, v in busy.items()},
          device_busy_share=device_us / wall_us, device_idle_share=1.0 - device_us / wall_us,
          top_kernels=[{"name": k, "launches": n, "ms": us / 1e3} for k, (n, us) in
                       sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]])
-    return {"kernel_share": busy[kernel] / wall_us, "idle_share": 1.0 - device_us / wall_us}
+    return {"kernel_share": sum(busy[k] for k in per_forward) / wall_us,
+            "idle_share": 1.0 - device_us / wall_us}
 
 
 def phase_flash_f32_path(torch) -> dict:
@@ -2996,8 +3222,81 @@ def run_lm_path(torch, arch: str, smi: str) -> dict:
         phase_pool_path(torch, lm["model"], smi)
     launches = lm["launches"]
     del lm
+    gc.collect()
     torch.cuda.empty_cache()
     return {"launches": launches}
+
+
+def phase_zoo_lm(torch, arch: str, n_layers, points: int) -> dict:
+    """A lighter LM path: `arch` at full width from seeded random weights
+    (cut to `n_layers` where the whole model does not fit the card), one
+    wave of `points` points (2 sequences of 2,048 tokens each) on the
+    kernel path, exactly `lm_launches` and no other kernel, its NLLs in
+    (0, 30) and within ZOO_NLL_RTOL of the same wave on the plain path (a
+    MoE's experts pinned), every attention launch of a point's forward held
+    in situ (`in_situ_attention`); then the wave once more under the
+    profiler. The model is freed afterwards."""
+    from repro_torch.apps.lm_model import LMUQModel
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    phase = LM_PHASE[arch]
+    resident = torch.cuda.memory_allocated()  # what earlier phases left on the card
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LMUQModel(arch, reduced=False, batch=LM_BATCH, seq=LM_SEQ, n_layers=n_layers)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    cfg = model.cfg
+    thetas = np.array([[1.0 + 0.02 * i, 1.0 - 0.01 * i] for i in range(points)])
+    pin = PinnedRouting()  # the MoE's experts on the kernel path, for the plain wave
+    # every launch count starts at 0 right before the path
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with pin.recording():
+        got = model.evaluate_batch(thetas)[:, 0]
+    torch.cuda.synchronize()
+    wave_s = time.perf_counter() - t0
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    launches = check_launches(counts, cfg, 1, f"the {arch} wave")
+    plain = copy.copy(model)
+    plain.cfg = cfg.replace(attn_impl="plain")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with pin.replaying() if pin.choices else contextlib.nullcontext():
+        want = plain.evaluate_batch(thetas)[:, 0]
+    plain_s = time.perf_counter() - t0
+    plain_peak = torch.cuda.max_memory_allocated()
+    rel = float(np.abs(got / want - 1.0).max())
+    single = np.array([model.evaluate_batch(t[None])[0, 0] for t in thetas])
+    in_situ = in_situ_attention(torch, model)
+    reduced = ([f"n_layers {get_config(arch).n_layers} -> {cfg.n_layers} (widths kept)"]
+               if n_layers is not None else [])
+    emit(f"{phase}_path", arch=arch, reduced=reduced, layers=cfg.n_layers,
+         params=M.n_params(cfg), batch=LM_BATCH, seq=LM_SEQ, points=points,
+         resident_before=resident, init_s=init_s, init_max_memory_allocated=init_peak,
+         wave_s=wave_s,
+         evals_per_s=points / wave_s, max_memory_allocated=peak,
+         launches_per_forward=lm_launches(cfg), launches=counts,
+         nll_kernel=got.tolist(), nll_plain=want.tolist(), nll_rel_err=rel, bound=ZOO_NLL_RTOL,
+         routing="the plain path replays the kernel path's experts" if pin.choices else None,
+         nll_rel_spread_wave_vs_points=float(np.abs(got / single - 1.0).max()),
+         in_situ_attention=in_situ, plain_wave_s=plain_s, plain_max_memory_allocated=plain_peak)
+    if not (np.isfinite(got).all() and 0 < got.min() and got.max() < 30):
+        raise AssertionError(f"{arch}: NLL out of range: {got}")
+    if not rel <= ZOO_NLL_RTOL:
+        raise AssertionError(f"{arch}: kernel path NLL {got} vs plain {want}: {rel:.3g} > "
+                             f"{ZOO_NLL_RTOL}")
+    del plain
+    profile = phase_lm_profile(torch, model, thetas, wave_s)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "wave_s": wave_s, "peak": peak, **profile}
 
 
 #: the analysis gate's card part (`analysis_gate`, part "card_locks"):
@@ -3268,6 +3567,9 @@ def main() -> int:
     flash_times = phase_flash_times(torch, dev, probe["smi"])
     f32_path = phase_flash_f32_path(torch)
     dense = run_lm_path(torch, DENSE_ARCH, probe["smi"])
+    moe = run_lm_path(torch, MOE_ARCH, probe["smi"])
+    zoo = {arch: phase_zoo_lm(torch, arch, n_layers, points)
+           for arch, n_layers, points in ZOO_PATHS}
     phase_analysis_gate(torch, dev)
 
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro.")))
@@ -3361,7 +3663,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
         "replaces": "src/repro/kernels/ssd/ssd.py:89",
-        "launches": lm["launches"],
+        "launches": lm["launches"]["ssd"],
+        # zamba2-1.2b's wave of 8 points: 32 ssm units a forward
+        "launches_hybrid_lm_path": zoo[ZOO_SSM_ARCH]["launches"]["ssd"],
         "max_abs_err": ssd_check["max_abs_err"],
         "max_rel_err": ssd_check["max_rel_err"],
         "ms": point["ms"],
@@ -3378,7 +3682,13 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:93",
         "dtype": "bfloat16",
-        "launches": dense["launches"],
+        "launches": dense["launches"]["flash_attention_wgmma"],
+        # deepseek-moe-16b's main path (28 a forward), and the lighter paths:
+        # zamba2's shared block (6), minicpm3's MLA padded to hd 128 (62),
+        # llama-3.2-vision's 8 causal self and 2 full cross (10), kimi-k2 (2)
+        "launches_moe_lm_main_path": moe["launches"]["flash_attention_wgmma"],
+        **{f"launches_{LM_PHASE[arch]}_path": zoo[arch]["launches"]["flash_attention_wgmma"]
+           for arch, _, _ in ZOO_PATHS},
         "max_abs_err": flash_check["wgmma"],
         "ms": flash_point["ms"],
         "plain_ms": flash_point["plain_ms"],

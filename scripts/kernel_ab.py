@@ -51,14 +51,17 @@ STEP_SHAPES = tuple((C, N) for C in (512, 2048) for N in (4, 16, 64, 512)) + ((2
 PATH_WAVES = ((2048, 16), (2048, 512), (512, 16), (512, 512))
 
 
-def build_parent(parent: Path) -> dict:
-    """The parent's two kernel libraries, built together with this
-    checkout's flags; returns {stem: CDLL}."""
+def build_parent(parent: Path, stems=(("flash_attention", "flash_attention"),
+                                      ("swe_step", "swe"))) -> dict:
+    """The parent's kernel libraries `stems` ((stem, kernels/ subdirectory)
+    pairs; by default its float32 flash kernel and its step kernel), built
+    together with this checkout's flags; returns {stem: CDLL}, each with its
+    source text as `.source`."""
     from repro_torch.kernels import _build
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for stem, sub in (("flash_attention", "flash_attention"), ("swe_step", "swe")):
+    for stem, sub in stems:
         src = parent / "src" / "repro_torch" / "kernels" / sub / "csrc" / f"{stem}.cu"
         so = _build.BUILD_DIR / f"lib{stem}_parent.so"
         procs[stem] = (src, so, subprocess.Popen(
@@ -70,6 +73,7 @@ def build_parent(parent: Path) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"parent {stem}: nvcc exited {proc.returncode}\n{out}")
         libs[stem] = ctypes.CDLL(str(so))
+        libs[stem].source = src.read_text()
     return libs
 
 
@@ -90,21 +94,28 @@ def parent_step(parent: Path, lib):
 
 def bind_flash(lib):
     """The flash kernel of `lib` (its `flash_attention_fwd`), called as
-    `ops.launch` calls this checkout's."""
+    `ops.launch` calls this checkout's, at the default scale 1 / sqrt(hd):
+    passed as an argument where the library's entry point takes one (its
+    source declares `double scale`), fixed inside it where it does not."""
+    import math
+
     import torch
 
     from repro_torch.kernels.flash_attention import ops
 
     fn = lib.flash_attention_fwd
+    scaled = "double scale" in lib.source
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p]
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+        *([ctypes.c_double] if scaled else []), ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
     def launch(q, k, v, o, causal):
         B, nq, Sq, hd = q.shape
         strides = (ctypes.c_longlong * 12)(*[s for t in (q, k, v, o) for s in ops._strides(t)])
+        scale = [1.0 / math.sqrt(hd)] if scaled else []
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, nq, k.shape[1], Sq,
-                 k.shape[2], hd, ops._CODES[q.dtype], strides, int(causal),
+                 k.shape[2], hd, ops._CODES[q.dtype], strides, int(causal), *scale,
                  torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"{lib._name}: flash_attention_fwd: cudaError {err}")

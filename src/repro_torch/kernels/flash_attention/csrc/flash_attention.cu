@@ -4,7 +4,9 @@
 // Replaces: src/repro/kernels/flash_attention/flash_attention.py::
 // flash_attention_kernel (Pallas body `_attn_kernel`). For q [B, nq, Sq, hd]
 // and k, v [B, nkv, Sk, hd] (q head h reads kv head h / (nq / nkv)):
-//   o = softmax(q k^T / sqrt(hd), masked) v
+//   o = softmax(scale * q k^T, masked) v
+// (scale a runtime argument: the reference's 1 / sqrt(hd) by default; MLA
+// passes 1 / sqrt(its q.k width) with q, k and v zero-padded to hd)
 // with a float32 running max, sum and accumulator per q row (online
 // softmax), the KV tiles wholly above the diagonal skipped, the diagonal tile
 // masked per element with -1e30, and o = acc / max(l, 1e-30) at the end, cast
@@ -37,7 +39,7 @@
 // in registers for the whole sweep. Each warp owns 16 q rows. Tiles are
 // scheduled longest first (the last q tiles of causal attention sweep the
 // most KV tiles).
-// - q, pre-scaled by log2(e) / sqrt(hd) (so exp2 of a score difference is
+// - q, pre-scaled by log2(e) * scale (so exp2 of a score difference is
 //   exp of the scaled one), is split once a block: into shared memory,
 //   [16 NW][hd + 4] big and small, or (QREG) straight into each warp's A
 //   fragments in registers (128 registers at hd = 128).
@@ -494,7 +496,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int nq, int nkv,
-           int Sq, int Sk, const Strides& st, int causal, void* stream) {
+           int Sq, int Sk, const Strides& st, int causal, double scale, void* stream) {
   auto kernel = flash_attention_kernel<T, D>;
   constexpr int smem = smem_bytes<T, D>();
   constexpr int BQ = 16 * Config<D>::NW, THREADS = 32 * Config<D>::NW;
@@ -508,7 +510,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int nq, 
   const int n_qt = (Sq + BQ - 1) / BQ;
   const long long blocks = n_bh * n_qt;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const float q_scale = (float)(1.4426950408889634 / sqrt((double)D));  // log2(e) / sqrt(hd)
+  const float q_scale = (float)(1.4426950408889634 * scale);  // log2(e) * scale
   kernel<<<(unsigned int)blocks, THREADS, smem, (cudaStream_t)stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), st, nq, nkv, Sq, Sk, n_qt, n_bh, q_scale, causal);
@@ -517,11 +519,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int nq, 
 
 template <typename T>
 int launch_hd(const void* q, const void* k, const void* v, void* o, int B, int nq, int nkv,
-              int Sq, int Sk, int hd, const Strides& st, int causal, void* stream) {
+              int Sq, int Sk, int hd, const Strides& st, int causal, double scale,
+              void* stream) {
   switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, o, B, nq, nkv, Sq, Sk, st, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, nq, nkv, Sq, Sk, st, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, nq, nkv, Sq, Sk, st, causal, stream);
+    case 32: return launch<T, 32>(q, k, v, o, B, nq, nkv, Sq, Sk, st, causal, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, o, B, nq, nkv, Sq, Sk, st, causal, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, o, B, nq, nkv, Sq, Sk, st, causal, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -533,12 +536,14 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B, int n
 // float32, 1 = bfloat16); `strides` holds the element strides of the B, n
 // and S dims of q, k, v and o in that order (12 values; hd has stride 1),
 // each a multiple of 16 bytes, every base 16-byte aligned; hd in
-// {32, 64, 128}; nq a multiple of nkv; causal (1) needs Sq == Sk.
+// {32, 64, 128}; nq a multiple of nkv; causal (1) needs Sq == Sk; `scale`
+// (> 0) multiplies q k^T (1 / sqrt(hd) for the reference's attention).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
                                    int nq, int nkv, int Sq, int Sk, int hd, int dtype,
-                                   const long long* strides, int causal, void* stream) {
+                                   const long long* strides, int causal, double scale,
+                                   void* stream) {
   if (B <= 0 || nq <= 0 || nkv <= 0 || nq % nkv != 0 || Sq <= 0 || Sk <= 0 ||
-      (causal && Sq != Sk))
+      (causal && Sq != Sk) || !(scale > 0.0))
     return (int)cudaErrorInvalidValue;
   Strides st;
   for (int i = 0; i < 3; ++i) {
@@ -548,8 +553,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     st.o[i] = strides[9 + i];
   }
   if (dtype == 0)
-    return launch_hd<float>(q, k, v, o, B, nq, nkv, Sq, Sk, hd, st, causal, stream);
+    return launch_hd<float>(q, k, v, o, B, nq, nkv, Sq, Sk, hd, st, causal, scale, stream);
   if (dtype == 1)
-    return launch_hd<__nv_bfloat16>(q, k, v, o, B, nq, nkv, Sq, Sk, hd, st, causal, stream);
+    return launch_hd<__nv_bfloat16>(q, k, v, o, B, nq, nkv, Sq, Sk, hd, st, causal, scale,
+                                    stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -5,7 +5,9 @@
 // flash_attention_kernel (Pallas body `_attn_kernel`) for bf16 inputs. For
 // q [B, nq, Sq, hd] and k, v [B, nkv, Sk, hd] (q head h reads kv head
 // h / (nq / nkv)):
-//   o = softmax(q k^T / sqrt(hd), masked) v
+//   o = softmax(scale * q k^T, masked) v
+// (scale a runtime argument: the reference's 1 / sqrt(hd) by default; MLA
+// passes 1 / sqrt(its q.k width) with q, k and v zero-padded to hd)
 // with a float32 running max, sum and accumulator per q row (online
 // softmax), the KV tiles wholly above the diagonal skipped, the diagonal
 // tile masked per element, and o = acc / max(l, 1e-30), cast to bf16. Causal
@@ -39,7 +41,7 @@
 // * Softmax in registers, in the accumulator's fragment: a thread holds 2
 //   rows, and the 4 lanes that share a row reduce its max with two
 //   shuffles; the row sum stays per thread until the epilogue. The scale is
-//   folded into exp2 as log2(e) / sqrt(hd). Elements are masked only on the
+//   folded into exp2 as log2(e) * scale. Elements are masked only on the
 //   diagonal tile and on keys >= Sk.
 // * O += P V: P is rounded to bf16 in registers. The m64nNk16 f32
 //   accumulator layout, packed in pairs, is the register A operand of the
@@ -493,7 +495,7 @@ int make_map(CUtensorMap* map, const void* ptr, int B, int n, int S, const long 
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int nq, int nkv, int Sq,
-           int Sk, const long long* st, int causal, void* stream) {
+           int Sk, const long long* st, int causal, double scale, void* stream) {
   using T = Tile<D>;
   CUtensorMap mq, mk, mv;
   int pq, pk, pv, err;
@@ -508,7 +510,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int nq, 
   const int n_qt = (Sq + BQ - 1) / BQ;
   const long long blocks = n_bh * n_qt;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));  // log2(e) / sqrt(hd)
+  const float scale_log2 = (float)(1.4426950408889634 * scale);  // log2(e) * scale
   kernel<<<(unsigned int)blocks, THREADS, T::SMEM, (cudaStream_t)stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), st[9], st[10], st[11], nq, nkv, Sq, Sk, n_qt,
       n_bh, scale_log2, causal, pq, pk, pv);
@@ -522,17 +524,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int nq, 
 // k, v [B, nkv, Sk, hd]; bf16; `strides` holds the element strides of the
 // B, n and S dims of q, k, v and o in that order (12 values; hd has stride
 // 1), each a multiple of 8 elements, every base 16-byte aligned; hd in
-// {32, 64, 128}; nq a multiple of nkv; causal (1) needs Sq == Sk.
+// {32, 64, 128}; nq a multiple of nkv; causal (1) needs Sq == Sk; `scale`
+// (> 0) multiplies q k^T (1 / sqrt(hd) for the reference's attention).
 extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v, void* o,
                                          int B, int nq, int nkv, int Sq, int Sk, int hd,
-                                         const long long* strides, int causal, void* stream) {
+                                         const long long* strides, int causal, double scale,
+                                         void* stream) {
   if (B <= 0 || nq <= 0 || nkv <= 0 || nq % nkv != 0 || Sq <= 0 || Sk <= 0 ||
-      (causal && Sq != Sk))
+      (causal && Sq != Sk) || !(scale > 0.0))
     return (int)cudaErrorInvalidValue;
   switch (hd) {
-    case 32: return launch<32>(q, k, v, o, B, nq, nkv, Sq, Sk, strides, causal, stream);
-    case 64: return launch<64>(q, k, v, o, B, nq, nkv, Sq, Sk, strides, causal, stream);
-    case 128: return launch<128>(q, k, v, o, B, nq, nkv, Sq, Sk, strides, causal, stream);
+    case 32: return launch<32>(q, k, v, o, B, nq, nkv, Sq, Sk, strides, causal, scale, stream);
+    case 64: return launch<64>(q, k, v, o, B, nq, nkv, Sq, Sk, strides, causal, scale, stream);
+    case 128: return launch<128>(q, k, v, o, B, nq, nkv, Sq, Sk, strides, causal, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

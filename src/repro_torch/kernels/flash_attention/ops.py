@@ -19,10 +19,18 @@ show which kernel its path went through.
 Causal attention with Sq != Sk raises on every device: the JAX kernel masks
 from the top left (`flash_attention.py:70-73`) and its oracle from the
 bottom right (`ref.py:19`), so the reference does not say which is meant.
+
+`scale` multiplies q k^T. Its default is the JAX kernel's 1/sqrt(hd)
+(`flash_attention.py:106`), passed to the C entry points as a double: they
+fold it into log2(e) * scale in float32, which at every hd of `HEAD_DIMS`
+rounds to the constant log2(e) / sqrt(hd) they fixed before, so default
+calls compute what they computed, bit for bit. MLA passes 1/sqrt(96) with
+q and k zero-padded from 96 to 128 columns (`models/attention.py`).
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -54,6 +62,7 @@ def _kernel(stem: str):
             *dtype_arg,
             ctypes.POINTER(ctypes.c_longlong),  # strides of (B, n, S) of q, k, v, o
             ctypes.c_int,  # causal
+            ctypes.c_double,  # scale
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -89,17 +98,18 @@ def _strides(t: torch.Tensor) -> list[int]:
     return [t.stride(d) if t.shape[d] > 1 else span for d in range(3)]
 
 
-def launch(stem: str, q, k, v, o, causal: bool) -> None:
+def launch(stem: str, q, k, v, o, causal: bool, scale: float | None = None) -> None:
     """One launch of kernel `stem` writing o (checked by `flash_attention`;
     `chip_smoke.py` also calls the float32 kernel on bf16 through here to
-    time it beside the wgmma one)."""
+    time it beside the wgmma one). `scale` None is 1/sqrt(hd)."""
     B, nq, Sq, hd = q.shape
     nkv, Sk = k.shape[1], k.shape[2]
     strides = (ctypes.c_longlong * 12)(*[s for t in (q, k, v, o) for s in _strides(t)])
     dtype_arg = [_CODES[q.dtype]] if stem == "flash_attention" else []
     err = _kernel(stem)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, nq, nkv, Sq, Sk, hd,
-        *dtype_arg, strides, int(bool(causal)), torch.cuda.current_stream().cuda_stream,
+        *dtype_arg, strides, int(bool(causal)), default_scale(hd) if scale is None else scale,
+        torch.cuda.current_stream().cuda_stream,
     )
     if err >= 10000:
         raise RuntimeError(f"flash_attention: {stem}: tensor map encoding failed, "
@@ -109,12 +119,18 @@ def launch(stem: str, q, k, v, o, causal: bool) -> None:
     launches.count(flash_attention, stem)
 
 
+def default_scale(hd: int) -> float:
+    """The reference's softmax scale, 1/sqrt(hd)."""
+    return 1.0 / math.sqrt(hd)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, scale: float | None = None) -> torch.Tensor:
     """``q [B, nq, Sq, hd]``, ``k, v [B, nkv, Sk, hd]`` -> ``[B, nq, Sq, hd]``
-    in q's dtype and memory order; q head h reads kv head h // (nq / nkv).
-    On the card all three are of one dtype (float32 or bfloat16), with hd
-    in `HEAD_DIMS`, laid out as `check_layout` asks."""
+    in q's dtype and memory order; q head h reads kv head h // (nq / nkv);
+    the scores are ``scale * q k^T`` (None: 1/sqrt(hd)). On the card all
+    three are of one dtype (float32 or bfloat16), with hd in `HEAD_DIMS`,
+    laid out as `check_layout` asks."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor) or t.dim() != 4:
             raise ValueError(f"flash_attention: {name} must be a [B, n, S, hd] tensor")
@@ -125,6 +141,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"v {tuple(v.shape)} do not fit [B, nq, Sq, hd], [B, nkv, Sk, hd]")
     if nkv == 0 or nq % nkv:
         raise ValueError(f"flash_attention: {nq} q heads do not split into {nkv} kv heads")
+    if scale is not None and not (math.isfinite(scale) and scale > 0):
+        raise ValueError(f"flash_attention: scale must be a positive number, got {scale}")
     if causal and Sq != Sk:
         raise ValueError(f"flash_attention: causal attention needs Sq == Sk, got {Sq} and "
                          f"{Sk} (the reference's kernel and oracle align the mask differently)")
@@ -136,7 +154,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise TypeError(f"flash_attention: {name} is {t.dtype}, q is {q.dtype}")
     if device.type == "cpu":
         o = torch.empty_like(q)  # q's memory order, as on the card
-        return o.copy_(attention_ref(q, k, v, causal=causal))
+        return o.copy_(attention_ref(q, k, v, causal=causal, scale=scale))
     if device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {device}")
     if q.dtype not in KERNEL_OF:
@@ -147,12 +165,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if device.index is not None and device.index != torch.cuda.current_device():
         # the C entry points launch on the current device's context
         with torch.cuda.device(device):
-            return flash_attention(q, k, v, causal=causal)
+            return flash_attention(q, k, v, causal=causal, scale=scale)
     o = torch.empty_like(q)
     if q.numel() == 0:
         return o
     check_layout(q, k, v, o)
-    launch(KERNEL_OF[q.dtype], q, k, v, o, causal)
+    launch(KERNEL_OF[q.dtype], q, k, v, o, causal, scale)
     return o
 
 

@@ -20,6 +20,9 @@ qwen3-0.6b's shape a scale 1% off.
 """
 from __future__ import annotations
 
+import math
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -37,11 +40,13 @@ FLASH_CASES = (
 )
 #: the reduced qwen3-0.6b's widths (hd 32, at the parity tests' seq 128),
 #: a causal S that is no multiple of the 64-row tiles, and full attention
-#: with Sq != Sk, both ragged
+#: with Sq != Sk, both ragged, in float32 and in bf16 (the wgmma kernel's
+#: TMA zero fill and key mask past Sk, as cross-attention meets them)
 EDGE_CASES = (
     (2, 4, 2, 128, 128, 32, True, "float32"),
     (1, 4, 2, 100, 100, 32, True, "bfloat16"),
     (1, 4, 1, 96, 200, 64, False, "float32"),
+    (1, 8, 2, 130, 161, 128, False, "bfloat16"),
 )
 #: the float32 kernel's own path (the reduced qwen3-0.6b in float32 over a
 #: 13-point grid wave: 26 sequences of 512, hd 32, chip_smoke.py's
@@ -59,6 +64,32 @@ MODEL_CASES = tuple((B, QWEN3_HEADS, QWEN3_KV_HEADS, MAIN_PATH_SEQ, MAIN_PATH_SE
                      True, "bfloat16") for B in MAIN_PATH_BATCHES)
 CASES = FLASH_CASES + EDGE_CASES + F32_CASES + MODEL_CASES
 
+
+class ZooCase(NamedTuple):
+    """One model's attention on its path: the kernel's case, the scale
+    (None: 1/sqrt(hd)) and, where the model pads its heads to the kernel's
+    hd, the columns of q and k and of v that carry values (the rest are
+    zero)."""
+    case: tuple
+    scale: float | None = None
+    widths: tuple[int, int] | None = None
+
+
+#: the LM zoo's attention shapes on their paths (bf16, at the model layout):
+#: deepseek-moe-16b's grid wave (41 points, 82 sequences; 16 heads of 128,
+#: no GQA), and a wave of 8 points (16 sequences) of zamba2-1.2b's shared
+#: block (32 heads of 64), minicpm3-4b's MLA (40 heads, q.k over 64 + 32 =
+#: 96 columns and v over 64, zero-padded to 128, at scale 1/sqrt(96)) and
+#: llama-3.2-vision-90b's cross-attention (64 q heads over 8 kv heads of
+#: 128, 2,048 tokens against 1,601 context tokens, full)
+ZOO_CASES = {
+    "deepseek-moe-16b": ZooCase((82, 16, 16, 2048, 2048, 128, True, "bfloat16")),
+    "zamba2-1.2b": ZooCase((16, 32, 32, 2048, 2048, 64, True, "bfloat16")),
+    "minicpm3-4b": ZooCase((16, 40, 40, 2048, 2048, 128, True, "bfloat16"),
+                           1.0 / math.sqrt(96), (96, 64)),
+    "llama-3.2-vision-90b": ZooCase((16, 64, 8, 2048, 1601, 128, False, "bfloat16")),
+}
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 #: sequences of one plain-version call: the plain version holds the whole
 #: [B, nq, Sq, Sk] float32 score tensor (4.3 GB at 16 qwen3 sequences)
@@ -71,20 +102,26 @@ def case_name(case) -> str:
     return f"B{B}_nq{nq}_nkv{nkv}_{s}_hd{hd}_{'causal' if causal else 'full'}_{dt}"
 
 
-def case_inputs(case, device, seed: int = 0):
+def case_inputs(case, device, seed: int = 0, widths: tuple[int, int] | None = None):
     """Standard-normal (q [B,nq,Sq,hd], k, v [B,nkv,Sk,hd]) in the case's
-    dtype, drawn on `device` from `seed`."""
+    dtype, drawn on `device` from `seed`; with `widths` = (dqk, dv), the
+    columns of q and k past dqk and of v past dv are zero, as a model that
+    pads its heads to hd leaves them."""
     B, nq, nkv, Sq, Sk, hd, _, dt = case
     gen = torch.Generator(device=device).manual_seed(seed)
-    return tuple(torch.randn(shape, generator=gen, device=device).to(_DTYPES[dt])
-                 for shape in ((B, nq, Sq, hd), (B, nkv, Sk, hd), (B, nkv, Sk, hd)))
+    q, k, v = (torch.randn(shape, generator=gen, device=device).to(_DTYPES[dt])
+               for shape in ((B, nq, Sq, hd), (B, nkv, Sk, hd), (B, nkv, Sk, hd)))
+    if widths is not None:
+        for t, w in ((q, widths[0]), (k, widths[0]), (v, widths[1])):
+            t[..., w:] = 0
+    return q, k, v
 
 
-def plain(q, k, v, causal: bool) -> torch.Tensor:
+def plain(q, k, v, causal: bool, scale: float | None = None) -> torch.Tensor:
     """`attention_ref` PLAIN_BATCH sequences at a time (it is independent
     per sequence), so the largest main-path shape fits the card."""
     return torch.cat([attention_ref(q[i:i + PLAIN_BATCH], k[i:i + PLAIN_BATCH],
-                                    v[i:i + PLAIN_BATCH], causal=causal)
+                                    v[i:i + PLAIN_BATCH], causal=causal, scale=scale)
                       for i in range(0, q.shape[0], PLAIN_BATCH)])
 
 

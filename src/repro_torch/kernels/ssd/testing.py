@@ -32,9 +32,12 @@ MAMBA2_HEADS, MAMBA2_P, MAMBA2_N = 64, 64, 128
 #: and the 41-point sparse grid as one wave (82 sequences)
 MAIN_PATH_BATCHES = (2, 16, 82)
 MAIN_PATH_SEQ = 2048
+#: zamba2-1.2b's SSD on its path (a wave of 8 points, 16 sequences): 64
+#: heads of P = 64 in one group, state N = 64
+ZAMBA2_CASE = (16, 64, 1, MAIN_PATH_SEQ, 64, 64, False)
 #: (B, H, G, S, P, N, non-zero initial state): the SSD_CASES shapes of the
-#: JAX package's tests, one of them from a non-zero state, and the main
-#: path's shapes
+#: JAX package's tests, one of them from a non-zero state, the main path's
+#: shapes and zamba2-1.2b's
 CASES = (
     (2, 4, 2, 256, 32, 16, False),
     (1, 8, 1, 128, 64, 32, False),
@@ -42,6 +45,7 @@ CASES = (
     (2, 4, 2, 256, 32, 16, True),
     *((B, MAMBA2_HEADS, 1, MAIN_PATH_SEQ, MAMBA2_P, MAMBA2_N, False)
       for B in MAIN_PATH_BATCHES),
+    ZAMBA2_CASE,
 )
 
 

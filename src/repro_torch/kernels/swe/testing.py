@@ -32,7 +32,7 @@ import torch
 
 from repro_torch.apps.tsunami import L_DOMAIN, initial_state, level_grid
 from repro_torch.convert import swe_state_from_numpy
-from repro_torch.kernels.swe.ref import swe_step_ref
+from repro_torch.kernels.swe.ref import ARRIVAL_THRESH, swe_step_ref, swe_step_ref_into
 
 #: the `_swe_state` cases of the JAX package's tests/test_kernels.py
 SWE_KINDS = ("lake_at_rest", "dam_break", "dry_bed", "moving")
@@ -180,6 +180,41 @@ def strips(C: int, depth: int) -> list[tuple[int, int]]:
     `depth`, as csrc/swe_step.cu cuts it: thread s owns [s T, min(s T + T,
     C)), for s < ceil(C / T)."""
     return [(lo, min(lo + depth, C)) for lo in range(0, C, depth)]
+
+
+def swe_solve_ref_replayed(h, hu, b, *, dt_dx: float, n_steps: int, rows,
+                           h0_rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """`ref.swe_solve_ref` with its plain step and buoy reduction, the same
+    operations in the same order, each step one replay of a CUDA graph
+    captured once (`apps.tsunami._replay`): the eager loop's step costs the
+    host ~40 launches, the replay one. One captured step serves every step,
+    so the new state is copied back into the carried pair (no ping-pong),
+    the step index is a device scalar that the step adds 1 to, and the
+    arrival is written by `torch.where` on it (`masked_fill_` with a tensor
+    value reads it on the host, which a capture forbids); none of these
+    changes a value. On the CPU the same body runs eagerly."""
+    from repro_torch.apps.tsunami import _replay
+
+    N = h.shape[1]
+    rows = torch.as_tensor(rows, device=h.device)
+    h0_buoy = h0_rows.reshape(-1, 1)  # [R, 1]
+    mx = torch.full((len(rows), N), -torch.inf, device=h.device)
+    arr = torch.full((len(rows), N), -1.0, device=h.device)
+    h, hu = h.clone(), hu.clone()
+    h_nxt, hu_nxt = torch.empty_like(h), torch.empty_like(hu)
+    step = torch.zeros((), device=h.device)
+
+    def body():
+        swe_step_ref_into(h, hu, b, dt_dx=dt_dx, out=(h_nxt, hu_nxt))
+        h.copy_(h_nxt)
+        hu.copy_(hu_nxt)
+        eta_b = h.index_select(0, rows) - h0_buoy  # [R, N]
+        torch.maximum(mx, eta_b, out=mx)
+        torch.where((torch.abs(eta_b) > ARRIVAL_THRESH) & (arr < 0), step, arr, out=arr)
+        step.add_(1.0)
+
+    _replay(body, n_steps, [h, hu, mx, arr, step])
+    return mx, arr
 
 
 def solve_case_inputs(case: str, device) -> dict:

@@ -1,5 +1,7 @@
-"""GQA self-attention with qk-norm for train and prefill (counterpart of
-`repro.models.attention`).
+"""Attention for train and prefill (counterpart of `repro.models.attention`):
+GQA self-attention with qk-norm, MLA (multi-head latent attention, whose
+prefill cache holds the latent) and cross-attention against context
+embeddings.
 
 Two paths compute the same function, selected by `cfg.attn_impl`:
 
@@ -14,8 +16,14 @@ Two paths compute the same function, selected by `cfg.attn_impl`:
   ops: scores in float32 over q chunks of `cfg.q_chunk` rows, with
   `cfg.causal_skip` cutting each chunk's KV to its causal prefix.
 
-The decode step, cross-attention and MLA raise `NotImplementedError`
-(ROADMAP queue 1, item 13).
+MLA's q.k width (nope + rope, 96 in minicpm3-4b) and v width (64) are no
+head dim the kernels are built for: its kernel path zero-pads q and k and
+v to the next one (128) and passes the scale 1/sqrt(nope + rope). Zero
+columns add exact zeros to every product, so that is the same function.
+Cross-attention runs the kernel non-causal with Sq != Sk.
+
+The decode steps (`gqa_decode`, MLA's absorbed decode) raise
+`NotImplementedError` (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ import math
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
 from repro_torch.models.layers import apply_rope, rmsnorm_scaleless
 from repro_torch.models.params import ParamDecl
 from repro_torch.types import ModelConfig
@@ -32,10 +41,19 @@ _NOT_PORTED = "is not ported yet (ROADMAP queue 1, item 13)"
 
 
 def decl_attention(cfg: ModelConfig, cross: bool = False) -> dict:
-    if cfg.attn_type == "mla" and not cross:
-        raise NotImplementedError(f"MLA attention {_NOT_PORTED}")
     d, hd = cfg.d_model, cfg.head_dim
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    if cfg.attn_type == "mla" and not cross:
+        qk_head = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        return {
+            "wq_a": ParamDecl((d, cfg.q_lora_rank)),
+            "q_a_norm": ParamDecl((cfg.q_lora_rank,), init="ones", dtype="float32"),
+            "wq_b": ParamDecl((cfg.q_lora_rank, nq, qk_head)),
+            "wkv_a": ParamDecl((d, cfg.kv_lora_rank + cfg.qk_rope_head_dim)),
+            "kv_a_norm": ParamDecl((cfg.kv_lora_rank,), init="ones", dtype="float32"),
+            "wkv_b": ParamDecl((cfg.kv_lora_rank, nq, cfg.qk_nope_head_dim + cfg.v_head_dim)),
+            "wo": ParamDecl((nq, cfg.v_head_dim, d), fan_in_axis=-3),
+        }
     decls = {
         "wq": ParamDecl((d, nq, hd)),
         "wk": ParamDecl((d, nkv, hd)),
@@ -128,28 +146,108 @@ def gqa_full(
     q, k, v = _project_qkv(cfg, params, x, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    if cfg.attn_impl == "kernel":
-        # [B, S, n, hd] read through strides; o comes back in q's memory
-        # order, so `out` is a contiguous [B, S, nq, hd] for the einsum below
-        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                              causal=True).transpose(1, 2)
-    else:
-        out = _grouped_attention(
-            q, k, v, scale=1.0 / math.sqrt(cfg.head_dim), causal=True, q_chunk=cfg.q_chunk,
-            causal_skip=cfg.causal_skip,
-        )
+    out = _attend(cfg, q, k, v, causal=True)
     out = torch.einsum("bsnh,nhd->bsd", out, params["wo"])
     cache = None
     if want_cache:
-        pad = (cache_len or x.shape[1]) - x.shape[1]
-        cache = {"k": torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)),
-                 "v": torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))}
+        cache = {"k": _pad_seq(k, cache_len), "v": _pad_seq(v, cache_len)}
     return out, cache
+
+
+def _attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            causal: bool, scale: float | None = None) -> torch.Tensor:
+    """``[B, Sq, nq, dqk]`` q against ``[B, Sk, nkv, dqk]`` k and
+    ``[B, Sk, nkv, dv]`` v -> ``[B, Sq, nq, dv]`` at `scale` (None:
+    1/sqrt(dqk)), on the path `cfg.attn_impl` names. The kernel path hands
+    the flash kernel the ``[B, n, S, hd]`` views of these tensors (read
+    through strides; o comes back in q's memory order, a contiguous
+    ``[B, Sq, nq, hd]``); where dqk and dv differ, or are no head dim the
+    kernels are built for, q, k and v are zero-padded to the next one, and
+    o's first dv columns kept."""
+    dqk, dv = q.shape[-1], v.shape[-1]
+    if cfg.attn_impl != "kernel":
+        return _grouped_attention(q, k, v, scale=1.0 / math.sqrt(dqk) if scale is None else scale,
+                                  causal=causal, q_chunk=cfg.q_chunk,
+                                  causal_skip=cfg.causal_skip)
+    if dqk != dv or dqk not in HEAD_DIMS:
+        hd = min((h for h in HEAD_DIMS if h >= max(dqk, dv)), default=None)
+        if hd is None:
+            raise ValueError(f"attention: head dims {dqk} and {dv} exceed the kernels' "
+                             f"largest, {HEAD_DIMS[-1]}")
+        q, k, v = (torch.nn.functional.pad(t, (0, hd - t.shape[-1])) for t in (q, k, v))
+        scale = 1.0 / math.sqrt(dqk) if scale is None else scale
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                          causal=causal, scale=scale).transpose(1, 2)
+    return out[..., :dv]
+
+
+def _pad_seq(t: torch.Tensor, cache_len: int | None) -> torch.Tensor:
+    """``[B, S, ...]`` zero-padded to ``cache_len`` rows along S."""
+    pad = (cache_len or t.shape[1]) - t.shape[1]
+    return torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
 
 
 def gqa_decode(cfg: ModelConfig, params: dict, x: torch.Tensor, cache: dict, pos, ctx=None):
     raise NotImplementedError(f"the one-token GQA decode step {_NOT_PORTED}")
 
 
-def cross_attention(cfg: ModelConfig, params: dict, x: torch.Tensor, *, ctx_kv=None, ctx=None):
-    raise NotImplementedError(f"cross-attention {_NOT_PORTED}")
+def cross_attention(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
+                    ctx_kv: dict | None = None, ctx: torch.Tensor | None = None):
+    """Cross-attention of x ``[B, S, d]`` against context embeddings ``ctx``
+    ``[B, Sk, d]`` (k and v projected here) or a precomputed ``ctx_kv``
+    ``{"k", "v"}`` of ``[B, Sk, nkv, hd]``: full (non-causal) attention, no
+    RoPE, no qk-norm. Returns (out, ctx_kv)."""
+    q = torch.einsum("bsd,dnh->bsnh", x, params["wq"])
+    if ctx_kv is None:
+        if ctx is None:
+            raise ValueError("cross_attention needs the context embeddings or ctx_kv")
+        ctx_kv = {"k": torch.einsum("bsd,dnh->bsnh", ctx, params["wk"]),
+                  "v": torch.einsum("bsd,dnh->bsnh", ctx, params["wv"])}
+    out = _attend(cfg, q, ctx_kv["k"], ctx_kv["v"], causal=False)
+    out = torch.einsum("bsnh,nhd->bsd", out, params["wo"])
+    return out, ctx_kv
+
+
+def _mla_q(cfg: ModelConfig, params: dict, x: torch.Tensor, positions: torch.Tensor):
+    cq = rmsnorm_scaleless(x @ params["wq_a"], params["q_a_norm"], cfg.norm_eps)
+    q = torch.einsum("bsl,lnh->bsnh", cq, params["wq_b"])
+    q_nope, q_pe = torch.split(q, [cfg.qk_nope_head_dim, cfg.qk_rope_head_dim], dim=-1)
+    return q_nope, apply_rope(q_pe, positions, cfg.rope_theta)
+
+
+def _mla_latent(cfg: ModelConfig, params: dict, x: torch.Tensor, positions: torch.Tensor):
+    c_kv, k_pe = torch.split(x @ params["wkv_a"], [cfg.kv_lora_rank, cfg.qk_rope_head_dim],
+                             dim=-1)
+    c_kv = rmsnorm_scaleless(c_kv, params["kv_a_norm"], cfg.norm_eps)
+    k_pe = apply_rope(k_pe[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_pe
+
+
+def mla_full(
+    cfg: ModelConfig,
+    params: dict,
+    x: torch.Tensor,
+    *,
+    positions: torch.Tensor,
+    want_cache: bool = False,
+    cache_len: int | None = None,
+):
+    """Naive (uncompressed) MLA for train/prefill: k and v expanded from the
+    latent per head, k's rope part shared by the heads; scale
+    1/sqrt(nope + rope). Returns (out, cache | None); the cache holds the
+    latent, ``{"c_kv": [B, cache_len or S, kv_lora], "k_pe": [B, cache_len
+    or S, rope]}``, zero-padded past S."""
+    q_nope, q_pe = _mla_q(cfg, params, x, positions)
+    c_kv, k_pe = _mla_latent(cfg, params, x, positions)
+    kv = torch.einsum("bsl,lnh->bsnh", c_kv, params["wkv_b"])
+    k_nope, v = torch.split(kv, [cfg.qk_nope_head_dim, cfg.v_head_dim], dim=-1)
+    k = torch.cat([k_nope, k_pe[:, :, None, :].expand(*k_nope.shape[:3], cfg.qk_rope_head_dim)],
+                  dim=-1)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    scale = 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    out = _attend(cfg, q, k, v, scale=scale, causal=True)
+    out = torch.einsum("bsnv,nvd->bsd", out, params["wo"])
+    cache = None
+    if want_cache:
+        cache = {"c_kv": _pad_seq(c_kv, cache_len), "k_pe": _pad_seq(k_pe, cache_len)}
+    return out, cache

@@ -35,12 +35,21 @@ def _token_nll(cfg: ModelConfig, logits: torch.Tensor, targets: torch.Tensor) ->
 
 
 def eval_nll(cfg: ModelConfig, params, batch) -> torch.Tensor:
-    """Per-sequence mean NLL [B]."""
-    logits, _, _ = transformer.forward(cfg, params, batch["tokens"], mode="train")
+    """Per-sequence mean NLL [B] (the vlm family reads `batch["ctx_embed"]`)."""
+    logits, _, _ = transformer.forward(cfg, params, batch["tokens"],
+                                       ctx_embed=batch.get("ctx_embed"), mode="train")
     return _token_nll(cfg, logits, batch["targets"]).mean(dim=-1)
 
 
 def make_synth_batch(cfg: ModelConfig, B: int, S: int, gen: torch.Generator) -> dict:
-    """Small concrete batch: random tokens, targets = tokens shifted by one."""
+    """Small concrete batch: random tokens, targets = tokens shifted by one;
+    for the vlm family also ``ctx_embed [B, n_ctx_tokens, d_ctx]``, standard
+    normals in the activation dtype times 0.02 (the stubbed frontend's
+    patch embeddings)."""
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=gen.device)
-    return {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
+    batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
+    if cfg.family == "vlm":
+        shape = (B, cfg.n_ctx_tokens, cfg.d_ctx or cfg.d_model)
+        batch["ctx_embed"] = torch.randn(shape, generator=gen, device=gen.device).to(
+            dtype_of(cfg.act_dtype)) * 0.02
+    return batch

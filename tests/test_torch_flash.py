@@ -261,3 +261,111 @@ def test_3xtf32_keeps_the_float32_bound_where_one_tf32_pass_misses_it():
     print(f"{T.case_name(case)}: 3xTF32 {err3:.3g}, one TF32 pass {err1:.3g}")
     assert err3 <= T.ATOL["float32"] / 4
     assert err1 > T.ATOL["float32"]
+
+
+# -- the softmax scale (MLA reaches the kernels with 1/sqrt(96) at hd 128) --
+
+
+@pytest.mark.parametrize("case", [T.FLASH_CASES[0], T.EDGE_CASES[3]], ids=T.case_name)
+def test_plain_version_at_another_scale_matches_the_jax_oracle(case):
+    """`attention_ref(scale=s)` is the JAX oracle (fixed at 1/sqrt(hd)) on
+    q scaled by s * sqrt(hd); without `scale` it is unchanged."""
+    causal, dt = case[6], case[7]
+    (jq, jk, jv), (q, k, v) = _inputs(case, seed=11)
+    s = 0.37 / np.sqrt(case[5])
+    got = attention_ref(q, k, v, causal=causal, scale=s)
+    want = jax_attention_ref((jq.astype(jnp.float32) * (s * np.sqrt(case[5]))).astype(jq.dtype),
+                             jk, jv, causal=causal)
+    err = _err(got, want.astype(jnp.float32))
+    print(f"{T.case_name(case)} at scale {s:.4g}: vs oracle {err:.3g}")
+    assert err <= T.ATOL[dt]
+    torch.testing.assert_close(attention_ref(q, k, v, causal=causal, scale=None),
+                               attention_ref(q, k, v, causal=causal), rtol=0, atol=0)
+
+
+def test_wrapper_passes_the_scale_and_checks_it():
+    q, k, v = T.case_inputs((1, 4, 2, 64, 64, 32, True, "float32"), "cpu", seed=3)
+    for s in (0.1, 0.5):
+        torch.testing.assert_close(flash_attention(q, k, v, scale=s),
+                                   attention_ref(q, k, v, scale=s), rtol=0, atol=0)
+    for bad in (0.0, -0.2, float("nan"), float("inf")):
+        with pytest.raises(ValueError, match="scale"):
+            flash_attention(q, k, v, scale=bad)
+
+
+class _FakeLib:
+    """A kernel library whose entry points record their arguments."""
+
+    def __init__(self):
+        self.calls = []
+        lib = self
+
+        class Entry:
+            def __call__(self, *args):
+                lib.calls.append(args)
+                return 0
+
+        self.flash_attention_fwd = Entry()
+        self.flash_attention_wgmma_fwd = Entry()
+
+
+@pytest.mark.parametrize("stem", ["flash_attention", "flash_attention_wgmma"])
+def test_c_entry_points_take_the_scale_as_a_double(monkeypatch, stem):
+    """Both C entry points are declared with a double `scale` right before
+    the stream, and `launch` passes 1/sqrt(hd) unless told otherwise."""
+    import ctypes
+    import types
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops
+
+    fake = _FakeLib()
+    monkeypatch.setattr(ops, "_fns", {})
+    monkeypatch.setattr(_build, "load", lambda name: fake)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    fn = ops._kernel(stem)
+    assert fn.argtypes[-2:] == [ctypes.c_double, ctypes.c_void_p]
+    assert fn.argtypes[-3] == ctypes.c_int  # causal
+    q = torch.zeros(1, 2, 16, 128, dtype=torch.bfloat16)
+    ops.launch(stem, q, q, q, torch.empty_like(q), True)
+    ops.launch(stem, q, q, q, torch.empty_like(q), True, 1 / np.sqrt(96))
+    assert [c[-2] for c in fake.calls] == [1 / np.sqrt(128), 1 / np.sqrt(96)]
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_default_scale_gives_the_kernels_their_old_constant(hd):
+    """The kernels fold the scale into log2(e) * scale in float32; at every
+    head dim they are built for, 1/sqrt(hd) gives the bits of the constant
+    log2(e) / sqrt(hd) they fixed before the scale was an argument, so a
+    default call computes what it computed, bit for bit."""
+    from repro_torch.kernels.flash_attention.ops import HEAD_DIMS, default_scale
+
+    assert hd in HEAD_DIMS
+    log2e = 1.4426950408889634
+    assert np.float32(log2e * default_scale(hd)) == np.float32(log2e / np.sqrt(hd))
+
+
+@pytest.mark.parametrize("arch", list(T.ZOO_CASES))
+def test_zoo_cases_and_their_padding(arch):
+    """The LM zoo's cases at one sequence and 128 tokens: the padded
+    columns are zero, and the padded MLA case is the same function as MLA at
+    its own widths (96 and 64 columns) at scale 1/sqrt(96); the check sees a
+    kernel that ignores the scale (1/sqrt(128))."""
+    zoo = T.ZOO_CASES[arch]
+    B, nq, nkv, Sq, Sk, hd, causal, _ = zoo.case
+    case = (1, nq, nkv, 128, 128 if causal else 100, hd, causal, "float32")
+    q, k, v = T.case_inputs(case, "cpu", seed=2, widths=zoo.widths)
+    got = T.plain(q, k, v, causal, zoo.scale)
+    if zoo.widths is None:
+        torch.testing.assert_close(got, attention_ref(q, k, v, causal=causal), rtol=0, atol=0)
+        return
+    dqk, dv = zoo.widths
+    assert not q[..., dqk:].any() and not k[..., dqk:].any() and not v[..., dv:].any()
+    assert zoo.scale == 1 / np.sqrt(dqk)
+    native = attention_ref(q[..., :dqk], k[..., :dqk], v[..., :dv].contiguous(), causal=causal,
+                           scale=zoo.scale)
+    torch.testing.assert_close(got[..., :dv], native, rtol=1e-6, atol=1e-6)
+    assert not got[..., dv:].any()
+    with pytest.raises(AssertionError, match="max abs error"):
+        T.assert_close(T.plain(q, k, v, causal), got, "scale")

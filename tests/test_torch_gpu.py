@@ -35,6 +35,7 @@ runs on a GPU machine that has no JAX:
 
     PYTHONPATH=src python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
+import copy
 import threading
 import time
 
@@ -350,6 +351,107 @@ def test_reduced_qwen3_bf16_forward_runs_the_wgmma_kernel():
         **before, "flash_attention_wgmma": before["flash_attention_wgmma"] + cfg.n_layers}
     want = nll(cfg.replace(attn_impl="plain"))
     assert abs(got / want - 1.0) <= 1e-3, (got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["solve_dam_break", "wave_2048x16"])
+def test_replayed_plain_solve_equals_the_eager_one_on_cuda(case):
+    """chip_smoke.py's width check runs the plain solve one replayed CUDA
+    graph a step (`testing.swe_solve_ref_replayed`): bit for bit the eager
+    `swe_solve_ref`, and both the kernel's wave."""
+    from repro_torch.kernels.swe.testing import swe_solve_ref_replayed
+
+    dev = cuda_or_skip()
+    kw = solve_case_inputs(case, dev)
+    h, hu, b = kw.pop("h"), kw.pop("hu"), kw.pop("b")
+    kw["n_steps"] = min(kw["n_steps"], 400)
+    got = swe_solve_ref_replayed(h, hu, b, **kw)
+    assert_solve_equal(got, swe_solve_ref(h, hu, b, **kw), f"replayed {case}")
+    assert_solve_equal(swe_solve(h, hu, b, **kw), got, f"kernel {case}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", list(flash_testing.ZOO_CASES))
+def test_flash_kernel_matches_plain_at_the_zoo_shapes_on_cuda(arch):
+    """The LM zoo's attention at two sequences, at the model layout: MLA's
+    zero-padded heads at scale 1/sqrt(96), the cross-attention's full
+    2,048 x 1,601 (a ragged Sk: TMA's zero fill and the key mask), and
+    deepseek's and zamba2's causal shapes."""
+    dev = cuda_or_skip()
+    zoo = flash_testing.ZOO_CASES[arch]
+    case = (2, *zoo.case[1:])
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in
+               flash_testing.case_inputs(case, dev, seed=6, widths=zoo.widths))
+    before = flash_attention.launches_by_kernel["flash_attention_wgmma"]
+    got = flash_attention(q, k, v, causal=case[6], scale=zoo.scale)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_kernel["flash_attention_wgmma"] == before + 1
+    flash_testing.assert_close(got, flash_testing.plain(q, k, v, case[6], zoo.scale),
+                               f"{arch} {flash_testing.case_name(case)}")
+    if zoo.widths is not None:  # the padded columns of o stay zero
+        assert not got[..., zoo.widths[1]:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [flash_testing.FLASH_CASES[0], flash_testing.FLASH_CASES[4],
+                                  flash_testing.EDGE_CASES[3]], ids=flash_testing.case_name)
+def test_flash_kernels_take_the_scale_on_cuda(case):
+    """Both kernels at a scale other than 1/sqrt(hd) give the plain
+    version's result at that scale; the default scale and 1/sqrt(hd)
+    passed explicitly give the same bits."""
+    dev = cuda_or_skip()
+    q, k, v = flash_testing.case_inputs(case, dev, seed=7)
+    causal, hd = case[6], case[5]
+    got = flash_attention(q, k, v, causal=causal, scale=0.6 / hd ** 0.5)
+    flash_testing.assert_close(got, flash_testing.plain(q, k, v, causal, 0.6 / hd ** 0.5),
+                               flash_testing.case_name(case))
+    with pytest.raises(AssertionError, match="max abs error"):
+        flash_testing.assert_close(got, flash_testing.plain(q, k, v, causal), "default")
+    assert torch.equal(flash_attention(q, k, v, causal=causal),
+                       flash_attention(q, k, v, causal=causal, scale=1 / hd ** 0.5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "kimi-k2-1t-a32b", "zamba2-1.2b",
+                                  "minicpm3-4b", "llama-3.2-vision-90b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_zoo_forward_kernel_path_matches_plain_path(arch, dtype):
+    """The reduced MoE, hybrid, MLA and vlm configs on the card, at a
+    sequence that is no multiple of the kernels' tiles: the kernel path
+    launches exactly `transformer.kernel_launches(cfg)` (each attention one
+    flash launch, MLA's padded to hd 32, the cross-attention's non-causal
+    with Sq != Sk; zamba2 also one SSD scan per ssm unit) and no other
+    kernel, and its mean NLL is near the plain path's: within 1e-5 in
+    float32 (measured on the CPU <= 1.5e-7), 3e-3 in bf16, where the kernel
+    keeps the softmax in float32 and the plain path rounds it to bf16 (on
+    the CPU, whose kernel path is the float32 plain version: up to 9.4e-4,
+    kimi-k2; these random reduced models are poorly conditioned, see
+    tests/_torch_zoo.py). In float32 a wave of 3 points equals the 3
+    one-point forwards: each point is routed on its own."""
+    from repro_torch.apps.lm_model import LMUQModel
+
+    dev = cuda_or_skip()
+    cfg = get_config(arch, reduced=True).replace(param_dtype=dtype, act_dtype=dtype)
+    m = LMUQModel(arch, reduced=True, batch=2, seq=200, device=dev)
+    m.cfg = cfg
+    m.params = model.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    if "ctx_embed" in m.batch:
+        m.batch["ctx_embed"] = m.batch["ctx_embed"].to(getattr(torch, dtype))
+    thetas = np.array([[1.0, 1.0], [0.9, 1.1], [1.2, 0.8]])
+    want = dict(flash_attention.launches_by_kernel, ssd=ssd.launches)
+    for name, n in transformer.kernel_launches(cfg).items():
+        want[name] += n
+    got = m.evaluate_batch(thetas)[:, 0]
+    torch.cuda.synchronize()
+    assert dict(flash_attention.launches_by_kernel, ssd=ssd.launches) == want
+    single = np.array([m.evaluate_batch(t[None])[0, 0] for t in thetas])
+    plain = copy.copy(m)
+    plain.cfg = cfg.replace(attn_impl="plain")
+    ref = plain.evaluate_batch(thetas)[:, 0]
+    bound = 1e-5 if dtype == "float32" else 3e-3
+    assert np.isfinite(got).all() and np.abs(got / ref - 1).max() <= bound, (got, ref)
+    if dtype == "float32":  # bf16 GEMMs of another row count may block differently
+        np.testing.assert_allclose(got, single, rtol=1e-6)
 
 
 @pytest.mark.gpu

@@ -149,10 +149,13 @@ def test_forward_raises_for_what_is_not_ported(carried):
     cfg = get_config(ARCH, True)
     with pytest.raises(NotImplementedError, match="queue 1, item 13"):
         transformer.forward(cfg, params, torch.tensor(batch["tokens"]), mode="decode")
-    # the moe and hybrid groups, MLA and the GQA decode step are not ported
-    for arch in ("deepseek-moe-16b", "zamba2-1.2b", "minicpm3-4b"):
+    # every family declares and runs train/prefill now; the decode steps
+    # (GQA's and MLA's absorbed one) are not ported
+    for arch in ("deepseek-moe-16b", "zamba2-1.2b", "minicpm3-4b", "llama-3.2-vision-90b"):
+        rcfg = get_config(arch, True)
+        assert model.n_params(rcfg) > 0
         with pytest.raises(NotImplementedError, match="queue 1, item 13"):
-            model.n_params(get_config(arch, True))
+            transformer.forward(rcfg, {}, torch.zeros(1, 1, dtype=torch.long), mode="decode")
     with pytest.raises(NotImplementedError, match="queue 1, item 13"):
         attention.gqa_decode(get_config("qwen3-0.6b", True), {}, torch.zeros(1, 1, 128), {}, 0)
 

@@ -391,3 +391,22 @@ def test_cluster_on_cpu_takes_the_plain_version(monkeypatch):
     want = swe_solve(h, hu, b, **kw)
     for cluster in (1, 2, 16, 32):
         assert_solve_equal(swe_solve(h, hu, b, **kw, cluster=cluster), want, f"{cluster}")
+
+
+@pytest.mark.parametrize("case", ["solve_dam_break", "solve_dry_bed", "wave_512x13"])
+def test_replayed_plain_loop_equals_the_plain_solve(case):
+    """`testing.swe_solve_ref_replayed` (chip_smoke.py's width check: one
+    replayed graph a step on the card, the same body eagerly here) is
+    `swe_solve_ref`, bit for bit, NaN matching NaN."""
+    from repro_torch.kernels.swe import swe_solve_ref
+    from repro_torch.kernels.swe.testing import swe_solve_ref_replayed
+
+    kw = solve_case_inputs(case, "cpu")
+    h, hu, b = kw.pop("h"), kw.pop("hu"), kw.pop("b")
+    if case.startswith("wave_"):
+        kw["n_steps"] = 200
+    before = (h.clone(), hu.clone())
+    got = swe_solve_ref_replayed(h, hu, b, **kw)
+    assert_solve_equal(got, swe_solve_ref(h, hu, b, **kw), case)
+    assert torch.equal(h, before[0]) and torch.equal(hu, before[1])  # inputs untouched
+    assert (got[1] >= 0).any()  # some buoy saw the wave arrive
