@@ -65,6 +65,15 @@ user calls:
   tokens against 1,601 context tokens) and kimi-k2-1t-a32b cut to 2 layers
   (one MoE of 384 experts): one wave on the kernel path, exact launches,
   against the plain path, then under the profiler;
+* after each of those LMs' waves, its serving steps (`models/model.py::
+  prefill_step`, `decode_step`): a prefill of 2 × 2,016 tokens on the
+  kernels (exactly one forward's launches), then 32 decode steps of plain
+  PyTorch (no launch), timed, beside their bytes bound and busy share;
+  the logits held to the full forward at the same positions, each unit of
+  the stack teacher-forced (`UnitTap`), and layer 0's decode-written cache
+  rows to a prefill's; the same in float32 for six families
+  (`decode_f32_*`), and qwen3-0.6b's step at the grid wave's 82 sequences
+  (`dense_lm_serving_batch`, 19.3 GB of KV cache);
 * the RMSNorm kernel through its own entry point at qwen3-0.6b's norm
   shapes: as in the JAX package, no model calls it;
 * the float32 flash-attention kernel (mma.sync in 3xTF32) on its own path: the
@@ -3211,20 +3220,479 @@ def phase_flash_f32_path(torch) -> dict:
     return {"launches": launches}
 
 
+#: the serving steps after each LM phase's waves: a prefill of LM_BATCH
+#: prompts of LM_SEQ - DECODE_STEPS tokens at cache_len LM_SEQ, then
+#: DECODE_STEPS teacher-forced decode steps on the next tokens, timed after
+#: DECODE_WARMUP steps (and DECODE_PROFILED more under the profiler) on a
+#: copy of the cache
+DECODE_STEPS, DECODE_WARMUP, DECODE_PROFILED = 32, 2, 2
+#: kimi-k2's full forward at no-drop capacity (384 experts, each of its
+#: [E, tokens, d] slots kept) does not fit beside its 40 GB of weights at
+#: 2,048 tokens: its prompt is cut to 224 tokens (256 with the steps)
+DECODE_PROMPT = {"kimi-k2-1t-a32b": 224}
+#: bound on each decode step's logits against the full forward's at the same
+#: position, relative to the largest logit: the JAX package's 2e-2
+#: (tests/test_smoke_archs.py:58) in bf16, DECODE_F32_RTOL in float32, and
+#: at least twice the full forward's own spread at those positions. The
+#: spread is the larger of two: the two sequences together against one at a
+#: time (0 on an H100 for most of the zoo: the GEMMs give each row the same
+#: sums at B = 1 and 2), and the kernel path's forward against the plain
+#: path's (the same function, rounded elsewhere). The random forwards of
+#: the configs without qk-norm are chaotic in bf16 and in float32 alike:
+#: the last rounding bit of one layer moves a token's logits by up to 100%
+#: of the largest 40 layers later (PERF.md §6). So the sharp check
+#: of the decode logic at full width is `UnitTap`'s, a layer at a time
+DECODE_RTOL = 2e-2
+DECODE_F32_RTOL = 1e-4
+#: bound on each unit's output in a teacher-forced decode step (`UnitTap`)
+#: against the full forward's at the same position, relative to the unit's
+#: largest output. On an H100 (700 W) the largest were 1.64e-2 in
+#: bf16 (kimi-k2's MoE layer; 4.8e-3-1.3e-2 elsewhere) and 1.03e-4 in
+#: float32 (llama-3.2-vision's first layer, whose 28,672-wide MLP sums in
+#: float32 over 2 rows and over 4,096 rows differ; <= 4.7e-5 elsewhere):
+#: 2^-5 (4 bf16 ulps) and 1e-3 are 1.9x and 9.7x those. A rope position one
+#: off moves a unit by ~0.4 of its largest output
+UNIT_RTOL = {"bfloat16": 2.0 ** -5, "float32": 1e-3}
+#: the float32 serving runs: (arch, layers kept at full width or None for
+#: all). deepseek-moe-16b's 28 layers are 65 GB in float32: 4 (one dense,
+#: three MoE) keep its widths; llama-3.2-vision-90b as in ZOO_PATHS (42.7
+#: GB in float32); kimi-k2's one MoE layer alone is 68 GB in float32, and
+#: deepseek's MoE layers run the same code
+F32_DECODE_PATHS = ((DENSE_ARCH, None), (SSM_ARCH, None), (ZOO_SSM_ARCH, None),
+                    ("minicpm3-4b", None), ("llama-3.2-vision-90b", 10), (MOE_ARCH, 4))
+#: layer 0's cache rows that decode wrote against a prefill's: K and V after
+#: rope, MLA's latent and k_pe, the SSM conv window and the cross caches
+#: within one bf16 ulp of the largest value (two float32 sums that differ in
+#: their last bits can round to neighbouring bf16 values); the SSM state,
+#: float32, summed chunk by chunk in the prefill and step by step in decode,
+#: within SSM_STATE_RTOL
+BF16_ULP = 2.0 ** -7
+SSM_STATE_RTOL = 1e-4
+#: qwen3-0.6b's serving batch: the grid wave's 82 sequences (41 points x 2),
+#: its peak memory under SERVING_PEAK_CACHES x its KV cache (2.21 on an H100
+#: at 700 W: the prefill's per-layer caches, their stacked copy, 1.2 GB of
+#: weights)
+SERVING_BATCH = 82
+SERVING_PEAK_CACHES = 2.5
+
+
+def _rel(torch, got, want) -> float:
+    """Largest error over the largest value."""
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def _no_drop(cfg):
+    """`cfg` with every MoE pair kept (capacity_factor = n_experts / top_k):
+    a decode step of B <= 8 tokens never drops a pair (the capacity floor of
+    8 slots), so the prefill and the full forward it is held to must not."""
+    return cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k) if cfg.n_experts else cfg
+
+
+def _logits_from(cfg, params, tokens, ctx_embed, start: int):
+    """The full forward's logits at positions start.. (float32)."""
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import lm_head
+
+    hidden, _, _ = transformer.forward(cfg, params, tokens, ctx_embed=ctx_embed, skip_head=True)
+    return lm_head(params["embed"], hidden[:, start:]).float()
+
+
+def _leaves(tree) -> dict:
+    """The tensors of a cache tree by path ("/0/attn/k", ...)."""
+    from repro_torch.models.params import walk
+
+    out = {}
+    walk(tree, lambda t, path: out.setdefault(path, t))
+    return out
+
+
+def _clone(tree):
+    from repro_torch.models.params import walk
+
+    return walk(tree, lambda t, _p: t.clone())
+
+
+def decode_step_bytes(torch, cfg, params, cache, B: int, pos: int, experts=None) -> dict:
+    """The bytes one decode step at `pos` must move: every weight it reads
+    (the embedding table only through the head when it is tied, B rows of it
+    otherwise; no vlm context projection: the cross caches hold its
+    product) and the valid cache, rows 0..pos of each attention cache, the
+    cross caches whole, the SSM windows and states read and written.
+    `experts` (a MoE's expert ids of each layer of one step) also gives the
+    bytes with only the routed experts' weights read."""
+    leaves = _leaves(params)
+    weights = sum(t.numel() * t.element_size() for path, t in leaves.items()
+                  if path not in ("/ctx_proj", "/embed/embedding"))
+    table = params["embed"]["embedding"]
+    weights += (table.numel() * table.element_size() if "head" not in params["embed"]
+                else B * table.shape[1] * table.element_size())
+    cache_bytes = 0
+    for path, t in _leaves(cache).items():
+        n = t.numel() * t.element_size()
+        if "/ssm/" in path:
+            cache_bytes += 2 * n
+        elif "/cross/" in path:
+            cache_bytes += n
+        else:  # the rows axis follows [n, (p-1,) B]
+            cache_bytes += n * (pos + 1) // t.shape[3 if "/self/" in path else 2]
+    out = {"weights": weights, "cache": cache_bytes, "total": weights + cache_bytes,
+           "bound_ms": (weights + cache_bytes) / HBM_BYTES_PER_S * 1e3}
+    if experts:
+        per_expert = sum(t[0, 0].numel() * t.element_size() for path, t in leaves.items()
+                         if path.endswith(("/moe/w_gate", "/moe/w_up", "/moe/w_down")))
+        unused = sum(cfg.n_experts - len(torch.unique(idx)) for idx in experts)
+        routed = weights - unused * per_expert
+        out.update(weights_routed=routed,
+                   bound_ms_routed=(routed + cache_bytes) / HBM_BYTES_PER_S * 1e3)
+    return out
+
+
+def _layer0_rows(torch, got, want, start: int, stop: int) -> dict:
+    """Layer 0's cache leaves that decode wrote (`got`, rows start..stop-1
+    of the attention caches; the SSM window and state; the cross caches)
+    against a prefill of all stop tokens (`want`): the largest error over the
+    largest value of each, and the bound it is held to."""
+    wanted = _leaves(want[0])  # group 0
+    out = {}
+    for path, t in _leaves(got[0]).items():
+        t, w = t[0], wanted[path][0]  # unit 0
+        if "/self/" in path:  # a vlm unit's first self-attention
+            t, w = t[0], w[0]
+        if "/ssm/" not in path and "/cross/" not in path:
+            t, w = t[:, start:stop], w[:, start:stop]
+        bound = SSM_STATE_RTOL if path.endswith("/state") else BF16_ULP
+        out[path.strip("/")] = {"rel_err": _rel(torch, t, w), "bound": bound}
+    return out
+
+
+def _prefill_and_decode(torch, cfg, params, tokens, ctx_embed, prompt: int, phase: str,
+                        keep_prefill: bool = False) -> dict:
+    """Prefill `prompt` tokens of each sequence on the kernel path, then
+    DECODE_STEPS teacher-forced decode steps, each timed (host clock around
+    a synchronised step; DECODE_WARMUP steps first, and DECODE_PROFILED
+    under the profiler, on a copy of the cache; `keep_prefill` keeps
+    another copy, as the prefill left it). Launch counts start at 0 right
+    before the prefill; every decode step must launch no kernel."""
+    from repro_torch.models import model as M
+
+    total = prompt + DECODE_STEPS
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, cache = M.prefill_step(cfg, params, tokens[:, :prompt], ctx_embed=ctx_embed,
+                                 cache_len=total)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = read_launches()
+    check_launches(prefill_launches, cfg, 1, f"{phase}'s prefill")
+    warm = _clone(cache)
+    kept = _clone(cache) if keep_prefill else None
+    for j in range(DECODE_WARMUP):
+        M.decode_step(cfg, params, warm, tokens[:, prompt + j:prompt + j + 1], prompt + j)
+    pin = PinnedRouting()
+
+    def profiled():
+        with pin.recording():
+            for j in range(DECODE_WARMUP, DECODE_WARMUP + DECODE_PROFILED):
+                M.decode_step(cfg, params, warm, tokens[:, prompt + j:prompt + j + 1], prompt + j)
+
+    busy = _device_busy(torch, profiled, f"{phase}'s decode steps")
+    del warm
+    logits, step_s = [], []
+    for j in range(DECODE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step, cache = M.decode_step(cfg, params, cache, tokens[:, prompt + j:prompt + j + 1],
+                                    prompt + j)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        logits.append(step.float())
+    counts = read_launches()
+    if counts != prefill_launches:
+        raise AssertionError(f"{phase}: the decode steps launched kernels: {prefill_launches} "
+                             f"after the prefill, {counts} after the steps")
+    peak = torch.cuda.max_memory_allocated()
+    B = tokens.shape[0]
+    step_ms = statistics.median(step_s) * 1e3
+    experts = pin.choices[:cfg.n_layers - cfg.first_k_dense] if cfg.n_experts else None
+    bounds = [decode_step_bytes(torch, cfg, params, cache, B, prompt + j, experts)
+              for j in range(DECODE_STEPS)]
+    bound = {k: statistics.fmean(b[k] for b in bounds) for k in bounds[0]}
+    return {
+        "cache": cache, "prefill_cache": kept, "last": last, "logits": torch.stack(logits, 1),
+        "launches": {k: n for k, n in prefill_launches.items() if n},
+        "fields": dict(
+            batch=B, prompt=prompt, cache_len=total, steps=DECODE_STEPS, prefill_s=prefill_s,
+            step_ms_median=step_ms, step_ms_min=min(step_s) * 1e3,
+            step_ms_max=max(step_s) * 1e3, tokens_per_s=B / (step_ms / 1e3),
+            cache_bytes=sum(t.numel() * t.element_size() for t in _leaves(cache).values()),
+            resident_before=resident, max_memory_allocated=peak,
+            step_bytes=bound["total"], step_weight_bytes=bound["weights"],
+            step_cache_bytes=bound["cache"], step_bound_ms=bound["bound_ms"],
+            step_bound_share=bound["bound_ms"] / step_ms,
+            **({"step_bound_ms_routed_experts": bound["bound_ms_routed"]}
+               if "bound_ms_routed" in bound else {}),
+            prefill_launches={k: n for k, n in prefill_launches.items() if n},
+            launches_per_decode_step=0,
+            profiled_steps=DECODE_PROFILED,
+            step_device_busy_share=busy["device_busy_s"] / busy["profiled_wall_s"],
+            step_host_share=1.0 - busy["device_busy_s"] / busy["profiled_wall_s"],
+            step_device_kernels=busy["kernels"] / DECODE_PROFILED),
+    }
+
+
+class UnitTap:
+    """Each unit of the stack (`transformer._dense_unit`, `_ssm_unit`,
+    `_cross_unit`) checked on its own in decode at full width, where the
+    random models' chaos makes the end-to-end logits a weak check.
+    `recording()` keeps, over a full prefill, each unit call's input and
+    output rows at positions start..stop-1 and each MoE layer's experts
+    there; `forcing(j)` then runs one decode step at position start + j
+    with every unit fed the full forward's input row (teacher forcing, a
+    unit at a time) and every MoE layer given the full forward's experts
+    for that token (weighted by its own router, as `PinnedRouting`
+    replays), and keeps per unit the largest error of its output over its
+    largest output (`errs`)."""
+
+    UNITS = ("_dense_unit", "_ssm_unit", "_cross_unit")
+
+    def __init__(self, torch, start: int, stop: int):
+        self.torch, self.start, self.stop = torch, start, stop
+        self.rows: list = []
+        self.experts: list = []
+        self.errs: list = []
+
+    @contextlib.contextmanager
+    def _patched(self, unit, router):
+        from repro_torch.models import moe, transformer
+
+        real = {name: getattr(transformer, name) for name in self.UNITS}
+        real_router = moe.router_topk
+        for name, fn in real.items():
+            setattr(transformer, name, unit(fn))
+        moe.router_topk = router(real_router)
+        try:
+            yield self
+        finally:
+            for name, fn in real.items():
+                setattr(transformer, name, fn)
+            moe.router_topk = real_router
+
+    def recording(self):
+        rows = slice(self.start, self.stop)
+
+        def unit(real):
+            def record(cfg, params, x, **kw):
+                out = real(cfg, params, x, **kw)
+                self.rows.append((x[:, rows].clone(), out[0][:, rows].clone()))
+                return out
+            return record
+
+        def router(real):
+            def record(cfg, params, x):
+                w, idx, aux = real(cfg, params, x)
+                self.experts.append(idx[:, rows].clone())
+                return w, idx, aux
+            return record
+
+        return self._patched(unit, router)
+
+    def forcing(self, j: int):
+        torch = self.torch
+        units, experts = iter(range(len(self.rows))), iter(self.experts)
+        self.errs = self.errs or [0.0] * len(self.rows)
+
+        def unit(real):
+            def forced(cfg, params, x, **kw):
+                i = next(units)
+                x_in, x_out = (r[:, j:j + 1] for r in self.rows[i])
+                out = real(cfg, params, x_in, **kw)
+                self.errs[i] = max(self.errs[i], _rel(torch, out[0], x_out))
+                return out
+            return forced
+
+        def router(real):
+            def pinned(cfg, params, x):
+                idx = next(experts)[:, j:j + 1]
+                w = torch.softmax(x.float() @ params["router"], dim=-1).gather(-1, idx)
+                return (w / w.sum(-1, keepdim=True)).to(x.dtype), idx, real(cfg, params, x)[2]
+            return pinned
+
+        return self._patched(unit, router)
+
+
+def phase_lm_decode(torch, cfg, params, batch, phase: str, reduced=()) -> dict:
+    """The serving steps on a full-width LM (`models/model.py::prefill_step`,
+    `decode_step`): `_prefill_and_decode` over LM_BATCH seeded sequences (a vlm model's
+    with its context embeddings), the prefill's last logits and each step's
+    held to the kernel path's full forward over all prompt + DECODE_STEPS
+    tokens at the same positions within DECODE_RTOL (a MoE at no-drop
+    capacity throughout); each unit of the stack in the same 32 steps,
+    teacher-forced, within UNIT_RTOL (`UnitTap`); and layer 0's rows that
+    decode wrote to the rows a prefill of all the tokens writes."""
+    from repro_torch.models import model as M
+
+    cfg = _no_drop(cfg)
+    arch = cfg.name
+    prompt = DECODE_PROMPT.get(arch, LM_SEQ - DECODE_STEPS)
+    if arch in DECODE_PROMPT:
+        reduced = [*reduced, f"prompt {LM_SEQ - DECODE_STEPS} -> {prompt} tokens (the no-drop "
+                             "full forward it is held to does not fit beside the weights)"]
+    total = prompt + DECODE_STEPS
+    tokens = batch["tokens"][:, :total]
+    ctx_embed = batch.get("ctx_embed")
+    B = tokens.shape[0]
+    spread = {}
+    with torch.inference_mode():
+        # the prefill's last position and the DECODE_STEPS decoded ones
+        want = _logits_from(cfg, params, tokens, ctx_embed, prompt - 1)
+        # the full forward's own spread (DECODE_RTOL)
+        alone = torch.cat([_logits_from(cfg, params, tokens[i:i + 1],
+                                  None if ctx_embed is None else ctx_embed[i:i + 1],
+                                  prompt - 1) for i in range(B)])
+        spread["sequences_one_at_a_time"] = _rel(torch, alone, want)
+        del alone
+        plain = _logits_from(cfg.replace(attn_impl="plain"), params, tokens, ctx_embed,
+                             prompt - 1)
+        spread["plain_path"] = _rel(torch, plain, want)
+        del plain
+        f32 = cfg.act_dtype == "float32"
+        bound = max(DECODE_F32_RTOL if f32 else DECODE_RTOL, 2.0 * max(spread.values()))
+        run = _prefill_and_decode(torch, cfg, params, tokens, ctx_embed, prompt, phase,
+                                  keep_prefill=True)
+        prefill_err = _rel(torch, run["last"], want[:, 0])
+        errs = [_rel(torch, run["logits"][:, j], want[:, 1 + j]) for j in range(DECODE_STEPS)]
+        tap = UnitTap(torch, prompt, total)
+        with tap.recording():
+            _, full = M.prefill_step(cfg, params, tokens, ctx_embed=ctx_embed, cache_len=total)
+        rows = _layer0_rows(torch, run["cache"], full, prompt, total)
+        # the teacher-forced steps read the full forward's own attention
+        # rows (a chaotic model's prefill of the prompt alone rounds them
+        # otherwise, deep layers by O(1)) and the prompt's SSM windows and
+        # states; each step writes its row before it reads it
+        forced, prompt_cache = full, _leaves(run.pop("prefill_cache"))
+        for path, t in _leaves(forced).items():
+            if "/ssm/" in path:
+                t.copy_(prompt_cache[path])
+        del prompt_cache
+        for j in range(DECODE_STEPS):
+            with tap.forcing(j):
+                M.decode_step(cfg, params, forced, tokens[:, prompt + j:prompt + j + 1],
+                              prompt + j)
+        unit_bound = UNIT_RTOL[cfg.act_dtype]
+        worst = max(range(len(tap.errs)), key=tap.errs.__getitem__)
+    finite = bool(torch.isfinite(run["logits"]).all())
+    emit(phase, arch=arch, reduced=list(reduced), layers=cfg.n_layers,
+         capacity_factor=cfg.capacity_factor if cfg.n_experts else None,
+         **run["fields"], prefill_last_logits_rel_err=prefill_err,
+         logits_rel_err_max=max(errs), logits_rel_err_by_step=errs,
+         full_forward_spread=spread, bound=bound,
+         units_teacher_forced={"units": len(tap.errs), "rel_err_max": tap.errs[worst],
+                               "worst_unit": worst, "bound": unit_bound,
+                               "rel_err_by_unit": tap.errs},
+         layer0_rows=rows)
+    if not finite or not max(errs + [prefill_err]) <= bound:
+        raise AssertionError(f"{phase}: prefill {prefill_err:.3g} and decode logits "
+                             f"{max(errs):.3g} vs the full forward, bound {bound} "
+                             f"(finite {finite})")
+    if not tap.errs[worst] <= unit_bound:
+        raise AssertionError(f"{phase}: unit {worst} of a teacher-forced decode step vs the "
+                             f"full forward: {tap.errs[worst]:.3g} > {unit_bound}")
+    bad = {k: v for k, v in rows.items() if not v["rel_err"] <= v["bound"]}
+    if bad:
+        raise AssertionError(f"{phase}: layer 0's decode-written cache rows vs a prefill: {bad}")
+    launches = run["launches"]
+    del run, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def phase_decode_f32_path(torch) -> dict:
+    """The sharpest check of the decode logic at full width: each family's
+    config in float32 (parameters and activations; TF32 off, as the script
+    sets it; depth cut as F32_DECODE_PATHS says), one `phase_lm_decode`
+    each: every teacher-forced unit within UNIT_RTOL["float32"], the logits
+    within DECODE_F32_RTOL of the largest (qwen3-0.6b, mamba2-1.3b) or
+    twice the chaotic forward's own spread. Their prefills run the float32
+    flash kernel and the SSD kernel. -> the launches by phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    dev = torch.device("cuda", 0)
+    launches = {}
+    for arch, n_layers in F32_DECODE_PATHS:
+        full = get_config(arch)
+        cfg = full.replace(param_dtype="float32", act_dtype="float32",
+                           n_layers=n_layers or full.n_layers)
+        params = M.init_params(cfg, _generator(torch, dev, 0))
+        batch = M.make_synth_batch(cfg, LM_BATCH, LM_SEQ, _generator(torch, dev, 1))
+        reduced = ["param_dtype, act_dtype bfloat16 -> float32"]
+        if n_layers:
+            reduced.append(f"n_layers {full.n_layers} -> {n_layers} (widths kept)")
+        phase = f"decode_f32_{LM_PHASE[arch]}"
+        launches[phase] = phase_lm_decode(torch, cfg, params, batch, phase, reduced)["launches"]
+        del params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serving_batch(torch, model) -> dict:
+    """qwen3-0.6b's decode step at the grid wave's 82 sequences: a prefill
+    of 82 seeded prompts of LM_SEQ - DECODE_STEPS tokens at cache_len LM_SEQ
+    (28 flash launches; the KV cache 19.3 GB), then DECODE_STEPS timed
+    steps, DECODE_PROFILED of them under the profiler for the busy share.
+    Held: the launches, finite logits, and the peak memory under
+    SERVING_PEAK_CACHES x the cache: the prefill's per-layer caches and
+    their stacked copy, no third copy (a functional cache update in decode
+    would be one)."""
+    from repro_torch.models import model as M
+
+    dev = torch.device("cuda", 0)
+    batch = M.make_synth_batch(model.cfg, SERVING_BATCH, LM_SEQ, _generator(torch, dev, 7))
+    prompt = LM_SEQ - DECODE_STEPS
+    with torch.inference_mode():
+        run = _prefill_and_decode(torch, model.cfg, model.params, batch["tokens"], None,
+                                  prompt, "dense_lm_serving_batch")
+    finite = bool(torch.isfinite(run["logits"]).all())
+    peak = run["fields"]["max_memory_allocated"]
+    emit("dense_lm_serving_batch", arch=model.cfg.name, **run["fields"], finite=finite)
+    caches = peak / run["fields"]["cache_bytes"]
+    if not finite or not caches < SERVING_PEAK_CACHES:
+        raise AssertionError(f"serving batch: finite {finite}, peak {peak} B = {caches:.3g} "
+                             f"caches (bound {SERVING_PEAK_CACHES})")
+    launches = run["launches"]
+    del run, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
 def run_lm_path(torch, arch: str, smi: str) -> dict:
     """The main path, the kernel-vs-plain wave and the profiled wave of one
     LM, and for qwen3-0.6b (the model examples/serve_uq.py serves) the
     device pool's path; the model's memory is released afterwards."""
     lm = phase_lm_main_path(torch, arch)
-    phase_lm_kernel_vs_plain(torch, lm["model"])
-    phase_lm_profile(torch, lm["model"], lm["points"], lm["grid_s"])
+    model = lm["model"]
+    phase_lm_kernel_vs_plain(torch, model)
+    phase_lm_profile(torch, model, lm["points"], lm["grid_s"])
+    decode = phase_lm_decode(torch, model.cfg, model.params, model.batch,
+                             f"{LM_PHASE[arch]}_decode")
+    serving = None
     if arch == DENSE_ARCH:
-        phase_pool_path(torch, lm["model"], smi)
+        serving = phase_serving_batch(torch, model)
+        phase_pool_path(torch, model, smi)
     launches = lm["launches"]
-    del lm
+    del lm, model
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": launches}
+    return {"launches": launches, "decode": decode["launches"],
+            "serving": serving and serving["launches"]}
 
 
 def phase_zoo_lm(torch, arch: str, n_layers, points: int) -> dict:
@@ -3293,10 +3761,12 @@ def phase_zoo_lm(torch, arch: str, n_layers, points: int) -> dict:
                              f"{ZOO_NLL_RTOL}")
     del plain
     profile = phase_lm_profile(torch, model, thetas, wave_s)
+    decode = phase_lm_decode(torch, cfg, model.params, model.batch, f"{phase}_decode", reduced)
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": launches, "wave_s": wave_s, "peak": peak, **profile}
+    return {"launches": launches, "wave_s": wave_s, "peak": peak, "decode": decode["launches"],
+            **profile}
 
 
 #: the analysis gate's card part (`analysis_gate`, part "card_locks"):
@@ -3567,6 +4037,7 @@ def main() -> int:
     flash_times = phase_flash_times(torch, dev, probe["smi"])
     f32_path = phase_flash_f32_path(torch)
     dense = run_lm_path(torch, DENSE_ARCH, probe["smi"])
+    decode_f32 = phase_decode_f32_path(torch)
     moe = run_lm_path(torch, MOE_ARCH, probe["smi"])
     zoo = {arch: phase_zoo_lm(torch, arch, n_layers, points)
            for arch, n_layers, points in ZOO_PATHS}
@@ -3666,6 +4137,11 @@ def main() -> int:
         "launches": lm["launches"]["ssd"],
         # zamba2-1.2b's wave of 8 points: 32 ssm units a forward
         "launches_hybrid_lm_path": zoo[ZOO_SSM_ARCH]["launches"]["ssd"],
+        # the serving steps: each prefill one launch per ssm unit, each
+        # decode step none
+        "launches_decode_lm": lm["decode"]["ssd"],
+        "launches_decode_hybrid_lm": zoo[ZOO_SSM_ARCH]["decode"]["ssd"],
+        **{f"launches_{phase}": n["ssd"] for phase, n in decode_f32.items() if "ssd" in n},
         "max_abs_err": ssd_check["max_abs_err"],
         "max_rel_err": ssd_check["max_rel_err"],
         "ms": point["ms"],
@@ -3689,6 +4165,13 @@ def main() -> int:
         "launches_moe_lm_main_path": moe["launches"]["flash_attention_wgmma"],
         **{f"launches_{LM_PHASE[arch]}_path": zoo[arch]["launches"]["flash_attention_wgmma"]
            for arch, _, _ in ZOO_PATHS},
+        # the serving steps: each prefill one launch per attention, each
+        # decode step none; and qwen3-0.6b's prefill of 82 sequences
+        "launches_decode_dense_lm": dense["decode"]["flash_attention_wgmma"],
+        "launches_decode_moe_lm": moe["decode"]["flash_attention_wgmma"],
+        **{f"launches_decode_{LM_PHASE[arch]}": zoo[arch]["decode"]["flash_attention_wgmma"]
+           for arch, _, _ in ZOO_PATHS},
+        "launches_decode_dense_lm_serving_batch": dense["serving"]["flash_attention_wgmma"],
         "max_abs_err": flash_check["wgmma"],
         "ms": flash_point["ms"],
         "plain_ms": flash_point["plain_ms"],
@@ -3706,8 +4189,11 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:93",
         "dtype": "float32",
         # its own path: the reduced qwen3-0.6b in float32 (bf16 goes to the
-        # wgmma kernel)
+        # wgmma kernel); and the prefill of full-width qwen3-0.6b in float32
+        # before its decode steps
         "launches": f32_path["launches"],
+        **{f"launches_{phase}": n["flash_attention"] for phase, n in decode_f32.items()
+           if "flash_attention" in n},
         "max_abs_err": flash_check["f32_kernel"],
         "max_abs_err_bf16": flash_check["f32_kernel_bf16"],
         "ms": f32_point["ms"],

@@ -8,7 +8,7 @@ forward pass. theta parameterizes a model perturbation:
     F(theta) = mean eval NLL on a fixed batch under the perturbed model
 
 The port advertises `evaluate` and `evaluate_batch` only: its gradient is
-ROADMAP queue 1, item 13 (the `torch.func` machinery of `TorchModel` is in
+ROADMAP queue 1, item 13d (the `torch.func` machinery of `TorchModel` is in
 place).
 """
 from __future__ import annotations

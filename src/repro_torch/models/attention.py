@@ -1,7 +1,8 @@
-"""Attention for train and prefill (counterpart of `repro.models.attention`):
-GQA self-attention with qk-norm, MLA (multi-head latent attention, whose
-prefill cache holds the latent) and cross-attention against context
-embeddings.
+"""Attention (counterpart of `repro.models.attention`): GQA self-attention
+with qk-norm, MLA (multi-head latent attention, whose cache holds the
+latent) and cross-attention against context embeddings, for train and
+prefill, and the one-token decode steps `gqa_decode` and `mla_decode` (the
+absorbed form).
 
 Two paths compute the same function, selected by `cfg.attn_impl`:
 
@@ -22,8 +23,11 @@ v to the next one (128) and passes the scale 1/sqrt(nope + rope). Zero
 columns add exact zeros to every product, so that is the same function.
 Cross-attention runs the kernel non-causal with Sq != Sk.
 
-The decode steps (`gqa_decode`, MLA's absorbed decode) raise
-`NotImplementedError` (ROADMAP queue 1, item 13).
+A decode step attends one query row per sequence on the plain path, as the
+JAX package's decode does (XLA, outside any Pallas kernel): it launches no
+kernel. It writes its token's row into the caller's cache IN PLACE, where
+the JAX package returns a new cache: a functional copy would move the whole
+cache a token (ROADMAP queue 3, "Known differences, by design").
 """
 from __future__ import annotations
 
@@ -36,9 +40,6 @@ from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
 from repro_torch.models.layers import apply_rope, rmsnorm_scaleless
 from repro_torch.models.params import ParamDecl
 from repro_torch.types import ModelConfig
-
-_NOT_PORTED = "is not ported yet (ROADMAP queue 1, item 13)"
-
 
 def decl_attention(cfg: ModelConfig, cross: bool = False) -> dict:
     d, hd = cfg.d_model, cfg.head_dim
@@ -77,14 +78,21 @@ def _grouped_attention(
     *,
     scale: float,
     causal: bool,
+    q_offset: int = 0,
+    kv_len: int | None = None,
     q_chunk: int = 1024,
     causal_skip: bool = False,
 ) -> torch.Tensor:
     """The plain path: scores in float32 (the JAX package's
     `preferred_element_type`), softmax, probabilities cast to v's dtype.
     Rows are independent, so the JAX package's zero-padded last chunk is a
-    shorter last chunk here. The decode-only arguments (`q_offset`,
-    `kv_len`) come with the decode step."""
+    shorter last chunk here. `q_offset` is the position of q's first row in
+    the causal mask; `kv_len` the valid prefix of k and v (a decode step's
+    cache): the JAX package masks the columns past it, which add exact
+    zeros, so only the prefix is read here."""
+    if kv_len is not None:
+        causal_skip = False  # as in the JAX package: the skip needs the whole KV
+        k, v = k[:, :kv_len], v[:, :kv_len]
     B, Sq, nq, _ = q.shape
     Sk, nkv = k.shape[1], k.shape[2]
     qg = q.reshape(B, Sq, nkv, nq // nkv, q.shape[-1])
@@ -96,7 +104,7 @@ def _grouped_attention(
         qc = q_blk.shape[1]
         if causal:
             cols = torch.arange(hi, device=q.device)
-            rows = blk_offset + torch.arange(qc, device=q.device)
+            rows = q_offset + blk_offset + torch.arange(qc, device=q.device)
             s = s.masked_fill(~(cols[None, :] <= rows[:, None]), float("-inf"))
         p = torch.softmax(s, dim=-1).to(v.dtype)
         return torch.einsum("bkgqs,bskh->bqkgh", p, v[:, :hi])
@@ -187,23 +195,51 @@ def _pad_seq(t: torch.Tensor, cache_len: int | None) -> torch.Tensor:
     return torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
 
 
-def gqa_decode(cfg: ModelConfig, params: dict, x: torch.Tensor, cache: dict, pos, ctx=None):
-    raise NotImplementedError(f"the one-token GQA decode step {_NOT_PORTED}")
+def _decode_positions(x: torch.Tensor, pos: int) -> torch.Tensor:
+    """``[B, 1]`` of `pos` on x's device (a fill, no host sync)."""
+    return torch.full((x.shape[0], 1), pos, dtype=torch.long, device=x.device)
+
+
+def gqa_decode(cfg: ModelConfig, params: dict, x: torch.Tensor, cache: dict, pos: int):
+    """One token's self-attention: x ``[B, 1, d]`` at position `pos` (a
+    Python int, the same for every sequence) against the cache ``{"k",
+    "v"}`` of ``[B, cache_len, nkv, hd]``. q, k and v are projected,
+    qk-normed and rotated at `pos`; k and v are written into the cache's
+    row `pos` in place, and the first pos + 1 rows are attended, non-causal,
+    on the plain path. Returns (out ``[B, 1, d]``, cache), the cache the
+    same dict of the same tensors. `cfg.decode_seq_shard_kv` is ignored, as
+    the JAX package ignores it without a sharding context."""
+    q, k, v = _project_qkv(cfg, params, x, x)
+    positions = _decode_positions(x, pos)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    cache["k"][:, pos] = k[:, 0]
+    cache["v"][:, pos] = v[:, 0]
+    out = _grouped_attention(q, cache["k"], cache["v"], scale=1.0 / math.sqrt(cfg.head_dim),
+                             causal=False, kv_len=pos + 1, q_chunk=cfg.q_chunk)
+    return torch.einsum("bsnh,nhd->bsd", out, params["wo"]), cache
 
 
 def cross_attention(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
-                    ctx_kv: dict | None = None, ctx: torch.Tensor | None = None):
+                    ctx_kv: dict | None = None, ctx: torch.Tensor | None = None,
+                    decode: bool = False):
     """Cross-attention of x ``[B, S, d]`` against context embeddings ``ctx``
     ``[B, Sk, d]`` (k and v projected here) or a precomputed ``ctx_kv``
     ``{"k", "v"}`` of ``[B, Sk, nkv, hd]``: full (non-causal) attention, no
-    RoPE, no qk-norm. Returns (out, ctx_kv)."""
+    RoPE, no qk-norm. `decode` takes the plain path whatever
+    `cfg.attn_impl` says, as every decode step does. Returns (out,
+    ctx_kv)."""
     q = torch.einsum("bsd,dnh->bsnh", x, params["wq"])
     if ctx_kv is None:
         if ctx is None:
             raise ValueError("cross_attention needs the context embeddings or ctx_kv")
         ctx_kv = {"k": torch.einsum("bsd,dnh->bsnh", ctx, params["wk"]),
                   "v": torch.einsum("bsd,dnh->bsnh", ctx, params["wv"])}
-    out = _attend(cfg, q, ctx_kv["k"], ctx_kv["v"], causal=False)
+    if decode:
+        out = _grouped_attention(q, ctx_kv["k"], ctx_kv["v"], causal=False,
+                                 scale=1.0 / math.sqrt(cfg.head_dim), q_chunk=cfg.q_chunk)
+    else:
+        out = _attend(cfg, q, ctx_kv["k"], ctx_kv["v"], causal=False)
     out = torch.einsum("bsnh,nhd->bsd", out, params["wo"])
     return out, ctx_kv
 
@@ -251,3 +287,30 @@ def mla_full(
     if want_cache:
         cache = {"c_kv": _pad_seq(c_kv, cache_len), "k_pe": _pad_seq(k_pe, cache_len)}
     return out, cache
+
+
+def mla_decode(cfg: ModelConfig, params: dict, x: torch.Tensor, cache: dict, pos: int):
+    """One token's MLA in the absorbed form (DeepSeek-V2): x ``[B, 1, d]``
+    at position `pos` against the latent cache ``{"c_kv": [B, cache_len,
+    kv_lora], "k_pe": [B, cache_len, rope]}`` that `mla_full` writes. The
+    token's latent and rotated k_pe are written into row `pos` in place;
+    W_UK and W_UV (slices of `wkv_b`) are folded into the query and the
+    output, so the scores are ``q_lat·c_kvᵀ + q_pe·k_peᵀ`` over the first
+    pos + 1 rows, in float32, at 1/sqrt(nope + rope), and the
+    probabilities are cast to x's dtype before ``p·c_kv``, as in the JAX
+    package. Returns (out ``[B, 1, d]``, cache)."""
+    positions = _decode_positions(x, pos)
+    q_nope, q_pe = _mla_q(cfg, params, x, positions)
+    c_kv_new, k_pe_new = _mla_latent(cfg, params, x, positions)
+    cache["c_kv"][:, pos] = c_kv_new[:, 0]
+    cache["k_pe"][:, pos] = k_pe_new[:, 0]
+    c_kv, k_pe = cache["c_kv"][:, :pos + 1], cache["k_pe"][:, :pos + 1]
+    w_uk, w_uv = torch.split(params["wkv_b"], [cfg.qk_nope_head_dim, cfg.v_head_dim], dim=-1)
+    q_lat = torch.einsum("bqnh,lnh->bqnl", q_nope, w_uk)
+    s = torch.einsum("bqnl,bsl->bnqs", q_lat.float(), c_kv.float())
+    s = s + torch.einsum("bqnr,bsr->bnqs", q_pe.float(), k_pe.float())
+    s = s / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    p = torch.softmax(s, dim=-1).to(x.dtype)
+    ctx_lat = torch.einsum("bnqs,bsl->bqnl", p, c_kv)
+    out_v = torch.einsum("bqnl,lnv->bqnv", ctx_lat, w_uv)
+    return torch.einsum("bqnv,nvd->bqd", out_v, params["wo"]), cache

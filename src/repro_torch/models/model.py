@@ -1,12 +1,14 @@
-"""LM top level: init, parameter count, NLL (counterpart of
-`repro.models.model`). The train step, the prefill/decode serving steps and
-the dry-run input specs wait for later slices (ROADMAP queue 1, item 13)."""
+"""LM top level: init, parameter count, NLL and the serving steps
+`prefill_step`/`decode_step` (counterpart of `repro.models.model`). The
+train step waits for ROADMAP queue 1 item 13c; the dry-run input specs,
+built on the JAX package's mesh, for item 14."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import params as pm
 from repro_torch.models import transformer
+from repro_torch.models.layers import lm_head
 from repro_torch.types import ModelConfig, dtype_of
 
 
@@ -39,6 +41,31 @@ def eval_nll(cfg: ModelConfig, params, batch) -> torch.Tensor:
     logits, _, _ = transformer.forward(cfg, params, batch["tokens"],
                                        ctx_embed=batch.get("ctx_embed"), mode="train")
     return _token_nll(cfg, logits, batch["targets"]).mean(dim=-1)
+
+
+def prefill_step(cfg: ModelConfig, params, tokens: torch.Tensor, ctx_embed=None,
+                 cache_len: int | None = None):
+    """The full-sequence forward over `tokens` ``[B, S]`` that builds the
+    caches (attention caches zero-padded to `cache_len` rows, default S):
+    returns (last logits ``[B, V]``, caches). The head runs on the last
+    position only, where the JAX package builds ``[B, S, V]`` and keeps the
+    last row: the head is per row, so the numbers are the same, and at B =
+    82, S = 2,016 and a 153,600-token vocabulary ``[B, S, V]`` would be ~51
+    GB in bf16."""
+    hidden, cache, _ = transformer.forward(cfg, params, tokens, ctx_embed=ctx_embed,
+                                           mode="prefill", cache_len=cache_len or tokens.shape[1],
+                                           skip_head=True)
+    return lm_head(params["embed"], hidden[:, -1:])[:, 0], cache
+
+
+def decode_step(cfg: ModelConfig, params, cache, token: torch.Tensor, pos: int):
+    """One token ``[B, 1]`` at position `pos` (a Python int) against a
+    filled cache: returns (logits ``[B, V]``, cache). The cache's rows
+    `pos` (and SSM windows and states) are written in place and the same
+    tree is returned (`transformer.forward`, mode "decode"); no host sync."""
+    logits, cache, _ = transformer.forward(cfg, params, token, mode="decode", cache=cache,
+                                           pos=pos)
+    return logits[:, -1], cache
 
 
 def make_synth_batch(cfg: ModelConfig, B: int, S: int, gen: torch.Generator) -> dict:

@@ -9,8 +9,9 @@ package's XLA path); `ssm_block(use_kernel=True)` runs the hand-written CUDA
 kernel through `repro_torch.kernels.ssd` instead.
 
 Head layout: nh heads of dim P, grouped into g groups sharing B/C (r = nh/g
-heads per group). The single-token step `ssm_decode` waits for the serving
-steps (ROADMAP queue 1, item 13).
+heads per group). `ssm_decode` is the single-token recurrent step of the
+serving loop, plain PyTorch as the JAX package's is plain XLA; it updates
+the caller's conv window and state in place.
 """
 from __future__ import annotations
 
@@ -206,3 +207,29 @@ def ssm_block(
     out = y @ params["out_proj"]
     new_cache = {"conv": conv_tail, "state": final_state} if want_cache else None
     return out, new_cache
+
+
+def ssm_decode(cfg: ModelConfig, params: dict, x: torch.Tensor, cache: dict):
+    """Single-token recurrent step: x ``[B, 1, d]`` against the cache
+    ``{"conv": [B, k-1, C] (activation dtype), "state": [B, g, r, N, P]
+    (float32)}``. One conv step over the window ``cat(conv, xBC)`` (the
+    shifted adds of `causal_conv`, so a token's conv output rounds as the
+    prefill's does), then ``state·exp(dt·A) + B⊗(dt·x)`` in float32,
+    ``y = C·state + D·x``, the gated scaleless norm and `out_proj`. The
+    window's last k-1 rows and the new state are written into the cache in
+    place. Returns (out ``[B, 1, d]``, cache)."""
+    B = x.shape[0]
+    z, xBC, dt_raw = _in_proj_split(cfg, params, x)
+    xBC, conv_tail = causal_conv(params, xBC, cache["conv"])
+    cache["conv"].copy_(conv_tail)
+    xh, dt, Bn, Cn, A = _ssm_pre(cfg, params, xBC, dt_raw)
+    x_t, dt_t, B_t, C_t = xh[:, 0], dt[:, 0], Bn[:, 0], Cn[:, 0]
+    state = cache["state"] * torch.exp(dt_t * A)[..., None, None] + torch.einsum(
+        "bgn,bgr,bgrp->bgrnp", B_t, dt_t, x_t)
+    cache["state"].copy_(state)
+    y_t = torch.einsum("bgn,bgrnp->bgrp", C_t, state)
+    D = params["D"].float().reshape(cfg.ssm_ngroups, -1)
+    y_t = y_t + x_t * D[None, :, :, None]
+    y = y_t.reshape(B, 1, cfg.d_inner).to(x.dtype)
+    y = rmsnorm_scaleless(y * F.silu(z), params["norm_scale"], cfg.norm_eps)
+    return y @ params["out_proj"], cache

@@ -15,10 +15,12 @@ llama-3.2-vision: a cross-attention unit every `cross_attn_period` layers,
 against the context embeddings projected by `params["ctx_proj"]`.)
 
 The JAX package scans over the stacked units; here a Python loop runs the
-layers in order on one device (no sharding context). Every group kind is
-ported for `mode="train"` and `"prefill"`; the prefill caches are stacked
-as the JAX package's scans stack them. The decode step raises
-`NotImplementedError` (ROADMAP queue 1, item 13).
+layers in order on one device (no sharding context). Every group kind runs
+`mode="train"`, `"prefill"` and `"decode"`. Caches mirror the group
+structure with stacked leading dims, as the JAX package's scans stack them
+(`cache_decl`): prefill creates them; decode reads them and writes its
+token's rows into them IN PLACE, through per-layer views of the stacked
+tensors, and returns the same tree (the JAX package returns a new one).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.core.device import resolve_device
 from repro_torch.kernels.flash_attention.ops import KERNEL_OF
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
@@ -41,9 +44,6 @@ from repro_torch.models.layers import (
 from repro_torch.models.moe import decl_moe, moe_block
 from repro_torch.models.params import ParamDecl, stack, walk
 from repro_torch.types import ModelConfig, dtype_of
-
-_NOT_PORTED = "is not ported yet (ROADMAP queue 1, item 13)"
-
 
 @dataclass(frozen=True)
 class Group:
@@ -156,14 +156,82 @@ def decl_model(cfg: ModelConfig) -> dict:
     return decls
 
 
+@dataclass(frozen=True)
+class CacheDecl:
+    """One cache leaf: its shape and dtype (the JAX package's
+    `ShapeDtypeStruct`, without a PartitionSpec: one device)."""
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+
+def _attn_cache_decl(cfg: ModelConfig, B: int, S: int, lead: tuple[int, ...]) -> dict:
+    dt = dtype_of(cfg.act_dtype)
+    if cfg.attn_type == "mla":
+        return {"c_kv": CacheDecl((*lead, B, S, cfg.kv_lora_rank), dt),
+                "k_pe": CacheDecl((*lead, B, S, cfg.qk_rope_head_dim), dt)}
+    kv = CacheDecl((*lead, B, S, cfg.n_kv_heads, cfg.head_dim), dt)
+    return {"k": kv, "v": kv}
+
+
+def _ssm_cache_decl(cfg: ModelConfig, B: int, lead: tuple[int, ...]) -> dict:
+    g = cfg.ssm_ngroups
+    return {
+        "conv": CacheDecl((*lead, B, cfg.ssm_conv - 1, ssm_mod.conv_dim(cfg)),
+                          dtype_of(cfg.act_dtype)),
+        "state": CacheDecl((*lead, B, g, cfg.ssm_nheads // g, cfg.ssm_state, cfg.ssm_headdim),
+                           torch.float32),
+    }
+
+
+def cache_decl(cfg: ModelConfig, B: int, S: int) -> list:
+    """The caches of B sequences of `S` rows, one tree a group, as the JAX
+    package declares them (`repro/models/transformer.py::cache_decl`):
+    ``{"attn": {k, v}}`` (MLA: ``{c_kv, k_pe}``) of a dense or moe group,
+    ``{"ssm": {conv, state}}``, a hybrid group's ssm ``[n, period-1, ...]``
+    and its shared block's ``attn [n, ...]``, a vlm group's ``self [n,
+    period-1, ...]`` and ``cross [n, B, n_ctx_tokens, nkv, hd]``. Every
+    leaf in the activation dtype but the SSM state (float32). Allocates
+    nothing."""
+    decls = []
+    for g in make_groups(cfg):
+        n = g.count
+        if g.kind in ("dense", "moe"):
+            decls.append({"attn": _attn_cache_decl(cfg, B, S, (n,))})
+        elif g.kind == "ssm":
+            decls.append({"ssm": _ssm_cache_decl(cfg, B, (n,))})
+        elif g.kind == "hybrid":
+            decls.append({"ssm": _ssm_cache_decl(cfg, B, (n, cfg.hybrid_period - 1)),
+                          "attn": _attn_cache_decl(cfg, B, S, (n,))})
+        else:  # vlm
+            kv = CacheDecl((n, B, cfg.n_ctx_tokens, cfg.n_kv_heads, cfg.head_dim),
+                           dtype_of(cfg.act_dtype))
+            decls.append({"self": _attn_cache_decl(cfg, B, S, (n, cfg.cross_attn_period - 1)),
+                          "cross": {"k": kv, "v": kv}})
+    return decls
+
+
+def init_cache(cfg: ModelConfig, B: int, S: int, device=None) -> list:
+    """Zero caches of `cache_decl(cfg, B, S)` on `device` (default: the
+    GPU; raises if there is none)."""
+    device = resolve_device(device)
+    return walk(cache_decl(cfg, B, S),
+                lambda d, _p: torch.zeros(d.shape, dtype=d.dtype, device=device))
+
+
 def _dense_unit(cfg: ModelConfig, params: dict, x: torch.Tensor, *, positions, mode: str,
-                cache_len: int | None, is_moe: bool = False, points: int = 1):
+                cache_len: int | None, cache: dict | None = None, pos: int | None = None,
+                is_moe: bool = False, points: int = 1):
     """Attention (GQA or MLA) and an MLP or MoE: (x, {"attn": cache} or None,
-    aux)."""
+    aux). In decode, `cache` is this unit's {"attn": ...}, updated in
+    place at row `pos`."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
-    full = attn_mod.mla_full if cfg.attn_type == "mla" else attn_mod.gqa_full
-    a, new_attn = full(cfg, params["attn"], h, positions=positions,
-                       want_cache=(mode == "prefill"), cache_len=cache_len)
+    if mode == "decode":
+        step = attn_mod.mla_decode if cfg.attn_type == "mla" else attn_mod.gqa_decode
+        a, new_attn = step(cfg, params["attn"], h, cache["attn"], pos)
+    else:
+        full = attn_mod.mla_full if cfg.attn_type == "mla" else attn_mod.gqa_full
+        a, new_attn = full(cfg, params["attn"], h, positions=positions,
+                           want_cache=(mode == "prefill"), cache_len=cache_len)
     x = x + a
     h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)
     if is_moe:
@@ -174,21 +242,29 @@ def _dense_unit(cfg: ModelConfig, params: dict, x: torch.Tensor, *, positions, m
     return x, ({"attn": new_attn} if new_attn is not None else None), aux
 
 
-def _ssm_unit(cfg: ModelConfig, params: dict, x: torch.Tensor, *, mode: str, use_kernel: bool):
+def _ssm_unit(cfg: ModelConfig, params: dict, x: torch.Tensor, *, mode: str, use_kernel: bool,
+              cache: dict | None = None):
     h = rmsnorm(params["ln"], x, cfg.norm_eps)
-    s, new_ssm = ssm_mod.ssm_block(
-        cfg, params["ssm"], h, cache=None, want_cache=(mode == "prefill"),
-        use_kernel=use_kernel,
-    )
+    if mode == "decode":
+        s, new_ssm = ssm_mod.ssm_decode(cfg, params["ssm"], h, cache["ssm"])
+    else:
+        s, new_ssm = ssm_mod.ssm_block(
+            cfg, params["ssm"], h, cache=None, want_cache=(mode == "prefill"),
+            use_kernel=use_kernel,
+        )
     return x + s, ({"ssm": new_ssm} if new_ssm is not None else None)
 
 
 def _cross_unit(cfg: ModelConfig, params: dict, x: torch.Tensor, *, mode: str,
-                ctx_embed: torch.Tensor):
-    """Cross-attention against the projected context, then the MLP: (x,
+                ctx_embed: torch.Tensor | None, cache: dict | None = None):
+    """Cross-attention against the projected context (in decode: the
+    cached {"k", "v"}, which passes through unchanged), then the MLP: (x,
     the context's {"k", "v"} in prefill, else None)."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
-    a, ctx_kv = attn_mod.cross_attention(cfg, params["xattn"], h, ctx=ctx_embed)
+    if mode == "decode":
+        a, ctx_kv = attn_mod.cross_attention(cfg, params["xattn"], h, ctx_kv=cache, decode=True)
+    else:
+        a, ctx_kv = attn_mod.cross_attention(cfg, params["xattn"], h, ctx=ctx_embed)
     x = x + a
     x = x + mlp(params["mlp"], rmsnorm(params["ln2"], x, cfg.norm_eps))
     return x, (ctx_kv if mode == "prefill" else None)
@@ -214,12 +290,24 @@ def forward(
     *,
     ctx_embed: torch.Tensor | None = None,
     mode: str = "train",
+    cache: list | None = None,
+    pos: int | None = None,
     cache_len: int | None = None,
     skip_head: bool = False,
     embed_scale: torch.Tensor | None = None,
     points: int = 1,
 ):
-    """Returns (logits | hidden states if skip_head, new caches | None, aux).
+    """Returns (logits | hidden states if skip_head, caches | None, aux).
+
+    `mode` is "train" (no cache), "prefill" (returns new caches, the
+    attention caches zero-padded to `cache_len` rows) or "decode": `tokens`
+    ``[B, 1]`` at position `pos` (a Python int, the same for every
+    sequence; attention reads the first pos + 1 rows), against `cache`, a
+    tree of `cache_decl`'s structure (a prefill's, or `init_cache`'s),
+    whose rows `pos` (and SSM windows and states) are written in place; the
+    same tree is returned. A decode step runs plain PyTorch whatever
+    `cfg.attn_impl` says, as the JAX package's is plain XLA, and launches no
+    kernel; the vlm cross caches pass through unchanged.
 
     `embed_scale` [B] multiplies each sequence's gathered embedding rows
     (in the parameter dtype), which is the same multiply as scaling the
@@ -228,28 +316,36 @@ def forward(
     family's context embeddings. `points` says the B sequences are that
     many UQ points of equal size, which the MoE routes one by one
     (`models/moe.py`); aux is the sum of the MoE layers' load-balance
-    losses. `cache_len` pads the prefill attention caches. `cfg.attn_impl`
-    picks the kernel or the plain path of the SSD ("kernel": the CUDA
-    kernel, "plain": `ssd_scan`) and of attention ("kernel": the flash
-    kernel, "plain": `_grouped_attention`); see `types.ModelConfig.attn_impl`."""
-    if mode not in ("train", "prefill"):
-        raise NotImplementedError(f"forward mode {mode!r} {_NOT_PORTED}")
+    losses. The JAX package's decode has neither `embed_scale` nor
+    `points`: decode raises unless both are at their defaults.
+    `cfg.attn_impl` picks the kernel or the plain path of the SSD
+    ("kernel": the CUDA kernel, "plain": `ssd_scan`) and of attention
+    ("kernel": the flash kernel, "plain": `_grouped_attention`); see
+    `types.ModelConfig.attn_impl`."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got {mode!r}")
     if cfg.attn_impl not in ("kernel", "plain"):
         raise ValueError(f"attn_impl must be 'kernel' or 'plain', got {cfg.attn_impl!r}")
+    decode = mode == "decode"
+    if decode and (cache is None or pos is None):
+        raise ValueError("decode needs the cache and pos")
+    if decode and (embed_scale is not None or points != 1):
+        raise ValueError("decode takes neither embed_scale nor points (the JAX package's "
+                         "decode step has neither)")
     use_kernel = cfg.attn_impl == "kernel"
     B, S = tokens.shape
     x = embed_tokens(params["embed"], tokens)
     if embed_scale is not None:
         x = x * embed_scale.to(x.dtype)[:, None, None]
     x = x.to(dtype_of(cfg.act_dtype))
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
-    if cfg.family == "vlm":
+    positions = None if decode else torch.arange(S, device=tokens.device).expand(B, S)
+    if cfg.family == "vlm" and not decode:
         if ctx_embed is None:
             raise ValueError("the vlm family's forward needs ctx_embed")
         proj = params["ctx_proj"]
         dt = torch.promote_types(ctx_embed.dtype, proj.dtype)
         ctx_embed = (ctx_embed.to(dt) @ proj.to(dt)).to(x.dtype)
-    dense = dict(positions=positions, mode=mode, cache_len=cache_len)
+    dense = dict(positions=positions, mode=mode, cache_len=cache_len, pos=pos)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = []
     for gi, group in enumerate(make_groups(cfg)):
@@ -257,35 +353,41 @@ def forward(
         unit_caches = []
         for layer in range(group.count):
             p = _layer(gparams, layer)
+            c = _layer(cache[gi], layer) if decode else None  # views: written in place
             if group.kind in ("dense", "moe"):
                 x, nc, a = _dense_unit(cfg, p, x, is_moe=group.kind == "moe", points=points,
-                                       **dense)
+                                       cache=c, **dense)
                 if a is not None:
                     aux = aux + a
             elif group.kind == "ssm":
-                x, nc = _ssm_unit(cfg, p, x, mode=mode, use_kernel=use_kernel)
+                x, nc = _ssm_unit(cfg, p, x, mode=mode, use_kernel=use_kernel, cache=c)
             elif group.kind == "hybrid":
                 inner = []
                 for i in range(cfg.hybrid_period - 1):
-                    x, c = _ssm_unit(cfg, _layer(p["ssm"], i), x, mode=mode,
-                                     use_kernel=use_kernel)
-                    inner.append(c)
-                x, c_attn, _ = _dense_unit(cfg, params["shared"], x, **dense)
+                    ci = {"ssm": _layer(c["ssm"], i)} if decode else None
+                    x, ci = _ssm_unit(cfg, _layer(p["ssm"], i), x, mode=mode,
+                                      use_kernel=use_kernel, cache=ci)
+                    inner.append(ci)
+                x, c_attn, _ = _dense_unit(cfg, params["shared"], x,
+                                           cache={"attn": c["attn"]} if decode else None,
+                                           **dense)
                 nc = ({"ssm": _stacked(inner)["ssm"], "attn": c_attn["attn"]}
                       if mode == "prefill" else None)
             else:  # vlm
                 inner = []
                 for i in range(cfg.cross_attn_period - 1):
-                    x, c, _ = _dense_unit(cfg, _layer(p["self"], i), x, **dense)
-                    inner.append(c)
-                x, c_cross = _cross_unit(cfg, p["cross"], x, mode=mode, ctx_embed=ctx_embed)
+                    ci = {"attn": _layer(c["self"], i)} if decode else None
+                    x, ci, _ = _dense_unit(cfg, _layer(p["self"], i), x, cache=ci, **dense)
+                    inner.append(ci)
+                x, c_cross = _cross_unit(cfg, p["cross"], x, mode=mode, ctx_embed=ctx_embed,
+                                         cache=c["cross"] if decode else None)
                 nc = ({"self": _stacked(inner)["attn"], "cross": c_cross}
                       if mode == "prefill" else None)
             unit_caches.append(nc)
         if mode == "prefill":
             new_caches.append(_stacked(unit_caches))
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    caches = new_caches if mode == "prefill" else None
+    caches = new_caches if mode == "prefill" else cache if decode else None
     if skip_head:
         return x, caches, aux
     if embed_scale is None or "head" in params["embed"]:

@@ -3,7 +3,7 @@
 `ModelConfig` describes one LM-family architecture; the config files under
 `repro_torch.configs` copy the JAX package's values verbatim. `ShapeConfig`,
 `SHAPES`, `TrainConfig` and the TPU hardware constants are not ported yet
-(ROADMAP queue 1, items 13 and 14).
+(ROADMAP queue 1, items 13c and 14).
 """
 from __future__ import annotations
 

@@ -30,7 +30,10 @@ in-process model (one launch a served wave). The composite app (`apps/composite.
 a CG whose iterations replay as a CUDA graph) equals its graph-free loop
 bit for bit and the CPU within float32 bounds, gradient waves included;
 `ModelPool` serves a `TorchModel` on the card. The race detector's stress
-harness passes with its tap's online GP on the card. Every test here is marked `gpu` and skips without a CUDA device. The file imports neither JAX nor the JAX package, so it also
+harness passes with its tap's online GP on the card. The serving steps
+(`prefill_step`, then `decode_step`) of reduced qwen3-0.6b, mamba2-1.3b,
+minicpm3-4b and zamba2-1.2b match their full forward, the prefill on the
+kernels and the steps launching none. Every test here is marked `gpu` and skips without a CUDA device. The file imports neither JAX nor the JAX package, so it also
 runs on a GPU machine that has no JAX:
 
     PYTHONPATH=src python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -452,6 +455,63 @@ def test_reduced_zoo_forward_kernel_path_matches_plain_path(arch, dtype):
     assert np.isfinite(got).all() and np.abs(got / ref - 1).max() <= bound, (got, ref)
     if dtype == "float32":  # bf16 GEMMs of another row count may block differently
         np.testing.assert_allclose(got, single, rtol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,dtype", [
+    ("qwen3-0.6b", "float32"), ("mamba2-1.3b", "float32"), ("minicpm3-4b", "float32"),
+    ("zamba2-1.2b", "float32"), ("qwen3-0.6b", "bfloat16"), ("mamba2-1.3b", "bfloat16")])
+def test_reduced_prefill_then_decode_matches_the_full_forward_on_cuda(arch, dtype):
+    """The serving steps of a reduced config on the card: a prefill of 150
+    tokens of 2 sequences on the kernel path (exactly
+    `transformer.kernel_launches(cfg)`), then 6 decode steps teacher-forced
+    on the next tokens, none of which launches a kernel, each step's logits
+    against the kernel path's full forward over all 156 tokens at the same
+    position: within 1e-4 of the largest logit in float32 (on the CPU the
+    same steps agree within 1.2e-5, tests/test_torch_decode*.py), within the
+    JAX package's 2e-2 in bf16 (on the CPU, whose kernel path keeps the
+    softmax in float32 where decode rounds it to bf16, qwen3 5e-3). The
+    random reduced zamba2 and minicpm3 are chaotic in bf16 (on the CPU 5%
+    and 1.5-3%; MLA's absorbed decode rounds other products to bf16 than
+    its prefill does): chip_smoke.py holds them in bf16 at full width. The
+    cache comes back as the same tensors, written in place."""
+    dev = cuda_or_skip()
+    S, steps = 150, 6
+    cfg = get_config(arch, reduced=True).replace(param_dtype=dtype, act_dtype=dtype)
+    params = model.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    tokens = model.make_synth_batch(cfg, 2, S + steps,
+                                    torch.Generator(device=dev).manual_seed(1))["tokens"]
+    full, _, _ = transformer.forward(cfg, params, tokens)
+
+    def counts():
+        return dict(flash_attention.launches_by_kernel, ssd=ssd.launches)
+
+    want = counts()
+    for name, n in transformer.kernel_launches(cfg).items():
+        want[name] += n
+    _, cache = model.prefill_step(cfg, params, tokens[:, :S], cache_len=S + steps)
+    torch.cuda.synchronize()
+    assert counts() == want
+    ptrs = [t.data_ptr() for t in _leaves(cache)]
+    errs = []
+    for j in range(steps):
+        logits, out = model.decode_step(cfg, params, cache, tokens[:, S + j:S + j + 1], S + j)
+        assert out is cache
+        ref = full[:, S + j].float()
+        errs.append(float((logits.float() - ref).abs().max() / ref.abs().max()))
+    torch.cuda.synchronize()
+    assert counts() == want
+    assert [t.data_ptr() for t in _leaves(cache)] == ptrs
+    print(f"{arch} {dtype}: decode vs the full forward {max(errs):.3g}")
+    assert max(errs) <= (1e-4 if dtype == "float32" else 2e-2), errs
+
+
+def _leaves(tree) -> list:
+    from repro_torch.models.params import walk
+
+    out = []
+    walk(tree, lambda t, _p: out.append(t))
+    return out
 
 
 @pytest.mark.gpu

@@ -29,7 +29,7 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.core.fabric import EvaluationFabric, ModelBackend
 from repro_torch.kernels.ssd import ssd
-from repro_torch.models import attention, model, ssm, transformer
+from repro_torch.models import model, ssm, transformer
 from repro_torch.uq import sparse_grid as sg
 
 ARCH = "mamba2-1.3b"
@@ -142,22 +142,6 @@ def test_forward_matches_jax(carried, ctx11, impl, jimpl):
         jnll = jax_model.eval_nll(jcfg.replace(attn_impl=jimpl), ctx11, jparams,
                                   {k: jnp.asarray(v) for k, v in batch.items()})
     np.testing.assert_allclose(nll.numpy(), np.asarray(jnll), rtol=NLL_RTOL)
-
-
-def test_forward_raises_for_what_is_not_ported(carried):
-    _, _, batch, params = carried
-    cfg = get_config(ARCH, True)
-    with pytest.raises(NotImplementedError, match="queue 1, item 13"):
-        transformer.forward(cfg, params, torch.tensor(batch["tokens"]), mode="decode")
-    # every family declares and runs train/prefill now; the decode steps
-    # (GQA's and MLA's absorbed one) are not ported
-    for arch in ("deepseek-moe-16b", "zamba2-1.2b", "minicpm3-4b", "llama-3.2-vision-90b"):
-        rcfg = get_config(arch, True)
-        assert model.n_params(rcfg) > 0
-        with pytest.raises(NotImplementedError, match="queue 1, item 13"):
-            transformer.forward(rcfg, {}, torch.zeros(1, 1, dtype=torch.long), mode="decode")
-    with pytest.raises(NotImplementedError, match="queue 1, item 13"):
-        attention.gqa_decode(get_config("qwen3-0.6b", True), {}, torch.zeros(1, 1, 128), {}, 0)
 
 
 @pytest.fixture(scope="module", params=IMPLS, ids=[i for i, _ in IMPLS])
