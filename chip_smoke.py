@@ -78,7 +78,17 @@ user calls:
   shapes: as in the JAX package, no model calls it;
 * the float32 flash-attention kernel (mma.sync in 3xTF32) on its own path: the
   reduced qwen3-0.6b in float32, as the port's tests run it, serving a
-  level-2 sparse grid through the fabric.
+  level-2 sparse grid through the fabric;
+* the flash-attention backward kernel (`flash_attention_bwd.cu`: three
+  kernels, mma.sync bf16, 3xBF16 for float32) against the plain backward
+  at the training shapes of the zoo (`flash_bwd_vs_plain`), then the LM
+  zoo's training through `repro_torch.launch.train.train`: qwen3-0.6b at
+  full width and depth in bf16 (remat "full", 4 x 4,096 tokens, 8 steps, a
+  checkpoint every 4, a StepFailure and a NaN injected: retried, restored
+  and replayed bit for bit; launches exactly 56 forward and 28 of each
+  backward kernel a step; every attention's gradients held in situ against
+  the plain backward; `train_path`), and one float32 step of its first 4
+  layers against the plain path's gradients (`train_f32_path`).
 
 Last, the port's analysis gate (`analysis_gate`, `repro_torch.analysis`):
 its linter over the port and this script (every rule 0 findings, against
@@ -192,13 +202,14 @@ def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port, by wrapper name; each counts its
     launches in `.launches` (flash attention also by kernel, in
     `.launches_by_kernel`)."""
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.rmsnorm import rmsnorm_fused
     from repro_torch.kernels.ssd import ssd
     from repro_torch.kernels.swe import swe_solve, swe_step
 
     return {"swe_solve": swe_solve, "swe_step": swe_step, "ssd": ssd,
-            "flash_attention": flash_attention, "rmsnorm": rmsnorm_fused}
+            "flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
+            "rmsnorm": rmsnorm_fused}
 
 
 def reset_launches() -> None:
@@ -210,7 +221,8 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     """Launches by kernel: flash attention's two kernels (the float32
-    `flash_attention`, the bf16 `flash_attention_wgmma`) apart."""
+    `flash_attention`, the bf16 `flash_attention_wgmma`) apart, and the
+    backward's three (`flash_attention_bwd_dsum`, `_dkdv`, `_dq`)."""
     counts = {}
     for name, wrapper in kernel_wrappers().items():
         counts.update(getattr(wrapper, "launches_by_kernel", {name: wrapper.launches}))
@@ -341,6 +353,12 @@ def sass_counts(library: Path, op: str) -> dict:
     return by_function
 
 
+#: plain solves of at most this many steps run eagerly in `kernel_vs_plain`;
+#: longer ones (the whole waves: 2,224 and 8,899 steps) replay a CUDA graph
+#: a step, which saves ~1 min of host launches a run
+EAGER_PLAIN_STEPS = 1000
+
+
 def phase_kernel_vs_plain(torch, dev) -> dict:
     """Both SWE kernels against their plain versions on the card, bit for
     bit (the bound and its reason: `repro_torch.kernels.swe.testing`): the
@@ -350,7 +368,7 @@ def phase_kernel_vs_plain(torch, dev) -> dict:
     on whole waves at both levels (1, 4, 8, 13, 16 and 64 lanes) and on a
     2,047-cell wave with its buoy rows on a slice edge, each at the plan's
     cluster size and at every other size the kernel runs, against one plain
-    loop."""
+    loop (the whole waves' as a CUDA graph a step, `EAGER_PLAIN_STEPS`)."""
     from repro_torch.kernels.swe import ops as swe_ops
     from repro_torch.kernels.swe import swe_solve, swe_solve_ref, swe_step, swe_step_ref
     from repro_torch.kernels.swe.testing import (
@@ -361,6 +379,7 @@ def phase_kernel_vs_plain(torch, dev) -> dict:
         assert_step_equal,
         case_inputs,
         solve_case_inputs,
+        swe_solve_ref_replayed,
     )
 
     report = {}
@@ -380,7 +399,11 @@ def phase_kernel_vs_plain(torch, dev) -> dict:
         kw = solve_case_inputs(case, dev)
         h, hu, b = kw.pop("h"), kw.pop("hu"), kw.pop("b")
         C, N = h.shape
-        want = swe_solve_ref(h, hu, b, **kw)
+        # the whole waves' plain loop as a CUDA graph a step (the same
+        # operations, bit for bit the eager loop: tests/test_torch_gpu.py),
+        # as `wave_widths_vs_plain` runs it; the short cases eagerly
+        plain = swe_solve_ref if kw["n_steps"] <= EAGER_PLAIN_STEPS else swe_solve_ref_replayed
+        want = plain(h, hu, b, **kw)
         by_cluster = {}
         for cluster in (None, *(cs for cs in CLUSTER_SIZES if cs <= C)):
             got = swe_solve(h, hu, b, **kw, cluster=cluster)
@@ -388,6 +411,7 @@ def phase_kernel_vs_plain(torch, dev) -> dict:
             by_cluster["plan" if cluster is None else str(cluster)] = assert_solve_equal(
                 got, want, f"{case}, cluster {cluster}")
         solves[case] = dict(shape=[C, N], n_steps=kw["n_steps"], rows=list(kw["rows"]),
+                            plain="eager" if plain is swe_solve_ref else "a graph a step",
                             plan=swe_ops.cluster_plan(C, N), by_cluster=by_cluster)
     solve_worst = max(r[key]["max_abs"] for c in solves.values()
                       for r in c["by_cluster"].values() for key in ("mx", "arr"))
@@ -3255,11 +3279,19 @@ DECODE_F32_RTOL = 1e-4
 UNIT_RTOL = {"bfloat16": 2.0 ** -5, "float32": 1e-3}
 #: the float32 serving runs: (arch, layers kept at full width or None for
 #: all). deepseek-moe-16b's 28 layers are 65 GB in float32: 4 (one dense,
-#: three MoE) keep its widths; llama-3.2-vision-90b as in ZOO_PATHS (42.7
-#: GB in float32); kimi-k2's one MoE layer alone is 68 GB in float32, and
-#: deepseek's MoE layers run the same code
-F32_DECODE_PATHS = ((DENSE_ARCH, None), (SSM_ARCH, None), (ZOO_SSM_ARCH, None),
-                    ("minicpm3-4b", None), ("llama-3.2-vision-90b", 10), (MOE_ARCH, 4))
+#: three MoE) keep its widths; kimi-k2's one MoE layer alone is 68 GB in
+#: float32, and deepseek's MoE layers run the same code. To make room for
+#: the training phases in the run's time, three more are cut in depth,
+#: widths kept (every unit kind still runs): qwen3-0.6b 28 -> 4 layers and
+#: mamba2-1.3b 48 -> 4 (their end-to-end logits bound, 1e-4, holds at any
+#: depth: 6.0e-6 and 4.3e-6 at 4 layers on an H100), minicpm3-4b 62 -> 8
+#: and llama-3.2-vision 10 -> 5 (one vlm group: 4 self and 1 cross). The
+#: chaotic models' end-to-end bound is twice the forward's own spread, and
+#: zamba2-1.2b's decode logits sit at 1.8-2.1x its plain path's spread at 8
+#: and 14 layers (1.008e-4 against a bound of 1e-4 at 8): it runs whole,
+#: as before, its units teacher-forced within 1.6e-5 at every depth
+F32_DECODE_PATHS = ((DENSE_ARCH, 4), (SSM_ARCH, 4), (ZOO_SSM_ARCH, None),
+                    ("minicpm3-4b", 8), ("llama-3.2-vision-90b", 5), (MOE_ARCH, 4))
 #: layer 0's cache rows that decode wrote against a prefill's: K and V after
 #: rope, MLA's latent and k_pe, the SSM conv window and the cross caches
 #: within one bf16 ulp of the largest value (two float32 sums that differ in
@@ -3673,6 +3705,355 @@ def phase_serving_batch(torch, model) -> dict:
     return {"launches": launches}
 
 
+# -- the LM zoo's training ------------------------------------------------------
+
+
+def flash_bwd_work(B: int, nq: int, nkv: int, Sq: int, Sk: int, hd: int, causal: bool,
+                   elem: int, hd_v: int | None = None) -> dict:
+    """Bytes the flash backward must move (q, k, v, o and dO read once,
+    the log-sum-exp read once, dq, dk and dv written once) and its float
+    operations: the gradient's five products (S = q k^T, dV, dP, dK, dQ),
+    2.5 times the forward's two (`flash_work`), over the pairs the mask
+    keeps."""
+    hd_v = hd if hd_v is None else hd_v
+    fwd = flash_work(B, nq, nkv, Sq, Sk, hd, causal, elem, hd_v)
+    q_side = B * nq * Sq * (2 * hd + 2 * hd_v)  # q, dq; o, dO
+    kv_side = 2 * B * nkv * Sk * (hd + hd_v)  # k, v; dk, dv
+    return {"bytes": elem * (q_side + kv_side) + 4 * B * nq * Sq, "flops": 2.5 * fwd["flops"]}
+
+
+def phase_flash_bwd_vs_plain(torch, dev, smi: str) -> dict:
+    """The flash backward kernel (`csrc/flash_attention_bwd.cu`, three
+    kernels) at every `testing.BWD_CASES` shape, at the model layout:
+    `testing.check_bwd` (the forward with its log-sum-exp, within LSE_ATOL
+    of the plain forward's; then dq, dk and dv against the plain backward
+    run from the plain forward's own o and log-sum-exp, within BWD_RTOL of
+    each gradient's largest element: 2e-2 bf16, 1e-4 float32),
+    each kernel launched once; then each case's backward timed (one CUDA
+    event pair around back-to-back calls, `_device_ms`) beside its bound
+    (the five products at the tensor cores' bf16 peak, 3x that for float32
+    in 3xBF16, or the bytes), the plain backward's time and the backward of
+    `F.scaled_dot_product_attention` at the same shape, native widths and
+    scale (for comparison only: the port never calls it)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, ops
+    from repro_torch.kernels.flash_attention import testing as T
+
+    shapes = []
+    for i, (name, zoo) in enumerate(T.BWD_CASES.items()):
+        B, nq, nkv, Sq, Sk, hd, causal, dt = zoo.case
+        q, k, v, do = T.bwd_inputs(zoo, dev, seed=300 + i)
+        before = dict(flash_attention_bwd.launches_by_kernel)
+        errors = T.check_bwd(q, k, v, do, causal, zoo.scale, name)
+        torch.cuda.synchronize()
+        launched = {kk: n - before[kk] for kk, n in flash_attention_bwd.launches_by_kernel.items()}
+        if launched != dict.fromkeys(before, 1):
+            raise AssertionError(f"{name}: the backward launched {launched}")
+        o, lse = ops._forward(q, k, v, causal, zoo.scale, want_lse=True)
+        big = B * nq * Sq * Sk * hd > 2e11
+        ms = _device_ms(torch, lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                                           scale=zoo.scale),
+                        calls=5 if big else 20, windows=3)
+        plain_ms = _device_ms(torch, lambda: T.plain_bwd(q, k, v, o, lse, do, causal, zoo.scale),
+                              calls=1, windows=3)
+        dqk, dv = zoo.widths or (hd, hd)
+        qs, ks, vs = (t[..., :w].detach().requires_grad_()
+                      for t, w in ((q, dqk), (k, dqk), (v, dv)))
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal, enable_gqa=True,
+                                             scale=zoo.scale)
+        do_n = do[..., :dv]
+        library_ms = _device_ms(torch, lambda: torch.autograd.grad(out, (qs, ks, vs), do_n,
+                                                                   retain_graph=True),
+                                calls=5 if big else 20, windows=3)
+        work = flash_bwd_work(B, nq, nkv, Sq, Sk, dqk, causal, q.element_size(), hd_v=dv)
+        t_bytes = work["bytes"] / HBM_BYTES_PER_S
+        # the kernel's products: bf16 on the tensor cores; float32 as 3xBF16
+        t_ops = work["flops"] / BF16_FLOPS * (1 if dt == "bfloat16" else 3)
+        entry = {"case": name, "shape": [B, nq, nkv, Sq, hd], "sk": Sk, "causal": causal,
+                 "dtype": dt, "scale": zoo.scale, "widths": [dqk, dv], "launches": launched,
+                 "ms": ms,
+                 "plain_ms": plain_ms, "library_ms": library_ms,
+                 "bound_ms": max(t_bytes, t_ops) * 1e3,
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "bytes_ms": t_bytes * 1e3, "tc_ops_ms": t_ops * 1e3,
+                 "share_of_bound": max(t_bytes, t_ops) * 1e3 / ms,
+                 "kernel_flops": flash_bwd_work(B, nq, nkv, Sq, Sk, hd, causal, 2)["flops"],
+                 **work, **errors}
+        if dt == "float32":
+            t_fp32 = work["flops"] / FP32_FLOPS
+            entry["fp32_cuda_core_bound_ms"] = max(t_bytes, t_fp32) * 1e3
+        shapes.append(entry)
+        del q, k, v, do, o, lse, qs, ks, vs, out, do_n
+        torch.cuda.empty_cache()
+    worst = {dt: max((max(e[g]["rel"] for g in ("dq", "dk", "dv")) for e in shapes
+                      if e["dtype"] == dt), default=None) for dt in T.BWD_RTOL}
+    lse_worst = {dt: max((e["lse_max_abs_err"] for e in shapes if e["dtype"] == dt),
+                         default=None) for dt in T.BWD_RTOL}
+    emit("flash_bwd_vs_plain", kernel="flash_attention_bwd",
+         kernels=list(ops.BWD_KERNELS),
+         bound="each of dq, dk, dv: max abs error <= 2e-2 (bf16) / 1e-4 (float32) of its "
+               "largest element, against attention_bwd_ref run from the plain forward's own "
+               "o and log-sum-exp; the forward kernel's log-sum-exp within "
+               f"{T.LSE_ATOL} of the plain one",
+         lse_max_abs_err_by_dtype=lse_worst,
+         timer="one CUDA event pair around back-to-back backward calls (5 at the largest "
+               "shapes, 20 otherwise; plain: 1), per call, median of 3 windows",
+         work_bound="max(bytes at 3.35 TB/s, the five products (2.5 x the forward's flops) "
+                    "at 989 TFLOP/s bf16; float32 3 x that, 3xBF16)",
+         library="torch.autograd.grad of F.scaled_dot_product_attention(q, k, v, "
+                 "is_causal=causal, enable_gqa=True, scale=scale) at the native widths",
+         max_rel_err_by_dtype=worst, shapes=shapes, card=smi)
+    return {"shapes": shapes, "worst": worst, "lse_worst": lse_worst}
+
+
+#: the training path: qwen3-0.6b at full width and depth, bf16, as published
+#: (remat "full", loss_chunk 0), B = 4 sequences of SHAPES["train_4k"]'s
+#: 4,096 tokens (its global batch of 256 cut to fit one card), TRAIN_STEPS
+#: steps, a checkpoint every TRAIN_CKPT_EVERY, one StepFailure injected at
+#: TRAIN_FAIL_STEP (retried) and one NaN loss at TRAIN_NAN_STEP (restored
+#: from step TRAIN_CKPT_EVERY - 1 and replayed)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_CKPT_EVERY = 8, 4, 4
+TRAIN_FAIL_STEP, TRAIN_NAN_STEP = 2, 5
+#: bound on each attention call's dq, dk and dv in a training step against
+#: the plain backward on the same saved tensors (relative to the largest
+#: element): UnitTap's 2^-5, four bf16 ulps
+TRAIN_IN_SITU_RTOL = 2.0 ** -5
+#: the float32 training step: qwen3-0.6b's widths, TRAIN_F32_LAYERS layers,
+#: each gradient leaf on the kernel path within TRAIN_F32_RTOL of the leaf's
+#: largest element of the same step on the plain path
+TRAIN_F32_LAYERS, TRAIN_F32_RTOL = 4, 1e-3
+
+
+#: each kernel of a training step by its name in a trace (the backward's
+#: three by their symbols in flash_attention_bwd.cu)
+TRAIN_TRACE = {"flash_attention_wgmma": "flash_attention_wgmma_kernel",
+               "flash_attention_bwd_dsum": "dsum_kernel",
+               "flash_attention_bwd_dkdv": "dkdv_kernel",
+               "flash_attention_bwd_dq": "dq_kernel"}
+
+
+def _train_step_profile(torch, step, per_step: dict) -> dict:
+    """`step()`, one training step, under torch.profiler: the device time
+    of each of its hand-written kernels (held to `per_step` launches in the
+    trace), of the cuBLAS GEMMs and of everything else (the glue: norms,
+    rope, SwiGLU, the loss over the logits, AdamW, casts), each as a share
+    of the step's profiled wall, and the busy and idle shares."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    trace = ROOT / "build" / "chip_smoke_train_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    busy = {**dict.fromkeys(per_step, 0.0), "gemm": 0.0, "other": 0.0, "memcpy_memset": 0.0}
+    in_trace = dict.fromkeys(per_step, 0)
+    by_name: dict[str, list] = {}
+    for ev in json.loads(trace.read_text()).get("traceEvents", []):
+        if ev.get("ph") != "X":
+            continue
+        cat, name, dur = ev.get("cat"), ev.get("name", ""), float(ev.get("dur", 0.0))
+        if cat in ("gpu_memcpy", "gpu_memset"):
+            busy["memcpy_memset"] += dur
+        elif cat == "kernel":
+            mine = [k for k in per_step if TRAIN_TRACE[k] in name]
+            if mine:
+                busy[mine[0]] += dur
+                in_trace[mine[0]] += 1
+            elif any(k in name.lower() for k in ("gemm", "cutlass", "xmma", "nvjet")):
+                busy["gemm"] += dur
+            else:
+                busy["other"] += dur
+            entry = by_name.setdefault(name[:90], [0, 0.0])
+            entry[0] += 1
+            entry[1] += dur
+    trace.unlink()
+    if in_trace != per_step:
+        raise AssertionError(f"the training step's trace holds {in_trace} launches, expected "
+                             f"{per_step}")
+    device_us = sum(busy.values())
+    return {"profiled_wall_ms": wall_us / 1e3, "device_busy_ms": device_us / 1e3,
+            "device_kernels": sum(n for n, _ in by_name.values()),
+            "launches_in_trace": in_trace, "busy_ms": {k: v / 1e3 for k, v in busy.items()},
+            "share_of_wall": {k: v / wall_us for k, v in busy.items()},
+            "device_busy_share": device_us / wall_us,
+            "device_idle_share": 1.0 - device_us / wall_us,
+            "top_kernels": [{"name": k, "launches": n, "ms": us / 1e3} for k, (n, us) in
+                            sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]]}
+
+
+def phase_train_path(torch, dev, smi: str) -> dict:
+    """The training path through `repro_torch.launch.train.train`, the
+    entry point a user calls: qwen3-0.6b at full width and depth in bf16
+    (see TRAIN_STEPS), into a temporary checkpoint directory. Held: every
+    loss finite, the last below the first; the fault loop retried once and
+    restored once; the first replayed step's loss equals the first
+    attempt's bit for bit (same parameters, same batch, no atomics in any
+    kernel of the step); the launches exactly the step executions'
+    (forward kernel 2 x 28 a step, forward and recompute; each backward
+    kernel 28). Measured: step ms (median of the unfaulted steps after the
+    first), tokens/s, peak memory, the checkpoints' seconds on the train
+    thread, and one more step under the profiler (`_train_step_profile`:
+    device time by kernel, GEMMs and glue; busy share). Then one more step
+    under `testing.backward_tap`: every attention call's log-sum-exp held
+    to the plain forward's (LSE_ATOL) and its dq, dk and dv to the plain
+    backward from its saved q, k, v (TRAIN_IN_SITU_RTOL)."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention import testing as T
+    from repro_torch.launch import train as L
+    from repro_torch.types import SHAPES, TrainConfig
+
+    cfg = get_config(DENSE_ARCH)
+    if (cfg.remat, cfg.loss_chunk, cfg.attn_impl, cfg.act_dtype) != (
+            "full", 0, "kernel", "bfloat16"):
+        raise AssertionError(f"{cfg.name} is not as published: {cfg}")
+    S, B = SHAPES["train_4k"].seq_len, TRAIN_BATCH
+    tc = TrainConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS,
+                     checkpoint_every=TRAIN_CKPT_EVERY, keep_checkpoints=2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as ckpt_dir:
+        reset_launches()
+        t0 = time.perf_counter()
+        params, opt, hist = L.train(cfg, tc, TRAIN_STEPS, B, S, ckpt_dir,
+                                    inject_fail=(TRAIN_FAIL_STEP,), inject_nan=(TRAIN_NAN_STEP,),
+                                    log_every=1, device=dev, log=log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    attempts = [e for e in log if "action" in e]
+    runs = [e for e in attempts if e["action"] in ("ok", "restore")]  # a step executed
+    per_step = {"flash_attention_wgmma": 2 * cfg.n_layers,
+                **dict.fromkeys(ops.BWD_KERNELS, cfg.n_layers)}
+    want = dict.fromkeys(counts, 0)
+    want.update({k: n * len(runs) for k, n in per_step.items()})
+    losses = [l for _, l in hist]
+    ok = [e for e in attempts if e["action"] == "ok"]
+    first_four = [e["loss"] for e in ok if e["step"] == TRAIN_CKPT_EVERY]
+    actions = [e["action"] for e in attempts]
+    problems = []
+    if counts != want:
+        problems.append(f"launches {counts}, expected {len(runs)} steps' {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        problems.append(f"losses {losses}")
+    if actions.count("retry") != 1 or actions.count("restore") != 1:
+        problems.append(f"fault actions {actions}")
+    if len(first_four) != 2 or first_four[0] != first_four[1]:
+        problems.append(f"step {TRAIN_CKPT_EVERY}'s first attempt and replay: {first_four}")
+    step_s = [e["wall_s"] for e in ok[1:]]
+    step_ms = statistics.median(step_s) * 1e3
+
+    data = SyntheticLMData(cfg, B, S, seed=tc.seed, device=dev)
+    batch = data.batch(TRAIN_STEPS)
+    step_fn = L.build_train_step(cfg, tc)
+    profile = _train_step_profile(torch, lambda: step_fn(params, opt, batch), per_step)
+
+    with T.backward_tap(rtol=TRAIN_IN_SITU_RTOL) as seen:
+        step_fn(params, opt, data.batch(TRAIN_STEPS + 1))
+        torch.cuda.synchronize()
+    failed = [e["error"] for e in seen if "error" in e]
+    in_situ = max((max(e[g]["rel"] for g in ("dq", "dk", "dv")) for e in seen
+                   if "error" not in e), default=float("inf"))
+    in_situ_lse = max((e["lse_max_abs_err"] for e in seen if "error" not in e),
+                      default=float("inf"))
+    if len(seen) != cfg.n_layers or failed:
+        problems.append(f"in situ: {len(seen)} attention backwards (expected "
+                        f"{cfg.n_layers}), {len(failed)} past a bound: {failed[:2]}")
+    checkpoints = [e for e in log if "checkpoint" in e]
+    fields = dict(
+        arch=cfg.name, batch=B, seq=S, steps=TRAIN_STEPS, remat=cfg.remat,
+        loss_chunk=cfg.loss_chunk, attn_impl=cfg.attn_impl, dtype=cfg.act_dtype,
+        reduced=[f"global_batch {SHAPES['train_4k'].global_batch} -> {B} (one card)"],
+        train_config={"lr": tc.lr, "warmup_steps": tc.warmup_steps,
+                      "checkpoint_every": tc.checkpoint_every,
+                      "opt_state_dtype": tc.opt_state_dtype},
+        injected={"step_failure": TRAIN_FAIL_STEP, "nan": TRAIN_NAN_STEP},
+        wall_s=wall, step_ms_median=step_ms, step_ms_min=min(step_s) * 1e3,
+        step_ms_max=max(step_s) * 1e3, tokens_per_s=B * S / (step_ms / 1e3),
+        max_memory_allocated=peak, step_executions=len(runs),
+        launches=counts, launches_per_step=per_step,
+        losses=[[s, l] for s, l in hist], attempts=attempts,
+        replayed_step_loss=first_four, checkpoint_s=[e["s"] for e in checkpoints],
+        checkpoint_s_total=sum(e["s"] for e in checkpoints),
+        step_device_busy_share=profile["device_busy_share"], step_profile=profile,
+        in_situ_calls=len(seen), in_situ_max_rel_err=in_situ,
+        in_situ_bound=TRAIN_IN_SITU_RTOL, in_situ_lse_max_abs_err=in_situ_lse,
+        in_situ_lse_bound=T.LSE_ATOL, card=smi)
+    emit("train_path", **fields)
+    if problems:
+        raise AssertionError("train_path: " + "; ".join(problems))
+    del params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": {k: v for k, v in counts.items() if v}, "per_step": per_step,
+            "step_ms": step_ms, "in_situ": in_situ, "in_situ_lse": in_situ_lse}
+
+
+def phase_train_f32_path(torch, dev) -> dict:
+    """One training step of qwen3-0.6b in float32 (its widths,
+    TRAIN_F32_LAYERS layers, LM_BATCH x LM_SEQ tokens of the synthetic
+    data): the gradient on the kernel path (`flash_attention.cu`, then the
+    backward kernel) against the same gradient on the plain path on the
+    same card, each leaf within TRAIN_F32_RTOL of its largest element; the
+    launches exactly one step's (forward kernel 2 a layer, each backward
+    kernel 1); then `train_step` itself on the kernel path (finite)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import adamw_init, tree_leaves_with_path, tree_leaves
+    from repro_torch.types import TrainConfig
+
+    full = get_config(DENSE_ARCH)
+    cfg = full.replace(param_dtype="float32", act_dtype="float32", n_layers=TRAIN_F32_LAYERS)
+    params = M.init_params(cfg, _generator(torch, dev, 0))
+    batch = SyntheticLMData(cfg, LM_BATCH, LM_SEQ, seed=0, device=dev).batch(0)
+    reset_launches()
+    loss_k, _, grads_k = M.loss_and_grads(cfg, params, batch)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    want = dict.fromkeys(counts, 0)
+    want.update({"flash_attention": 2 * cfg.n_layers,
+                 **dict.fromkeys(ops.BWD_KERNELS, cfg.n_layers)})
+    loss_p, _, grads_p = M.loss_and_grads(cfg.replace(attn_impl="plain"), params, batch)
+    errs = {}
+    for (path, g), w in zip(tree_leaves_with_path(grads_k), tree_leaves(grads_p)):
+        errs["/".join(map(str, path))] = float((g - w).abs().max() / w.abs().max())
+    worst = max(errs.values())
+    loss_err = abs(float(loss_k) / float(loss_p) - 1)
+    tc = TrainConfig(lr=1e-3, warmup_steps=1, total_steps=2)
+    opt = adamw_init(params, tc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, opt, metrics = M.train_step(cfg, tc, params, opt, batch)
+    loss = float(metrics["loss"])
+    step_s = time.perf_counter() - t0
+    emit("train_f32_path", arch=cfg.name, layers=cfg.n_layers, batch=LM_BATCH, seq=LM_SEQ,
+         reduced=["param_dtype, act_dtype bfloat16 -> float32",
+                  f"n_layers {full.n_layers} -> {cfg.n_layers} (widths kept)"],
+         launches=counts, loss_kernel=float(loss_k), loss_plain=float(loss_p),
+         loss_rel_err=loss_err, grad_max_rel_err=worst, grad_rel_err_by_leaf=errs,
+         bound=TRAIN_F32_RTOL, train_step_loss=loss, train_step_s=step_s)
+    if counts != want or not worst <= TRAIN_F32_RTOL or not np.isfinite(loss):
+        raise AssertionError(f"train_f32_path: launches {counts} (expected {want}), worst "
+                             f"gradient leaf {worst:.3g} (bound {TRAIN_F32_RTOL}), loss {loss}")
+    del params, opt, grads_k, grads_p, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": {k: v for k, v in counts.items() if v}, "grad_max_rel_err": worst}
+
+
 def run_lm_path(torch, arch: str, smi: str) -> dict:
     """The main path, the kernel-vs-plain wave and the profiled wave of one
     LM, and for qwen3-0.6b (the model examples/serve_uq.py serves) the
@@ -4035,9 +4416,12 @@ def main() -> int:
     rms_path = phase_rmsnorm_path(torch, dev)
     flash_check = phase_flash_kernel_vs_plain(torch, dev)
     flash_times = phase_flash_times(torch, dev, probe["smi"])
+    bwd = phase_flash_bwd_vs_plain(torch, dev, probe["smi"])
     f32_path = phase_flash_f32_path(torch)
     dense = run_lm_path(torch, DENSE_ARCH, probe["smi"])
     decode_f32 = phase_decode_f32_path(torch)
+    train = phase_train_path(torch, dev, probe["smi"])
+    train_f32 = phase_train_f32_path(torch, dev)
     moe = run_lm_path(torch, MOE_ARCH, probe["smi"])
     zoo = {arch: phase_zoo_lm(torch, arch, n_layers, points)
            for arch, n_layers, points in ZOO_PATHS}
@@ -4057,6 +4441,8 @@ def main() -> int:
     f32_point = next(s for s in flash_times["shapes"]
                      if s["shape"] == f32_shape and s["dtype"] == "float32")
     rms_point = next(s for s in rms_times["shapes"] if s["shape"] == [LM_BATCH * LM_SEQ, 1024])
+    # the backward at the training path's shape
+    bwd_point = next(s for s in bwd["shapes"] if s["case"] == "qwen3-0.6b_train")
     print(probe["smi"], flush=True)
     print(json.dumps({"kernels": [{
         "name": "swe_solve",
@@ -4172,6 +4558,8 @@ def main() -> int:
         **{f"launches_decode_{LM_PHASE[arch]}": zoo[arch]["decode"]["flash_attention_wgmma"]
            for arch, _, _ in ZOO_PATHS},
         "launches_decode_dense_lm_serving_batch": dense["serving"]["flash_attention_wgmma"],
+        # the training path: 2 a layer a step (forward and remat recompute)
+        "launches_train_path": train["launches"]["flash_attention_wgmma"],
         "max_abs_err": flash_check["wgmma"],
         "ms": flash_point["ms"],
         "plain_ms": flash_point["plain_ms"],
@@ -4194,6 +4582,7 @@ def main() -> int:
         "launches": f32_path["launches"],
         **{f"launches_{phase}": n["flash_attention"] for phase, n in decode_f32.items()
            if "flash_attention" in n},
+        "launches_train_f32_path": train_f32["launches"]["flash_attention"],
         "max_abs_err": flash_check["f32_kernel"],
         "max_abs_err_bf16": flash_check["f32_kernel_bf16"],
         "ms": f32_point["ms"],
@@ -4205,6 +4594,37 @@ def main() -> int:
         "library_ms": f32_point["library_ms"],
         "shape": f32_point["shape"],
         "by_shape": [s for s in flash_times["shapes"] if s["dtype"] == "float32"],
+        "card": probe["smi"],
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+        "replaces": None,
+        "replaces_note": "no TPU kernel: the JAX package cannot differentiate its pallas_call "
+                         "(src/repro/kernels/flash_attention/flash_attention.py:129) and "
+                         "trains on XLA; the port's attention path is the forward kernel, so "
+                         "its gradient is a kernel of its own (FlashAttention-2's algorithm)",
+        "dtype": "bfloat16 and float32",
+        # the training path: qwen3-0.6b, 28 layers, each of the three kernels
+        # once a layer a step (and the float32 step's, 4 layers)
+        "launches": train["launches"]["flash_attention_bwd_dkdv"],
+        "launches_by_kernel": {k: v for k, v in train["launches"].items()
+                               if k.startswith("flash_attention_bwd")},
+        "launches_train_f32_path": train_f32["launches"]["flash_attention_bwd_dkdv"],
+        "max_abs_err": max(bwd_point[g]["max_abs_err"] for g in ("dq", "dk", "dv")),
+        "max_rel_err_by_dtype": bwd["worst"],
+        # the forward kernels' log-sum-exp, which the backward reads
+        "lse_max_abs_err": max(v for v in bwd["lse_worst"].values() if v is not None),
+        "lse_max_abs_err_by_dtype": bwd["lse_worst"],
+        "in_situ_max_rel_err_train_path": train["in_situ"],
+        "in_situ_lse_max_abs_err_train_path": train["in_situ_lse"],
+        "ms": bwd_point["ms"],
+        "plain_ms": bwd_point["plain_ms"],
+        "bound_ms": bwd_point["bound_ms"],
+        "bound_by": bwd_point["bound_by"],
+        "library_ms": bwd_point["library_ms"],
+        "shape": bwd_point["shape"],
+        "by_shape": bwd["shapes"],
         "card": probe["smi"],
     }, {
         "name": "rmsnorm",

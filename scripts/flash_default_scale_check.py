@@ -9,7 +9,10 @@ parent commit, unpacked with `git archive`). Its `flash_attention.cu` and
 `flash_attention_wgmma.cu` are built with this checkout's nvcc flags into
 `build/repro_torch_kernels/` (`kernel_ab.build_parent`) and bound as
 `ops.launch` binds this checkout's, with or without the `double scale`
-argument as the parent's entry points declare it. Every case of
+argument and the log-sum-exp pointer (passed null) as the parent's entry
+points declare them. This checkout's wrapper passes a null log-sum-exp
+pointer too, so the check also holds the forward kernels' outputs with no
+log-sum-exp written to the parent's, bit for bit. Every case of
 `kernels/flash_attention/testing.py` (`CASES`, the bf16 ones at the model
 layout as the paths hand them over)
 runs through this checkout's wrapper at the default scale and through the
@@ -43,8 +46,9 @@ def bind(stem: str, lib):
 
     fn = getattr(lib, f"{stem}_fwd")
     scaled = "double scale" in lib.source
+    lse = [None] if "void* lse" in lib.source else []  # a null log-sum-exp pointer
     n_ints = 7 if stem == "flash_attention" else 6  # B .. hd, and the dtype code
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_ints + [
+    fn.argtypes = [ctypes.c_void_p] * (4 + len(lse)) + [ctypes.c_int] * n_ints + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
         *([ctypes.c_double] if scaled else []), ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -54,7 +58,8 @@ def bind(stem: str, lib):
         strides = (ctypes.c_longlong * 12)(*[s for t in (q, k, v, o) for s in ops._strides(t)])
         dtype = [ops._CODES[q.dtype]] if stem == "flash_attention" else []
         scale = [1.0 / math.sqrt(hd)] if scaled else []
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, nq, k.shape[1], Sq,
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *lse, B, nq, k.shape[1],
+                 Sq,
                  k.shape[2], hd, *dtype, strides, int(causal), *scale,
                  torch.cuda.current_stream().cuda_stream)
         if err != 0:

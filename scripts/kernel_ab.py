@@ -96,7 +96,8 @@ def bind_flash(lib):
     """The flash kernel of `lib` (its `flash_attention_fwd`), called as
     `ops.launch` calls this checkout's, at the default scale 1 / sqrt(hd):
     passed as an argument where the library's entry point takes one (its
-    source declares `double scale`), fixed inside it where it does not."""
+    source declares `double scale`), fixed inside it where it does not; a
+    null log-sum-exp pointer where it takes one (`void* lse`)."""
     import math
 
     import torch
@@ -105,7 +106,8 @@ def bind_flash(lib):
 
     fn = lib.flash_attention_fwd
     scaled = "double scale" in lib.source
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+    lse = [None] if "void* lse" in lib.source else []
+    fn.argtypes = [ctypes.c_void_p] * (4 + len(lse)) + [ctypes.c_int] * 7 + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
         *([ctypes.c_double] if scaled else []), ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -114,7 +116,7 @@ def bind_flash(lib):
         B, nq, Sq, hd = q.shape
         strides = (ctypes.c_longlong * 12)(*[s for t in (q, k, v, o) for s in ops._strides(t)])
         scale = [1.0 / math.sqrt(hd)] if scaled else []
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, nq, k.shape[1], Sq,
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *lse, B, nq, k.shape[1], Sq,
                  k.shape[2], hd, ops._CODES[q.dtype], strides, int(causal), *scale,
                  torch.cuda.current_stream().cuda_stream)
         if err != 0:

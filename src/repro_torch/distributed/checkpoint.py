@@ -14,7 +14,9 @@ The leaf order is `jax.tree.flatten`'s (dicts by sorted key, lists and
 tuples in order, `None` an empty subtree), and a step directory holds the
 same files and the same META.json as the JAX package's, so a directory
 written by either package restores in the other. Torch tensors are leaves
-and move to the host on save. There is no mesh on one card: `shardings=`
+and move to the host on save; a bfloat16 leaf is saved as float32 (exact),
+and a JAX package's bfloat16 leaf (a 2-byte void array on disk) is read as
+its bits. There is no mesh on one card: `shardings=`
 raises (ROADMAP queue 1, item 14).
 """
 from __future__ import annotations
@@ -29,8 +31,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-
-from repro_torch.core.device import resolve_device
 
 
 def _flatten(tree):
@@ -61,9 +61,33 @@ def _flatten(tree):
     return [tree], lambda leaves: leaves[0]
 
 
+def _load_leaf(path) -> np.ndarray:
+    """A saved leaf. numpy saves a bfloat16 array of the JAX package
+    (ml_dtypes' bfloat16, which has no numpy type code) as a 2-byte void
+    type; such a leaf is read as its bfloat16 bits and returned as the
+    float32 array that holds those values exactly."""
+    arr = np.load(path)
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        arr = (np.ascontiguousarray(arr).view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+    return arr
+
+
+def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype a restored tensor leaf takes with `host=True`:
+    float32 for bfloat16 (numpy has none; float32 holds it exactly)."""
+    return np.dtype(np.float32) if dtype == torch.bfloat16 else torch.empty(
+        0, dtype=dtype).numpy().dtype
+
+
 def _to_host(leaf) -> np.ndarray:
+    """A leaf as a host numpy array; a bfloat16 tensor (numpy has no
+    bfloat16) as float32, which holds it exactly and restores into a
+    bfloat16 leaf bit for bit."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach()
+        if leaf.dtype == torch.bfloat16:
+            leaf = leaf.float()
+        return leaf.cpu().numpy()
     return np.asarray(leaf)
 
 
@@ -186,7 +210,8 @@ class CheckpointManager:
         """Restore into the structure of `state_like` (a tree of tensors,
         arrays or scalars). `host=True` returns plain numpy leaves at their
         stored precision (a tensor leaf of `state_like` gives the matching
-        numpy dtype), which bit-exact campaign resume needs (`core.fleet`).
+        numpy dtype; float32 for bfloat16), which bit-exact campaign resume
+        needs (`core.fleet`).
         Otherwise every leaf is a tensor on `device` (default: the card, as
         every entry point of the port), in the dtype of its `state_like`
         leaf. `shardings=` is the JAX package's elastic re-sharding onto a
@@ -219,14 +244,16 @@ class CheckpointManager:
                 f"checkpoint/state structure mismatch: step {step} holds "
                 f"{meta['n_leaves']} leaves, state_like has {len(leaves)}"
             )
+        # imported here: repro_torch.core's package imports this module
+        from repro_torch.core.device import resolve_device
+
         device = None if host else resolve_device(device)
         out = []
         for i, ref in enumerate(leaves):
-            arr = np.load(d / f"leaf_{i:05d}.npy")
+            arr = _load_leaf(d / f"leaf_{i:05d}.npy")
             if isinstance(ref, torch.Tensor):
                 if host:
-                    arr = arr.astype(torch.empty(0, dtype=ref.dtype).numpy().dtype)
-                    out.append(arr)
+                    out.append(arr.astype(_numpy_dtype(ref.dtype)))
                 else:
                     out.append(torch.as_tensor(arr).to(device=device, dtype=ref.dtype))
                 continue

@@ -2,10 +2,10 @@
 the standard library only).
 
 On a real multi-pod deployment failures surface as (a) a device/step raising,
-(b) NaN/inf loss (silent data corruption or numerics), (c) stragglers. A train
-loop handles all three with the policies here (the port's has not landed
-yet: ROADMAP queue 1, item 13c); `core.fleet.FaultInjector` lifts `FlakyStep`
-to the fabric layer, and tests inject failures through both on the CPU.
+(b) NaN/inf loss (silent data corruption or numerics), (c) stragglers. The
+train loop (`repro_torch.launch.train.train`) handles the first two with the
+policies here; `core.fleet.FaultInjector` lifts `FlakyStep` to the fabric
+layer, and tests inject failures through both on the CPU.
 """
 from __future__ import annotations
 

@@ -12,8 +12,9 @@ are built with `-fmad=false`: every multiply and add stays separately
 rounded, as in the eager plain PyTorch version, which is what their
 bit-equality with that version rests on. `ssd.cu` lets the compiler
 contract multiply-adds: its products sum in another order than the plain
-version's, so they cannot be bit-equal anyway. It and `flash_attention.cu`
-(both mma.sync in 3xTF32) are built with `-Xptxas -v`, and each build's
+version's, so they cannot be bit-equal anyway. It, `flash_attention.cu`
+(both mma.sync in 3xTF32) and `flash_attention_bwd.cu` (mma.sync bf16, and
+3xBF16 for float32) are built with `-Xptxas -v`, and each build's
 compiler output (registers, spills) is kept beside its library as
 `lib<stem>_<hash>.log`. `flash_attention_wgmma.cu`
 (wgmma, TMA, `setmaxnreg`: sm_90a only) needs no flag of its own and no
@@ -46,7 +47,8 @@ NVCC_FLAGS = (
 )
 #: flags of one source on top of NVCC_FLAGS, by stem
 SOURCE_FLAGS = {"swe_step": ("-fmad=false",), "swe_solve": ("-fmad=false",),
-                "ssd": ("-Xptxas", "-v"), "flash_attention": ("-Xptxas", "-v")}
+                "ssd": ("-Xptxas", "-v"), "flash_attention": ("-Xptxas", "-v"),
+                "flash_attention_bwd": ("-Xptxas", "-v")}
 
 _lock = named_lock("kernels.build")
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -10,7 +10,9 @@
 // with a float32 running max, sum and accumulator per q row (online
 // softmax), the KV tiles wholly above the diagonal skipped, the diagonal tile
 // masked per element with -1e30, and o = acc / max(l, 1e-30) at the end, cast
-// to q's dtype. Causal needs Sq == Sk (the wrapper raises otherwise). q, k, v
+// to q's dtype; where the caller asks (training), also each row's
+// log-sum-exp, which flash_attention_bwd.cu recomputes the probabilities
+// from. Causal needs Sq == Sk (the wrapper raises otherwise). q, k, v
 // and o are float32 or bfloat16, read and written through strides (the
 // model's [B, S, n, hd] tensors arrive as transposed views, no copy), with
 // 64-bit offsets (q of a 64-point qwen3 wave holds 537 M elements). The
@@ -80,6 +82,7 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;  // the Pallas kernel's mask value
+constexpr float LN2 = 0.6931471805599453f;
 constexpr unsigned FULL = 0xffffffffu;
 
 // The tiling of each head dim: NW warps of 16 q rows a block (BQ = 16 NW
@@ -219,9 +222,9 @@ constexpr int smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(32 * Config<D>::NW, Config<D>::MINB)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, Strides st, int nq,
-                       int nkv, int Sq, int Sk, int n_qt, long long n_bh, float q_scale,
-                       int causal) {
+                       const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                       Strides st, int nq, int nkv, int Sq, int Sk, int n_qt, long long n_bh,
+                       float q_scale, int causal) {
   using Cfg = Config<D>;
   constexpr int BK = Cfg::BK, BQ = 16 * Cfg::NW, THREADS = 32 * Cfg::NW;
   constexpr bool QREG = Cfg::QREG;
@@ -476,7 +479,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  // the row sums over the quad, then o = acc / max(l, 1e-30)
+  // the row sums over the quad, then o = acc / max(l, 1e-30), and where
+  // asked the row's log-sum-exp of the scaled scores, (m + log2 l) ln 2
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(FULL, l[r], 1);
@@ -487,6 +491,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + (r == 0 ? ra : rb);
     if (row >= Sq) continue;
     const float denom = fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && t == 0) lse[bh * Sq + row] = (m[r] + log2f(denom)) * LN2;
     T* orow = og + (long long)row * st.o[2] + 2 * t;
 #pragma unroll
     for (int dn = 0; dn < ND; ++dn)
@@ -496,7 +501,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int nq, int nkv,
-           int Sq, int Sk, const Strides& st, int causal, double scale, void* stream) {
+           int Sq, int Sk, const Strides& st, int causal, double scale, float* lse,
+           void* stream) {
   auto kernel = flash_attention_kernel<T, D>;
   constexpr int smem = smem_bytes<T, D>();
   constexpr int BQ = 16 * Config<D>::NW, THREADS = 32 * Config<D>::NW;
@@ -513,18 +519,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int nq, 
   const float q_scale = (float)(1.4426950408889634 * scale);  // log2(e) * scale
   kernel<<<(unsigned int)blocks, THREADS, smem, (cudaStream_t)stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), st, nq, nkv, Sq, Sk, n_qt, n_bh, q_scale, causal);
+      static_cast<T*>(o), lse, st, nq, nkv, Sq, Sk, n_qt, n_bh, q_scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_hd(const void* q, const void* k, const void* v, void* o, int B, int nq, int nkv,
-              int Sq, int Sk, int hd, const Strides& st, int causal, double scale,
+              int Sq, int Sk, int hd, const Strides& st, int causal, double scale, float* lse,
               void* stream) {
   switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, o, B, nq, nkv, Sq, Sk, st, causal, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, nq, nkv, Sq, Sk, st, causal, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, nq, nkv, Sq, Sk, st, causal, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, B, nq, nkv, Sq, Sk, st, causal, scale, lse, stream);
+    case 64: return launch<T, 64>(q, k, v, o, B, nq, nkv, Sq, Sk, st, causal, scale, lse, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, o, B, nq, nkv, Sq, Sk, st, causal, scale, lse, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -538,9 +545,13 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B, int n
 // each a multiple of 16 bytes, every base 16-byte aligned; hd in
 // {32, 64, 128}; nq a multiple of nkv; causal (1) needs Sq == Sk; `scale`
 // (> 0) multiplies q k^T (1 / sqrt(hd) for the reference's attention).
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                                   int nq, int nkv, int Sq, int Sk, int hd, int dtype,
-                                   const long long* strides, int causal, double scale,
+// `lse`, where not null, gets each row's log-sum-exp of the scaled (and
+// masked) scores, float32 [B, nq, Sq] contiguous: what the backward kernel
+// (flash_attention_bwd.cu) recomputes the probabilities from. Null writes
+// nothing, and o is the same bit for bit.
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                                   void* lse, int B, int nq, int nkv, int Sq, int Sk, int hd,
+                                   int dtype, const long long* strides, int causal, double scale,
                                    void* stream) {
   if (B <= 0 || nq <= 0 || nkv <= 0 || nq % nkv != 0 || Sq <= 0 || Sk <= 0 ||
       (causal && Sq != Sk) || !(scale > 0.0))
@@ -553,9 +564,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     st.o[i] = strides[9 + i];
   }
   if (dtype == 0)
-    return launch_hd<float>(q, k, v, o, B, nq, nkv, Sq, Sk, hd, st, causal, scale, stream);
+    return launch_hd<float>(q, k, v, o, B, nq, nkv, Sq, Sk, hd, st, causal, scale,
+                            static_cast<float*>(lse), stream);
   if (dtype == 1)
     return launch_hd<__nv_bfloat16>(q, k, v, o, B, nq, nkv, Sq, Sk, hd, st, causal, scale,
-                                    stream);
+                                    static_cast<float*>(lse), stream);
   return (int)cudaErrorInvalidValue;
 }

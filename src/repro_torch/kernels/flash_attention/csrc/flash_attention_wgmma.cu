@@ -52,7 +52,9 @@
 //   does not make; the JAX package's model path makes it too
 //   (src/repro/models/attention.py: softmax(...).astype(v.dtype)).
 // * Epilogue: O / l in bf16, stored with 4-byte stores straight into o's
-//   strided layout; rows >= Sq are never written.
+//   strided layout; rows >= Sq are never written. Where the caller asks
+//   (training), each row's log-sum-exp too, (m + log2 l) ln 2, which
+//   flash_attention_bwd.cu recomputes the probabilities from.
 // * Layout through strides: q, k and v are read through one 4-D tensor map
 //   each over the strided [B, S, n, hd] view (hd and the other three dims in
 //   order of their strides; strides in bytes from the tensor), so the
@@ -80,6 +82,7 @@ constexpr int BK = 128;          // keys of a KV tile
 constexpr int STAGES = 2;        // KV tiles in flight
 constexpr int THREADS = 384;     // producer + 2 consumer warpgroups
 constexpr float NEG_INF = -1e30f;  // the Pallas kernel's mask value
+constexpr float LN2 = 0.6931471805599453f;
 
 // ---- shared-memory barriers and TMA -------------------------------------------
 
@@ -258,7 +261,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-                             long long o_sb, long long o_sn, long long o_ss, int nq, int nkv,
+                             float* __restrict__ lse, long long o_sb, long long o_sn, long long o_ss, int nq, int nkv,
                              int Sq, int Sk, int n_qt, long long n_bh, float scale_log2,
                              int causal, int perm_q, int perm_k, int perm_v) {
   using T = Tile<D>;
@@ -416,6 +419,10 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float inv[2] = {1.f / fmaxf(l0, 1e-30f), 1.f / fmaxf(l1, 1e-30f)};
+    if (lse != nullptr && lane % 4 == 0) {  // the rows' log-sum-exp, (m + log2 l) ln 2
+      if (r_lo < Sq) lse[bh * Sq + r_lo] = (m0 + log2f(fmaxf(l0, 1e-30f))) * LN2;
+      if (r_lo + 8 < Sq) lse[bh * Sq + r_lo + 8] = (m1 + log2f(fmaxf(l1, 1e-30f))) * LN2;
+    }
     __nv_bfloat16* ob = o + (long long)b * o_sb + (long long)h * o_sn;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
@@ -495,7 +502,7 @@ int make_map(CUtensorMap* map, const void* ptr, int B, int n, int S, const long 
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int nq, int nkv, int Sq,
-           int Sk, const long long* st, int causal, double scale, void* stream) {
+           int Sk, const long long* st, int causal, double scale, float* lse, void* stream) {
   using T = Tile<D>;
   CUtensorMap mq, mk, mv;
   int pq, pk, pv, err;
@@ -512,7 +519,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int nq, 
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const float scale_log2 = (float)(1.4426950408889634 * scale);  // log2(e) * scale
   kernel<<<(unsigned int)blocks, THREADS, T::SMEM, (cudaStream_t)stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), st[9], st[10], st[11], nq, nkv, Sq, Sk, n_qt,
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, st[9], st[10], st[11], nq, nkv, Sq, Sk, n_qt,
       n_bh, scale_log2, causal, pq, pk, pv);
   return (int)cudaGetLastError();
 }
@@ -526,17 +533,27 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int nq, 
 // 1), each a multiple of 8 elements, every base 16-byte aligned; hd in
 // {32, 64, 128}; nq a multiple of nkv; causal (1) needs Sq == Sk; `scale`
 // (> 0) multiplies q k^T (1 / sqrt(hd) for the reference's attention).
+// `lse`, where not null, gets each row's log-sum-exp of the scaled (and
+// masked) scores, float32 [B, nq, Sq] contiguous: what the backward kernel
+// (flash_attention_bwd.cu) recomputes the probabilities from. Null writes
+// nothing, and o is the same bit for bit.
 extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v, void* o,
-                                         int B, int nq, int nkv, int Sq, int Sk, int hd,
-                                         const long long* strides, int causal, double scale,
-                                         void* stream) {
+                                         void* lse, int B, int nq, int nkv, int Sq, int Sk,
+                                         int hd, const long long* strides, int causal,
+                                         double scale, void* stream) {
   if (B <= 0 || nq <= 0 || nkv <= 0 || nq % nkv != 0 || Sq <= 0 || Sk <= 0 ||
       (causal && Sq != Sk) || !(scale > 0.0))
     return (int)cudaErrorInvalidValue;
   switch (hd) {
-    case 32: return launch<32>(q, k, v, o, B, nq, nkv, Sq, Sk, strides, causal, scale, stream);
-    case 64: return launch<64>(q, k, v, o, B, nq, nkv, Sq, Sk, strides, causal, scale, stream);
-    case 128: return launch<128>(q, k, v, o, B, nq, nkv, Sq, Sk, strides, causal, scale, stream);
+    case 32:
+      return launch<32>(q, k, v, o, B, nq, nkv, Sq, Sk, strides, causal, scale,
+                        static_cast<float*>(lse), stream);
+    case 64:
+      return launch<64>(q, k, v, o, B, nq, nkv, Sq, Sk, strides, causal, scale,
+                        static_cast<float*>(lse), stream);
+    case 128:
+      return launch<128>(q, k, v, o, B, nq, nkv, Sq, Sk, strides, causal, scale,
+                        static_cast<float*>(lse), stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

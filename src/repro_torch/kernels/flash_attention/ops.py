@@ -26,6 +26,19 @@ fold it into log2(e) * scale in float32, which at every hd of `HEAD_DIMS`
 rounds to the constant log2(e) / sqrt(hd) they fixed before, so default
 calls compute what they computed, bit for bit. MLA passes 1/sqrt(96) with
 q and k zero-padded from 96 to 128 columns (`models/attention.py`).
+
+The gradient. When grad is enabled and q, k or v requires it,
+`flash_attention` goes through `FlashAttention`, a `torch.autograd.Function`
+(in the `setup_context` style, so `torch.func` transforms go through it):
+its forward launches the same kernel with a second output, each row's
+log-sum-exp, and its backward launches `csrc/flash_attention_bwd.cu`
+(`flash_attention_bwd`: three kernels, D = rowsum(dO o), dK and dV, dQ).
+On the CPU the Function's forward is `ref.attention_lse_ref` and its
+backward `ref.attention_bwd_ref`. Every other call takes the forward alone,
+with a null log-sum-exp pointer, and computes what it computed before, bit
+for bit: a kernel's output never leaves the wrapper detached from a tensor
+that requires grad. `flash_attention_bwd.launches_by_kernel` counts the
+backward's three kernels.
 """
 from __future__ import annotations
 
@@ -35,7 +48,11 @@ import math
 import torch
 
 from repro_torch.kernels import _build, launches
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_bwd_ref,
+    attention_lse_ref,
+    attention_ref,
+)
 
 #: head dims the kernels are built for
 HEAD_DIMS = (32, 64, 128)
@@ -45,6 +62,8 @@ KERNEL_OF = {torch.float32: "flash_attention", torch.bfloat16: "flash_attention_
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: strides and bases the kernels read: 16-byte vectors and TMA boxes
 ALIGN_BYTES = 16
+#: the backward's three kernels, in launch order (`csrc/flash_attention_bwd.cu`)
+BWD_KERNELS = ("flash_attention_bwd_dsum", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
 
 _fns: dict = {}
 
@@ -57,6 +76,7 @@ def _kernel(stem: str):
         dtype_arg = [ctypes.c_int] if stem == "flash_attention" else []
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, k, v, o
+            ctypes.c_void_p,  # lse, or null
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, nq, nkv
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # Sq, Sk, hd
             *dtype_arg,
@@ -67,6 +87,23 @@ def _kernel(stem: str):
         ]
         fn.restype = ctypes.c_int
         _fns[stem] = fn
+    return fn
+
+
+def _bwd_kernel():
+    fn = _fns.get("flash_attention_bwd")
+    if fn is None:
+        fn = _build.load("flash_attention_bwd").flash_attention_bwd
+        fn.argtypes = [
+            *[ctypes.c_void_p] * 10,  # q, k, v, o, dout, lse, dsum, dq, dk, dv
+            *[ctypes.c_int] * 7,  # B, nq, nkv, Sq, Sk, hd, dtype
+            ctypes.POINTER(ctypes.c_longlong),  # strides of (B, n, S) of the eight tensors
+            ctypes.c_int,  # causal
+            ctypes.c_double,  # scale
+            ctypes.c_void_p,  # stream
+        ]
+        fn.restype = ctypes.c_int
+        _fns["flash_attention_bwd"] = fn
     return fn
 
 
@@ -98,17 +135,21 @@ def _strides(t: torch.Tensor) -> list[int]:
     return [t.stride(d) if t.shape[d] > 1 else span for d in range(3)]
 
 
-def launch(stem: str, q, k, v, o, causal: bool, scale: float | None = None) -> None:
-    """One launch of kernel `stem` writing o (checked by `flash_attention`;
-    `chip_smoke.py` also calls the float32 kernel on bf16 through here to
-    time it beside the wgmma one). `scale` None is 1/sqrt(hd)."""
+def launch(stem: str, q, k, v, o, causal: bool, scale: float | None = None,
+           lse: torch.Tensor | None = None) -> None:
+    """One launch of kernel `stem` writing o, and each row's log-sum-exp
+    into `lse` (float32 ``[B, nq, Sq]``, contiguous) where one is given
+    (checked by `flash_attention`; `chip_smoke.py` also calls the float32
+    kernel on bf16 through here to time it beside the wgmma one). `scale`
+    None is 1/sqrt(hd)."""
     B, nq, Sq, hd = q.shape
     nkv, Sk = k.shape[1], k.shape[2]
     strides = (ctypes.c_longlong * 12)(*[s for t in (q, k, v, o) for s in _strides(t)])
     dtype_arg = [_CODES[q.dtype]] if stem == "flash_attention" else []
     err = _kernel(stem)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, nq, nkv, Sq, Sk, hd,
-        *dtype_arg, strides, int(bool(causal)), default_scale(hd) if scale is None else scale,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, nq, nkv, Sq, Sk, hd, *dtype_arg, strides,
+        int(bool(causal)), default_scale(hd) if scale is None else scale,
         torch.cuda.current_stream().cuda_stream,
     )
     if err >= 10000:
@@ -124,13 +165,8 @@ def default_scale(hd: int) -> float:
     return 1.0 / math.sqrt(hd)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, scale: float | None = None) -> torch.Tensor:
-    """``q [B, nq, Sq, hd]``, ``k, v [B, nkv, Sk, hd]`` -> ``[B, nq, Sq, hd]``
-    in q's dtype and memory order; q head h reads kv head h // (nq / nkv);
-    the scores are ``scale * q k^T`` (None: 1/sqrt(hd)). On the card all
-    three are of one dtype (float32 or bfloat16), with hd in `HEAD_DIMS`,
-    laid out as `check_layout` asks."""
+def _check(q, k, v, causal: bool, scale: float | None) -> None:
+    """The wrapper's checks on every device (and the card's dtype and hd)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor) or t.dim() != 4:
             raise ValueError(f"flash_attention: {name} must be a [B, n, S, hd] tensor")
@@ -153,8 +189,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if t.dtype != q.dtype:
             raise TypeError(f"flash_attention: {name} is {t.dtype}, q is {q.dtype}")
     if device.type == "cpu":
-        o = torch.empty_like(q)  # q's memory order, as on the card
-        return o.copy_(attention_ref(q, k, v, causal=causal, scale=scale))
+        return
     if device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {device}")
     if q.dtype not in KERNEL_OF:
@@ -162,19 +197,135 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: the kernels are built for hd in {HEAD_DIMS}, "
                          f"got {hd}")
-    if device.index is not None and device.index != torch.cuda.current_device():
+
+
+def _forward(q, k, v, causal: bool, scale: float | None, want_lse: bool):
+    """o in q's dtype and memory order, and (`want_lse`) each row's
+    log-sum-exp, float32 ``[B, nq, Sq]``, else None: the kernel of q's dtype
+    on the card, the plain version on the CPU."""
+    if q.device.type == "cpu":
+        o = torch.empty_like(q)  # q's memory order, as on the card
+        if not want_lse:
+            return o.copy_(attention_ref(q, k, v, causal=causal, scale=scale)), None
+        ref_o, lse = attention_lse_ref(q, k, v, causal=causal, scale=scale)
+        return o.copy_(ref_o), lse
+    o = torch.empty_like(q)
+    lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) if want_lse
+           else None)
+    if q.numel() == 0:
+        return o, lse
+    check_layout(q, k, v, o)
+    launch(KERNEL_OF[q.dtype], q, k, v, o, causal, scale, lse)
+    return o, lse
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its gradient: the forward kernel, which also
+    writes each row's log-sum-exp, and the backward kernel
+    (`flash_attention_bwd`). `apply(q, k, v, causal, scale)` -> (o, lse);
+    lse is not differentiable."""
+
+    @staticmethod
+    def forward(q, k, v, causal, scale):
+        return _forward(q, k, v, causal, scale, want_lse=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, scale = inputs
+        o, lse = output
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=ctx.causal,
+                                         scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: float | None = None) -> torch.Tensor:
+    """``q [B, nq, Sq, hd]``, ``k, v [B, nkv, Sk, hd]`` -> ``[B, nq, Sq, hd]``
+    in q's dtype and memory order; q head h reads kv head h // (nq / nkv);
+    the scores are ``scale * q k^T`` (None: 1/sqrt(hd)). On the card all
+    three are of one dtype (float32 or bfloat16), with hd in `HEAD_DIMS`,
+    laid out as `check_layout` asks. Differentiable: with grad enabled and
+    an input that requires it, the call goes through `FlashAttention`."""
+    _check(q, k, v, causal, scale)
+    device = q.device
+    if (device.type == "cuda" and device.index is not None
+            and device.index != torch.cuda.current_device()):
         # the C entry points launch on the current device's context
         with torch.cuda.device(device):
             return flash_attention(q, k, v, causal=causal, scale=scale)
-    o = torch.empty_like(q)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, scale)[0]
+    return _forward(q, k, v, causal, scale, want_lse=False)[0]
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        scale: float | None = None):
+    """The gradient of `flash_attention` with respect to q, k and v: (dq,
+    dk, dv) in the dtypes and shapes of q, k and v, from the forward's o and
+    log-sum-exp `lse` (float32 ``[B, nq, Sq]``) and the output gradient `do`
+    (o's shape and dtype). On the card the three kernels of
+    `csrc/flash_attention_bwd.cu`, each counted in `.launches_by_kernel`;
+    on the CPU `ref.attention_bwd_ref`. `do` in a layout the kernel does
+    not read (an expanded or unaligned view) is copied first."""
+    _check(q, k, v, causal, scale)
+    if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and do "
+                         f"{tuple(do.shape)} must have q's shape {tuple(q.shape)}")
+    if tuple(lse.shape) != tuple(q.shape[:3]) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse must be float32 {tuple(q.shape[:3])}, "
+                         f"got {lse.dtype} {tuple(lse.shape)}")
+    for name, t in (("o", o), ("do", do), ("lse", lse)):
+        if t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} is on {t.device}, q is on "
+                             f"{q.device}")
+    if o.dtype != q.dtype or do.dtype != q.dtype:
+        raise TypeError(f"flash_attention_bwd: o ({o.dtype}) and do ({do.dtype}) must be "
+                        f"{q.dtype}")
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, o, lse, do, causal=causal, scale=scale)
+    device = q.device
+    if device.index is not None and device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return flash_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
-        return o
-    check_layout(q, k, v, o)
-    launch(KERNEL_OF[q.dtype], q, k, v, o, causal, scale)
-    return o
+        return dq, dk.zero_(), dv.zero_()
+    try:
+        check_layout(do)
+    except ValueError:
+        do = do.contiguous()
+    lse = lse.contiguous()
+    check_layout(q, k, v, o, do, dq, dk, dv)
+    B, nq, Sq, hd = q.shape
+    nkv, Sk = k.shape[1], k.shape[2]
+    dsum = torch.empty_like(lse)
+    tensors = (q, k, v, o, do, dq, dk, dv)
+    strides = (ctypes.c_longlong * 24)(*[s for t in tensors for s in _strides(t)])
+    err = _bwd_kernel()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, nq, nkv, Sq, Sk, hd,
+        _CODES[q.dtype], strides, int(bool(causal)),
+        default_scale(hd) if scale is None else scale, torch.cuda.current_stream().cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd: kernel launch failed, cudaError {err}")
+    for kernel in BWD_KERNELS:
+        launches.count(flash_attention_bwd, kernel)
+    return dq, dk, dv
 
 
 #: kernel launches since the last reset (CPU calls never count), in all and
 #: by kernel
 flash_attention.launches = 0
 flash_attention.launches_by_kernel = {stem: 0 for stem in KERNEL_OF.values()}
+#: backward launches since the last reset, in all (three a backward) and by
+#: kernel
+flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_kernel = {name: 0 for name in BWD_KERNELS}

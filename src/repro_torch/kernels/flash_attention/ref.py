@@ -1,12 +1,38 @@
-"""Plain PyTorch version of the flash-attention kernel (counterpart of the
-oracle `repro.kernels.flash_attention.ref.attention_ref`, the same
-operations in the same order). `ops.flash_attention` takes it for CPU
-tensors, and `chip_smoke.py` holds the CUDA kernel against it."""
+"""Plain PyTorch versions of the flash-attention kernels (the forward is the
+counterpart of the oracle `repro.kernels.flash_attention.ref.attention_ref`,
+the same operations in the same order). `ops.flash_attention` takes them for
+CPU tensors, and `chip_smoke.py` holds the CUDA kernels against them:
+`attention_ref` and `attention_lse_ref` the forward kernels,
+`attention_bwd_ref` the backward kernel (`csrc/flash_attention_bwd.cu`),
+which has no counterpart in the JAX package (its `pallas_call` has no
+gradient)."""
 from __future__ import annotations
 
 import math
 
 import torch
+
+
+def _scores(q, k, causal: bool, scale: float | None, acc: torch.dtype = torch.float32):
+    """Scores ``[B, nq, Sq, Sk]`` in `acc` of q against k repeated over the
+    GQA group, divided by sqrt(hd) or times `scale` where one is given,
+    masked with -inf where causal (``tril(k=Sk-Sq)``, bottom-right aligned,
+    as the JAX oracle's)."""
+    nq, Sq, hd = q.shape[1], q.shape[2], q.shape[3]
+    nkv, Sk = k.shape[1], k.shape[2]
+    k = k.repeat_interleave(nq // nkv, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc))
+    s = s / math.sqrt(hd) if scale is None else s * scale
+    if causal:
+        mask = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril(Sk - Sq)
+        s = s.masked_fill(~mask, float("-inf"))
+    return s
+
+
+def _softmax_v(s, v, q):
+    v = v.repeat_interleave(q.shape[1] // v.shape[1], dim=1)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.to(s.dtype)).to(q.dtype)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -15,15 +41,50 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv head h // (nq / nkv)) -> ``[B, nq, Sq, hd]`` in q's dtype. Scores in
     float32 over sqrt(hd), or times `scale` where one is given; the causal
     mask is ``tril(k=Sk-Sq)`` (bottom-right aligned, as the JAX oracle's)."""
-    nq, Sq, hd = q.shape[1], q.shape[2], q.shape[3]
+    return _softmax_v(_scores(q, k, causal, scale), v, q)
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True, scale: float | None = None):
+    """`attention_ref`'s output (the same bits, for float32 and bf16 inputs)
+    and each row's log-sum-exp of the scaled, masked scores ``[B, nq,
+    Sq]``: what the forward kernels write for the backward. float64 inputs
+    are computed in float64 (`attention_ref` computes in float32, as the JAX
+    oracle does); the log-sum-exp is float32 otherwise."""
+    s = _scores(q, k, causal, scale, torch.promote_types(q.dtype, torch.float32))
+    return _softmax_v(s, v, q), torch.logsumexp(s, dim=-1)
+
+
+def attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True, scale: float | None = None):
+    """The gradient of `attention_ref` with respect to q, k and v, from the
+    forward's output o and log-sum-exp `lse` ``[B, nq, Sq]`` and the output
+    gradient `do` (q's shape): the backward kernel's arithmetic in tensor
+    ops, in float32 (float64 for float64 inputs)::
+
+        P  = exp(scores - lse)            D  = rowsum(do * o)
+        dV = P^T do                       dS = P * (do v^T - D)
+        dK = scale dS^T q                 dQ = scale dS k
+
+    summed over each kv head's GQA group. In bf16, P and dS are rounded to
+    bf16 before their products, as the kernel rounds them. Returns (dq, dk,
+    dv) in the dtypes of q, k and v."""
+    B, nq, Sq, hd = q.shape
     nkv, Sk = k.shape[1], k.shape[2]
     group = nq // nkv
-    k = k.repeat_interleave(group, dim=1)
-    v = v.repeat_interleave(group, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
-    s = s / math.sqrt(hd) if scale is None else s * scale
-    if causal:
-        mask = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril(Sk - Sq)
-        s = s.masked_fill(~mask, float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
+    acc = torch.promote_types(q.dtype, torch.float32)
+    kr = k.repeat_interleave(group, dim=1).to(acc)
+    vr = v.repeat_interleave(group, dim=1).to(acc)
+    p = torch.exp(_scores(q, k, causal, scale, acc) - lse.to(acc)[..., None])
+    dof = do.to(acc)
+    dsum = (dof * o.to(acc)).sum(-1)
+    # the products' operands as the kernel rounds them (a no-op in float32)
+    p_op = p.to(q.dtype).to(acc)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p_op, dof)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vr) - dsum[..., None])
+    ds_op = ds.to(q.dtype).to(acc)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds_op, kr) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds_op, q.to(acc)) * scale
+    dk = dk.reshape(B, nkv, group, Sk, hd).sum(2)
+    dv = dv.reshape(B, nkv, group, Sk, hd).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -17,15 +17,36 @@ about one bf16 rounding (0.0078 for outputs in [1, 2), 0.0156 in [2, 4)).
 Inputs are standard normals, as in the JAX package's tests. A dropped
 diagonal moves outputs by O(1) and fails it; so does a 1/hd scale, and at
 qwen3-0.6b's shape a scale 1% off.
+
+The backward kernel (`csrc/flash_attention_bwd.cu`) is held by `check_bwd`
+at `BWD_CASES`: dq, dk and dv against the plain backward
+(`ref.attention_bwd_ref`) on the same q, k, v, o, log-sum-exp and output
+gradient, each gradient's largest error within `BWD_RTOL` of its largest
+element: 2e-2 in bf16 (the forward's bound: both sides round P and dS to
+bf16 and their results to bf16, and sum in other orders), 1e-4 in float32
+(the kernel's products are 3xBF16, about 2^-16 of each term, and a
+gradient sums twice the forward's products; the forward's 2e-5 absolute
+is no bound for gradients whose largest elements run to O(10)). The plain
+backward runs from the plain forward's own o and log-sum-exp, not the
+kernel's, and the kernel's log-sum-exp is held within `LSE_ATOL` of the
+plain one: a wrong log-sum-exp would otherwise be read the same wrong way
+on both sides and cancel out of the comparison. `backward_tap` holds every
+attention call of a training step the same way, on its saved tensors.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import types
 from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_bwd_ref,
+    attention_lse_ref,
+    attention_ref,
+)
 
 #: max |kernel - plain| by dtype (see above)
 ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -152,3 +173,169 @@ def assert_close(got: torch.Tensor, want: torch.Tensor, name: str) -> dict:
     if not err <= tol:
         raise AssertionError(f"{name}: max abs error {err:.3g} exceeds {tol}")
     return {"max_abs_err": err, "bound": tol}
+
+
+#: the backward's cases, at the model layout: qwen3-0.6b's training shape
+#: (B = 4 sequences of 4,096, bf16, causal: `train_path`'s), deepseek's
+#: no-GQA heads, zamba2's hd 64, minicpm3's MLA padded to hd 128 at scale
+#: 1/sqrt(96), llama's cross-attention (full, 2,048 -> 1,601), and float32:
+#: the float32 path's shape and qwen3-0.6b's heads of 128
+BWD_CASES = {
+    "qwen3-0.6b_train": ZooCase((4, 16, 8, 4096, 4096, 128, True, "bfloat16")),
+    "deepseek-moe-16b": ZooCase((2, 16, 16, 2048, 2048, 128, True, "bfloat16")),
+    "zamba2-1.2b": ZooCase((2, 32, 32, 2048, 2048, 64, True, "bfloat16")),
+    "minicpm3-4b": ZooCase((2, 40, 40, 2048, 2048, 128, True, "bfloat16"),
+                           1.0 / math.sqrt(96), (96, 64)),
+    "llama-3.2-vision-90b_cross": ZooCase((2, 64, 8, 2048, 1601, 128, False, "bfloat16")),
+    "float32_path": ZooCase((26, 4, 2, 512, 512, 32, True, "float32")),
+    "float32_hd128": ZooCase((2, 16, 8, 2048, 2048, 128, True, "float32")),
+}
+#: each gradient's largest error over its largest element (see above)
+BWD_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: max |kernel - plain| of the forward's log-sum-exp, either dtype: both
+#: are float32 log-sum-exps of the same float32 scores, summed in other
+#: orders (PERF.md gives the largest measured on an H100: 1.9e-6, two
+#: float32 ulps of values near 8). An offset d in it scales every
+#: probability of its row by exp(-d) in the backward.
+LSE_ATOL = 1e-4
+#: score elements of one plain-backward call (it holds ~6 float32 [B, nq,
+#: Sq, Sk] tensors): 2^28, 1 GiB each
+PLAIN_BWD_ELEMENTS = 1 << 28
+
+
+def _plain_rows(q, k) -> int:
+    """Sequences a plain call takes at once (PLAIN_BWD_ELEMENTS scores)."""
+    return max(1, PLAIN_BWD_ELEMENTS // (q.shape[1] * q.shape[2] * k.shape[2]))
+
+
+def plain_forward(q, k, v, causal: bool, scale: float | None = None):
+    """`attention_lse_ref` (o and its log-sum-exp) a few sequences at a
+    time, so the training shape fits the card."""
+    n = _plain_rows(q, k)
+    parts = [attention_lse_ref(q[i:i + n], k[i:i + n], v[i:i + n], causal=causal, scale=scale)
+             for i in range(0, q.shape[0], n)]
+    return tuple(torch.cat(t) for t in zip(*parts))
+
+
+def plain_bwd(q, k, v, o, lse, do, causal: bool, scale: float | None = None):
+    """`attention_bwd_ref` a few sequences at a time (it is independent per
+    sequence), so the training shape fits the card."""
+    n = _plain_rows(q, k)
+    parts = [attention_bwd_ref(q[i:i + n], k[i:i + n], v[i:i + n], o[i:i + n], lse[i:i + n],
+                               do[i:i + n], causal=causal, scale=scale)
+             for i in range(0, q.shape[0], n)]
+    return tuple(torch.cat(g) for g in zip(*parts))
+
+
+def lse_error(lse, want, name: str) -> float:
+    """Raises unless the forward's log-sum-exp `lse` is float32 of the
+    plain one's shape, finite, and within LSE_ATOL of it; returns the
+    largest absolute error."""
+    if lse.shape != want.shape or lse.dtype != torch.float32:
+        raise AssertionError(f"{name} lse: got {tuple(lse.shape)} {lse.dtype}, expected "
+                             f"{tuple(want.shape)} torch.float32")
+    if not bool(torch.isfinite(lse).all()):
+        raise AssertionError(f"{name} lse: not finite")
+    err = float((lse - want).abs().max()) if lse.numel() else 0.0
+    if not err <= LSE_ATOL:
+        raise AssertionError(f"{name} lse: max abs error {err:.3g} over {LSE_ATOL}")
+    return err
+
+
+def bwd_errors(got, want, dtype: str, name: str, rtol: float | None = None) -> dict:
+    """Raises unless each of (dq, dk, dv) has its plain twin's shape and
+    dtype, is finite, and lies within `rtol` (default BWD_RTOL[dtype]) of
+    the twin's largest element; returns each gradient's largest error and
+    that ratio."""
+    rtol = BWD_RTOL[dtype] if rtol is None else rtol
+    out = {}
+    for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name} {gname}: got {tuple(g.shape)} {g.dtype}, expected "
+                                 f"{tuple(w.shape)} {w.dtype}")
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{name} {gname}: not finite")
+        err = float((g.float() - w.float()).abs().max())
+        ref = float(w.float().abs().max())
+        rel = err / ref if ref > 0 else err
+        if not rel <= rtol:
+            raise AssertionError(f"{name} {gname}: max abs error {err:.3g} is {rel:.3g} of the "
+                                 f"largest element {ref:.3g}, over {rtol}")
+        out[gname] = {"max_abs_err": err, "largest": ref, "rel": rel}
+    return out
+
+
+def bwd_inputs(zoo: ZooCase, device, seed: int = 0):
+    """`case_inputs` at the model layout (transposed views of [B, S, n, hd]
+    tensors) and a standard-normal output gradient in o's layout, its
+    columns past the model's v width zero (the model drops them)."""
+    q, k, v = case_inputs(zoo.case, device, seed=seed, widths=zoo.widths)
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    do = torch.randn(q.transpose(1, 2).shape, generator=gen, device=device).to(q.dtype)
+    do = do.transpose(1, 2)
+    if zoo.widths is not None:
+        do[..., zoo.widths[1]:] = 0
+    return q, k, v, do
+
+
+def held_to_plain(q, k, v, lse, do, got, causal: bool, scale: float | None = None,
+                  name: str = "", rtol: float | None = None) -> dict:
+    """Holds what the kernels gave for one attention call against the
+    plain version run from q, k and v alone: the forward's log-sum-exp
+    `lse` within LSE_ATOL of the plain forward's (`lse_error`), and the
+    gradients `got` (dq, dk, dv) within `rtol` (default BWD_RTOL) of the
+    plain backward run from the plain forward's own o and log-sum-exp
+    (`bwd_errors`), so a wrong log-sum-exp cannot cancel out of the
+    comparison. Raises past either bound; returns the errors."""
+    o_ref, lse_ref = plain_forward(q, k, v, causal, scale)
+    lse_err = lse_error(lse, lse_ref, name)
+    want = plain_bwd(q, k, v, o_ref, lse_ref, do, causal, scale)
+    dt = str(q.dtype).removeprefix("torch.")
+    errors = bwd_errors(got, want, dt, name, rtol)
+    return {**errors, "lse_max_abs_err": lse_err, "lse_bound": LSE_ATOL,
+            "bound": BWD_RTOL[dt] if rtol is None else rtol}
+
+
+def check_bwd(q, k, v, do, causal: bool, scale: float | None = None, name: str = "") -> dict:
+    """The forward with its log-sum-exp and the backward through the
+    wrappers on q's device (the kernels on the card), held to the plain
+    version by `held_to_plain`. Returns the errors."""
+    from repro_torch.kernels.flash_attention import ops
+
+    o, lse = ops._forward(q, k, v, causal, scale, want_lse=True)
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
+    return held_to_plain(q, k, v, lse, do, got, causal, scale, name)
+
+
+@contextlib.contextmanager
+def backward_tap(rtol: float | None = None):
+    """Within the block every `ops.FlashAttention` backward (each attention
+    call of a training step) is also held to the plain version on its own
+    saved q, k, v and log-sum-exp (`held_to_plain` at `rtol`). Yields a
+    list that gains, for each call, its errors or, past a bound, {"error":
+    message}; the step itself goes on. The kernels launch and count as
+    always."""
+    from repro_torch.kernels.flash_attention import ops
+
+    real = ops.FlashAttention.__dict__["backward"]
+    seen: list[dict] = []
+
+    def backward(ctx, do, dlse):
+        # saved tensors unpack once: an activation checkpoint refuses a second
+        saved = ctx.saved_tensors
+        grads = real.__func__(types.SimpleNamespace(saved_tensors=saved, causal=ctx.causal,
+                                                    scale=ctx.scale), do, dlse)
+        q, k, v, _, lse = saved
+        try:
+            seen.append(held_to_plain(q, k, v, lse, do, grads[:3], ctx.causal, ctx.scale,
+                                      f"call {len(seen)}", rtol))
+        except AssertionError as e:
+            seen.append({"error": str(e)})
+        return grads
+
+    ops.FlashAttention.backward = staticmethod(backward)
+    try:
+        yield seen
+    finally:
+        ops.FlashAttention.backward = real

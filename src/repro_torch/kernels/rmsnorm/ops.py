@@ -6,7 +6,9 @@ A CUDA tensor goes to the hand-written Hopper kernel (`csrc/rmsnorm.cu`) or
 the call raises; a CPU tensor goes to the plain version (`ref.rmsnorm_ref`).
 There is no switch and no fallback. `rmsnorm_fused.launches` counts kernel
 launches. As in the JAX package, no model calls it: the models' norms are
-plain PyTorch (`models/layers.py`).
+plain PyTorch (`models/layers.py`). The kernel has no backward (ROADMAP
+queue 2, item 4a): with grad enabled and an input that requires it, the
+call raises on every device, so the CPU tests see what the card does.
 """
 from __future__ import annotations
 
@@ -47,6 +49,12 @@ def rmsnorm_fused(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.
     d = x.shape[-1]
     if not isinstance(w, torch.Tensor) or tuple(w.shape) != (d,):
         raise ValueError(f"rmsnorm_fused: w must have shape ({d},)")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise RuntimeError(
+            "rmsnorm_fused: the RMSNorm kernel has no backward (no model calls it; ROADMAP "
+            "queue 2, item 4a): its output would carry no gradient. Call it under "
+            "torch.no_grad(), or use models/layers.py::rmsnorm"
+        )
     device = x.device
     if w.device != device:
         raise ValueError(f"rmsnorm_fused: w is on {w.device}, x is on {device}")

@@ -8,7 +8,9 @@ call raises; a CPU tensor goes to the plain version
 (`ref.ssd_chunked_ref`). On every device N and P must be multiples of 8,
 as the kernel's m16n8k8 tiles need. There is no switch and no
 fallback. `ssd` adapts the model's layout to it, as the JAX package's
-adapter does. `ssd.launches` counts kernel launches, so a run can show that
+adapter does. The kernel has no backward (ROADMAP queue 1, item 13e): with
+grad enabled and an input that requires it, the call raises on every
+device, so the CPU tests see what the card does. `ssd.launches` counts kernel launches, so a run can show that
 its path went through the kernel.
 """
 from __future__ import annotations
@@ -82,6 +84,12 @@ def ssd_chunk_scan(x, dt, Bm, Cm, A, init_state):
         ("Cm", Cm, (Bsz, G, S, N)), ("A", A, (H,)), ("init_state", init_state, (Bsz, H, N, P)),
     ):
         _check(name, t, shape, device)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, Bm, Cm, A, init_state)):
+        raise RuntimeError(
+            "ssd: the SSD kernel has no backward yet (ROADMAP queue 1, item 13e): its "
+            "output would carry no gradient. Train the ssm and hybrid families with "
+            "attn_impl='plain' (models/ssm.py::ssd_scan), or run under torch.no_grad()"
+        )
     if G == 0 or H % G:
         raise ValueError(f"ssd: {H} heads do not split into {G} groups")
     if S == 0 or S % CHUNK:

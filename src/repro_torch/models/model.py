@@ -1,15 +1,26 @@
-"""LM top level: init, parameter count, NLL and the serving steps
-`prefill_step`/`decode_step` (counterpart of `repro.models.model`). The
-train step waits for ROADMAP queue 1 item 13c; the dry-run input specs,
-built on the JAX package's mesh, for item 14."""
+"""LM top level: init, parameter count, the loss and `train_step`, NLL and
+the serving steps `prefill_step`/`decode_step` (counterpart of
+`repro.models.model`). The dry-run input specs, built on the JAX package's
+mesh, wait for ROADMAP queue 1 item 14.
+
+`train_step` takes the gradient with `torch.autograd` where the JAX package
+takes `jax.value_and_grad`, and updates the parameters and moments in place
+(`optim.adamw.adamw_update`). On the kernel path (`cfg.attn_impl`) the
+attention's gradient is the flash backward kernel; the SSD kernel has no
+backward yet (ROADMAP queue 1, item 13e) and raises under autograd, so the
+ssm and hybrid families train with `attn_impl="plain"`.
+"""
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import params as pm
+from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.models import transformer
 from repro_torch.models.layers import lm_head
-from repro_torch.types import ModelConfig, dtype_of
+from repro_torch.optim.adamw import adamw_update
+from repro_torch.types import ModelConfig, TrainConfig, dtype_of
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator):
@@ -34,6 +45,82 @@ def _token_nll(cfg: ModelConfig, logits: torch.Tensor, targets: torch.Tensor) ->
     logz = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
     return logz - tgt
+
+
+def _chunked_nll(cfg: ModelConfig, params, hidden: torch.Tensor, targets: torch.Tensor,
+                 chunk: int) -> torch.Tensor:
+    """LM head + cross-entropy over sequence chunks of `chunk` rows: the
+    ``[B, S, V]`` logits are never held whole; each chunk's are recomputed
+    in the backward (a checkpoint per chunk, the JAX package's
+    `jax.checkpoint` scan body). Returns the mean NLL over B * S."""
+    B, S, _ = hidden.shape
+
+    def body(h_c, t_c):
+        return torch.sum(_token_nll(cfg, lm_head(params["embed"], h_c), t_c))
+
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(0, S, chunk):
+        h_c, t_c = hidden[:, c:c + chunk], targets[:, c:c + chunk]
+        if torch.is_grad_enabled():
+            total = total + checkpoint(body, h_c, t_c, use_reentrant=False)
+        else:
+            total = total + body(h_c, t_c)
+    return total / (B * S)
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """(total loss, {"nll", "aux"}): the mean token NLL (over `batch["mask"]`
+    where given) plus `cfg.router_aux_weight` times the MoE layers'
+    load-balance loss; with `cfg.loss_chunk` dividing S and no mask, the NLL
+    is taken chunk by chunk (`_chunked_nll`)."""
+    S = batch["tokens"].shape[1]
+    if cfg.loss_chunk and S % cfg.loss_chunk == 0 and "mask" not in batch:
+        hidden, _, aux = transformer.forward(cfg, params, batch["tokens"],
+                                             ctx_embed=batch.get("ctx_embed"), mode="train",
+                                             skip_head=True)
+        nll = _chunked_nll(cfg, params, hidden, batch["targets"], cfg.loss_chunk)
+        total = nll + cfg.router_aux_weight * aux
+        return total, {"nll": nll, "aux": aux}
+    logits, _, aux = transformer.forward(cfg, params, batch["tokens"],
+                                         ctx_embed=batch.get("ctx_embed"), mode="train")
+    nll = _token_nll(cfg, logits, batch["targets"])
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones_like(nll)
+    nll = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    total = nll + cfg.router_aux_weight * aux
+    return total, {"nll": nll, "aux": aux}
+
+
+def loss_and_grads(cfg: ModelConfig, params, batch):
+    """(loss, metrics, grads): `loss_fn` and its gradient with respect to
+    every parameter leaf, a tree of `params`' structure (zeros for a leaf
+    the loss does not reach, as `jax.grad` gives). The parameters' own
+    `requires_grad` flags are as they were on return."""
+    leaves = tree_leaves(params)
+    flags = [leaf.requires_grad for leaf in leaves]
+    try:
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        with torch.enable_grad():
+            loss, metrics = loss_fn(cfg, params, batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+    finally:
+        for leaf, flag in zip(leaves, flags):
+            leaf.requires_grad_(flag)
+    by_id = {id(leaf): g for leaf, g in zip(leaves, grads)}
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return loss.detach(), metrics, tree_map(lambda leaf: by_id[id(leaf)], params)
+
+
+def train_step(cfg: ModelConfig, tc: TrainConfig, params, opt_state, batch):
+    """One AdamW step on `batch`: returns (params, opt_state, metrics), the
+    trees updated in place; metrics are `nll`, `aux`, `loss`, `grad_norm`
+    and `lr`, 0-d tensors."""
+    loss, metrics, grads = loss_and_grads(cfg, params, batch)
+    params, opt_state, opt_stats = adamw_update(params, grads, opt_state, tc)
+    return params, opt_state, dict(metrics, loss=loss, **opt_stats)
 
 
 def eval_nll(cfg: ModelConfig, params, batch) -> torch.Tensor:

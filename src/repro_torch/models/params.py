@@ -3,7 +3,10 @@
 Modules *declare* parameters (shape, initializer) as a nested dict/list of
 `ParamDecl`; `materialize` turns a declaration tree into tensors and
 `count_params` counts it without allocating. `stack(tree, n)` prepends a
-layer dimension to every leaf. The JAX package's `PartitionSpec` per leaf is
+layer dimension to every leaf. `tree_leaves`, `tree_leaves_with_path` and
+`tree_map` walk any tree of parameters, gradients or moments in
+`jax.tree.flatten`'s order (dict keys sorted), which the optimizer's sums
+and the checkpoint format follow. The JAX package's `PartitionSpec` per leaf is
 dropped: the port runs on one device (sharding is ROADMAP queue 1, item 14).
 
 The initial distributions are the JAX package's, but torch's generator
@@ -96,3 +99,31 @@ def count_params(tree: Any) -> int:
 
     walk(tree, f)
     return total
+
+
+def tree_leaves_with_path(tree, path: tuple = ()) -> list:
+    """[(path, leaf)] in `jax.tree.flatten` order: dict keys sorted, lists
+    and tuples in order, None an empty subtree; a path is the keys and
+    indices from the root."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for key in sorted(tree) for x in tree_leaves_with_path(tree[key], (*path, key))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, sub in enumerate(tree) for x in tree_leaves_with_path(sub, (*path, i))]
+    return [(path, tree)]
+
+
+def tree_leaves(tree) -> list:
+    return [leaf for _, leaf in tree_leaves_with_path(tree)]
+
+
+def tree_map(fn, tree, *rest):
+    """A tree of `fn(leaf, *leaves of rest at the same place)`."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree))
+    return fn(tree, *rest)

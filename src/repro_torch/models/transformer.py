@@ -21,12 +21,31 @@ structure with stacked leading dims, as the JAX package's scans stack them
 (`cache_decl`): prefill creates them; decode reads them and writes its
 token's rows into them IN PLACE, through per-layer views of the stacked
 tensors, and returns the same tree (the JAX package returns a new one).
+
+Rematerialization (`cfg.remat`, the JAX package's `_maybe_remat`): in
+train mode with grad enabled and parameters that require it, each unit of
+the loop (a layer; a hybrid group's period-1 ssm units and its shared
+block; a vlm group's self units and its cross unit), the body the JAX
+package scans and checkpoints, runs under
+`torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`: `"full"`
+keeps only the unit's input and recomputes the rest in the backward;
+`"dots"` also keeps the outputs of the matrix products (`mm`/`bmm`/`addmm`,
+the counterpart of `jax.checkpoint_policies.dots_saveable`); `"none"`
+keeps everything. A recompute runs the unit's forward again, kernels
+included: on the kernel path a layer's flash attention launches twice a
+training step (forward, recompute) beside its backward.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels.flash_attention.ops import KERNEL_OF
@@ -42,7 +61,7 @@ from repro_torch.models.layers import (
     rmsnorm,
 )
 from repro_torch.models.moe import decl_moe, moe_block
-from repro_torch.models.params import ParamDecl, stack, walk
+from repro_torch.models.params import ParamDecl, stack, tree_leaves, walk
 from repro_torch.types import ModelConfig, dtype_of
 
 @dataclass(frozen=True)
@@ -98,6 +117,29 @@ def kernel_launches(cfg: ModelConfig) -> dict[str, int]:
             attn += g.count * cfg.cross_attn_period
     flash = KERNEL_OF[dtype_of(cfg.act_dtype)]
     return {name: n for name, n in (("ssd", ssm), (flash, attn)) if n}
+
+
+#: the products `remat="dots"` keeps (jax.checkpoint_policies.dots_saveable)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(cfg: ModelConfig, fn, mode: str, params):
+    """`fn` under the checkpoint `cfg.remat` names, in train mode with grad
+    enabled and a parameter that requires it (a training step); else `fn`
+    itself (an evaluation keeps every activation it makes anyway)."""
+    if (mode != "train" or cfg.remat == "none" or not torch.is_grad_enabled()
+            or not any(t.requires_grad for t in tree_leaves(params))):
+        return fn
+    if cfg.remat == "dots":
+        context = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+        return functools.partial(checkpoint, fn, use_reentrant=False, context_fn=context)
+    if cfg.remat != "full":
+        raise ValueError(f"remat must be 'none', 'full' or 'dots', got {cfg.remat!r}")
+    return functools.partial(checkpoint, fn, use_reentrant=False)
 
 
 def _decl_dense_unit(cfg: ModelConfig, moe: bool = False) -> dict:
@@ -283,6 +325,42 @@ def _stacked(trees: list):
     return torch.stack(trees)
 
 
+def _unit(cfg: ModelConfig, kind: str, x: torch.Tensor, p: dict, c, *, dense: dict,
+          use_kernel: bool, points: int, ctx_embed, shared):
+    """One unit of a group of `kind` (the body the JAX package scans): its
+    parameters `p`, its cache `c` in decode (else None). Returns (x, its
+    new cache in prefill or None, the MoE's aux loss or None)."""
+    mode = dense["mode"]
+    decode = mode == "decode"
+    if kind in ("dense", "moe"):
+        return _dense_unit(cfg, p, x, is_moe=kind == "moe", points=points, cache=c, **dense)
+    if kind == "ssm":
+        x, nc = _ssm_unit(cfg, p, x, mode=mode, use_kernel=use_kernel, cache=c)
+        return x, nc, None
+    if kind == "hybrid":
+        inner = []
+        for i in range(cfg.hybrid_period - 1):
+            ci = {"ssm": _layer(c["ssm"], i)} if decode else None
+            x, ci = _ssm_unit(cfg, _layer(p["ssm"], i), x, mode=mode, use_kernel=use_kernel,
+                              cache=ci)
+            inner.append(ci)
+        x, c_attn, _ = _dense_unit(cfg, shared, x, cache={"attn": c["attn"]} if decode else None,
+                                   **dense)
+        nc = ({"ssm": _stacked(inner)["ssm"], "attn": c_attn["attn"]}
+              if mode == "prefill" else None)
+        return x, nc, None
+    # vlm
+    inner = []
+    for i in range(cfg.cross_attn_period - 1):
+        ci = {"attn": _layer(c["self"], i)} if decode else None
+        x, ci, _ = _dense_unit(cfg, _layer(p["self"], i), x, cache=ci, **dense)
+        inner.append(ci)
+    x, c_cross = _cross_unit(cfg, p["cross"], x, mode=mode, ctx_embed=ctx_embed,
+                             cache=c["cross"] if decode else None)
+    nc = {"self": _stacked(inner)["attn"], "cross": c_cross} if mode == "prefill" else None
+    return x, nc, None
+
+
 def forward(
     cfg: ModelConfig,
     params: dict,
@@ -346,43 +424,20 @@ def forward(
         dt = torch.promote_types(ctx_embed.dtype, proj.dtype)
         ctx_embed = (ctx_embed.to(dt) @ proj.to(dt)).to(x.dtype)
     dense = dict(positions=positions, mode=mode, cache_len=cache_len, pos=pos)
+    unit_kw = dict(dense=dense, use_kernel=use_kernel, points=points, ctx_embed=ctx_embed,
+                   shared=params.get("shared"))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = []
     for gi, group in enumerate(make_groups(cfg)):
         gparams = params["groups"][gi]
         unit_caches = []
+        run = _maybe_remat(cfg, functools.partial(_unit, cfg, group.kind, **unit_kw), mode,
+                           params)
         for layer in range(group.count):
-            p = _layer(gparams, layer)
             c = _layer(cache[gi], layer) if decode else None  # views: written in place
-            if group.kind in ("dense", "moe"):
-                x, nc, a = _dense_unit(cfg, p, x, is_moe=group.kind == "moe", points=points,
-                                       cache=c, **dense)
-                if a is not None:
-                    aux = aux + a
-            elif group.kind == "ssm":
-                x, nc = _ssm_unit(cfg, p, x, mode=mode, use_kernel=use_kernel, cache=c)
-            elif group.kind == "hybrid":
-                inner = []
-                for i in range(cfg.hybrid_period - 1):
-                    ci = {"ssm": _layer(c["ssm"], i)} if decode else None
-                    x, ci = _ssm_unit(cfg, _layer(p["ssm"], i), x, mode=mode,
-                                      use_kernel=use_kernel, cache=ci)
-                    inner.append(ci)
-                x, c_attn, _ = _dense_unit(cfg, params["shared"], x,
-                                           cache={"attn": c["attn"]} if decode else None,
-                                           **dense)
-                nc = ({"ssm": _stacked(inner)["ssm"], "attn": c_attn["attn"]}
-                      if mode == "prefill" else None)
-            else:  # vlm
-                inner = []
-                for i in range(cfg.cross_attn_period - 1):
-                    ci = {"attn": _layer(c["self"], i)} if decode else None
-                    x, ci, _ = _dense_unit(cfg, _layer(p["self"], i), x, cache=ci, **dense)
-                    inner.append(ci)
-                x, c_cross = _cross_unit(cfg, p["cross"], x, mode=mode, ctx_embed=ctx_embed,
-                                         cache=c["cross"] if decode else None)
-                nc = ({"self": _stacked(inner)["attn"], "cross": c_cross}
-                      if mode == "prefill" else None)
+            x, nc, a = run(x, _layer(gparams, layer), c)
+            if a is not None:
+                aux = aux + a
             unit_caches.append(nc)
         if mode == "prefill":
             new_caches.append(_stacked(unit_caches))

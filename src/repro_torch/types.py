@@ -1,9 +1,10 @@
 """Configuration types of the LM zoo (counterpart of `repro.types`).
 
 `ModelConfig` describes one LM-family architecture; the config files under
-`repro_torch.configs` copy the JAX package's values verbatim. `ShapeConfig`,
-`SHAPES`, `TrainConfig` and the TPU hardware constants are not ported yet
-(ROADMAP queue 1, items 13c and 14).
+`repro_torch.configs` copy the JAX package's values verbatim, as
+`ShapeConfig`, `SHAPES` and `TrainConfig` copy theirs. The mesh and the TPU
+hardware constants (`MeshConfig`, `HardwareSpec`) are not ported: one card
+has no mesh (ROADMAP queue 1, item 14).
 """
 from __future__ import annotations
 
@@ -233,3 +234,47 @@ class ModelConfig:
         if not self.tie_embeddings:
             active += d * self.vocab_size  # head matmul is active compute
         return total, active
+
+
+# ---------------------------------------------------------------------------
+# Shape cells
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+@dataclass
+class TrainConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    opt_state_dtype: str = "float32"  # bfloat16 halves optimizer memory
+    grad_compression: str = "none"  # none | int8_ef
+    seed: int = 0
+    checkpoint_every: int = 100
+    checkpoint_dir: str = "checkpoints"
+    keep_checkpoints: int = 3
+    max_step_retries: int = 2  # fault tolerance: retries before restore

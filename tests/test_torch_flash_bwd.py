@@ -1,0 +1,326 @@
+"""PyTorch port: the flash-attention gradient on the CPU.
+
+`ref.attention_bwd_ref`, the plain version of the backward kernel
+(`csrc/flash_attention_bwd.cu`), against `torch.autograd` through
+`attention_ref` and against `jax.vjp` of the JAX package's oracle
+(`repro/kernels/flash_attention/ref.py::attention_ref`): in float64 under
+`jax.enable_x64` within 1e-12 (the oracle casts its inputs to float32, so
+its own code runs with float32 read as float64), and in float32 within
+2e-5 of each gradient's largest element (two float32 implementations
+summing in other orders; measured <= 4e-7). GQA, causal and full attention
+with Sq != Sk, the default and a given scale. Then the wrapper's autograd
+Function (`ops.FlashAttention`): its log-sum-exp is `logsumexp` of the
+scaled scores, its gradients are `attention_bwd_ref`'s, it works under
+`torch.func.vjp`, and a call without grad is the forward alone, the same
+bits; `testing.bwd_errors` sees a wrong gradient and `held_to_plain` a
+wrong log-sum-exp; `backward_tap` holds each attention call of a training
+step; an emulation of the float32 kernel's 3xBF16 products lies within
+the float32 bound where one bf16 pass does not; the SSD and RMSNorm
+wrappers raise under autograd, naming their ROADMAP items. The kernel
+itself runs in test_torch_gpu.py and chip_smoke.py.
+"""
+import math
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.kernels.flash_attention.ref as jax_ref_mod
+from repro_torch.kernels.flash_attention import (
+    attention_bwd_ref,
+    attention_lse_ref,
+    attention_ref,
+    flash_attention,
+    flash_attention_bwd,
+)
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention import testing as T
+from repro_torch.kernels.rmsnorm import rmsnorm_fused
+from repro_torch.kernels.ssd import ssd_chunk_scan
+
+#: (B, nq, nkv, Sq, Sk, hd, causal, scale)
+CASES = (
+    (2, 4, 2, 16, 16, 8, True, None),
+    (1, 4, 4, 24, 24, 16, True, 0.3),
+    (1, 6, 2, 12, 20, 8, False, None),
+    (2, 4, 1, 9, 31, 16, False, 1.0 / math.sqrt(12)),
+)
+
+
+def _case_id(c):
+    B, nq, nkv, Sq, Sk, hd, causal, scale = c
+    return f"B{B}_nq{nq}_nkv{nkv}_Sq{Sq}_Sk{Sk}_hd{hd}_{'causal' if causal else 'full'}" + (
+        "" if scale is None else f"_scale{scale:.3f}")
+
+
+def _arrays(case, seed, dtype=np.float64):
+    B, nq, nkv, Sq, Sk, hd = case[:6]
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(dtype)
+            for s in ((B, nq, Sq, hd), (B, nkv, Sk, hd), (B, nkv, Sk, hd), (B, nq, Sq, hd))]
+
+
+def _jax_oracle_f64():
+    """The JAX oracle's own code with its float32 casts read as float64."""
+    shim = types.SimpleNamespace(**{n: getattr(jnp, n) for n in dir(jnp) if not n.startswith("_")})
+    shim.float32 = jnp.float64
+    fn = jax_ref_mod.attention_ref
+    return types.FunctionType(fn.__code__, {**fn.__globals__, "jnp": shim}, fn.__name__,
+                              fn.__defaults__)
+
+
+def _jax_vjp(oracle, q, k, v, do, causal, scale):
+    """jax.vjp of the oracle, whose scale is 1/sqrt(hd): another scale goes
+    in through q (scale * sqrt(hd) * q), and the gradient of q back out."""
+    hd = q.shape[-1]
+    mult = 1.0 if scale is None else scale * math.sqrt(hd)
+    out, vjp = jax.vjp(lambda q_, k_, v_: oracle(q_ * mult, k_, v_, causal=causal), q, k, v)
+    return [np.asarray(g) for g in vjp(do)]
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
+def test_bwd_ref_matches_jax_vjp_float64(case):
+    causal, scale = case[6], case[7]
+    q, k, v, do = _arrays(case, seed=sum(case[:6]))
+    with jax.enable_x64(True):
+        want = _jax_vjp(_jax_oracle_f64(), *(jnp.asarray(a) for a in (q, k, v, do)), causal,
+                        scale)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = attention_lse_ref(tq, tk, tv, causal, scale)
+    assert o.dtype == lse.dtype == torch.float64
+    got = attention_bwd_ref(tq, tk, tv, o, lse, tdo, causal, scale)
+    errs = [_rel(g.numpy(), w) for g, w in zip(got, want)]
+    print(f"{_case_id(case)} float64 vs jax.vjp: {errs}")
+    assert max(errs) <= 1e-12
+
+
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
+def test_bwd_ref_matches_jax_vjp_and_autograd_float32(case):
+    causal, scale = case[6], case[7]
+    q, k, v, do = _arrays(case, seed=1 + sum(case[:6]), dtype=np.float32)
+    want = _jax_vjp(jax_ref_mod.attention_ref, *(jnp.asarray(a) for a in (q, k, v, do)),
+                    causal, scale)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = attention_lse_ref(tq, tk, tv, causal, scale)
+    got = attention_bwd_ref(tq, tk, tv, o, lse, tdo, causal, scale)
+    # autograd through the plain forward
+    aq, ak, av = (t.clone().requires_grad_() for t in (tq, tk, tv))
+    auto = torch.autograd.grad(attention_ref(aq, ak, av, causal, scale), (aq, ak, av), tdo)
+    errs_jax = [_rel(g.numpy(), w) for g, w in zip(got, want)]
+    errs_auto = [_rel(g.numpy(), a.numpy()) for g, a in zip(got, auto)]
+    print(f"{_case_id(case)} float32: vs jax.vjp {errs_jax}, vs autograd {errs_auto}")
+    assert max(errs_jax) <= 2e-5 and max(errs_auto) <= 2e-5
+    assert all(g.dtype == torch.float32 for g in got)
+
+
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
+def test_function_lse_and_gradients(case):
+    causal, scale = case[6], case[7]
+    q, k, v, do = (torch.from_numpy(a) for a in _arrays(case, seed=2, dtype=np.float32))
+    o, lse = ops.FlashAttention.apply(q, k, v, causal, scale)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k.repeat_interleave(q.shape[1] // k.shape[1], 1))
+    s = s * (scale if scale is not None else 1 / math.sqrt(q.shape[-1]))
+    if causal:
+        s = s.masked_fill(~torch.ones(s.shape[-2:], dtype=torch.bool).tril(), float("-inf"))
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(o, attention_ref(q, k, v, causal, scale), rtol=0, atol=0)
+    # through the public wrapper under autograd: the Function, not detached
+    aq, ak, av = (t.clone().requires_grad_() for t in (q, k, v))
+    out = flash_attention(aq, ak, av, causal=causal, scale=scale)
+    assert out.requires_grad and out.grad_fn is not None
+    got = torch.autograd.grad(out, (aq, ak, av), do)
+    want = attention_bwd_ref(q, k, v, o, lse, do, causal, scale)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    # without grad: the forward alone, the same bits
+    with torch.no_grad():
+        torch.testing.assert_close(flash_attention(aq, ak, av, causal=causal, scale=scale), o,
+                                   rtol=0, atol=0)
+    # torch.func goes through the setup_context-style Function
+    _, vjp = torch.func.vjp(lambda q_, k_, v_: flash_attention(q_, k_, v_, causal=causal,
+                                                                scale=scale), q, k, v)
+    for g, w in zip(vjp(do), want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_grad_of_the_model_layout():
+    """The model passes transposed views and cuts o's columns: the gradient
+    of a strided, partly used output."""
+    q, k, v, do = (torch.from_numpy(a) for a in _arrays((1, 4, 2, 16, 16, 32), 3, np.float32))
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2).requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*views, causal=True)[..., :24]
+    got = torch.autograd.grad(out.sum(), views)
+    refs = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(attention_ref(*refs, causal=True)[..., :24].sum(), refs)
+    for g, w in zip(got, want):
+        assert _rel(g.numpy(), w.numpy()) <= 2e-5
+
+
+def test_bwd_check_sees_a_wrong_gradient():
+    z = T.ZooCase((1, 4, 2, 32, 32, 32, True, "float32"))
+    q, k, v, do = T.bwd_inputs(z, "cpu")
+    o, lse = ops._forward(q, k, v, True, None, want_lse=True)
+    right = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    T.bwd_errors(right, T.plain_bwd(q, k, v, o, lse, do, True), "float32", "right")
+    for i, wrong in ((0, right[0] * 1.001), (1, right[1] * 0.0), (2, torch.roll(right[2], 1, 2))):
+        bad = list(right)
+        bad[i] = wrong
+        with pytest.raises(AssertionError, match="largest element"):
+            T.bwd_errors(bad, right, "float32", "wrong")
+    # the wrong scale or a dropped diagonal in the gradient
+    with pytest.raises(AssertionError):
+        T.bwd_errors(flash_attention_bwd(q, k, v, o, lse, do, causal=True, scale=0.2), right,
+                     "float32", "scale")
+    with pytest.raises(AssertionError):
+        T.bwd_errors(flash_attention_bwd(q, k, v, o, lse, do, causal=False), right, "float32",
+                     "mask")
+
+
+def test_bwd_check_sees_a_wrong_lse():
+    """The forward's log-sum-exp is held to the plain forward's, and the
+    plain backward runs from the plain forward's own o and log-sum-exp: a
+    backward fed a wrong log-sum-exp agrees with a plain backward fed the
+    same one (the comparison on shared saved tensors is blind to it), but
+    `held_to_plain` fails it, by the LSE bound and by the gradients."""
+    z = T.ZooCase((1, 4, 2, 32, 32, 32, True, "float32"))
+    q, k, v, do = T.bwd_inputs(z, "cpu")
+    report = T.check_bwd(q, k, v, do, True, None, "right")
+    assert report["lse_max_abs_err"] <= T.LSE_ATOL and report["lse_bound"] == T.LSE_ATOL
+    o, lse = ops._forward(q, k, v, True, None, want_lse=True)
+    for offset in (1e-3, 0.05):
+        bad = flash_attention_bwd(q, k, v, o, lse + offset, do, causal=True)
+        T.bwd_errors(bad, T.plain_bwd(q, k, v, o, lse + offset, do, True), "float32", "blind")
+        with pytest.raises(AssertionError, match="lse: max abs error"):
+            T.held_to_plain(q, k, v, lse + offset, do, bad, True)
+    # past the LSE bound's reach too: the gradients alone see the offset
+    bad = flash_attention_bwd(q, k, v, o, lse + 0.05, do, causal=True)
+    with pytest.raises(AssertionError, match="largest element"):
+        T.bwd_errors(bad, T.plain_bwd(q, k, v, *T.plain_forward(q, k, v, True), do, True),
+                     "float32", "own")
+    with pytest.raises(AssertionError, match="lse"):
+        T.lse_error(lse[:, :1], lse, "shape")
+
+
+def test_backward_tap_holds_every_attention_call(monkeypatch):
+    """`testing.backward_tap` (chip_smoke.py's in-situ check of a training
+    step) sees each attention call of a reduced qwen3 step once, on the
+    kernel path's `FlashAttention` under `remat="full"` (whose checkpoint
+    lets a backward unpack its saved tensors only once), and flags a wrong
+    backward without stopping the step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+
+    cfg = get_config("qwen3-0.6b", reduced=True).replace(remat="full")  # as published
+    params = model.init_params(cfg, torch.Generator().manual_seed(0))
+    batch = model.make_synth_batch(cfg, 2, 32, torch.Generator().manual_seed(1))
+    with T.backward_tap() as seen:
+        _, _, grads = model.loss_and_grads(cfg, params, batch)
+    assert len(seen) == cfg.n_layers
+    assert all("error" not in e and max(e[g]["rel"] for g in ("dq", "dk", "dv")) <= 1e-6
+               for e in seen), seen
+    assert ops.FlashAttention.backward is ops.FlashAttention.__dict__["backward"].__func__
+    real = ops.flash_attention_bwd
+
+    def wrong(*a, **kw):
+        dq, dk, dv = real(*a, **kw)
+        return dq * 1.01, dk, dv
+
+    monkeypatch.setattr(ops, "flash_attention_bwd", wrong)
+    with T.backward_tap() as seen:
+        model.loss_and_grads(cfg, params, batch)
+    assert len(seen) == cfg.n_layers and all("dq" in e["error"] for e in seen)
+
+
+def _split_bf16(x):
+    """x = hi + lo + O(2^-16 |x|): the float32 backward kernel's 3xBF16
+    operands."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _mm_3xbf16(a, b):
+    (ah, al), (bh, bl) = _split_bf16(a), _split_bf16(b)
+    return ah @ bh + (ah @ bl + al @ bh)
+
+
+def _mm_1xbf16(a, b):
+    return a.to(torch.bfloat16).float() @ b.to(torch.bfloat16).float()
+
+
+def _bwd_emulated(q, k, v, o, lse, do, scale, mm):
+    """`attention_bwd_ref`'s arithmetic (causal, GQA) with each of its five
+    products done by `mm`: the float32 backward kernel's on the tensor
+    cores."""
+    g = q.shape[1] // k.shape[1]
+    kr, vr = (t.repeat_interleave(g, 1) for t in (k, v))
+    s = mm(q, kr.transpose(-1, -2)) * scale
+    s = s.masked_fill(~torch.ones(s.shape[-2:], dtype=torch.bool).tril(), float("-inf"))
+    p = torch.exp(s - lse[..., None])
+    d = (do * o).sum(-1, keepdim=True)
+    dv = mm(p.transpose(-1, -2), do)
+    ds = p * (mm(do, vr.transpose(-1, -2)) - d)
+    dk = mm(ds.transpose(-1, -2), q) * scale
+    dq = mm(ds, kr) * scale
+    B, nkv, Sk, hd = k.shape
+    fold = lambda t: t.reshape(B, nkv, g, Sk, hd).sum(2)  # noqa: E731
+    return dq, fold(dk), fold(dv)
+
+
+def test_float32_bwd_precision_3xbf16_and_its_control():
+    """The float32 backward kernel multiplies in 3xBF16 (hi*hi + hi*lo +
+    lo*hi, ~2^-16 of each term, coarser than the forward's 3xTF32). An
+    emulation of that arithmetic at the hd-128 float32 case's small
+    counterpart lies within BWD_RTOL["float32"] (1e-4) of the plain
+    backward; the control, one bf16 pass for every product, does not: the
+    bound tells float32-grade products from bf16 ones."""
+    z = T.ZooCase((1, 4, 2, 256, 256, 128, True, "float32"))
+    q, k, v, do = T.bwd_inputs(z, "cpu", seed=5)
+    o, lse = attention_lse_ref(q, k, v, True)
+    want = attention_bwd_ref(q, k, v, o, lse, do, True)
+    scale = 1.0 / math.sqrt(128)
+    three = _bwd_emulated(q, k, v, o, lse, do, scale, _mm_3xbf16)
+    one = _bwd_emulated(q, k, v, o, lse, do, scale, _mm_1xbf16)
+    e3 = [_rel(g.numpy(), w.numpy()) for g, w in zip(three, want)]
+    e1 = [_rel(g.numpy(), w.numpy()) for g, w in zip(one, want)]
+    print(f"float32 backward, 3xBF16 {e3}, one bf16 pass {e1} (bound {T.BWD_RTOL['float32']})")
+    assert max(e3) <= T.BWD_RTOL["float32"] / 4
+    assert min(e1) > T.BWD_RTOL["float32"]
+
+
+def test_bwd_wrapper_checks():
+    q, k, v, do = (torch.from_numpy(a) for a in _arrays((1, 2, 1, 8, 8, 8), 4, np.float32))
+    o, lse = ops._forward(q, k, v, True, None, want_lse=True)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, k, v, o, lse.double(), do)
+    with pytest.raises(ValueError, match="shape"):
+        flash_attention_bwd(q, k, v, o[:, :1], lse, do)
+    with pytest.raises(TypeError):
+        flash_attention_bwd(q, k, v, o, lse, do.double())
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        flash_attention_bwd(q, k[:, :, :4], v[:, :, :4], o, lse, do, causal=True)
+    assert ops.BWD_KERNELS == tuple(flash_attention_bwd.launches_by_kernel)
+
+
+def test_ssd_and_rmsnorm_raise_under_autograd():
+    x = torch.randn(1, 2, 128, 8, requires_grad=True)
+    dt = torch.rand(1, 2, 128)
+    Bm, Cm = torch.randn(1, 1, 128, 8), torch.randn(1, 1, 128, 8)
+    A, s0 = -torch.rand(2), torch.zeros(1, 2, 8, 8)
+    with pytest.raises(RuntimeError, match="13e"):
+        ssd_chunk_scan(x, dt, Bm, Cm, A, s0)
+    with torch.no_grad():
+        y, _ = ssd_chunk_scan(x, dt, Bm, Cm, A, s0)  # no grad wanted: the plain version
+    assert not y.requires_grad
+    w = torch.ones(16, requires_grad=True)
+    with pytest.raises(RuntimeError, match="4a"):
+        rmsnorm_fused(torch.randn(4, 16), w)
+    with torch.no_grad():
+        rmsnorm_fused(torch.randn(4, 16), w)

@@ -1041,3 +1041,88 @@ def test_stress_harness_on_cuda():
     tap = report["scenarios"]["tap_exactly_once"]
     assert tap["rows_observed"] == tap["rows_computed"]
     assert tap["gp_device"].startswith("cuda")
+
+
+# -- the LM zoo's training: the flash backward kernel -------------------------------
+
+#: small backward cases: GQA causal bf16 at hd 128 with a ragged S, and
+#: float32 full attention with Sq != Sk at hd 64 and a scale
+BWD_SMALL = (flash_testing.ZooCase((2, 4, 2, 200, 200, 128, True, "bfloat16")),
+             flash_testing.ZooCase((1, 8, 2, 130, 161, 64, False, "float32"), 0.2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("zoo", BWD_SMALL, ids=lambda z: flash_testing.case_name(z.case))
+def test_flash_bwd_kernel_matches_plain(zoo):
+    """`flash_attention_bwd.cu` against `attention_bwd_ref` on the same
+    saved tensors (`testing.check_bwd`), each of its three kernels launched
+    once."""
+    dev = cuda_or_skip()
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    q, k, v, do = flash_testing.bwd_inputs(zoo, dev, seed=3)
+    before = dict(flash_attention_bwd.launches_by_kernel)
+    report = flash_testing.check_bwd(q, k, v, do, zoo.case[6], zoo.scale, "gpu")
+    torch.cuda.synchronize()
+    assert {k: n - before[k] for k, n in flash_attention_bwd.launches_by_kernel.items()} == \
+        dict.fromkeys(before, 1)
+    print(report)
+
+
+@pytest.mark.gpu
+def test_train_step_on_the_card_launches_the_backward():
+    """A 2-layer qwen3-0.6b at reduced width in bf16, `remat="full"`: one
+    `train_step` on the kernel path launches the forward kernel twice a
+    layer (forward and recompute) and each backward kernel once a layer;
+    each attention call's log-sum-exp and gradients are held to the plain
+    version on its saved tensors (`testing.backward_tap`, LSE_ATOL and
+    BWD_RTOL); its gradients match the plain path's within the bf16 bound
+    of the kernels, and the loss is finite."""
+    dev = cuda_or_skip()
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.optim.adamw import adamw_init, tree_leaves
+    from repro_torch.types import TrainConfig
+
+    cfg = get_config("qwen3-0.6b", reduced=True).replace(
+        n_layers=2, param_dtype="bfloat16", act_dtype="bfloat16", remat="full", d_head=128,
+        n_heads=4, n_kv_heads=2)
+    params = model.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    batch = model.make_synth_batch(cfg, 2, 256, torch.Generator(device=dev).manual_seed(1))
+    tc = TrainConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    _, _, grads_plain = model.loss_and_grads(cfg.replace(attn_impl="plain"), params, batch)
+    fwd, bwd = dict(flash_attention.launches_by_kernel), dict(flash_attention_bwd.launches_by_kernel)
+    with flash_testing.backward_tap() as seen:
+        _, _, grads = model.loss_and_grads(cfg, params, batch)
+    torch.cuda.synchronize()
+    assert len(seen) == cfg.n_layers and not [e for e in seen if "error" in e], seen
+    assert flash_attention.launches_by_kernel["flash_attention_wgmma"] - \
+        fwd["flash_attention_wgmma"] == 2 * cfg.n_layers
+    assert all(flash_attention_bwd.launches_by_kernel[k] - n == cfg.n_layers
+               for k, n in bwd.items())
+    for g, w in zip(tree_leaves(grads), tree_leaves(grads_plain)):
+        assert bool(torch.isfinite(g).all())
+        err = float((g.float() - w.float()).abs().max()) / max(float(w.float().abs().max()),
+                                                                 1e-30)
+        assert err <= 0.1, err  # bf16 gradients of two paths that round elsewhere
+    opt = adamw_init(params, tc)
+    _, opt, metrics = model.train_step(cfg, tc, params, opt, batch)
+    assert bool(torch.isfinite(metrics["loss"])) and int(opt["step"]) == 1
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_raises_under_autograd_on_the_card():
+    """The SSD kernel has no backward (ROADMAP item 13e): under autograd
+    its wrapper raises on the card, as on the CPU; without grad it runs."""
+    dev = cuda_or_skip()
+    x = torch.randn(1, 2, 128, 8, device=dev, requires_grad=True)
+    args = (torch.rand(1, 2, 128, device=dev), torch.randn(1, 1, 128, 8, device=dev),
+            torch.randn(1, 1, 128, 8, device=dev), -torch.rand(2, device=dev),
+            torch.zeros(1, 2, 8, 8, device=dev))
+    with pytest.raises(RuntimeError, match="13e"):
+        ssd_chunk_scan(x, *args)
+    with torch.no_grad():
+        y, _ = ssd_chunk_scan(x, *args)
+    assert not y.requires_grad
+    with pytest.raises(RuntimeError, match="4a"):
+        rmsnorm_fused(torch.randn(4, 64, device=dev, requires_grad=True),
+                      torch.ones(64, device=dev))
