@@ -79,9 +79,11 @@ user calls:
 * the float32 flash-attention kernel (mma.sync in 3xTF32) on its own path: the
   reduced qwen3-0.6b in float32, as the port's tests run it, serving a
   level-2 sparse grid through the fabric;
-* the flash-attention backward kernel (`flash_attention_bwd.cu`: three
-  kernels, mma.sync bf16, 3xBF16 for float32) against the plain backward
-  at the training shapes of the zoo (`flash_bwd_vs_plain`), then the LM
+* the flash-attention backward kernels (three a call: bf16
+  `flash_attention_bwd_wgmma.cu`, wgmma and TMA; float32
+  `flash_attention_bwd.cu`, mma.sync in 3xBF16) against the plain backward
+  at the training shapes of the zoo, each kernel's time from a trace and two calls
+  at qwen3-0.6b's training shape bit for bit (`flash_bwd_vs_plain`), then the LM
   zoo's training through `repro_torch.launch.train.train`: qwen3-0.6b at
   full width and depth in bf16 (remat "full", 4 x 4,096 tokens, 8 steps, a
   checkpoint every 4, a StepFailure and a NaN injected: retried, restored
@@ -99,10 +101,11 @@ gradient waves that capture their step graphs under the instrumented
 `CAPTURE_LOCK`, every row bit for bit against a serial run.
 
 The build phase is followed by the count of the tensor-core instructions in
-the SASS of the three kernels that use them: HGMMA (wgmma) in the bf16 flash
-kernel, HMMA (mma.sync, TF32) in the float32 flash kernel and in the SSD
-kernel, with the registers and spills of the last two from their build
-logs.
+the SASS of the kernels that use them: HGMMA (wgmma) in the bf16 flash
+kernel and in the bf16 backward's dK/dV and dQ kernels, HMMA (mma.sync,
+TF32) in the float32 flash kernel and in the SSD kernel, with the registers
+and spills of the last three from their build logs (the backward's dK/dV
+and dQ kernels must not spill at hd 128).
 
 Each launch count is set to 0 just before a path and read just after. Each
 phase prints one JSON line; any failed check raises and the script exits
@@ -221,8 +224,10 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     """Launches by kernel: flash attention's two kernels (the float32
-    `flash_attention`, the bf16 `flash_attention_wgmma`) apart, and the
-    backward's three (`flash_attention_bwd_dsum`, `_dkdv`, `_dq`)."""
+    `flash_attention`, the bf16 `flash_attention_wgmma`) apart, and each
+    backward library's three (`ops.BWD_KERNELS`: bf16
+    `flash_attention_bwd_wgmma_stats`, `_dkdv`, `_dq`; float32
+    `flash_attention_bwd_dsum`, `_dkdv`, `_dq`)."""
     counts = {}
     for name, wrapper in kernel_wrappers().items():
         counts.update(getattr(wrapper, "launches_by_kernel", {name: wrapper.launches}))
@@ -313,25 +318,58 @@ def phase_build() -> None:
     emit("build", seconds=time.perf_counter() - t0,
          libraries={k: str(v.relative_to(ROOT)) for k, v in libs.items()})
     # evidence that the flash kernels and the SSD kernel run on the tensor
-    # cores: HGMMA (warpgroup MMA) in the bf16 flash kernel's SASS, HMMA
-    # (mma.sync) in the float32 one's and the SSD kernel's (every function of
-    # the wgmma library; every instance of the other two kernels)
-    for stem, op, kernel in (("flash_attention_wgmma", "HGMMA", ""),
-                             ("flash_attention", "HMMA", "flash_attention_kernel"),
-                             ("ssd", "HMMA", "ssd_chunk_scan_kernel")):
+    # cores: HGMMA (warpgroup MMA) in the bf16 flash kernel's SASS and in the
+    # bf16 backward's dK/dV and dQ kernels, HMMA (mma.sync) in the float32
+    # one's and the SSD kernel's (every function of the forward's wgmma
+    # library; every instance of the other kernels named)
+    for stem, op, names in (("flash_attention_wgmma", "HGMMA", ("",)),
+                            ("flash_attention_bwd_wgmma", "HGMMA",
+                             ("dkdv_wgmma_kernel", "dq_wgmma_kernel")),
+                            ("flash_attention", "HMMA", ("flash_attention_kernel",)),
+                            ("ssd", "HMMA", ("ssd_chunk_scan_kernel",))):
         counts = sass_counts(libs[stem], op)
-        kernels = {f: n for f, n in counts.items() if kernel in f}
-        if not kernels or min(kernels.values()) == 0:
+        kernels = {f: n for f, n in counts.items() if any(k in f for k in names)}
+        if any(not any(k in f for f in kernels) for k in names) or min(kernels.values()) == 0:
             raise AssertionError(f"a tensor-core kernel without {op}: {counts}")
         fields = {}
-        if stem in ("ssd", "flash_attention"):
+        if stem != "flash_attention_wgmma":
             # registers and spills of each instance (-Xptxas -v, SOURCE_FLAGS)
-            log = libs[stem].with_suffix(".log").read_text().splitlines()
-            fields["ptxas"] = [line.strip() for line in log
-                               if "registers" in line or "spill" in line]
+            fields["ptxas"] = ptxas_lines(libs[stem])
+        if stem == "flash_attention_bwd_wgmma":
+            spills = bwd_spills_hd128(fields["ptxas"])
+            fields["spills_hd128"] = spills
+            if set(spills) != set(names) or any(spills.values()):
+                raise AssertionError(f"the backward's wgmma kernels at hd 128 spill or are "
+                                     f"missing from the build log: {spills}")
         emit("sass", library=str(libs[stem].relative_to(ROOT)),
              **{f"{op.lower()}_instructions": sum(kernels.values()),
                 f"{op.lower()}_by_function": kernels}, **fields)
+
+
+def ptxas_lines(library: Path) -> list:
+    """The `-Xptxas -v` lines of a library's build log (`SOURCE_FLAGS`):
+    each instance's name, registers and spills."""
+    log = library.with_suffix(".log").read_text().splitlines()
+    return [line.strip() for line in log
+            if "Compiling entry" in line or "registers" in line or "spill" in line]
+
+
+def bwd_spills_hd128(lines: list) -> dict:
+    """Spill stores + loads (bytes) of the hd-128 instances of the bf16
+    backward's dK/dV and dQ kernels, from their `ptxas_lines` (each
+    instance's "Compiling entry function" line, then its spill line)."""
+    spills, current = {}, None
+    for line in lines:
+        if "Compiling entry" in line:
+            current = next((k for k in ("dkdv_wgmma_kernel", "dq_wgmma_kernel")
+                            if k in line and "ILi128E" in line), None)
+        elif current and "spill" in line:
+            stores, loads = (int(w) for w in
+                             (line.split("bytes spill stores")[0].split()[-1],
+                              line.split("bytes spill loads")[0].split()[-1]))
+            spills[current] = stores + loads
+            current = None
+    return spills
 
 
 def sass_counts(library: Path, op: str) -> dict:
@@ -3722,39 +3760,113 @@ def flash_bwd_work(B: int, nq: int, nkv: int, Sq: int, Sk: int, hd: int, causal:
     return {"bytes": elem * (q_side + kv_side) + 4 * B * nq * Sq, "flops": 2.5 * fwd["flops"]}
 
 
+#: the backward case whose two calls on the same inputs must agree bit for
+#: bit in `flash_bwd_vs_plain` (`train_path`'s shape)
+BWD_REPEAT_CASE = "qwen3-0.6b_train"
+
+
+#: each backward kernel, by its launch counter, by its symbol in a trace
+#: (bf16 flash_attention_bwd_wgmma.cu, float32 flash_attention_bwd.cu)
+BWD_TRACE = {"flash_attention_bwd_wgmma_stats": "bwd_stats_kernel",
+             "flash_attention_bwd_wgmma_dkdv": "dkdv_wgmma_kernel",
+             "flash_attention_bwd_wgmma_dq": "dq_wgmma_kernel",
+             "flash_attention_bwd_dsum": "dsum_kernel",
+             "flash_attention_bwd_dkdv": "dkdv_kernel",
+             "flash_attention_bwd_dq": "dq_kernel"}
+#: cycles of the spin kernel ahead of a profiled backward window (~0.1 s at
+#: H100 clocks), and the one-element adds launched behind it
+BWD_TRACE_SPIN, BWD_TRACE_PAD = 200_000_000, 256
+
+
+def _bwd_kernel_ms(torch, call, stem: str, calls: int) -> tuple:
+    """Device ms of each of the backward's three kernels (library `stem`)
+    in one call, from a torch.profiler trace: behind a spin kernel (so that
+    all runs back to back on the device) `BWD_TRACE_PAD` one-element adds,
+    then 2 x `calls` calls of `call`, a whole backward; each kernel's mean
+    duration over its last `calls` records in the trace (matched by
+    `BWD_TRACE`). Late in a run a short session's trace lost its first
+    records (the spin and the first 8-9 of 20 calls; a session of 3 calls,
+    all of them), hence the adds and the untimed calls ahead. -> ({kernel:
+    ms, or None where the trace held no record of it}, {kernel: records
+    averaged})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import ops
+
+    names = ops.BWD_KERNELS[stem]
+    pad = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(BWD_TRACE_SPIN)
+        for _ in range(BWD_TRACE_PAD):
+            pad.add_(1.0)
+        for _ in range(2 * calls):
+            call()
+        torch.cuda.synchronize()
+    trace = ROOT / "build" / "chip_smoke_bwd_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    records = {k: [] for k in names}
+    for ev in json.loads(trace.read_text()).get("traceEvents", []):
+        if ev.get("cat") == "kernel" and ev.get("ph") == "X":
+            mine = [k for k in names if BWD_TRACE[k] in ev.get("name", "")]
+            if mine:
+                records[mine[0]].append((float(ev["ts"]), float(ev.get("dur", 0.0))))
+    trace.unlink()
+    if any(len(r) > 2 * calls for r in records.values()):
+        raise AssertionError(f"{stem}: {2 * calls} calls traced "
+                             f"{ {k: len(r) for k, r in records.items()} } of its kernels")
+    last = {k: sorted(r)[-calls:] for k, r in records.items()}
+    return ({k: sum(d for _, d in r) / len(r) / 1e3 if r else None for k, r in last.items()},
+            {k: len(r) for k, r in last.items()})
+
+
 def phase_flash_bwd_vs_plain(torch, dev, smi: str) -> dict:
-    """The flash backward kernel (`csrc/flash_attention_bwd.cu`, three
-    kernels) at every `testing.BWD_CASES` shape, at the model layout:
+    """The flash backward kernels (three a call: bf16
+    `csrc/flash_attention_bwd_wgmma.cu`, float32 `csrc/flash_attention_bwd.cu`)
+    at every `testing.BWD_CASES` shape, at the model layout:
     `testing.check_bwd` (the forward with its log-sum-exp, within LSE_ATOL
     of the plain forward's; then dq, dk and dv against the plain backward
     run from the plain forward's own o and log-sum-exp, within BWD_RTOL of
     each gradient's largest element: 2e-2 bf16, 1e-4 float32),
-    each kernel launched once; then each case's backward timed (one CUDA
-    event pair around back-to-back calls, `_device_ms`) beside its bound
-    (the five products at the tensor cores' bf16 peak, 3x that for float32
-    in 3xBF16, or the bytes), the plain backward's time and the backward of
-    `F.scaled_dot_product_attention` at the same shape, native widths and
-    scale (for comparison only: the port never calls it)."""
+    each kernel of the dtype's library launched once and no other; at
+    BWD_REPEAT_CASE two more calls on the same inputs, bit for bit; then each
+    case's backward timed (one CUDA event pair around back-to-back calls,
+    `_device_ms`), and each of its kernels from a trace (`_bwd_kernel_ms`), beside its
+    bound (the five products at the tensor cores' bf16 peak, 3x that for
+    float32 in 3xBF16, or the bytes), the plain backward's time and the
+    backward of `F.scaled_dot_product_attention` at the same shape, native
+    widths and scale (for comparison only: the port never calls it)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention_bwd, ops
     from repro_torch.kernels.flash_attention import testing as T
 
     shapes = []
+    repeat = None
     for i, (name, zoo) in enumerate(T.BWD_CASES.items()):
         B, nq, nkv, Sq, Sk, hd, causal, dt = zoo.case
         q, k, v, do = T.bwd_inputs(zoo, dev, seed=300 + i)
+        stem = ops.bwd_stem(q.dtype)
         before = dict(flash_attention_bwd.launches_by_kernel)
         errors = T.check_bwd(q, k, v, do, causal, zoo.scale, name)
         torch.cuda.synchronize()
         launched = {kk: n - before[kk] for kk, n in flash_attention_bwd.launches_by_kernel.items()}
-        if launched != dict.fromkeys(before, 1):
+        if launched != {kk: int(kk in ops.BWD_KERNELS[stem]) for kk in before}:
             raise AssertionError(f"{name}: the backward launched {launched}")
         o, lse = ops._forward(q, k, v, causal, zoo.scale, want_lse=True)
+        call = lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal,  # noqa: E731
+                                           scale=zoo.scale)
+        if name == BWD_REPEAT_CASE:
+            first, second = call(), call()
+            repeat = {g: bool(torch.equal(a, b))
+                      for g, a, b in zip(("dq", "dk", "dv"), first, second)}
+            del first, second
+            if not all(repeat.values()):
+                raise AssertionError(f"{name}: two backward calls differ: {repeat}")
         big = B * nq * Sq * Sk * hd > 2e11
-        ms = _device_ms(torch, lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
-                                                           scale=zoo.scale),
-                        calls=5 if big else 20, windows=3)
+        ms = _device_ms(torch, call, calls=5 if big else 20, windows=3)
+        kernel_ms, kernel_records = _bwd_kernel_ms(torch, call, stem, calls=5 if big else 20)
         plain_ms = _device_ms(torch, lambda: T.plain_bwd(q, k, v, o, lse, do, causal, zoo.scale),
                               calls=1, windows=3)
         dqk, dv = zoo.widths or (hd, hd)
@@ -3771,8 +3883,9 @@ def phase_flash_bwd_vs_plain(torch, dev, smi: str) -> dict:
         # the kernel's products: bf16 on the tensor cores; float32 as 3xBF16
         t_ops = work["flops"] / BF16_FLOPS * (1 if dt == "bfloat16" else 3)
         entry = {"case": name, "shape": [B, nq, nkv, Sq, hd], "sk": Sk, "causal": causal,
-                 "dtype": dt, "scale": zoo.scale, "widths": [dqk, dv], "launches": launched,
-                 "ms": ms,
+                 "dtype": dt, "scale": zoo.scale, "widths": [dqk, dv], "library": stem,
+                 "launches": {kk: n for kk, n in launched.items() if n},
+                 "ms": ms, "kernel_ms": kernel_ms, "kernel_records": kernel_records,
                  "plain_ms": plain_ms, "library_ms": library_ms,
                  "bound_ms": max(t_bytes, t_ops) * 1e3,
                  "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -3791,20 +3904,26 @@ def phase_flash_bwd_vs_plain(torch, dev, smi: str) -> dict:
     lse_worst = {dt: max((e["lse_max_abs_err"] for e in shapes if e["dtype"] == dt),
                          default=None) for dt in T.BWD_RTOL}
     emit("flash_bwd_vs_plain", kernel="flash_attention_bwd",
-         kernels=list(ops.BWD_KERNELS),
+         kernels={str(dt).removeprefix("torch."): ops.BWD_KERNELS[stem]
+                  for dt, stem in ops.BWD_KERNEL_OF.items()},
+         repeat_case=BWD_REPEAT_CASE, repeat_bit_for_bit=repeat,
          bound="each of dq, dk, dv: max abs error <= 2e-2 (bf16) / 1e-4 (float32) of its "
                "largest element, against attention_bwd_ref run from the plain forward's own "
                "o and log-sum-exp; the forward kernel's log-sum-exp within "
                f"{T.LSE_ATOL} of the plain one",
          lse_max_abs_err_by_dtype=lse_worst,
          timer="one CUDA event pair around back-to-back backward calls (5 at the largest "
-               "shapes, 20 otherwise; plain: 1), per call, median of 3 windows",
+               "shapes, 20 otherwise; plain: 1), per call, median of 3 windows; each "
+               "kernel (kernel_ms): its mean device time over its last as many records "
+               "(kernel_records) in a torch.profiler trace of twice as many calls",
          work_bound="max(bytes at 3.35 TB/s, the five products (2.5 x the forward's flops) "
                     "at 989 TFLOP/s bf16; float32 3 x that, 3xBF16)",
          library="torch.autograd.grad of F.scaled_dot_product_attention(q, k, v, "
                  "is_causal=causal, enable_gqa=True, scale=scale) at the native widths",
          max_rel_err_by_dtype=worst, shapes=shapes, card=smi)
-    return {"shapes": shapes, "worst": worst, "lse_worst": lse_worst}
+    if repeat is None:
+        raise AssertionError(f"no {BWD_REPEAT_CASE} case in BWD_CASES")
+    return {"shapes": shapes, "worst": worst, "lse_worst": lse_worst, "repeat": repeat}
 
 
 #: the training path: qwen3-0.6b at full width and depth, bf16, as published
@@ -3826,11 +3945,11 @@ TRAIN_F32_LAYERS, TRAIN_F32_RTOL = 4, 1e-3
 
 
 #: each kernel of a training step by its name in a trace (the backward's
-#: three by their symbols in flash_attention_bwd.cu)
+#: three by their symbols in flash_attention_bwd_wgmma.cu, `BWD_TRACE`)
 TRAIN_TRACE = {"flash_attention_wgmma": "flash_attention_wgmma_kernel",
-               "flash_attention_bwd_dsum": "dsum_kernel",
-               "flash_attention_bwd_dkdv": "dkdv_kernel",
-               "flash_attention_bwd_dq": "dq_kernel"}
+               **{k: BWD_TRACE[k] for k in ("flash_attention_bwd_wgmma_stats",
+                                            "flash_attention_bwd_wgmma_dkdv",
+                                            "flash_attention_bwd_wgmma_dq")}}
 
 
 def _train_step_profile(torch, step, per_step: dict) -> dict:
@@ -3935,7 +4054,7 @@ def phase_train_path(torch, dev, smi: str) -> dict:
     attempts = [e for e in log if "action" in e]
     runs = [e for e in attempts if e["action"] in ("ok", "restore")]  # a step executed
     per_step = {"flash_attention_wgmma": 2 * cfg.n_layers,
-                **dict.fromkeys(ops.BWD_KERNELS, cfg.n_layers)}
+                **dict.fromkeys(ops.BWD_KERNELS[ops.bwd_stem(torch.bfloat16)], cfg.n_layers)}
     want = dict.fromkeys(counts, 0)
     want.update({k: n * len(runs) for k, n in per_step.items()})
     losses = [l for _, l in hist]
@@ -4025,7 +4144,7 @@ def phase_train_f32_path(torch, dev) -> dict:
     counts = read_launches()
     want = dict.fromkeys(counts, 0)
     want.update({"flash_attention": 2 * cfg.n_layers,
-                 **dict.fromkeys(ops.BWD_KERNELS, cfg.n_layers)})
+                 **dict.fromkeys(ops.BWD_KERNELS[ops.bwd_stem(torch.float32)], cfg.n_layers)})
     loss_p, _, grads_p = M.loss_and_grads(cfg.replace(attn_impl="plain"), params, batch)
     errs = {}
     for (path, g), w in zip(tree_leaves_with_path(grads_k), tree_leaves(grads_p)):
@@ -4441,8 +4560,11 @@ def main() -> int:
     f32_point = next(s for s in flash_times["shapes"]
                      if s["shape"] == f32_shape and s["dtype"] == "float32")
     rms_point = next(s for s in rms_times["shapes"] if s["shape"] == [LM_BATCH * LM_SEQ, 1024])
-    # the backward at the training path's shape
+    # the bf16 backward at the training path's shape, the float32 one at its
+    # own path's
     bwd_point = next(s for s in bwd["shapes"] if s["case"] == "qwen3-0.6b_train")
+    bwd_f32_point = next(s for s in bwd["shapes"] if s["case"] == "float32_path")
+    from repro_torch.kernels.flash_attention import ops
     print(probe["smi"], flush=True)
     print(json.dumps({"kernels": [{
         "name": "swe_solve",
@@ -4596,35 +4718,63 @@ def main() -> int:
         "by_shape": [s for s in flash_times["shapes"] if s["dtype"] == "float32"],
         "card": probe["smi"],
     }, {
-        "name": "flash_attention_bwd",
+        "name": "flash_attention_bwd_wgmma",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd_wgmma.cu",
         "replaces": None,
         "replaces_note": "no TPU kernel: the JAX package cannot differentiate its pallas_call "
                          "(src/repro/kernels/flash_attention/flash_attention.py:129) and "
                          "trains on XLA; the port's attention path is the forward kernel, so "
-                         "its gradient is a kernel of its own (FlashAttention-2's algorithm)",
-        "dtype": "bfloat16 and float32",
+                         "its gradient is a kernel of its own (FlashAttention-3's backward, "
+                         "dQ recomputed rather than added atomically)",
+        "dtype": "bfloat16",
+        "kernels": list(ops.BWD_KERNELS["flash_attention_bwd_wgmma"]),
         # the training path: qwen3-0.6b, 28 layers, each of the three kernels
-        # once a layer a step (and the float32 step's, 4 layers)
-        "launches": train["launches"]["flash_attention_bwd_dkdv"],
+        # once a layer a step
+        "launches": train["launches"]["flash_attention_bwd_wgmma_dkdv"],
         "launches_by_kernel": {k: v for k, v in train["launches"].items()
-                               if k.startswith("flash_attention_bwd")},
-        "launches_train_f32_path": train_f32["launches"]["flash_attention_bwd_dkdv"],
+                               if k.startswith("flash_attention_bwd_wgmma")},
         "max_abs_err": max(bwd_point[g]["max_abs_err"] for g in ("dq", "dk", "dv")),
-        "max_rel_err_by_dtype": bwd["worst"],
-        # the forward kernels' log-sum-exp, which the backward reads
-        "lse_max_abs_err": max(v for v in bwd["lse_worst"].values() if v is not None),
-        "lse_max_abs_err_by_dtype": bwd["lse_worst"],
+        "max_rel_err": bwd["worst"]["bfloat16"],
+        # the forward kernel's log-sum-exp, which the backward reads
+        "lse_max_abs_err": bwd["lse_worst"]["bfloat16"],
         "in_situ_max_rel_err_train_path": train["in_situ"],
         "in_situ_lse_max_abs_err_train_path": train["in_situ_lse"],
+        "repeat_bit_for_bit": bwd["repeat"],
         "ms": bwd_point["ms"],
+        "kernel_ms": bwd_point["kernel_ms"],
         "plain_ms": bwd_point["plain_ms"],
         "bound_ms": bwd_point["bound_ms"],
         "bound_by": bwd_point["bound_by"],
         "library_ms": bwd_point["library_ms"],
         "shape": bwd_point["shape"],
-        "by_shape": bwd["shapes"],
+        "by_shape": [e for e in bwd["shapes"] if e["dtype"] == "bfloat16"],
+        "card": probe["smi"],
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+        "replaces": None,
+        "replaces_note": "no TPU kernel (as flash_attention_bwd_wgmma): the float32 "
+                         "gradient, FlashAttention-2's algorithm in 3xBF16 on mma.sync",
+        "dtype": "float32",
+        "kernels": list(ops.BWD_KERNELS["flash_attention_bwd"]),
+        # its own path: the float32 step's 4 layers, each kernel once a layer
+        "launches": train_f32["launches"]["flash_attention_bwd_dkdv"],
+        "launches_by_kernel": {k: v for k, v in train_f32["launches"].items()
+                               if k.startswith("flash_attention_bwd_")
+                               and not k.startswith("flash_attention_bwd_wgmma")},
+        "max_abs_err": max(bwd_f32_point[g]["max_abs_err"] for g in ("dq", "dk", "dv")),
+        "max_rel_err": bwd["worst"]["float32"],
+        "lse_max_abs_err": bwd["lse_worst"]["float32"],
+        "ms": bwd_f32_point["ms"],
+        "kernel_ms": bwd_f32_point["kernel_ms"],
+        "plain_ms": bwd_f32_point["plain_ms"],
+        "bound_ms": bwd_f32_point["bound_ms"],
+        "bound_by": bwd_f32_point["bound_by"],
+        "library_ms": bwd_f32_point["library_ms"],
+        "shape": bwd_f32_point["shape"],
+        "by_shape": [e for e in bwd["shapes"] if e["dtype"] == "float32"],
         "card": probe["smi"],
     }, {
         "name": "rmsnorm",

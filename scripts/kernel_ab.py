@@ -1,21 +1,28 @@
 #!/usr/bin/env python3
-"""The float32 flash-attention kernel and the SWE step kernel of this
-checkout beside those of another checkout, timed in turns on one GPU.
+"""The float32 flash-attention kernel, the bf16 flash-attention backward
+and the SWE step kernel of this checkout beside those of another checkout,
+timed in turns on one GPU.
 
-    python3 scripts/kernel_ab.py --parent DIR [--out build/kernel_ab.jsonl]
+    python3 scripts/kernel_ab.py --parent DIR [--parts step flash bwd path]
+                                 [--out build/kernel_ab.jsonl]
 
 DIR is the root of another checkout of the repository (for example the
-parent commit, unpacked with `git archive`). Its `flash_attention.cu` and
-`swe_step.cu` are built with this checkout's nvcc flags into
-`build/repro_torch_kernels/`; the parent's step goes through the parent's
-own wrapper (its `kernels/swe/ops.py`), its flash kernel is bound as
-`ops.launch` binds this one; this checkout's kernels go through their
-wrappers. Both sides get the same inputs and must agree: the step bit for
-bit, at every strip depth; flash attention within the float32 bound of
-`kernels/flash_attention/testing.py`, each side also held to the plain
-version. Every time is the median device time of chip_smoke.py's
-`_device_ms`, taken parent, this, this, parent, and each side's two
-readings are kept. Measured:
+parent commit, unpacked with `git archive`). Its `flash_attention.cu`,
+`flash_attention_bwd.cu` and `swe_step.cu` are built with this checkout's
+nvcc flags into `build/repro_torch_kernels/`; the parent's step goes through
+the parent's own wrapper (its `kernels/swe/ops.py`), its flash kernel is
+bound as `ops.launch` binds this one, and its backward as the parent's
+`ops.flash_attention_bwd` called it (`bind_bwd`); this checkout's kernels go
+through their wrappers. Both sides get the same inputs and must agree: the
+step bit for bit, at every strip depth; flash attention within the float32
+bound of `kernels/flash_attention/testing.py`, each side also held to the
+plain version; the backward, each side held to the plain backward run from
+the plain forward's own o and log-sum-exp within `BWD_RTOL`. Every time is
+the median device time of chip_smoke.py's `_device_ms`, taken parent, this,
+this, parent, and each side's two readings are kept. `--parts` picks what
+runs (default all; the first line printed names it): a change to one
+kernel needs only its part (`--parts bwd` for the backward alone, a few
+minutes of the card where the whole A/B takes longer). Measured:
 
 * `swe_step`: one step at the main path's eight [cells, lanes] shapes and
   at [2, 1] (the floor: one launch of the smallest step), the plan's strip
@@ -27,7 +34,14 @@ readings are kept. Measured:
   beside both bounds (3xTF32 on the tensor cores and float32 on the CUDA
   cores) and `F.scaled_dot_product_attention`; and the kernel's bf16
   instance at qwen3-0.6b's shape (its model layout), the yardstick of the
-  bf16 tensor-core kernel.
+  bf16 tensor-core kernel;
+* the flash-attention backward (`flash_attention_bwd`: this checkout's
+  library of `ops.bwd_stem`, the parent's `flash_attention_bwd.cu` with
+  its dtype argument) at every `testing.BWD_CASES` shape, at the model
+  layout, beside the bound of chip_smoke.py's `flash_bwd_work` (the five
+  products at the bf16 peak; float32 three times them, 3xBF16), with
+  whether the two sides' gradients are the same bits (the float32 library
+  is the parent's arithmetic, the bf16 one a new kernel).
 
 Prints one JSON line per measurement, writes them all to --out, and exits
 non-zero without a CUDA device or on any disagreement.
@@ -37,6 +51,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -51,12 +66,16 @@ STEP_SHAPES = tuple((C, N) for C in (512, 2048) for N in (4, 16, 64, 512)) + ((2
 PATH_WAVES = ((2048, 16), (2048, 512), (512, 16), (512, 512))
 
 
-def build_parent(parent: Path, stems=(("flash_attention", "flash_attention"),
-                                      ("swe_step", "swe"))) -> dict:
+#: the parent's libraries each part needs: (stem, kernels/ subdirectory)
+PARENT_LIBS = {"step": ("swe_step", "swe"), "path": ("swe_step", "swe"),
+               "flash": ("flash_attention", "flash_attention"),
+               "bwd": ("flash_attention_bwd", "flash_attention")}
+
+
+def build_parent(parent: Path, stems) -> dict:
     """The parent's kernel libraries `stems` ((stem, kernels/ subdirectory)
-    pairs; by default its float32 flash kernel and its step kernel), built
-    together with this checkout's flags; returns {stem: CDLL}, each with its
-    source text as `.source`."""
+    pairs), built together with this checkout's flags; returns {stem:
+    CDLL}, each with its source text as `.source`."""
     from repro_torch.kernels import _build
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -123,6 +142,42 @@ def bind_flash(lib):
             raise RuntimeError(f"{lib._name}: flash_attention_fwd: cudaError {err}")
 
     return launch
+
+
+def bind_bwd(lib):
+    """The parent's backward entry point (`flash_attention_bwd` of its
+    `flash_attention_bwd.cu`, which took both dtypes: its source declares
+    `int dtype`), called as the parent's `ops.flash_attention_bwd` called
+    it: outputs and its D scratch allocated per call, dtype code 1 for bf16
+    and 0 for float32, the default scale 1 / sqrt(hd) where none is
+    given."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+
+    if "int dtype" not in lib.source:
+        raise RuntimeError("the parent's flash_attention_bwd.cu takes no dtype: no bf16 path")
+    fn = lib.flash_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_double, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def bwd(q, k, v, o, lse, do, causal, scale):
+        B, nq, Sq, hd = q.shape
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        dsum = torch.empty_like(lse)
+        strides = (ctypes.c_longlong * 24)(
+            *[s for t in (q, k, v, o, do, dq, dk, dv) for s in ops._strides(t)])
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 B, nq, k.shape[1], Sq, k.shape[2], hd, ops._CODES[q.dtype], strides, int(causal),
+                 ops.default_scale(hd) if scale is None else scale,
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{lib._name}: flash_attention_bwd: cudaError {err}")
+        return dq, dk, dv
+
+    return bwd
 
 
 def in_turns(torch, chip_smoke, parent_fn, this_fn, calls: int) -> dict:
@@ -238,6 +293,47 @@ def flash_times(torch, chip_smoke, launch) -> list:
     return rows
 
 
+def bwd_times(torch, chip_smoke, parent_bwd) -> list:
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, ops
+    from repro_torch.kernels.flash_attention import testing as T
+
+    rows = []
+    for i, (name, zoo) in enumerate(T.BWD_CASES.items()):
+        B, nq, nkv, Sq, Sk, hd, causal, dt = zoo.case
+        q, k, v, do = T.bwd_inputs(zoo, "cuda", seed=300 + i)
+        o, lse = ops._forward(q, k, v, causal, zoo.scale, want_lse=True)
+        mine = lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal,  # noqa: E731
+                                           scale=zoo.scale)
+        theirs = lambda: parent_bwd(q, k, v, o, lse, do, causal, zoo.scale)  # noqa: E731
+        got, old = mine(), theirs()
+        torch.cuda.synchronize()
+        want = T.plain_bwd(q, k, v, *T.plain_forward(q, k, v, causal, zoo.scale), do, causal,
+                           zoo.scale)
+        errs = {"errors": T.bwd_errors(got, want, dt, name),
+                "parent_errors": T.bwd_errors(old, want, dt, f"parent {name}"),
+                "bit_for_bit_with_parent": all(torch.equal(a, b) for a, b in zip(got, old))}
+        del got, old, want
+        dqk, dv = zoo.widths or (hd, hd)
+        work = chip_smoke.flash_bwd_work(B, nq, nkv, Sq, Sk, dqk, causal, q.element_size(),
+                                         hd_v=dv)
+        t_bytes = work["bytes"] / chip_smoke.HBM_BYTES_PER_S
+        # bf16 products at the bf16 peak; float32 as 3xBF16, three times them
+        t_ops = work["flops"] / chip_smoke.BF16_FLOPS * (1 if dt == "bfloat16" else 3)
+        big = B * nq * Sq * Sk * hd > 2e11
+        row = {"case": name, "shape": [B, nq, nkv, Sq, hd], "sk": Sk, "causal": causal,
+               "dtype": dt, "scale": zoo.scale, "library": ops.bwd_stem(q.dtype), **errs,
+               **in_turns(torch, chip_smoke, theirs, mine, 5 if big else 20),
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        row["speedup"] = sum(row["parent_ms"]) / sum(row["ms"])
+        row["share_of_bound"] = row["bound_ms"] / statistics.median(row["ms"])
+        rows.append(row)
+        emit("bwd", **row)
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return rows
+
+
 _out = None
 
 
@@ -253,6 +349,7 @@ def main() -> int:
     global _out
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, required=True)
+    ap.add_argument("--parts", nargs="+", choices=tuple(PARENT_LIBS), default=list(PARENT_LIBS))
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "kernel_ab.jsonl")
     args = ap.parse_args()
     import torch
@@ -266,12 +363,19 @@ def main() -> int:
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text("")
     _out = args.out
-    libs = build_parent(args.parent.resolve())
-    emit("card", card=chip_smoke.nvidia_smi(), device=torch.cuda.get_device_name(0))
-    step = parent_step(args.parent.resolve(), libs["swe_step"])
-    step_times(torch, chip_smoke, step)
-    flash_times(torch, chip_smoke, bind_flash(libs["flash_attention"]))
-    path_walls(torch, step)
+    libs = build_parent(args.parent.resolve(), sorted({PARENT_LIBS[p] for p in args.parts}))
+    emit("card", card=chip_smoke.nvidia_smi(), device=torch.cuda.get_device_name(0),
+         parts=args.parts)
+    if {"step", "path"} & set(args.parts):
+        step = parent_step(args.parent.resolve(), libs["swe_step"])
+    if "step" in args.parts:
+        step_times(torch, chip_smoke, step)
+    if "flash" in args.parts:
+        flash_times(torch, chip_smoke, bind_flash(libs["flash_attention"]))
+    if "bwd" in args.parts:
+        bwd_times(torch, chip_smoke, bind_bwd(libs["flash_attention_bwd"]))
+    if "path" in args.parts:
+        path_walls(torch, step)
     return 0
 
 

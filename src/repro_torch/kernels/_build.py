@@ -13,18 +13,20 @@ rounded, as in the eager plain PyTorch version, which is what their
 bit-equality with that version rests on. `ssd.cu` lets the compiler
 contract multiply-adds: its products sum in another order than the plain
 version's, so they cannot be bit-equal anyway. It, `flash_attention.cu`
-(both mma.sync in 3xTF32) and `flash_attention_bwd.cu` (mma.sync bf16, and
-3xBF16 for float32) are built with `-Xptxas -v`, and each build's
-compiler output (registers, spills) is kept beside its library as
-`lib<stem>_<hash>.log`. `flash_attention_wgmma.cu`
-(wgmma, TMA, `setmaxnreg`: sm_90a only) needs no flag of its own and no
-library beyond the runtime: it looks up `cuTensorMapEncodeTiled` at run
-time through `cudaGetDriverEntryPoint`, so nothing links `-lcuda`, and it
-uses no CUTLASS header. Libraries land in `build/repro_torch_kernels/` at
-the root of the checkout, named by a hash of the source and its flags, so an
-edited source is rebuilt and an unchanged one is reused. Each build writes a
-temporary file and renames it into place, so a cut build never leaves a
-half-written library behind. Nothing is built or loaded at import time: the
+(both mma.sync in 3xTF32), `flash_attention_bwd.cu` (mma.sync in 3xBF16)
+and `flash_attention_bwd_wgmma.cu` (wgmma, TMA) are built with `-Xptxas
+-v`, and each build's compiler output (registers, spills) is kept beside
+its library as `lib<stem>_<hash>.log`. The two wgmma libraries
+(`flash_attention_wgmma.cu`, `flash_attention_bwd_wgmma.cu`: wgmma, TMA,
+`setmaxnreg`, sm_90a only) need no library beyond the runtime: they look up
+`cuTensorMapEncodeTiled` at run time through `cudaGetDriverEntryPoint`, so
+nothing links `-lcuda`, and they use no CUTLASS header; they share the
+header `flash_attention/csrc/wgmma_tma.cuh`. Libraries land in
+`build/repro_torch_kernels/` at the root of the checkout, named by a hash of
+the source, the headers its `#include "..."` lines name and its flags, so
+an edited source or header is rebuilt and an unchanged one is reused. Each build
+writes a temporary file and renames it into place, so a cut build never
+leaves a half-written library behind. Nothing is built or loaded at import time: the
 first launch of a kernel builds (or finds) its library. A machine with a
 GPU but no `nvcc` raises; there is no fallback.
 """
@@ -48,7 +50,8 @@ NVCC_FLAGS = (
 #: flags of one source on top of NVCC_FLAGS, by stem
 SOURCE_FLAGS = {"swe_step": ("-fmad=false",), "swe_solve": ("-fmad=false",),
                 "ssd": ("-Xptxas", "-v"), "flash_attention": ("-Xptxas", "-v"),
-                "flash_attention_bwd": ("-Xptxas", "-v")}
+                "flash_attention_bwd": ("-Xptxas", "-v"),
+                "flash_attention_bwd_wgmma": ("-Xptxas", "-v")}
 
 _lock = named_lock("kernels.build")
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -79,9 +82,19 @@ def flags(stem: str) -> tuple[str, ...]:
     return (*NVCC_FLAGS, *SOURCE_FLAGS.get(stem, ()))
 
 
+def local_headers(src: Path) -> list[Path]:
+    """The headers a source names in its own `#include "..."` lines, beside
+    it (the port's headers include no other)."""
+    names = [line.split('"')[1] for line in src.read_text().splitlines()
+             if line.startswith('#include "')]
+    return [src.parent / name for name in names]
+
+
 def library_path(stem: str) -> Path:
     src = sources()[stem]
     digest = hashlib.sha256(src.read_bytes() + " ".join(flags(stem)).encode())
+    for header in local_headers(src):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"lib{stem}_{digest.hexdigest()[:16]}.so"
 
 

@@ -31,14 +31,16 @@ The gradient. When grad is enabled and q, k or v requires it,
 `flash_attention` goes through `FlashAttention`, a `torch.autograd.Function`
 (in the `setup_context` style, so `torch.func` transforms go through it):
 its forward launches the same kernel with a second output, each row's
-log-sum-exp, and its backward launches `csrc/flash_attention_bwd.cu`
-(`flash_attention_bwd`: three kernels, D = rowsum(dO o), dK and dV, dQ).
-On the CPU the Function's forward is `ref.attention_lse_ref` and its
-backward `ref.attention_bwd_ref`. Every other call takes the forward alone,
-with a null log-sum-exp pointer, and computes what it computed before, bit
-for bit: a kernel's output never leaves the wrapper detached from a tensor
-that requires grad. `flash_attention_bwd.launches_by_kernel` counts the
-backward's three kernels.
+log-sum-exp, and its backward (`flash_attention_bwd`: three kernels, the
+rows' D = rowsum(dO o), dK and dV, dQ) launches the library of q's dtype
+(`bwd_stem`): bfloat16 `csrc/flash_attention_bwd_wgmma.cu` (wgmma and TMA),
+float32 `csrc/flash_attention_bwd.cu` (mma.sync in 3xBF16). On the CPU the
+Function's forward is `ref.attention_lse_ref` and its backward
+`ref.attention_bwd_ref`. Every other call takes the forward alone, with a
+null log-sum-exp pointer, and computes what it computed before, bit for
+bit: a kernel's output never leaves the wrapper detached from a tensor that
+requires grad. `flash_attention_bwd.launches_by_kernel` counts each
+library's three kernels (`BWD_KERNELS`).
 """
 from __future__ import annotations
 
@@ -62,9 +64,18 @@ KERNEL_OF = {torch.float32: "flash_attention", torch.bfloat16: "flash_attention_
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: strides and bases the kernels read: 16-byte vectors and TMA boxes
 ALIGN_BYTES = 16
-#: the backward's three kernels, in launch order (`csrc/flash_attention_bwd.cu`)
-BWD_KERNELS = ("flash_attention_bwd_dsum", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
-
+#: the backward's library (stem) each dtype goes to on the card
+BWD_KERNEL_OF = {torch.float32: "flash_attention_bwd",
+                 torch.bfloat16: "flash_attention_bwd_wgmma"}
+#: each backward library's three kernels, in launch order: the rows' D (and,
+#: in the wgmma library, their log-sum-exp in log2 units), dK and dV, dQ
+BWD_KERNELS = {
+    "flash_attention_bwd": ("flash_attention_bwd_dsum", "flash_attention_bwd_dkdv",
+                            "flash_attention_bwd_dq"),
+    "flash_attention_bwd_wgmma": ("flash_attention_bwd_wgmma_stats",
+                                  "flash_attention_bwd_wgmma_dkdv",
+                                  "flash_attention_bwd_wgmma_dq"),
+}
 _fns: dict = {}
 
 
@@ -90,21 +101,76 @@ def _kernel(stem: str):
     return fn
 
 
-def _bwd_kernel():
-    fn = _fns.get("flash_attention_bwd")
+def _bwd_kernel(stem: str):
+    """The C entry point of backward library `stem` (both take the same
+    arguments)."""
+    fn = _fns.get(stem)
     if fn is None:
-        fn = _build.load("flash_attention_bwd").flash_attention_bwd
+        fn = getattr(_build.load(stem), stem)
         fn.argtypes = [
-            *[ctypes.c_void_p] * 10,  # q, k, v, o, dout, lse, dsum, dq, dk, dv
-            *[ctypes.c_int] * 7,  # B, nq, nkv, Sq, Sk, hd, dtype
+            *[ctypes.c_void_p] * 10,  # q, k, v, o, dout, lse, scratch, dq, dk, dv
+            *[ctypes.c_int] * 6,  # B, nq, nkv, Sq, Sk, hd
             ctypes.POINTER(ctypes.c_longlong),  # strides of (B, n, S) of the eight tensors
             ctypes.c_int,  # causal
             ctypes.c_double,  # scale
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
-        _fns["flash_attention_bwd"] = fn
+        _fns[stem] = fn
     return fn
+
+
+def _bwd_scratch(stem: str, B: int, nq: int, Sq: int) -> int:
+    """float32 values of the scratch that backward library `stem` takes for
+    q of ``[B, nq, Sq, hd]``, as the library itself says
+    (`<stem>_scratch`): the layout (the wgmma library pads rows to its
+    ROW_PAD) lives in the .cu file alone."""
+    key = f"{stem}_scratch"
+    fn = _fns.get(key)
+    if fn is None:
+        fn = getattr(_build.load(stem), key)
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_longlong
+        _fns[key] = fn
+    return fn(B, nq, Sq)
+
+
+def _launch_bwd(q, k, v, o, lse, do, causal: bool, scale: float | None):
+    """(dq, dk, dv) from the three kernels of the library of q's dtype
+    (`bwd_stem`), on tensors `flash_attention_bwd` has checked, with the
+    float32 scratch the library asks for; each launch counted. `scale` None
+    is 1/sqrt(hd)."""
+    B, nq, Sq, hd = q.shape
+    nkv, Sk = k.shape[1], k.shape[2]
+    stem = bwd_stem(q.dtype)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    check_layout(dq, dk, dv)
+    scratch = torch.empty(_bwd_scratch(stem, B, nq, Sq), dtype=torch.float32, device=q.device)
+    tensors = (q, k, v, o, do, dq, dk, dv)
+    strides = (ctypes.c_longlong * 24)(*[s for t in tensors for s in _strides(t)])
+    err = _bwd_kernel(stem)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, nq, nkv, Sq, Sk, hd,
+        strides, int(bool(causal)), default_scale(hd) if scale is None else scale,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    if err >= 10000:
+        raise RuntimeError(f"flash_attention_bwd: {stem}: tensor map encoding failed, "
+                           f"CUresult {err - 10000}")
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd: {stem}: kernel launch failed, cudaError {err}")
+    for kernel in BWD_KERNELS[stem]:
+        launches.count(flash_attention_bwd, kernel)
+    return dq, dk, dv
+
+
+def bwd_stem(dtype: torch.dtype) -> str:
+    """The backward library that a gradient of `dtype` goes to on the card
+    (`BWD_KERNEL_OF`); TypeError for a dtype no kernel takes."""
+    stem = BWD_KERNEL_OF.get(dtype)
+    if stem is None:
+        raise TypeError(f"flash_attention_bwd: the kernels take float32 or bfloat16, got {dtype}")
+    return stem
 
 
 def check_layout(*tensors: torch.Tensor) -> None:
@@ -270,10 +336,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     """The gradient of `flash_attention` with respect to q, k and v: (dq,
     dk, dv) in the dtypes and shapes of q, k and v, from the forward's o and
     log-sum-exp `lse` (float32 ``[B, nq, Sq]``) and the output gradient `do`
-    (o's shape and dtype). On the card the three kernels of
-    `csrc/flash_attention_bwd.cu`, each counted in `.launches_by_kernel`;
-    on the CPU `ref.attention_bwd_ref`. `do` in a layout the kernel does
-    not read (an expanded or unaligned view) is copied first."""
+    (o's shape and dtype). On the card the three kernels of the library
+    of q's dtype (`bwd_stem`), each counted in `.launches_by_kernel`; on
+    the CPU `ref.attention_bwd_ref`. `do` in a layout the kernels do not
+    read (an expanded or unaligned view) is copied first."""
     _check(q, k, v, causal, scale)
     if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and do "
@@ -294,31 +360,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     if device.index is not None and device.index != torch.cuda.current_device():
         with torch.cuda.device(device):
             return flash_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
-        return dq, dk.zero_(), dv.zero_()
+        return torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v)
     try:
         check_layout(do)
     except ValueError:
         do = do.contiguous()
     lse = lse.contiguous()
-    check_layout(q, k, v, o, do, dq, dk, dv)
-    B, nq, Sq, hd = q.shape
-    nkv, Sk = k.shape[1], k.shape[2]
-    dsum = torch.empty_like(lse)
-    tensors = (q, k, v, o, do, dq, dk, dv)
-    strides = (ctypes.c_longlong * 24)(*[s for t in tensors for s in _strides(t)])
-    err = _bwd_kernel()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, nq, nkv, Sq, Sk, hd,
-        _CODES[q.dtype], strides, int(bool(causal)),
-        default_scale(hd) if scale is None else scale, torch.cuda.current_stream().cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"flash_attention_bwd: kernel launch failed, cudaError {err}")
-    for kernel in BWD_KERNELS:
-        launches.count(flash_attention_bwd, kernel)
-    return dq, dk, dv
+    check_layout(q, k, v, o, do)
+    return _launch_bwd(q, k, v, o, lse, do, causal, scale)
 
 
 #: kernel launches since the last reset (CPU calls never count), in all and
@@ -326,6 +376,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
 flash_attention.launches = 0
 flash_attention.launches_by_kernel = {stem: 0 for stem in KERNEL_OF.values()}
 #: backward launches since the last reset, in all (three a backward) and by
-#: kernel
+#: kernel, both libraries'
 flash_attention_bwd.launches = 0
-flash_attention_bwd.launches_by_kernel = {name: 0 for name in BWD_KERNELS}
+flash_attention_bwd.launches_by_kernel = {name: 0 for names in BWD_KERNELS.values()
+                                          for name in names}

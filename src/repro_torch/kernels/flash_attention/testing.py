@@ -18,8 +18,9 @@ Inputs are standard normals, as in the JAX package's tests. A dropped
 diagonal moves outputs by O(1) and fails it; so does a 1/hd scale, and at
 qwen3-0.6b's shape a scale 1% off.
 
-The backward kernel (`csrc/flash_attention_bwd.cu`) is held by `check_bwd`
-at `BWD_CASES`: dq, dk and dv against the plain backward
+The backward kernels (`csrc/flash_attention_bwd_wgmma.cu` for bf16,
+`csrc/flash_attention_bwd.cu` for float32) are held by `check_bwd` at
+`BWD_CASES`: dq, dk and dv against the plain backward
 (`ref.attention_bwd_ref`) on the same q, k, v, o, log-sum-exp and output
 gradient, each gradient's largest error within `BWD_RTOL` of its largest
 element: 2e-2 in bf16 (the forward's bound: both sides round P and dS to
@@ -178,8 +179,11 @@ def assert_close(got: torch.Tensor, want: torch.Tensor, name: str) -> dict:
 #: the backward's cases, at the model layout: qwen3-0.6b's training shape
 #: (B = 4 sequences of 4,096, bf16, causal: `train_path`'s), deepseek's
 #: no-GQA heads, zamba2's hd 64, minicpm3's MLA padded to hd 128 at scale
-#: 1/sqrt(96), llama's cross-attention (full, 2,048 -> 1,601), and float32:
-#: the float32 path's shape and qwen3-0.6b's heads of 128
+#: 1/sqrt(96), llama's cross-attention (full, 2,048 -> 1,601), float32 (the
+#: float32 path's shape and qwen3-0.6b's heads of 128), and the wgmma
+#: kernel's edges in bf16: a causal S of 1,000, no multiple of any tile, with
+#: a GQA group of 4, and hd 32 at the float32 path's shape (last, so that
+#: the cases before them keep their seeds in chip_smoke.py)
 BWD_CASES = {
     "qwen3-0.6b_train": ZooCase((4, 16, 8, 4096, 4096, 128, True, "bfloat16")),
     "deepseek-moe-16b": ZooCase((2, 16, 16, 2048, 2048, 128, True, "bfloat16")),
@@ -189,6 +193,8 @@ BWD_CASES = {
     "llama-3.2-vision-90b_cross": ZooCase((2, 64, 8, 2048, 1601, 128, False, "bfloat16")),
     "float32_path": ZooCase((26, 4, 2, 512, 512, 32, True, "float32")),
     "float32_hd128": ZooCase((2, 16, 8, 2048, 2048, 128, True, "float32")),
+    "ragged_gqa4": ZooCase((3, 8, 2, 1000, 1000, 64, True, "bfloat16")),
+    "bfloat16_hd32": ZooCase((26, 4, 2, 512, 512, 32, True, "bfloat16")),
 }
 #: each gradient's largest error over its largest element (see above)
 BWD_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}

@@ -369,3 +369,29 @@ def test_zoo_cases_and_their_padding(arch):
     assert not got[..., dv:].any()
     with pytest.raises(AssertionError, match="max abs error"):
         T.assert_close(T.plain(q, k, v, causal), got, "scale")
+
+
+def test_library_name_covers_the_shared_header(tmp_path, monkeypatch):
+    """A kernel library's name hashes its source, its flags and the headers
+    its `#include "..."` lines name: both wgmma kernels (forward and
+    backward) include `csrc/wgmma_tma.cuh`, so an edited header rebuilds
+    each of them, and a source beside it that does not include it keeps its
+    library."""
+    from repro_torch.kernels import _build
+
+    for stem in ("flash_attention_wgmma", "flash_attention_bwd_wgmma"):
+        src = _build.sources()[stem]
+        assert '#include "wgmma_tma.cuh"' in src.read_text()
+        assert (src.parent / "wgmma_tma.cuh").is_file()
+    csrc = tmp_path / "flash" / "csrc"
+    csrc.mkdir(parents=True)
+    (csrc / "a.cu").write_text('#include <cuda_runtime.h>\n#include "h.cuh"\n')
+    (csrc / "b.cu").write_text("#include <cuda_runtime.h>\n")
+    (csrc / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "KERNELS_DIR", tmp_path)
+    assert _build.local_headers(csrc / "a.cu") == [csrc / "h.cuh"]
+    before = {s: _build.library_path(s) for s in ("a", "b")}
+    assert {s: _build.library_path(s) for s in ("a", "b")} == before
+    (csrc / "h.cuh").write_text("// two\n")
+    assert _build.library_path("a") != before["a"]
+    assert _build.library_path("b") == before["b"]

@@ -1,14 +1,17 @@
 """PyTorch port: the flash-attention gradient on the CPU.
 
-`ref.attention_bwd_ref`, the plain version of the backward kernel
-(`csrc/flash_attention_bwd.cu`), against `torch.autograd` through
+`ref.attention_bwd_ref`, the plain version of the backward kernels
+(`csrc/flash_attention_bwd_wgmma.cu` for bf16, `csrc/flash_attention_bwd.cu`
+for float32), against `torch.autograd` through
 `attention_ref` and against `jax.vjp` of the JAX package's oracle
 (`repro/kernels/flash_attention/ref.py::attention_ref`): in float64 under
 `jax.enable_x64` within 1e-12 (the oracle casts its inputs to float32, so
 its own code runs with float32 read as float64), and in float32 within
 2e-5 of each gradient's largest element (two float32 implementations
 summing in other orders; measured <= 4e-7). GQA, causal and full attention
-with Sq != Sk, the default and a given scale. Then the wrapper's autograd
+with Sq != Sk, the default and a given scale, a ragged causal S. Then the
+wrapper's dispatch (the library of each dtype, the launch counters' kernel
+names) and its autograd
 Function (`ops.FlashAttention`): its log-sum-exp is `logsumexp` of the
 scaled scores, its gradients are `attention_bwd_ref`'s, it works under
 `torch.func.vjp`, and a call without grad is the forward alone, the same
@@ -47,6 +50,7 @@ CASES = (
     (1, 4, 4, 24, 24, 16, True, 0.3),
     (1, 6, 2, 12, 20, 8, False, None),
     (2, 4, 1, 9, 31, 16, False, 1.0 / math.sqrt(12)),
+    (1, 4, 2, 37, 37, 32, True, None),
 )
 
 
@@ -306,7 +310,49 @@ def test_bwd_wrapper_checks():
         flash_attention_bwd(q, k, v, o, lse, do.double())
     with pytest.raises(ValueError, match="Sq == Sk"):
         flash_attention_bwd(q, k[:, :, :4], v[:, :, :4], o, lse, do, causal=True)
-    assert ops.BWD_KERNELS == tuple(flash_attention_bwd.launches_by_kernel)
+    assert [n for names in ops.BWD_KERNELS.values() for n in names] == \
+        list(flash_attention_bwd.launches_by_kernel)
+
+
+def test_bwd_dispatch_by_dtype():
+    """The card's backward library by dtype, as a pure function: bf16 to the
+    wgmma library, float32 to the mma.sync one, any other dtype raises (no
+    fallback); each is a kernel source of the port built with its ptxas
+    log."""
+    from repro_torch.kernels import _build
+
+    assert ops.bwd_stem(torch.bfloat16) == "flash_attention_bwd_wgmma"
+    assert ops.bwd_stem(torch.float32) == "flash_attention_bwd"
+    for dtype in (torch.float16, torch.float64, torch.int32):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            ops.bwd_stem(dtype)
+    assert set(ops.BWD_KERNEL_OF) == set(ops.KERNEL_OF)
+    sources = _build.sources()
+    for stem in ops.BWD_KERNEL_OF.values():
+        assert stem in sources and "-v" in _build.flags(stem)
+
+
+def test_bwd_launch_counter_names():
+    """The launch counters name each library's three kernels, in launch
+    order (the rows' statistics, dK/dV, dQ), after their library; the bf16
+    path counts only the wgmma library's, so a run shows which one it took.
+    CPU calls count nothing."""
+    assert set(ops.BWD_KERNELS) == set(ops.BWD_KERNEL_OF.values())
+    assert ops.BWD_KERNELS["flash_attention_bwd_wgmma"] == (
+        "flash_attention_bwd_wgmma_stats", "flash_attention_bwd_wgmma_dkdv",
+        "flash_attention_bwd_wgmma_dq")
+    assert ops.BWD_KERNELS["flash_attention_bwd"] == (
+        "flash_attention_bwd_dsum", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
+    for stem, names in ops.BWD_KERNELS.items():
+        assert len(names) == 3 and all(n.startswith(stem + "_") for n in names)
+        assert [n.removeprefix(stem + "_") for n in names][1:] == ["dkdv", "dq"]
+    names = [n for ns in ops.BWD_KERNELS.values() for n in ns]
+    assert len(set(names)) == 6 and set(flash_attention_bwd.launches_by_kernel) == set(names)
+    before = dict(flash_attention_bwd.launches_by_kernel), flash_attention_bwd.launches
+    q, k, v, do = (torch.from_numpy(a) for a in _arrays((1, 2, 1, 8, 8, 8), 6, np.float32))
+    o, lse = ops._forward(q, k, v, True, None, want_lse=True)
+    flash_attention_bwd(q, k, v, o, lse, do)
+    assert (dict(flash_attention_bwd.launches_by_kernel), flash_attention_bwd.launches) == before
 
 
 def test_ssd_and_rmsnorm_raise_under_autograd():
@@ -324,3 +370,69 @@ def test_ssd_and_rmsnorm_raise_under_autograd():
         rmsnorm_fused(torch.randn(4, 16), w)
     with torch.no_grad():
         rmsnorm_fused(torch.randn(4, 16), w)
+
+
+class _FakeBwdLib:
+    """Both backward libraries' C entry points and scratch getters,
+    recording their arguments; each getter answers `scratch` values."""
+
+    def __init__(self, scratch: int):
+        self.calls, self.asked = [], []
+        lib = self
+
+        class Entry:
+            argtypes = restype = None
+
+            def __call__(self, *args):
+                lib.calls.append(args)
+                return 0
+
+        class Scratch:
+            argtypes = restype = None
+
+            def __call__(self, *args):
+                lib.asked.append(args)
+                return scratch
+
+        for stem in ops.BWD_KERNELS:
+            setattr(self, stem, Entry())
+            setattr(self, f"{stem}_scratch", Scratch())
+
+
+@pytest.mark.parametrize("stem", ["flash_attention_bwd", "flash_attention_bwd_wgmma"])
+def test_launch_bwd_takes_the_library_scratch_and_counts_three(monkeypatch, stem):
+    """`ops._launch_bwd` asks the dtype's library for its scratch size
+    (`<stem>_scratch(B, nq, Sq)`: the row padding lives in the .cu file
+    alone), hands the entry point a float32 scratch of that size, the scale
+    (1/sqrt(hd) unless told otherwise) and then the stream, and counts
+    each of that library's three kernels once and no other."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fake = _FakeBwdLib(scratch=4321)
+    monkeypatch.setattr(ops, "_fns", {})
+    monkeypatch.setattr(_build, "load", lambda name: fake)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    sizes = []
+    empty = torch.empty
+
+    def recording_empty(*args, **kw):
+        t = empty(*args, **kw)
+        sizes.append((tuple(t.shape), t.dtype))
+        return t
+
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    dtype = torch.bfloat16 if stem.endswith("wgmma") else torch.float32
+    q = torch.zeros(1, 2, 16, 64, dtype=dtype)
+    k = torch.zeros(1, 1, 16, 64, dtype=dtype)
+    lse = torch.zeros(1, 2, 16)
+    before = dict(flash_attention_bwd.launches_by_kernel)
+    dq, dk, dv = ops._launch_bwd(q, k, k, q, lse, q, True, None)
+    assert fake.asked == [(1, 2, 16)] and sizes == [((4321,), torch.float32)]
+    assert ops._fns[stem].argtypes[-3:] == [ctypes.c_int, ctypes.c_double, ctypes.c_void_p]
+    assert fake.calls[-1][-2] == 1 / math.sqrt(64) and fake.calls[-1][-3] == 1
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, k.shape)
+    assert {n: c - before[n] for n, c in flash_attention_bwd.launches_by_kernel.items()} == \
+        {n: int(n in ops.BWD_KERNELS[stem]) for n in before}

@@ -1045,41 +1045,65 @@ def test_stress_harness_on_cuda():
 
 # -- the LM zoo's training: the flash backward kernel -------------------------------
 
-#: small backward cases: GQA causal bf16 at hd 128 with a ragged S, and
-#: float32 full attention with Sq != Sk at hd 64 and a scale
+#: small backward cases: GQA causal bf16 at hd 128 with a ragged S, float32
+#: full attention with Sq != Sk at hd 64 and a scale, and the wgmma kernel's
+#: edges from `testing.BWD_CASES` (a ragged causal S with a GQA group of 4;
+#: hd 32)
 BWD_SMALL = (flash_testing.ZooCase((2, 4, 2, 200, 200, 128, True, "bfloat16")),
-             flash_testing.ZooCase((1, 8, 2, 130, 161, 64, False, "float32"), 0.2))
+             flash_testing.ZooCase((1, 8, 2, 130, 161, 64, False, "float32"), 0.2),
+             flash_testing.BWD_CASES["ragged_gqa4"], flash_testing.BWD_CASES["bfloat16_hd32"])
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("zoo", BWD_SMALL, ids=lambda z: flash_testing.case_name(z.case))
 def test_flash_bwd_kernel_matches_plain(zoo):
-    """`flash_attention_bwd.cu` against `attention_bwd_ref` on the same
-    saved tensors (`testing.check_bwd`), each of its three kernels launched
-    once."""
+    """The backward library of the case's dtype (`flash_attention_bwd_wgmma.cu`
+    for bf16, `flash_attention_bwd.cu` for float32) against
+    `attention_bwd_ref` on the same saved tensors (`testing.check_bwd`),
+    each of its three kernels launched once and no kernel of the other."""
     dev = cuda_or_skip()
-    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, ops
 
     q, k, v, do = flash_testing.bwd_inputs(zoo, dev, seed=3)
     before = dict(flash_attention_bwd.launches_by_kernel)
     report = flash_testing.check_bwd(q, k, v, do, zoo.case[6], zoo.scale, "gpu")
     torch.cuda.synchronize()
+    mine = ops.BWD_KERNELS[ops.bwd_stem(q.dtype)]
     assert {k: n - before[k] for k, n in flash_attention_bwd.launches_by_kernel.items()} == \
-        dict.fromkeys(before, 1)
+        {k: int(k in mine) for k in before}
     print(report)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_repeats_bit_for_bit():
+    """Two bf16 backward calls on the same inputs at qwen3-0.6b's training
+    shape give the same bits in dq, dk and dv: every gradient is a sum in a
+    fixed order (no atomics), which a replayed training step rests on."""
+    dev = cuda_or_skip()
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, ops
+
+    zoo = flash_testing.BWD_CASES["qwen3-0.6b_train"]
+    q, k, v, do = flash_testing.bwd_inputs(zoo, dev, seed=4)
+    o, lse = ops._forward(q, k, v, True, None, want_lse=True)
+    first = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    second = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all()), name
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.gpu
 def test_train_step_on_the_card_launches_the_backward():
     """A 2-layer qwen3-0.6b at reduced width in bf16, `remat="full"`: one
     `train_step` on the kernel path launches the forward kernel twice a
-    layer (forward and recompute) and each backward kernel once a layer;
+    layer (forward and recompute) and each bf16 backward kernel once a layer
+    (the float32 library's none);
     each attention call's log-sum-exp and gradients are held to the plain
     version on its saved tensors (`testing.backward_tap`, LSE_ATOL and
     BWD_RTOL); its gradients match the plain path's within the bf16 bound
     of the kernels, and the loss is finite."""
     dev = cuda_or_skip()
-    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, ops
     from repro_torch.optim.adamw import adamw_init, tree_leaves
     from repro_torch.types import TrainConfig
 
@@ -1097,8 +1121,9 @@ def test_train_step_on_the_card_launches_the_backward():
     assert len(seen) == cfg.n_layers and not [e for e in seen if "error" in e], seen
     assert flash_attention.launches_by_kernel["flash_attention_wgmma"] - \
         fwd["flash_attention_wgmma"] == 2 * cfg.n_layers
-    assert all(flash_attention_bwd.launches_by_kernel[k] - n == cfg.n_layers
-               for k, n in bwd.items())
+    mine = ops.BWD_KERNELS[ops.bwd_stem(torch.bfloat16)]
+    assert {k: flash_attention_bwd.launches_by_kernel[k] - n for k, n in bwd.items()} == \
+        {k: cfg.n_layers if k in mine else 0 for k in bwd}
     for g, w in zip(tree_leaves(grads), tree_leaves(grads_plain)):
         assert bool(torch.isfinite(g).all())
         err = float((g.float() - w.float()).abs().max()) / max(float(w.float().abs().max()),
