@@ -80,10 +80,11 @@ user calls:
   reduced qwen3-0.6b in float32, as the port's tests run it, serving a
   level-2 sparse grid through the fabric;
 * the flash-attention backward kernels (three a call: bf16
-  `flash_attention_bwd_wgmma.cu`, wgmma and TMA; float32
-  `flash_attention_bwd.cu`, mma.sync in 3xBF16) against the plain backward
-  at the training shapes of the zoo, each kernel's time from a trace and two calls
-  at qwen3-0.6b's training shape bit for bit (`flash_bwd_vs_plain`), then the LM
+  `flash_attention_bwd_wgmma.cu`, float32 `flash_attention_bwd_3xbf16.cu`,
+  both wgmma and TMA, float32 in 3xBF16) against the plain backward at the
+  training shapes of the zoo, each kernel's time from a trace and two calls
+  at qwen3-0.6b's training shape, bf16 and float32, bit for bit
+  (`flash_bwd_vs_plain`), then the LM
   zoo's training through `repro_torch.launch.train.train`: qwen3-0.6b at
   full width and depth in bf16 (remat "full", 4 x 4,096 tokens, 8 steps, a
   checkpoint every 4, a StepFailure and a NaN injected: retried, restored
@@ -102,10 +103,11 @@ gradient waves that capture their step graphs under the instrumented
 
 The build phase is followed by the count of the tensor-core instructions in
 the SASS of the kernels that use them: HGMMA (wgmma) in the bf16 flash
-kernel and in the bf16 backward's dK/dV and dQ kernels, HMMA (mma.sync,
+kernel and in both backwards' dK/dV and dQ kernels (with the float32
+backward's HMMA count beside it: 0, no mma.sync left), HMMA (mma.sync,
 TF32) in the float32 flash kernel and in the SSD kernel, with the registers
-and spills of the last three from their build logs (the backward's dK/dV
-and dQ kernels must not spill at hd 128).
+and spills of all but the first from their build logs (both backwards'
+dK/dV and dQ kernels must not spill at hd 128).
 
 Each launch count is set to 0 just before a path and read just after. Each
 phase prints one JSON line; any failed check raises and the script exits
@@ -227,7 +229,7 @@ def read_launches() -> dict:
     `flash_attention`, the bf16 `flash_attention_wgmma`) apart, and each
     backward library's three (`ops.BWD_KERNELS`: bf16
     `flash_attention_bwd_wgmma_stats`, `_dkdv`, `_dq`; float32
-    `flash_attention_bwd_dsum`, `_dkdv`, `_dq`)."""
+    `flash_attention_bwd_3xbf16_split`, `_dkdv`, `_dq`)."""
     counts = {}
     for name, wrapper in kernel_wrappers().items():
         counts.update(getattr(wrapper, "launches_by_kernel", {name: wrapper.launches}))
@@ -318,13 +320,15 @@ def phase_build() -> None:
     emit("build", seconds=time.perf_counter() - t0,
          libraries={k: str(v.relative_to(ROOT)) for k, v in libs.items()})
     # evidence that the flash kernels and the SSD kernel run on the tensor
-    # cores: HGMMA (warpgroup MMA) in the bf16 flash kernel's SASS and in the
-    # bf16 backward's dK/dV and dQ kernels, HMMA (mma.sync) in the float32
-    # one's and the SSD kernel's (every function of the forward's wgmma
+    # cores: HGMMA (warpgroup MMA) in the bf16 flash kernel's SASS and in
+    # both backwards' dK/dV and dQ kernels, HMMA (mma.sync) in the float32
+    # forward's and the SSD kernel's (every function of the forward's wgmma
     # library; every instance of the other kernels named)
     for stem, op, names in (("flash_attention_wgmma", "HGMMA", ("",)),
-                            ("flash_attention_bwd_wgmma", "HGMMA",
-                             ("dkdv_wgmma_kernel", "dq_wgmma_kernel")),
+                            ("flash_attention_bwd_wgmma", "HGMMA", BWD_RING_KERNELS[
+                                "flash_attention_bwd_wgmma"]),
+                            ("flash_attention_bwd_3xbf16", "HGMMA", BWD_RING_KERNELS[
+                                "flash_attention_bwd_3xbf16"]),
                             ("flash_attention", "HMMA", ("flash_attention_kernel",)),
                             ("ssd", "HMMA", ("ssd_chunk_scan_kernel",))):
         counts = sass_counts(libs[stem], op)
@@ -335,12 +339,16 @@ def phase_build() -> None:
         if stem != "flash_attention_wgmma":
             # registers and spills of each instance (-Xptxas -v, SOURCE_FLAGS)
             fields["ptxas"] = ptxas_lines(libs[stem])
-        if stem == "flash_attention_bwd_wgmma":
-            spills = bwd_spills_hd128(fields["ptxas"])
+        if stem in BWD_RING_KERNELS:
+            spills = bwd_spills_hd128(fields["ptxas"], names)
             fields["spills_hd128"] = spills
             if set(spills) != set(names) or any(spills.values()):
-                raise AssertionError(f"the backward's wgmma kernels at hd 128 spill or are "
-                                     f"missing from the build log: {spills}")
+                raise AssertionError(f"{stem}: the backward's wgmma kernels at hd 128 spill or "
+                                     f"are missing from the build log: {spills}")
+            # no mma.sync left in the float32 backward: every product on wgmma
+            hmma = sass_counts(libs[stem], "HMMA")
+            fields["hmma_by_function"] = {f: n for f, n in hmma.items()
+                                          if any(k in f for k in names)}
         emit("sass", library=str(libs[stem].relative_to(ROOT)),
              **{f"{op.lower()}_instructions": sum(kernels.values()),
                 f"{op.lower()}_by_function": kernels}, **fields)
@@ -354,15 +362,20 @@ def ptxas_lines(library: Path) -> list:
             if "Compiling entry" in line or "registers" in line or "spill" in line]
 
 
-def bwd_spills_hd128(lines: list) -> dict:
-    """Spill stores + loads (bytes) of the hd-128 instances of the bf16
-    backward's dK/dV and dQ kernels, from their `ptxas_lines` (each
-    instance's "Compiling entry function" line, then its spill line)."""
+#: the dK/dV and dQ kernels of each backward library, by their symbols
+BWD_RING_KERNELS = {"flash_attention_bwd_wgmma": ("dkdv_wgmma_kernel", "dq_wgmma_kernel"),
+                    "flash_attention_bwd_3xbf16": ("dkdv_3xbf16_kernel", "dq_3xbf16_kernel")}
+
+
+def bwd_spills_hd128(lines: list, names) -> dict:
+    """Spill stores + loads (bytes) of the hd-128 instances of a backward's
+    dK/dV and dQ kernels (`names`, their symbols), from their `ptxas_lines`
+    (each instance's "Compiling entry function" line, then its spill
+    line)."""
     spills, current = {}, None
     for line in lines:
         if "Compiling entry" in line:
-            current = next((k for k in ("dkdv_wgmma_kernel", "dq_wgmma_kernel")
-                            if k in line and "ILi128E" in line), None)
+            current = next((k for k in names if k in line and "ILi128E" in line), None)
         elif current and "spill" in line:
             stores, loads = (int(w) for w in
                              (line.split("bytes spill stores")[0].split()[-1],
@@ -699,7 +712,7 @@ def phase_profile(torch) -> dict:
     model.evaluate_batch(thetas, {"level": 0})
     plain_wall_us = (time.perf_counter() - t0) * 1e6  # the same wave, unprofiled
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
+        _pad_trace(torch)
         t0 = time.perf_counter()
         model.evaluate_batch(thetas, {"level": 0})
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -711,7 +724,7 @@ def phase_profile(torch) -> dict:
     swe_us, n_kernels, n_solve, n_step = 0.0, 0, 0, 0
     for ev in events:
         cat = ev.get("cat")
-        if cat in busy and ev.get("ph") == "X":
+        if cat in busy and ev.get("ph") == "X" and TRACE_PAD_NAME not in ev.get("name", ""):
             busy[cat] += float(ev.get("dur", 0.0))
             if cat == "kernel":
                 n_kernels += 1
@@ -736,6 +749,23 @@ def phase_profile(torch) -> dict:
          device_kernels=n_kernels, device_busy_share=share,
          device_idle_share=None if share is None else 1.0 - share)
     return {"device_busy_share": share}
+
+
+#: one-cycle spin kernels (`torch.cuda._sleep(1)`, symbol `spin_kernel`)
+#: launched and synchronised at the start of a profiled session, ahead of
+#: the window it measures: late in a run a session's trace can lose its
+#: first device records (24-28 of a backward window's 61 kernels; one of a
+#: zamba2 wave's 32 SSD launches), so those records are these, which every
+#: reader skips
+TRACE_PAD, TRACE_PAD_NAME = 256, "spin_kernel"
+
+
+def _pad_trace(torch) -> None:
+    """`TRACE_PAD` spin kernels, then a device sync: call first thing in a
+    profiled session, before its timed window."""
+    for _ in range(TRACE_PAD):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize()
 
 
 def phase_main_path(torch, dev) -> dict:
@@ -832,6 +862,7 @@ def _device_busy(torch, fn, what: str) -> dict:
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _pad_trace(torch)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -842,7 +873,8 @@ def _device_busy(torch, fn, what: str) -> dict:
     prof.export_chrome_trace(str(trace))
     busy_us, n_kernels = 0.0, 0
     for ev in json.loads(trace.read_text()).get("traceEvents", []):
-        if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and ev.get("ph") == "X":
+        if (ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and ev.get("ph") == "X"
+                and TRACE_PAD_NAME not in ev.get("name", "")):
             busy_us += float(ev.get("dur", 0.0))
             n_kernels += ev.get("cat") == "kernel"
     trace.unlink()
@@ -3176,7 +3208,7 @@ def phase_lm_profile(torch, model, points, unprofiled_s: float) -> dict:
     per_forward = {k: n for k, n in lm_launches(model.cfg).items() if n}
     thetas = np.asarray(points, float)  # the grid wave as the fabric runs it
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
+        _pad_trace(torch)
         t0 = time.perf_counter()
         model.evaluate_batch(thetas)
         torch.cuda.synchronize()
@@ -3192,6 +3224,8 @@ def phase_lm_profile(torch, model, points, unprofiled_s: float) -> dict:
         if ev.get("ph") != "X":
             continue
         cat, name, dur = ev.get("cat"), ev.get("name", ""), float(ev.get("dur", 0.0))
+        if TRACE_PAD_NAME in name:
+            continue
         if cat in ("gpu_memcpy", "gpu_memset"):
             busy["memcpy_memset"] += dur
         elif cat == "kernel":
@@ -3760,19 +3794,20 @@ def flash_bwd_work(B: int, nq: int, nkv: int, Sq: int, Sk: int, hd: int, causal:
     return {"bytes": elem * (q_side + kv_side) + 4 * B * nq * Sq, "flops": 2.5 * fwd["flops"]}
 
 
-#: the backward case whose two calls on the same inputs must agree bit for
-#: bit in `flash_bwd_vs_plain` (`train_path`'s shape)
-BWD_REPEAT_CASE = "qwen3-0.6b_train"
+#: the backward cases whose two calls on the same inputs must agree bit for
+#: bit in `flash_bwd_vs_plain` (`train_path`'s shape; qwen3-0.6b's heads in
+#: float32)
+BWD_REPEAT_CASES = ("qwen3-0.6b_train", "float32_hd128")
 
 
 #: each backward kernel, by its launch counter, by its symbol in a trace
-#: (bf16 flash_attention_bwd_wgmma.cu, float32 flash_attention_bwd.cu)
+#: (bf16 flash_attention_bwd_wgmma.cu, float32 flash_attention_bwd_3xbf16.cu)
 BWD_TRACE = {"flash_attention_bwd_wgmma_stats": "bwd_stats_kernel",
              "flash_attention_bwd_wgmma_dkdv": "dkdv_wgmma_kernel",
              "flash_attention_bwd_wgmma_dq": "dq_wgmma_kernel",
-             "flash_attention_bwd_dsum": "dsum_kernel",
-             "flash_attention_bwd_dkdv": "dkdv_kernel",
-             "flash_attention_bwd_dq": "dq_kernel"}
+             "flash_attention_bwd_3xbf16_split": "bwd_split_kernel",
+             "flash_attention_bwd_3xbf16_dkdv": "dkdv_3xbf16_kernel",
+             "flash_attention_bwd_3xbf16_dq": "dq_3xbf16_kernel"}
 #: cycles of the spin kernel ahead of a profiled backward window (~0.1 s at
 #: H100 clocks), and the one-element adds launched behind it
 BWD_TRACE_SPIN, BWD_TRACE_PAD = 200_000_000, 256
@@ -3823,14 +3858,15 @@ def _bwd_kernel_ms(torch, call, stem: str, calls: int) -> tuple:
 
 def phase_flash_bwd_vs_plain(torch, dev, smi: str) -> dict:
     """The flash backward kernels (three a call: bf16
-    `csrc/flash_attention_bwd_wgmma.cu`, float32 `csrc/flash_attention_bwd.cu`)
+    `csrc/flash_attention_bwd_wgmma.cu`, float32
+    `csrc/flash_attention_bwd_3xbf16.cu`)
     at every `testing.BWD_CASES` shape, at the model layout:
     `testing.check_bwd` (the forward with its log-sum-exp, within LSE_ATOL
     of the plain forward's; then dq, dk and dv against the plain backward
     run from the plain forward's own o and log-sum-exp, within BWD_RTOL of
     each gradient's largest element: 2e-2 bf16, 1e-4 float32),
-    each kernel of the dtype's library launched once and no other; at
-    BWD_REPEAT_CASE two more calls on the same inputs, bit for bit; then each
+    each kernel of the dtype's library launched once and no other; at each
+    of BWD_REPEAT_CASES two more calls on the same inputs, bit for bit; then each
     case's backward timed (one CUDA event pair around back-to-back calls,
     `_device_ms`), and each of its kernels from a trace (`_bwd_kernel_ms`), beside its
     bound (the five products at the tensor cores' bf16 peak, 3x that for
@@ -3843,7 +3879,7 @@ def phase_flash_bwd_vs_plain(torch, dev, smi: str) -> dict:
     from repro_torch.kernels.flash_attention import testing as T
 
     shapes = []
-    repeat = None
+    repeat = {}
     for i, (name, zoo) in enumerate(T.BWD_CASES.items()):
         B, nq, nkv, Sq, Sk, hd, causal, dt = zoo.case
         q, k, v, do = T.bwd_inputs(zoo, dev, seed=300 + i)
@@ -3857,13 +3893,13 @@ def phase_flash_bwd_vs_plain(torch, dev, smi: str) -> dict:
         o, lse = ops._forward(q, k, v, causal, zoo.scale, want_lse=True)
         call = lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal,  # noqa: E731
                                            scale=zoo.scale)
-        if name == BWD_REPEAT_CASE:
+        if name in BWD_REPEAT_CASES:
             first, second = call(), call()
-            repeat = {g: bool(torch.equal(a, b))
-                      for g, a, b in zip(("dq", "dk", "dv"), first, second)}
+            repeat[name] = {g: bool(torch.equal(a, b))
+                            for g, a, b in zip(("dq", "dk", "dv"), first, second)}
             del first, second
-            if not all(repeat.values()):
-                raise AssertionError(f"{name}: two backward calls differ: {repeat}")
+            if not all(repeat[name].values()):
+                raise AssertionError(f"{name}: two backward calls differ: {repeat[name]}")
         big = B * nq * Sq * Sk * hd > 2e11
         ms = _device_ms(torch, call, calls=5 if big else 20, windows=3)
         kernel_ms, kernel_records = _bwd_kernel_ms(torch, call, stem, calls=5 if big else 20)
@@ -3906,7 +3942,7 @@ def phase_flash_bwd_vs_plain(torch, dev, smi: str) -> dict:
     emit("flash_bwd_vs_plain", kernel="flash_attention_bwd",
          kernels={str(dt).removeprefix("torch."): ops.BWD_KERNELS[stem]
                   for dt, stem in ops.BWD_KERNEL_OF.items()},
-         repeat_case=BWD_REPEAT_CASE, repeat_bit_for_bit=repeat,
+         repeat_cases=BWD_REPEAT_CASES, repeat_bit_for_bit=repeat,
          bound="each of dq, dk, dv: max abs error <= 2e-2 (bf16) / 1e-4 (float32) of its "
                "largest element, against attention_bwd_ref run from the plain forward's own "
                "o and log-sum-exp; the forward kernel's log-sum-exp within "
@@ -3917,12 +3953,12 @@ def phase_flash_bwd_vs_plain(torch, dev, smi: str) -> dict:
                "kernel (kernel_ms): its mean device time over its last as many records "
                "(kernel_records) in a torch.profiler trace of twice as many calls",
          work_bound="max(bytes at 3.35 TB/s, the five products (2.5 x the forward's flops) "
-                    "at 989 TFLOP/s bf16; float32 3 x that, 3xBF16)",
+                    "at 989 TFLOP/s bf16; float32 3 x that: 3xBF16 on wgmma)",
          library="torch.autograd.grad of F.scaled_dot_product_attention(q, k, v, "
                  "is_causal=causal, enable_gqa=True, scale=scale) at the native widths",
          max_rel_err_by_dtype=worst, shapes=shapes, card=smi)
-    if repeat is None:
-        raise AssertionError(f"no {BWD_REPEAT_CASE} case in BWD_CASES")
+    if set(repeat) != set(BWD_REPEAT_CASES):
+        raise AssertionError(f"BWD_CASES lacks one of {BWD_REPEAT_CASES}: repeated {repeat}")
     return {"shapes": shapes, "worst": worst, "lse_worst": lse_worst, "repeat": repeat}
 
 
@@ -3961,7 +3997,7 @@ def _train_step_profile(torch, step, per_step: dict) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
+        _pad_trace(torch)
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
@@ -3976,6 +4012,8 @@ def _train_step_profile(torch, step, per_step: dict) -> dict:
         if ev.get("ph") != "X":
             continue
         cat, name, dur = ev.get("cat"), ev.get("name", ""), float(ev.get("dur", 0.0))
+        if TRACE_PAD_NAME in name:
+            continue
         if cat in ("gpu_memcpy", "gpu_memset"):
             busy["memcpy_memset"] += dur
         elif cat == "kernel":
@@ -4740,7 +4778,7 @@ def main() -> int:
         "lse_max_abs_err": bwd["lse_worst"]["bfloat16"],
         "in_situ_max_rel_err_train_path": train["in_situ"],
         "in_situ_lse_max_abs_err_train_path": train["in_situ_lse"],
-        "repeat_bit_for_bit": bwd["repeat"],
+        "repeat_bit_for_bit": bwd["repeat"]["qwen3-0.6b_train"],
         "ms": bwd_point["ms"],
         "kernel_ms": bwd_point["kernel_ms"],
         "plain_ms": bwd_point["plain_ms"],
@@ -4751,22 +4789,24 @@ def main() -> int:
         "by_shape": [e for e in bwd["shapes"] if e["dtype"] == "bfloat16"],
         "card": probe["smi"],
     }, {
-        "name": "flash_attention_bwd",
+        "name": "flash_attention_bwd_3xbf16",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd_3xbf16.cu",
         "replaces": None,
         "replaces_note": "no TPU kernel (as flash_attention_bwd_wgmma): the float32 "
-                         "gradient, FlashAttention-2's algorithm in 3xBF16 on mma.sync",
+                         "gradient, FlashAttention-3's backward without atomics in 3xBF16 "
+                         "on wgmma: q, k, v and dO split once into bf16 hi and lo parts, "
+                         "TMA-fed rings of hi/lo tiles, three wgmmas a k-step",
         "dtype": "float32",
-        "kernels": list(ops.BWD_KERNELS["flash_attention_bwd"]),
+        "kernels": list(ops.BWD_KERNELS["flash_attention_bwd_3xbf16"]),
         # its own path: the float32 step's 4 layers, each kernel once a layer
-        "launches": train_f32["launches"]["flash_attention_bwd_dkdv"],
+        "launches": train_f32["launches"]["flash_attention_bwd_3xbf16_dkdv"],
         "launches_by_kernel": {k: v for k, v in train_f32["launches"].items()
-                               if k.startswith("flash_attention_bwd_")
-                               and not k.startswith("flash_attention_bwd_wgmma")},
+                               if k.startswith("flash_attention_bwd_3xbf16")},
         "max_abs_err": max(bwd_f32_point[g]["max_abs_err"] for g in ("dq", "dk", "dv")),
         "max_rel_err": bwd["worst"]["float32"],
         "lse_max_abs_err": bwd["lse_worst"]["float32"],
+        "repeat_bit_for_bit": bwd["repeat"]["float32_hd128"],
         "ms": bwd_f32_point["ms"],
         "kernel_ms": bwd_f32_point["kernel_ms"],
         "plain_ms": bwd_f32_point["plain_ms"],

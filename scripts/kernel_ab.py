@@ -36,12 +36,13 @@ minutes of the card where the whole A/B takes longer). Measured:
   instance at qwen3-0.6b's shape (its model layout), the yardstick of the
   bf16 tensor-core kernel;
 * the flash-attention backward (`flash_attention_bwd`: this checkout's
-  library of `ops.bwd_stem`, the parent's `flash_attention_bwd.cu` with
-  its dtype argument) at every `testing.BWD_CASES` shape, at the model
+  library of `ops.bwd_stem` against the parent's `flash_attention_bwd.cu`,
+  `bind_bwd`) at every `testing.BWD_CASES` shape of a dtype the parent's
+  library takes (the older form took both, the later float32 only), at the model
   layout, beside the bound of chip_smoke.py's `flash_bwd_work` (the five
   products at the bf16 peak; float32 three times them, 3xBF16), with
-  whether the two sides' gradients are the same bits (the float32 library
-  is the parent's arithmetic, the bf16 one a new kernel).
+  whether the two sides' gradients are the same bits
+  (`bit_for_bit_with_parent`).
 
 Prints one JSON line per measurement, writes them all to --out, and exits
 non-zero without a CUDA device or on any disagreement.
@@ -146,21 +147,23 @@ def bind_flash(lib):
 
 def bind_bwd(lib):
     """The parent's backward entry point (`flash_attention_bwd` of its
-    `flash_attention_bwd.cu`, which took both dtypes: its source declares
-    `int dtype`), called as the parent's `ops.flash_attention_bwd` called
-    it: outputs and its D scratch allocated per call, dtype code 1 for bf16
-    and 0 for float32, the default scale 1 / sqrt(hd) where none is
-    given."""
+    `flash_attention_bwd.cu`), called as the parent's
+    `ops.flash_attention_bwd` called it: outputs and its D scratch
+    ([B, nq, Sq] float32) allocated per call, the default scale 1 / sqrt(hd)
+    where none is given. Its form comes from its source: the older one took
+    both dtypes through an `int dtype` argument (code 1 bf16, 0 float32),
+    the later one float32 alone and no such argument. -> (backward, the
+    dtype names it takes)."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops
 
-    if "int dtype" not in lib.source:
-        raise RuntimeError("the parent's flash_attention_bwd.cu takes no dtype: no bf16 path")
+    both = "int dtype" in lib.source
     fn = lib.flash_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * (7 if both else 6) + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_double, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    codes = {torch.float32: 0, torch.bfloat16: 1}
 
     def bwd(q, k, v, o, lse, do, causal, scale):
         B, nq, Sq, hd = q.shape
@@ -170,14 +173,14 @@ def bind_bwd(lib):
             *[s for t in (q, k, v, o, do, dq, dk, dv) for s in ops._strides(t)])
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 B, nq, k.shape[1], Sq, k.shape[2], hd, ops._CODES[q.dtype], strides, int(causal),
-                 ops.default_scale(hd) if scale is None else scale,
+                 B, nq, k.shape[1], Sq, k.shape[2], hd, *([codes[q.dtype]] if both else []),
+                 strides, int(causal), ops.default_scale(hd) if scale is None else scale,
                  torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"{lib._name}: flash_attention_bwd: cudaError {err}")
         return dq, dk, dv
 
-    return bwd
+    return bwd, ("float32", "bfloat16") if both else ("float32",)
 
 
 def in_turns(torch, chip_smoke, parent_fn, this_fn, calls: int) -> dict:
@@ -293,13 +296,17 @@ def flash_times(torch, chip_smoke, launch) -> list:
     return rows
 
 
-def bwd_times(torch, chip_smoke, parent_bwd) -> list:
+def bwd_times(torch, chip_smoke, parent_bwd, dtypes) -> list:
+    """Each `BWD_CASES` case of a dtype in `dtypes` (those the parent's
+    library takes), parent and this checkout in turns."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd, ops
     from repro_torch.kernels.flash_attention import testing as T
 
     rows = []
     for i, (name, zoo) in enumerate(T.BWD_CASES.items()):
         B, nq, nkv, Sq, Sk, hd, causal, dt = zoo.case
+        if dt not in dtypes:
+            continue
         q, k, v, do = T.bwd_inputs(zoo, "cuda", seed=300 + i)
         o, lse = ops._forward(q, k, v, causal, zoo.scale, want_lse=True)
         mine = lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal,  # noqa: E731
@@ -373,7 +380,7 @@ def main() -> int:
     if "flash" in args.parts:
         flash_times(torch, chip_smoke, bind_flash(libs["flash_attention"]))
     if "bwd" in args.parts:
-        bwd_times(torch, chip_smoke, bind_bwd(libs["flash_attention_bwd"]))
+        bwd_times(torch, chip_smoke, *bind_bwd(libs["flash_attention_bwd"]))
     if "path" in args.parts:
         path_walls(torch, step)
     return 0

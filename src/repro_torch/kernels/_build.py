@@ -13,15 +13,16 @@ rounded, as in the eager plain PyTorch version, which is what their
 bit-equality with that version rests on. `ssd.cu` lets the compiler
 contract multiply-adds: its products sum in another order than the plain
 version's, so they cannot be bit-equal anyway. It, `flash_attention.cu`
-(both mma.sync in 3xTF32), `flash_attention_bwd.cu` (mma.sync in 3xBF16)
-and `flash_attention_bwd_wgmma.cu` (wgmma, TMA) are built with `-Xptxas
--v`, and each build's compiler output (registers, spills) is kept beside
-its library as `lib<stem>_<hash>.log`. The two wgmma libraries
-(`flash_attention_wgmma.cu`, `flash_attention_bwd_wgmma.cu`: wgmma, TMA,
-`setmaxnreg`, sm_90a only) need no library beyond the runtime: they look up
-`cuTensorMapEncodeTiled` at run time through `cudaGetDriverEntryPoint`, so
-nothing links `-lcuda`, and they use no CUTLASS header; they share the
-header `flash_attention/csrc/wgmma_tma.cuh`. Libraries land in
+(both mma.sync in 3xTF32), `flash_attention_bwd_wgmma.cu` and
+`flash_attention_bwd_3xbf16.cu` (wgmma, TMA; the second in 3xBF16) are
+built with `-Xptxas -v`, and each build's compiler output (registers,
+spills) is kept beside its library as `lib<stem>_<hash>.log`. The three
+wgmma libraries (`flash_attention_wgmma.cu`, `flash_attention_bwd_wgmma.cu`,
+`flash_attention_bwd_3xbf16.cu`: wgmma, TMA, `setmaxnreg`, sm_90a only)
+need no library beyond the runtime: they look up `cuTensorMapEncodeTiled`
+at run time through `cudaGetDriverEntryPoint`, so nothing links `-lcuda`,
+and they use no CUTLASS header; they share the header
+`flash_attention/csrc/wgmma_tma.cuh`. Libraries land in
 `build/repro_torch_kernels/` at the root of the checkout, named by a hash of
 the source, the headers its `#include "..."` lines name and its flags, so
 an edited source or header is rebuilt and an unchanged one is reused. Each build
@@ -50,8 +51,8 @@ NVCC_FLAGS = (
 #: flags of one source on top of NVCC_FLAGS, by stem
 SOURCE_FLAGS = {"swe_step": ("-fmad=false",), "swe_solve": ("-fmad=false",),
                 "ssd": ("-Xptxas", "-v"), "flash_attention": ("-Xptxas", "-v"),
-                "flash_attention_bwd": ("-Xptxas", "-v"),
-                "flash_attention_bwd_wgmma": ("-Xptxas", "-v")}
+                "flash_attention_bwd_wgmma": ("-Xptxas", "-v"),
+                "flash_attention_bwd_3xbf16": ("-Xptxas", "-v")}
 
 _lock = named_lock("kernels.build")
 _loaded: dict[str, ctypes.CDLL] = {}

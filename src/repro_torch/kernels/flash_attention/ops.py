@@ -33,8 +33,9 @@ The gradient. When grad is enabled and q, k or v requires it,
 its forward launches the same kernel with a second output, each row's
 log-sum-exp, and its backward (`flash_attention_bwd`: three kernels, the
 rows' D = rowsum(dO o), dK and dV, dQ) launches the library of q's dtype
-(`bwd_stem`): bfloat16 `csrc/flash_attention_bwd_wgmma.cu` (wgmma and TMA),
-float32 `csrc/flash_attention_bwd.cu` (mma.sync in 3xBF16). On the CPU the
+(`bwd_stem`): bfloat16 `csrc/flash_attention_bwd_wgmma.cu`, float32
+`csrc/flash_attention_bwd_3xbf16.cu` (both wgmma and TMA; float32 in 3xBF16,
+its first kernel splitting q, k, v and dO into bf16 parts). On the CPU the
 Function's forward is `ref.attention_lse_ref` and its backward
 `ref.attention_bwd_ref`. Every other call takes the forward alone, with a
 null log-sum-exp pointer, and computes what it computed before, bit for
@@ -65,17 +66,23 @@ _CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: strides and bases the kernels read: 16-byte vectors and TMA boxes
 ALIGN_BYTES = 16
 #: the backward's library (stem) each dtype goes to on the card
-BWD_KERNEL_OF = {torch.float32: "flash_attention_bwd",
+BWD_KERNEL_OF = {torch.float32: "flash_attention_bwd_3xbf16",
                  torch.bfloat16: "flash_attention_bwd_wgmma"}
-#: each backward library's three kernels, in launch order: the rows' D (and,
-#: in the wgmma library, their log-sum-exp in log2 units), dK and dV, dQ
+#: each backward library's three kernels, in launch order: the rows' D and
+#: log-sum-exp in log2 units (in the float32 library with the split of q, k,
+#: v and dO into bf16 hi and lo parts), dK and dV, dQ
 BWD_KERNELS = {
-    "flash_attention_bwd": ("flash_attention_bwd_dsum", "flash_attention_bwd_dkdv",
-                            "flash_attention_bwd_dq"),
+    "flash_attention_bwd_3xbf16": ("flash_attention_bwd_3xbf16_split",
+                                   "flash_attention_bwd_3xbf16_dkdv",
+                                   "flash_attention_bwd_3xbf16_dq"),
     "flash_attention_bwd_wgmma": ("flash_attention_bwd_wgmma_stats",
                                   "flash_attention_bwd_wgmma_dkdv",
                                   "flash_attention_bwd_wgmma_dq"),
 }
+#: the arguments each backward library's `<stem>_scratch` takes, a prefix of
+#: (B, nq, Sq, nkv, Sk, hd): the bf16 library's scratch holds q's rows only,
+#: the float32 one's also the bf16 parts of q, k, v and dO
+BWD_SCRATCH_ARGS = {"flash_attention_bwd_3xbf16": 6, "flash_attention_bwd_wgmma": 3}
 _fns: dict = {}
 
 
@@ -120,19 +127,21 @@ def _bwd_kernel(stem: str):
     return fn
 
 
-def _bwd_scratch(stem: str, B: int, nq: int, Sq: int) -> int:
+def _bwd_scratch(stem: str, B: int, nq: int, Sq: int, nkv: int, Sk: int, hd: int) -> int:
     """float32 values of the scratch that backward library `stem` takes for
-    q of ``[B, nq, Sq, hd]``, as the library itself says
-    (`<stem>_scratch`): the layout (the wgmma library pads rows to its
-    ROW_PAD) lives in the .cu file alone."""
+    q of ``[B, nq, Sq, hd]`` and k of ``[B, nkv, Sk, hd]``, as the library
+    itself says (`<stem>_scratch`, given the first `BWD_SCRATCH_ARGS[stem]`
+    of those six): the layout (rows padded to the .cu's ROW_PAD, the
+    float32 library's bf16 parts) lives in the .cu file alone."""
     key = f"{stem}_scratch"
+    n = BWD_SCRATCH_ARGS[stem]
     fn = _fns.get(key)
     if fn is None:
         fn = getattr(_build.load(stem), key)
-        fn.argtypes = [ctypes.c_int] * 3
+        fn.argtypes = [ctypes.c_int] * n
         fn.restype = ctypes.c_longlong
         _fns[key] = fn
-    return fn(B, nq, Sq)
+    return fn(*(B, nq, Sq, nkv, Sk, hd)[:n])
 
 
 def _launch_bwd(q, k, v, o, lse, do, causal: bool, scale: float | None):
@@ -145,7 +154,8 @@ def _launch_bwd(q, k, v, o, lse, do, causal: bool, scale: float | None):
     stem = bwd_stem(q.dtype)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     check_layout(dq, dk, dv)
-    scratch = torch.empty(_bwd_scratch(stem, B, nq, Sq), dtype=torch.float32, device=q.device)
+    scratch = torch.empty(_bwd_scratch(stem, B, nq, Sq, nkv, Sk, hd), dtype=torch.float32,
+                          device=q.device)
     tensors = (q, k, v, o, do, dq, dk, dv)
     strides = (ctypes.c_longlong * 24)(*[s for t in tensors for s in _strides(t)])
     err = _bwd_kernel(stem)(

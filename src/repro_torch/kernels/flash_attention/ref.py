@@ -3,14 +3,20 @@ counterpart of the oracle `repro.kernels.flash_attention.ref.attention_ref`,
 the same operations in the same order). `ops.flash_attention` takes them for
 CPU tensors, and `chip_smoke.py` holds the CUDA kernels against them:
 `attention_ref` and `attention_lse_ref` the forward kernels,
-`attention_bwd_ref` the backward kernel (`csrc/flash_attention_bwd.cu`),
-which has no counterpart in the JAX package (its `pallas_call` has no
-gradient)."""
+`attention_bwd_ref` the backward kernels (`csrc/flash_attention_bwd_wgmma.cu`
+for bf16, `csrc/flash_attention_bwd_3xbf16.cu` for float32), which have no
+counterpart in the JAX package (its `pallas_call` has no gradient), and
+`bwd_split_ref` and `bwd_stats_ref` the float32 backward's first kernel,
+which splits q, k, v and dO into bf16 parts and writes the rows' statistics."""
 from __future__ import annotations
 
 import math
 
 import torch
+
+#: the rows of the backward's statistics per (b, q head): Sq rounded up to
+#: this, as both backward libraries' ROW_PAD
+BWD_ROW_PAD = 128
 
 
 def _scores(q, k, causal: bool, scale: float | None, acc: torch.dtype = torch.float32):
@@ -88,3 +94,27 @@ def attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True, scale: float | N
     dk = dk.reshape(B, nkv, group, Sk, hd).sum(2)
     dv = dv.reshape(B, nkv, group, Sk, hd).sum(2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def bwd_split_ref(x: torch.Tensor):
+    """The bf16 parts (hi, lo) of a float32 tensor that the float32
+    backward's first kernel writes for q, k, v and dO: hi = bf16(x), lo =
+    bf16(x - hi), both rounded to nearest even. x - hi is exact in float32,
+    so hi + lo is within 2^-17 |x| of x (hi alone within 2^-8 |x|); each
+    product of the kernel is lo*hi + hi*lo + hi*hi of its operands' parts
+    (3xBF16)."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def bwd_stats_ref(o, do, lse) -> torch.Tensor:
+    """The rows' statistics both backward libraries' first kernel writes,
+    float32 ``[2, B, nq, Sq_pad]`` (Sq rounded up to `BWD_ROW_PAD`): [0] the
+    forward's log-sum-exp in log2 units, +inf past Sq (P = 0 on a padding
+    row), [1] D = rowsum(do * o) in float32, 0 past Sq."""
+    B, nq, Sq = lse.shape
+    pad = -Sq % BWD_ROW_PAD
+    lse2 = torch.nn.functional.pad(lse.float() * math.log2(math.e), (0, pad),
+                                   value=float("inf"))
+    dsum = torch.nn.functional.pad((do.float() * o.float()).sum(-1), (0, pad))
+    return torch.stack([lse2, dsum])

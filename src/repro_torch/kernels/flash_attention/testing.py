@@ -19,7 +19,7 @@ diagonal moves outputs by O(1) and fails it; so does a 1/hd scale, and at
 qwen3-0.6b's shape a scale 1% off.
 
 The backward kernels (`csrc/flash_attention_bwd_wgmma.cu` for bf16,
-`csrc/flash_attention_bwd.cu` for float32) are held by `check_bwd` at
+`csrc/flash_attention_bwd_3xbf16.cu` for float32) are held by `check_bwd` at
 `BWD_CASES`: dq, dk and dv against the plain backward
 (`ref.attention_bwd_ref`) on the same q, k, v, o, log-sum-exp and output
 gradient, each gradient's largest error within `BWD_RTOL` of its largest

@@ -1,8 +1,9 @@
 """PyTorch port: the flash-attention gradient on the CPU.
 
 `ref.attention_bwd_ref`, the plain version of the backward kernels
-(`csrc/flash_attention_bwd_wgmma.cu` for bf16, `csrc/flash_attention_bwd.cu`
-for float32), against `torch.autograd` through
+(`csrc/flash_attention_bwd_wgmma.cu` for bf16,
+`csrc/flash_attention_bwd_3xbf16.cu` for float32), against `torch.autograd`
+through
 `attention_ref` and against `jax.vjp` of the JAX package's oracle
 (`repro/kernels/flash_attention/ref.py::attention_ref`): in float64 under
 `jax.enable_x64` within 1e-12 (the oracle casts its inputs to float32, so
@@ -17,10 +18,14 @@ scaled scores, its gradients are `attention_bwd_ref`'s, it works under
 `torch.func.vjp`, and a call without grad is the forward alone, the same
 bits; `testing.bwd_errors` sees a wrong gradient and `held_to_plain` a
 wrong log-sum-exp; `backward_tap` holds each attention call of a training
-step; an emulation of the float32 kernel's 3xBF16 products lies within
-the float32 bound where one bf16 pass does not; the SSD and RMSNorm
-wrappers raise under autograd, naming their ROADMAP items. The kernel
-itself runs in test_torch_gpu.py and chip_smoke.py.
+step; an emulation of the float32 kernel's 3xBF16 products (its operands
+split as its first kernel splits them, `ref.bwd_split_ref`) lies within
+the float32 bound where one bf16 pass does not, and one of 3xTF32 (ROADMAP
+3i's record) closer still where one TF32 pass does not; the plain version
+of the float32 kernel's first kernel (the split within 2^-18 |x|, D and the
+padded log-sum-exp rows, `ref.bwd_stats_ref`) against float64; the SSD
+and RMSNorm wrappers raise under autograd, naming their ROADMAP items. The
+kernel itself runs in test_torch_gpu.py and chip_smoke.py.
 """
 import math
 import types
@@ -40,6 +45,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_bwd,
 )
 from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention import ref as torch_ref
 from repro_torch.kernels.flash_attention import testing as T
 from repro_torch.kernels.rmsnorm import rmsnorm_fused
 from repro_torch.kernels.ssd import ssd_chunk_scan
@@ -244,15 +250,31 @@ def test_backward_tap_holds_every_attention_call(monkeypatch):
 
 
 def _split_bf16(x):
-    """x = hi + lo + O(2^-16 |x|): the float32 backward kernel's 3xBF16
-    operands."""
-    hi = x.to(torch.bfloat16).float()
-    return hi, (x - hi).to(torch.bfloat16).float()
+    """x = hi + lo within 2^-17 |x|: the float32 backward kernel's 3xBF16
+    operands, as its first kernel writes them (`ref.bwd_split_ref`)."""
+    return tuple(t.float() for t in torch_ref.bwd_split_ref(x))
 
 
 def _mm_3xbf16(a, b):
     (ah, al), (bh, bl) = _split_bf16(a), _split_bf16(b)
     return ah @ bh + (ah @ bl + al @ bh)
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 explicit mantissa bits), to nearest even."""
+    bits = x.contiguous().view(torch.int32)
+    bias = 0xFFF + ((bits >> 13) & 1)
+    return ((bits + bias) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    (ab, bb) = _tf32(a), _tf32(b)
+    (asm, bsm) = _tf32(a - ab), _tf32(b - bb)
+    return ab @ bb + (ab @ bsm + asm @ bb)
+
+
+def _mm_1xtf32(a, b):
+    return _tf32(a) @ _tf32(b)
 
 
 def _mm_1xbf16(a, b):
@@ -299,6 +321,80 @@ def test_float32_bwd_precision_3xbf16_and_its_control():
     assert min(e1) > T.BWD_RTOL["float32"]
 
 
+def test_float32_bwd_precision_3xtf32_record():
+    """ROADMAP 3i's record: at the same case, 3xTF32 products (big*big +
+    big*small + small*big, each part rounded to TF32) lie an order of
+    magnitude closer to the plain backward than the kernel's 3xBF16 (~1e-6
+    against ~1.4e-5), and one TF32 pass misses the float32 bound as one
+    bf16 pass does. The kernel stays 3xBF16: wgmma reads a tf32 operand
+    K-major only, and the backward's transposed operands would need a
+    second float32 copy of each tile (flash_attention_bwd_3xbf16.cu's
+    note)."""
+    z = T.ZooCase((1, 4, 2, 256, 256, 128, True, "float32"))
+    q, k, v, do = T.bwd_inputs(z, "cpu", seed=5)
+    o, lse = attention_lse_ref(q, k, v, True)
+    want = attention_bwd_ref(q, k, v, o, lse, do, True)
+    scale = 1.0 / math.sqrt(128)
+    errs = {name: [_rel(g.numpy(), w.numpy()) for g, w in
+                   zip(_bwd_emulated(q, k, v, o, lse, do, scale, mm), want)]
+            for name, mm in (("3xtf32", _mm_3xtf32), ("3xbf16", _mm_3xbf16),
+                             ("1xtf32", _mm_1xtf32))}
+    print(f"float32 backward: {errs} (bound {T.BWD_RTOL['float32']})")
+    assert max(errs["3xtf32"]) <= T.BWD_RTOL["float32"] / 20
+    assert max(errs["3xtf32"]) < max(errs["3xbf16"]) / 4
+    assert min(errs["1xtf32"]) > T.BWD_RTOL["float32"]
+
+
+def test_bwd_split_ref_within_its_bound():
+    """The float32 backward's first kernel's split (`ref.bwd_split_ref`):
+    hi = bf16(x), lo = bf16(x - hi) with x - hi exact in float32, hi + lo
+    within 2^-17 |x| of x over magnitudes from 1e-25 to 1e25 (the bound in
+    flash_attention_bwd_3xbf16.cu's note; it holds while |x| is above
+    ~2^-116, where a subnormal lo part still lies within it), and within
+    2^-8 |x| with hi alone, which the lo part exists to close. The bound is
+    reached: x = 1 + 2^-9 + 2^-17 splits into hi = 1 and lo = 2^-9 (a tie to
+    even), 2^-17 short."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal(20000) * 10.0 ** rng.integers(-25, 26, 20000)
+    tight = 1 + 2.0 ** -9 + 2.0 ** -17
+    x = torch.from_numpy(np.concatenate([x, [0.0, 1.0, -3.0, 2.0 ** -100, tight]])).float()
+    hi, lo = torch_ref.bwd_split_ref(x)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    assert torch.equal(hi, x.to(torch.bfloat16))
+    xd, hd, ld = x.double(), hi.double(), lo.double()
+    assert torch.equal(lo, (xd - hd).float().to(torch.bfloat16))  # x - hi exact in float32
+    err = (hd + ld - xd).abs()
+    assert bool((err <= 2.0 ** -17 * xd.abs()).all())
+    assert bool(((hd - xd).abs() <= 2.0 ** -8 * xd.abs()).all())
+    assert float(err[-1]) == 2.0 ** -17 and (float(hd[-1]), float(ld[-1])) == (1.0, 2.0 ** -9)
+    assert float(((hd - xd).abs() / xd.abs().clamp_min(1e-300)).max()) > 2.0 ** -10
+
+
+@pytest.mark.parametrize("case", [(2, 4, 2, 37, 37, 32), (1, 2, 1, 128, 96, 64),
+                                  (1, 2, 2, 129, 129, 16)], ids=str)
+def test_bwd_stats_ref_rows_and_padding(case):
+    """The rows' statistics of the backward's first kernel
+    (`ref.bwd_stats_ref`): [2, B, nq, Sq_pad] float32 with Sq rounded up to
+    BWD_ROW_PAD (128); row i < Sq holds the log-sum-exp times log2(e) (the
+    same float32 product as the kernel's) and D = rowsum(do * o) (within
+    float32 rounding of float64); every padding row +inf and 0, so a kernel
+    reading a whole tile past Sq gets P = 0 and dS = 0 there."""
+    B, nq, nkv, Sq, Sk, hd = case
+    q, k, v, do = (torch.from_numpy(a) for a in _arrays(case, 12, np.float32))
+    o, lse = attention_lse_ref(q, k, v, False)
+    st = torch_ref.bwd_stats_ref(o, do, lse)
+    pad = -(-Sq // torch_ref.BWD_ROW_PAD) * torch_ref.BWD_ROW_PAD
+    assert st.shape == (2, B, nq, pad) and st.dtype == torch.float32
+    assert torch.equal(st[0, ..., :Sq], lse * np.float32(1.4426950408889634))
+    dsum = (do.double() * o.double()).sum(-1)
+    assert float((st[1, ..., :Sq].double() - dsum).abs().max()) <= 1e-5 * float(
+        dsum.abs().max())
+    assert bool(torch.isinf(st[0, ..., Sq:]).all()) and bool((st[0, ..., Sq:] > 0).all())
+    assert bool((st[1, ..., Sq:] == 0).all())
+    # P = exp2(scale log2(e) s - lse2) on a padding row: 0 whatever the score
+    assert float(torch.exp2(torch.tensor(5.0) - st[0, 0, 0, -1])) == 0.0 or Sq == pad
+
+
 def test_bwd_wrapper_checks():
     q, k, v, do = (torch.from_numpy(a) for a in _arrays((1, 2, 1, 8, 8, 8), 4, np.float32))
     o, lse = ops._forward(q, k, v, True, None, want_lse=True)
@@ -316,13 +412,13 @@ def test_bwd_wrapper_checks():
 
 def test_bwd_dispatch_by_dtype():
     """The card's backward library by dtype, as a pure function: bf16 to the
-    wgmma library, float32 to the mma.sync one, any other dtype raises (no
-    fallback); each is a kernel source of the port built with its ptxas
-    log."""
+    wgmma library, float32 to the 3xBF16 wgmma one, any other dtype raises
+    (no fallback); each is a kernel source of the port built with its ptxas
+    log, and the mma.sync float32 source is gone."""
     from repro_torch.kernels import _build
 
     assert ops.bwd_stem(torch.bfloat16) == "flash_attention_bwd_wgmma"
-    assert ops.bwd_stem(torch.float32) == "flash_attention_bwd"
+    assert ops.bwd_stem(torch.float32) == "flash_attention_bwd_3xbf16"
     for dtype in (torch.float16, torch.float64, torch.int32):
         with pytest.raises(TypeError, match="float32 or bfloat16"):
             ops.bwd_stem(dtype)
@@ -330,6 +426,8 @@ def test_bwd_dispatch_by_dtype():
     sources = _build.sources()
     for stem in ops.BWD_KERNEL_OF.values():
         assert stem in sources and "-v" in _build.flags(stem)
+    assert "flash_attention_bwd" not in sources
+    assert '#include "wgmma_tma.cuh"' in sources["flash_attention_bwd_3xbf16"].read_text()
 
 
 def test_bwd_launch_counter_names():
@@ -341,8 +439,9 @@ def test_bwd_launch_counter_names():
     assert ops.BWD_KERNELS["flash_attention_bwd_wgmma"] == (
         "flash_attention_bwd_wgmma_stats", "flash_attention_bwd_wgmma_dkdv",
         "flash_attention_bwd_wgmma_dq")
-    assert ops.BWD_KERNELS["flash_attention_bwd"] == (
-        "flash_attention_bwd_dsum", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
+    assert ops.BWD_KERNELS["flash_attention_bwd_3xbf16"] == (
+        "flash_attention_bwd_3xbf16_split", "flash_attention_bwd_3xbf16_dkdv",
+        "flash_attention_bwd_3xbf16_dq")
     for stem, names in ops.BWD_KERNELS.items():
         assert len(names) == 3 and all(n.startswith(stem + "_") for n in names)
         assert [n.removeprefix(stem + "_") for n in names][1:] == ["dkdv", "dq"]
@@ -399,13 +498,15 @@ class _FakeBwdLib:
             setattr(self, f"{stem}_scratch", Scratch())
 
 
-@pytest.mark.parametrize("stem", ["flash_attention_bwd", "flash_attention_bwd_wgmma"])
+@pytest.mark.parametrize("stem", ["flash_attention_bwd_3xbf16", "flash_attention_bwd_wgmma"])
 def test_launch_bwd_takes_the_library_scratch_and_counts_three(monkeypatch, stem):
     """`ops._launch_bwd` asks the dtype's library for its scratch size
-    (`<stem>_scratch(B, nq, Sq)`: the row padding lives in the .cu file
-    alone), hands the entry point a float32 scratch of that size, the scale
-    (1/sqrt(hd) unless told otherwise) and then the stream, and counts
-    each of that library's three kernels once and no other."""
+    (`<stem>_scratch`: bf16 `(B, nq, Sq)`, float32 `(B, nq, Sq, nkv, Sk,
+    hd)`, whose scratch also holds the bf16 parts of q, k, v and dO; the
+    layout lives in the .cu file alone), hands the entry point a float32
+    scratch of that size, the scale (1/sqrt(hd) unless told otherwise) and
+    then the stream, and counts each of that library's three kernels once
+    and no other."""
     import ctypes
 
     from repro_torch.kernels import _build
@@ -426,13 +527,16 @@ def test_launch_bwd_takes_the_library_scratch_and_counts_three(monkeypatch, stem
     monkeypatch.setattr(torch, "empty", recording_empty)
     dtype = torch.bfloat16 if stem.endswith("wgmma") else torch.float32
     q = torch.zeros(1, 2, 16, 64, dtype=dtype)
-    k = torch.zeros(1, 1, 16, 64, dtype=dtype)
+    k = torch.zeros(1, 1, 24, 64, dtype=dtype)
     lse = torch.zeros(1, 2, 16)
     before = dict(flash_attention_bwd.launches_by_kernel)
-    dq, dk, dv = ops._launch_bwd(q, k, k, q, lse, q, True, None)
-    assert fake.asked == [(1, 2, 16)] and sizes == [((4321,), torch.float32)]
+    dq, dk, dv = ops._launch_bwd(q, k, k, q, lse, q, False, None)
+    asked = (1, 2, 16, 1, 24, 64)[:ops.BWD_SCRATCH_ARGS[stem]]
+    assert fake.asked == [asked] and sizes == [((4321,), torch.float32)]
+    assert ops._fns[f"{stem}_scratch"].argtypes == [ctypes.c_int] * len(asked)
     assert ops._fns[stem].argtypes[-3:] == [ctypes.c_int, ctypes.c_double, ctypes.c_void_p]
-    assert fake.calls[-1][-2] == 1 / math.sqrt(64) and fake.calls[-1][-3] == 1
+    assert fake.calls[-1][-2] == 1 / math.sqrt(64) and fake.calls[-1][-3] == 0
+    assert fake.calls[-1][10:16] == (1, 2, 1, 16, 24, 64)
     assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, k.shape)
     assert {n: c - before[n] for n, c in flash_attention_bwd.launches_by_kernel.items()} == \
         {n: int(n in ops.BWD_KERNELS[stem]) for n in before}

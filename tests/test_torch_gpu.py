@@ -1046,19 +1046,22 @@ def test_stress_harness_on_cuda():
 # -- the LM zoo's training: the flash backward kernel -------------------------------
 
 #: small backward cases: GQA causal bf16 at hd 128 with a ragged S, float32
-#: full attention with Sq != Sk at hd 64 and a scale, and the wgmma kernel's
+#: full attention with Sq != Sk at hd 64 and a scale, the wgmma kernels'
 #: edges from `testing.BWD_CASES` (a ragged causal S with a GQA group of 4;
-#: hd 32)
+#: hd 32) in bf16, and the same two edges in float32 (the 3xBF16 kernels'
+#: TMA zero fill, padding rows and diagonal masks)
 BWD_SMALL = (flash_testing.ZooCase((2, 4, 2, 200, 200, 128, True, "bfloat16")),
              flash_testing.ZooCase((1, 8, 2, 130, 161, 64, False, "float32"), 0.2),
-             flash_testing.BWD_CASES["ragged_gqa4"], flash_testing.BWD_CASES["bfloat16_hd32"])
+             flash_testing.BWD_CASES["ragged_gqa4"], flash_testing.BWD_CASES["bfloat16_hd32"],
+             flash_testing.ZooCase((3, 8, 2, 1000, 1000, 64, True, "float32")),
+             flash_testing.ZooCase((26, 4, 2, 512, 512, 32, True, "float32")))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("zoo", BWD_SMALL, ids=lambda z: flash_testing.case_name(z.case))
 def test_flash_bwd_kernel_matches_plain(zoo):
     """The backward library of the case's dtype (`flash_attention_bwd_wgmma.cu`
-    for bf16, `flash_attention_bwd.cu` for float32) against
+    for bf16, `flash_attention_bwd_3xbf16.cu` for float32) against
     `attention_bwd_ref` on the same saved tensors (`testing.check_bwd`),
     each of its three kernels launched once and no kernel of the other."""
     dev = cuda_or_skip()
@@ -1075,20 +1078,22 @@ def test_flash_bwd_kernel_matches_plain(zoo):
 
 
 @pytest.mark.gpu
-def test_flash_bwd_repeats_bit_for_bit():
-    """Two bf16 backward calls on the same inputs at qwen3-0.6b's training
-    shape give the same bits in dq, dk and dv: every gradient is a sum in a
-    fixed order (no atomics), which a replayed training step rests on."""
+@pytest.mark.parametrize("case", ["qwen3-0.6b_train", "float32_hd128"])
+def test_flash_bwd_repeats_bit_for_bit(case):
+    """Two backward calls on the same inputs give the same bits in dq, dk
+    and dv, in bf16 at qwen3-0.6b's training shape and in float32 at its
+    heads of 128: every gradient is a sum in a fixed order (no atomics),
+    which a replayed training step rests on."""
     dev = cuda_or_skip()
     from repro_torch.kernels.flash_attention import flash_attention_bwd, ops
 
-    zoo = flash_testing.BWD_CASES["qwen3-0.6b_train"]
+    zoo = flash_testing.BWD_CASES[case]
     q, k, v, do = flash_testing.bwd_inputs(zoo, dev, seed=4)
     o, lse = ops._forward(q, k, v, True, None, want_lse=True)
     first = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
     second = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
     for name, a, b in zip(("dq", "dk", "dv"), first, second):
-        assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all()), name
+        assert a.dtype == q.dtype and bool(torch.isfinite(a).all()), name
         assert torch.equal(a, b), name
 
 
