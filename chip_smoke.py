@@ -91,7 +91,22 @@ user calls:
   and replayed bit for bit; launches exactly 56 forward and 28 of each
   backward kernel a step; every attention's gradients held in situ against
   the plain backward; `train_path`), and one float32 step of its first 4
-  layers against the plain path's gradients (`train_f32_path`).
+  layers against the plain path's gradients (`train_f32_path`);
+* the LM-as-UQ-model's derivative operations (`apps/lm_model.py`): on
+  qwen3-0.6b at full width and depth a `gradient_batch` wave of 8 points
+  through the fabric, one forward and one reverse pass of the stack,
+  launching exactly 56 bf16 flash forwards (forward and remat recompute)
+  and 28 of each backward kernel, held to the plain path's gradients,
+  `apply_jacobian_batch` == gradient . vec, and an `apply_hessian_batch`
+  wave (plain attention, 512 tokens a sequence) that launches no kernel
+  (`dense_lm_gradient_path`); mamba2-1.3b's gradient wave on the plain SSD,
+  no kernel (`lm_gradient`);
+* the deployment driver as a user starts it, `python -m
+  repro_torch.launch.serve --model lm --arch qwen3-0.6b --port 0`, in a
+  subprocess: `/ModelInfo` lists all eight operations, an Evaluate and a
+  Gradient round trip equal the in-process model's (`serve_driver`); and
+  the five `examples/torch_*.py` as subprocesses on the card, side by side
+  (`examples_on_card`).
 
 Last, the port's analysis gate (`analysis_gate`, `repro_torch.analysis`):
 its linter over the port and this script (every rule 0 findings, against
@@ -4211,26 +4226,328 @@ def phase_train_f32_path(torch, dev) -> dict:
     return {"launches": {k: v for k, v in counts.items() if v}, "grad_max_rel_err": worst}
 
 
+#: the LM derivative waves (`LMUQModel.gradient_batch` and friends) on the
+#: qwen3-0.6b model of the dense path, LM_BATCH x LM_SEQ tokens a point:
+#: a gradient wave of LM_GRAD_POINTS points through the fabric; its check
+#: against the plain path at LM_GRAD_PLAIN_POINTS of them (the plain
+#: attention's float32 [B, n, S, S] scores and their gradients, a layer at
+#: a time under remat); the Hessian wave (reverse over reverse on the plain
+#: attention, which keeps every layer's scores, probabilities and their
+#: first gradients, and under remat every layer's recompute, for the second
+#: backward) at LM_HESS_POINTS points of LM_HESS_SEQ tokens: at 1,024 tokens
+#: it peaked at 65.2 GB on the card (NVIDIA H100 80GB HBM3, 700.00 W)
+LM_GRAD_POINTS = 8
+LM_GRAD_PLAIN_POINTS = 2
+LM_HESS_POINTS = 2
+LM_HESS_SEQ = 512
+#: bound on the kernel path's gradient rows against the plain path's (the
+#: largest error over the largest element): the two paths round the
+#: residual stream to bf16 after every layer in another order (their NLLs
+#: within LM_NLL_RTOL), and the backward adds the flash backward's bf16
+#: products. Measured 1.5e-4 (NVIDIA H100 80GB HBM3, 700.00 W)
+LM_GRAD_RTOL = 2e-3
+#: apply_jacobian_batch against gradient . vec from the gradient wave (the
+#: same reverse wave at sens = 1, the senss powers of two): float64 rounding
+#: of a two-term dot product
+LM_JAC_RTOL = 1e-6
+
+
+def phase_dense_lm_gradient_path(torch, model, smi: str) -> dict:
+    """The LM-as-UQ-model's derivative operations on qwen3-0.6b at full width
+    and depth: one `gradient_batch` wave of LM_GRAD_POINTS points through
+    `EvaluationFabric(ModelBackend(model))`: ONE forward of the stack
+    (counted) and ONE reverse pass, launching exactly the bf16 flash forward
+    2 x 28 times (forward and remat recompute) and each of the three
+    backward kernels 28 times, no other kernel; the same wave under the
+    profiler (busy share); `apply_jacobian_batch` == gradient . vec; the
+    gradients of LM_GRAD_PLAIN_POINTS points against the plain path's
+    (LM_GRAD_RTOL); one `apply_hessian_batch` wave, cut to LM_HESS_SEQ
+    tokens, that launches no kernel at all (plain attention; reported: the
+    asymmetry of H from e1 and e2 at one point)."""
+    from repro_torch.core.fabric import EvaluationFabric, ModelBackend
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import transformer
+
+    cfg = model.cfg
+    if (cfg.remat, cfg.attn_impl, cfg.act_dtype) != ("full", "kernel", "bfloat16"):
+        raise AssertionError(f"{cfg.name} is not as published: {cfg}")
+    K = LM_GRAD_POINTS
+    thetas = np.array([[1.0 + 0.02 * i, 1.0 - 0.01 * i] for i in range(K)])
+    # powers of two, of both signs: a gradient row over its sens is exact
+    senss = np.array([[(-2.0) ** (i % 3 - 1)] for i in range(K)])
+    per_wave = {"flash_attention_wgmma": 2 * cfg.n_layers,
+                **dict.fromkeys(ops.BWD_KERNELS[ops.bwd_stem(torch.bfloat16)], cfg.n_layers)}
+    forwards = []
+    real_forward = transformer.forward
+
+    def counted(*args, **kwargs):
+        forwards.append(kwargs.get("mode"))
+        return real_forward(*args, **kwargs)
+
+    fabric = EvaluationFabric(ModelBackend(model))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # every launch count starts at 0 right before the path
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    transformer.forward = counted
+    try:
+        wall, grads = _timed(torch, lambda: fabric.gradient_batch(thetas, senss))
+        tel = fabric.telemetry()
+    finally:
+        transformer.forward = real_forward
+        fabric.shutdown()
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    want = dict.fromkeys(counts, 0)
+    want.update(per_wave)
+    problems = []
+    if counts != want:
+        problems.append(f"launches {counts}, expected one wave's {want}")
+    if forwards != ["train"]:
+        problems.append(f"stack forwards in the wave: {forwards} (expected one)")
+    if grads.shape != (K, 2) or not np.isfinite(grads).all():
+        problems.append(f"gradients {grads.shape}, finite {np.isfinite(grads).all()}")
+    # the same wave again, warm (the first also sets up the backward's
+    # GEMMs), then under the profiler
+    warm_s, _ = _timed(torch, lambda: model.gradient_batch(thetas, senss))
+    busy = _device_busy(torch, lambda: model.gradient_batch(thetas, senss),
+                        "the LM gradient wave")
+    vecs = np.random.default_rng(5).standard_normal((K, 2))
+    jac_s, jv = _timed(torch, lambda: model.apply_jacobian_batch(thetas, vecs))
+    jv_want = np.sum(grads / senss * vecs, axis=1, keepdims=True)
+    jac_err = float(np.abs(jv - jv_want).max() / np.abs(jv_want).max())
+    if not jac_err <= LM_JAC_RTOL:
+        problems.append(f"apply_jacobian_batch {jv.ravel()} vs gradient . vec "
+                        f"{jv_want.ravel()}: {jac_err:.3g} > {LM_JAC_RTOL}")
+    # the plain path on the same weights, LM_GRAD_PLAIN_POINTS points
+    P = LM_GRAD_PLAIN_POINTS
+    plain = copy.copy(model)
+    plain.cfg = cfg.replace(attn_impl="plain")
+    torch.cuda.reset_peak_memory_stats()
+    plain_s, grads_plain = _timed(torch, lambda: plain.gradient_batch(thetas[:P], senss[:P]))
+    plain_peak = torch.cuda.max_memory_allocated()
+    grad_err = float(np.abs(grads[:P] - grads_plain).max() / np.abs(grads_plain).max())
+    if not grad_err <= LM_GRAD_RTOL:
+        problems.append(f"kernel path gradients {grads[:P].tolist()} vs plain "
+                        f"{grads_plain.tolist()}: {grad_err:.3g} > {LM_GRAD_RTOL}")
+    # the Hessian wave, cut to LM_HESS_SEQ tokens: e1 and e2 at one point
+    hess_model = copy.copy(model)
+    hess_model.batch = {k: v[:, :LM_HESS_SEQ] for k, v in model.batch.items()}
+    h_thetas = np.ones((LM_HESS_POINTS, 2))
+    h_senss = np.ones((LM_HESS_POINTS, 1))
+    h_vecs = np.eye(2)[np.arange(LM_HESS_POINTS) % 2]
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    hess_s, hvp = _timed(torch, lambda: hess_model.apply_hessian_batch(h_thetas, h_senss,
+                                                                       h_vecs))
+    hess_counts = read_launches()
+    hess_peak = torch.cuda.max_memory_allocated()
+    if any(hess_counts.values()):
+        problems.append(f"the Hessian wave launched {hess_counts} (no kernel has a second "
+                        "derivative)")
+    if hvp.shape != (LM_HESS_POINTS, 2) or not np.isfinite(hvp).all():
+        problems.append(f"Hessian actions {hvp.tolist()}")
+    asymmetry = float(abs(hvp[0, 1] - hvp[1, 0]) / np.abs(hvp).max())
+    emit("dense_lm_gradient_path", arch=cfg.name, layers=cfg.n_layers, batch=LM_BATCH,
+         seq=LM_SEQ, remat=cfg.remat, points=K, senss=senss.ravel().tolist(),
+         wave_s=wall, warm_wave_s=warm_s, forwards_per_wave=len(forwards), launches=counts,
+         launches_per_wave=per_wave, max_memory_allocated=peak,
+         device_busy_share=busy["device_busy_s"] / busy["profiled_wall_s"],
+         profiled=busy, backend=tel["backend"], gradients=grads.tolist(),
+         plain={"points": P, "wave_s": plain_s, "max_memory_allocated": plain_peak,
+                "gradients": grads_plain.tolist(), "rel_err": grad_err,
+                "bound": LM_GRAD_RTOL},
+         jacobian={"wave_s": jac_s, "rel_err_vs_gradient_dot_vec": jac_err,
+                   "bound": LM_JAC_RTOL},
+         hessian={"points": LM_HESS_POINTS, "seq": LM_HESS_SEQ, "attn_impl": "plain",
+                  "reduced": [f"seq {LM_SEQ} -> {LM_HESS_SEQ} (a double backward through "
+                              "plain attention keeps every layer's scores)"],
+                  "wave_s": hess_s, "launches": hess_counts,
+                  "max_memory_allocated": hess_peak, "hvp_e1_e2": hvp.tolist(),
+                  "asymmetry": asymmetry},
+         card=smi)
+    if problems:
+        raise AssertionError("dense_lm_gradient_path: " + "; ".join(problems))
+    del plain, hess_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": {k: v for k, v in counts.items() if v}, "grad_rel_err": grad_err,
+            "warm_wave_s": warm_s}
+
+
+#: mamba2's gradient wave: points of LM_BATCH x LM_SEQ tokens on the plain
+#: SSD (the SSD kernel has no backward yet, ROADMAP queue 2 item 13e)
+SSM_GRAD_POINTS = 2
+
+
+def phase_lm_gradient_plain_ssd(torch, model) -> dict:
+    """One `gradient_batch` wave of SSM_GRAD_POINTS points of the full-width
+    mamba2 model: its first derivatives take the plain SSD (as
+    `launch/train.py` trains the family), so the wave launches no kernel at
+    all; its gradients finite."""
+    arch = model.cfg.name
+    thetas = np.array([[1.0 + 0.02 * i, 1.0 - 0.01 * i] for i in range(SSM_GRAD_POINTS)])
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    wall, grads = _timed(torch, lambda: model.gradient_batch(thetas,
+                                                             np.ones((len(thetas), 1))))
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    emit(f"{LM_PHASE[arch]}_gradient", arch=arch, layers=model.cfg.n_layers, batch=LM_BATCH,
+         seq=LM_SEQ, points=len(thetas), route="attn_impl='plain' (the plain SSD)",
+         wave_s=wall, launches=counts, max_memory_allocated=peak, gradients=grads.tolist())
+    if any(counts.values()) or grads.shape != (len(thetas), 2) \
+            or not np.isfinite(grads).all():
+        raise AssertionError(f"{arch} gradient wave: launches {counts}, gradients {grads}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"wave_s": wall}
+
+
+#: the serving driver's time to name its address (a fresh process: torch,
+#: the card's context, the full-width model from its seed) and each
+#: request's
+SERVE_START_S = 300.0
+SERVE_REQUEST_S = 120.0
+
+
+def phase_serve_driver(torch, smi: str) -> dict:
+    """The deployment driver as a user starts it: `python -m
+    repro_torch.launch.serve --model lm --arch qwen3-0.6b --port 0` (full
+    width, on the card) in a subprocess. Through `core/client.py::HTTPModel`:
+    `/ModelInfo` lists all eight operations; one Evaluate and one Gradient
+    round trip equal the same calls on the same model built in this process
+    (`build_model`, the same seed), exactly in float64 JSON. Then the driver
+    is stopped."""
+    from repro_torch.core.client import HTTPModel
+    from repro_torch.launch import serve
+
+    argv = ["--model", "lm", "--arch", DENSE_ARCH, "--port", "0"]
+    t0 = time.perf_counter()
+    proc, url = serve.start(argv, SERVE_START_S)
+    start_s = time.perf_counter() - t0
+    try:
+        remote = HTTPModel(url, f"lm-{DENSE_ARCH}", timeout=SERVE_REQUEST_S)
+        caps = remote.capabilities().to_json()
+        local = serve.build_model("lm", DENSE_ARCH, False)
+        theta, sens = [[1.05, 0.95]], [1.0]
+        t0 = time.perf_counter()
+        value = remote(theta)
+        evaluate_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        grad = remote.gradient(0, 0, theta, sens)
+        gradient_s = time.perf_counter() - t0
+        want_value, want_grad = local(theta), local.gradient(0, 0, theta, sens)
+        running = proc.poll() is None
+    finally:
+        code = serve.stop(proc)
+    emit("serve_driver", command=["python", "-m", "repro_torch.launch.serve", *argv], url=url,
+         start_s=start_s, model_info=caps, evaluate=value, evaluate_local=want_value,
+         evaluate_s=evaluate_s, gradient=grad, gradient_local=want_grad,
+         gradient_s=gradient_s, exit_code=code, card=smi)
+    problems = []
+    if caps != local.capabilities().to_json() or not all(caps.values()):
+        problems.append(f"/ModelInfo {caps}")
+    if value != want_value or grad != want_grad:
+        problems.append(f"over the wire {value}, {grad}; in process {want_value}, {want_grad}")
+    if not running:
+        problems.append("the driver exited while serving")
+    if problems:
+        raise AssertionError("serve_driver: " + "; ".join(problems))
+    del local
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"start_s": start_s}
+
+
+#: the port's examples as a user runs them (on the card by default), each
+#: with its arguments; torch_train_lm.py cut to EXAMPLE_TRAIN_STEPS steps
+#: (one checkpoint at step 50)
+EXAMPLE_TRAIN_STEPS = 60
+EXAMPLES = (("torch_quickstart.py", ["--port", "0"]), ("torch_sparse_grid_uq.py", []),
+            ("torch_mlda_inversion.py", []), ("torch_serve_uq.py", []),
+            ("torch_train_lm.py", ["--steps", str(EXAMPLE_TRAIN_STEPS)]))
+EXAMPLE_TIMEOUT_S = 300.0
+
+
+def phase_examples_on_card(torch) -> dict:
+    """Each of the five `examples/torch_*.py` once, as a subprocess on the
+    card (no --device), all started together, each under its own
+    EXAMPLE_TIMEOUT_S; a nonzero exit or a timeout fails the run. Reports
+    each one's wall and last line."""
+    import os
+    import tempfile
+
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    results = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        running = {}
+        for script, args in EXAMPLES:
+            if script == "torch_train_lm.py":
+                args = [*args, "--ckpt-dir", str(Path(tmp) / "ckpt")]
+            log = open(Path(tmp) / f"{script}.log", "w")
+            proc = subprocess.Popen([sys.executable, str(ROOT / "examples" / script), *args],
+                                    stdout=log, stderr=subprocess.STDOUT, env=env, cwd=tmp)
+            running[script] = (proc, time.perf_counter(), log, args)
+        try:
+            while running:
+                for script, (proc, t0, log, args) in list(running.items()):
+                    wall = time.perf_counter() - t0
+                    if proc.poll() is None and wall < EXAMPLE_TIMEOUT_S:
+                        continue
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+                    log.close()
+                    lines = (Path(tmp) / f"{script}.log").read_text().strip().splitlines()
+                    results[script] = {"args": args, "exit_code": proc.returncode,
+                                       "timed_out": wall >= EXAMPLE_TIMEOUT_S, "wall_s": wall,
+                                       "last_lines": lines[-3:]}
+                    del running[script]
+                time.sleep(0.05)
+        finally:
+            for proc, _, log, _ in running.values():
+                proc.kill()
+                proc.wait()
+                log.close()
+    emit("examples_on_card", examples=results, timeout_s=EXAMPLE_TIMEOUT_S)
+    failed = {s: r for s, r in results.items() if r["exit_code"] != 0 or r["timed_out"]}
+    if failed:
+        raise AssertionError(f"examples failed on the card: {failed}")
+    return {s: r["wall_s"] for s, r in results.items()}
+
+
 def run_lm_path(torch, arch: str, smi: str) -> dict:
     """The main path, the kernel-vs-plain wave and the profiled wave of one
-    LM, and for qwen3-0.6b (the model examples/serve_uq.py serves) the
-    device pool's path; the model's memory is released afterwards."""
+    LM, its serving steps, its gradient wave (mamba2: on the plain SSD),
+    and for qwen3-0.6b (the model examples/serve_uq.py serves) the serving
+    batch, the device pool's path and the derivative operations; the
+    model's memory is released afterwards."""
     lm = phase_lm_main_path(torch, arch)
     model = lm["model"]
     phase_lm_kernel_vs_plain(torch, model)
     phase_lm_profile(torch, model, lm["points"], lm["grid_s"])
     decode = phase_lm_decode(torch, model.cfg, model.params, model.batch,
                              f"{LM_PHASE[arch]}_decode")
-    serving = None
+    serving = gradient = None
+    if arch == SSM_ARCH:
+        phase_lm_gradient_plain_ssd(torch, model)
     if arch == DENSE_ARCH:
         serving = phase_serving_batch(torch, model)
         phase_pool_path(torch, model, smi)
+        gradient = phase_dense_lm_gradient_path(torch, model, smi)
     launches = lm["launches"]
     del lm, model
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": launches, "decode": decode["launches"],
-            "serving": serving and serving["launches"]}
+            "serving": serving and serving["launches"],
+            "gradient": gradient and gradient["launches"]}
 
 
 def phase_zoo_lm(torch, arch: str, n_layers, points: int) -> dict:
@@ -4582,6 +4899,8 @@ def main() -> int:
     moe = run_lm_path(torch, MOE_ARCH, probe["smi"])
     zoo = {arch: phase_zoo_lm(torch, arch, n_layers, points)
            for arch, n_layers, points in ZOO_PATHS}
+    phase_serve_driver(torch, probe["smi"])
+    phase_examples_on_card(torch)
     phase_analysis_gate(torch, dev)
 
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro.")))
@@ -4718,8 +5037,10 @@ def main() -> int:
         **{f"launches_decode_{LM_PHASE[arch]}": zoo[arch]["decode"]["flash_attention_wgmma"]
            for arch, _, _ in ZOO_PATHS},
         "launches_decode_dense_lm_serving_batch": dense["serving"]["flash_attention_wgmma"],
-        # the training path: 2 a layer a step (forward and remat recompute)
+        # the training path: 2 a layer a step (forward and remat recompute);
+        # the LM's gradient wave the same, 2 a layer
         "launches_train_path": train["launches"]["flash_attention_wgmma"],
+        "launches_dense_lm_gradient_path": dense["gradient"]["flash_attention_wgmma"],
         "max_abs_err": flash_check["wgmma"],
         "ms": flash_point["ms"],
         "plain_ms": flash_point["plain_ms"],
@@ -4772,6 +5093,9 @@ def main() -> int:
         "launches": train["launches"]["flash_attention_bwd_wgmma_dkdv"],
         "launches_by_kernel": {k: v for k, v in train["launches"].items()
                                if k.startswith("flash_attention_bwd_wgmma")},
+        # the LM's gradient wave (dense_lm_gradient_path): once a layer each
+        "launches_dense_lm_gradient_path": {k: v for k, v in dense["gradient"].items()
+                                            if k.startswith("flash_attention_bwd_wgmma")},
         "max_abs_err": max(bwd_point[g]["max_abs_err"] for g in ("dq", "dk", "dv")),
         "max_rel_err": bwd["worst"]["bfloat16"],
         # the forward kernel's log-sum-exp, which the backward reads

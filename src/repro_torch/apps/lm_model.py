@@ -7,9 +7,24 @@ forward pass. theta parameterizes a model perturbation:
     theta = (embedding_scale, logit_temperature)
     F(theta) = mean eval NLL on a fixed batch under the perturbed model
 
-The port advertises `evaluate` and `evaluate_batch` only: its gradient is
-ROADMAP queue 1, item 13d (the `torch.func` machinery of `TorchModel` is in
-place).
+F is smooth in theta, so the whole UM-Bridge surface is served, as the JAX
+package's `JAXModel` serves it by AD: evaluate, gradient, Jacobian and
+Hessian actions, each per point and batched. A wave of K points is one
+forward over the K points' K·B sequences; a derivative wave adds one
+reverse pass of the stack (`_reverse_wave`). Which path each takes:
+
+* evaluate and the first derivatives (gradient, Jacobian action, fused
+  value-and-gradient) run `cfg.attn_impl`: on the kernel path the flash
+  kernels, forward and backward (`kernels/flash_attention/ops.py::
+  FlashAttention`), the forward twice a layer under `cfg.remat="full"`
+  (forward and recompute);
+* the ssm and hybrid families take their first derivatives on the plain SSD
+  (`attn_impl="plain"`, as `launch/train.py` trains them): the SSD kernel
+  has no backward yet (ROADMAP queue 2, item 13e) and raises under autograd;
+* the Hessian action runs reverse-over-reverse on `attn_impl="plain"` for
+  every family: no kernel has a second derivative (the flash backward is
+  once-differentiable and raises if differentiated again), and the JAX
+  package's own Hessian differentiates its XLA attention twice.
 """
 from __future__ import annotations
 
@@ -75,7 +90,11 @@ class LMUQModel(Model):
         return [1]
 
     def capabilities(self, config=None) -> Capabilities:
-        return Capabilities(evaluate=True, evaluate_batch=True)
+        return Capabilities(
+            evaluate=True, gradient=True, apply_jacobian=True, apply_hessian=True,
+            evaluate_batch=True, gradient_batch=True,
+            apply_jacobian_batch=True, apply_hessian_batch=True,
+        )
 
     def __call__(self, parameters, config=None):
         theta = np.asarray(parameters[0], float)
@@ -92,23 +111,152 @@ class LMUQModel(Model):
         theta_k[1], so the wave's logits are never held at once. A tied head
         reads point k's table scaled by theta_k[0], as the JAX package's
         does."""
+        theta = self._theta(thetas)
+        hidden = self._hidden(self.cfg, theta)
+        out = torch.empty(len(theta), dtype=torch.float32, device=self.device)
+        for k in range(len(theta)):
+            out[k] = self._nll(self.cfg, self._rows(hidden, k), theta[k])
+        return out.cpu().numpy().astype(float)[:, None]
+
+    # -- the derivative surface ---------------------------------------------
+    def gradient(self, out_wrt, in_wrt, parameters, sens, config=None):
+        """sens^T J at one point: a wave of one (`gradient_batch`)."""
+        theta = np.asarray(parameters[in_wrt], float)
+        return self.gradient_batch(theta[None, :], np.asarray(sens, float).reshape(1, 1),
+                                   config)[0].tolist()
+
+    def gradient_batch(self, thetas, senss, config=None) -> np.ndarray:
+        """[K, 2] x [K, 1] -> [K, 2], row k = senss[k] * dF/dtheta at
+        thetas[k]: ONE forward over the K·B sequences with theta a leaf that
+        requires grad, then ONE reverse pass of the stack (`_reverse_wave`)
+        to theta alone (no weight-gradient product runs, whether or not the
+        weights require grad)."""
+        senss = np.atleast_2d(np.asarray(senss, np.float32))
+        return self._reverse_wave(thetas, lambda k, _y: float(senss[k, 0]))[1]
+
+    def value_and_gradient_batch(self, thetas, sens_fn, config=None):
+        """(ys [K, 1], grads [K, 2]) with grads[k] = sens_fn(ys[k]) *
+        dF/dtheta at thetas[k], in the one forward and the one reverse pass
+        of `gradient_batch`: each point's NLL comes from that forward, and
+        `sens_fn` (a row [1] of numpy -> a row [1]) sees it before the
+        point's head is differentiated."""
+        def sens(_k, y):
+            return float(np.asarray(sens_fn(np.array([y])), float).ravel()[0])
+
+        return self._reverse_wave(thetas, sens)
+
+    def apply_jacobian(self, out_wrt, in_wrt, parameters, vec, config=None):
+        """J vec at one point: a wave of one (`apply_jacobian_batch`)."""
+        theta = np.asarray(parameters[in_wrt], float)
+        return self.apply_jacobian_batch(theta[None, :], np.asarray(vec, float)[None, :],
+                                         config)[0].tolist()
+
+    def apply_jacobian_batch(self, thetas, vecs, config=None) -> np.ndarray:
+        """[K, 2] x [K, 2] -> [K, 1], row k = J(thetas[k]) vecs[k]. F has one
+        output, so J is one row, the gradient at sens = 1: the same reverse
+        wave as `gradient_batch`, then a dot product with each vec. Forward
+        mode (`torch.func.jvp`) cannot cross the flash kernels' autograd
+        Function, which has no `jvp`."""
+        vecs = np.atleast_2d(np.asarray(vecs, float))
+        grads = self._reverse_wave(thetas, lambda _k, _y: 1.0)[1]
+        return np.sum(grads * vecs, axis=1, keepdims=True)
+
+    def apply_hessian(self, out_wrt, in_wrt1, in_wrt2, parameters, sens, vec, config=None):
+        """d/de [J(theta + e vec)^T sens] at one point: a wave of one
+        (`apply_hessian_batch`)."""
+        theta = np.asarray(parameters[in_wrt1], float)
+        return self.apply_hessian_batch(theta[None, :], np.asarray(sens, float).reshape(1, 1),
+                                        np.asarray(vec, float)[None, :], config)[0].tolist()
+
+    def apply_hessian_batch(self, thetas, senss, vecs, config=None) -> np.ndarray:
+        """[K, 2] x [K, 1] x [K, 2] -> [K, 2], row k = senss[k] * H(thetas[k])
+        vecs[k]: reverse over reverse, on `attn_impl="plain"` for every
+        family (no kernel has a second derivative: the flash backward is
+        once-differentiable, the SSD kernel raises under autograd). One
+        forward over the K·B sequences, the per-point heads kept in the
+        graph, a first backward that keeps its own graph, and a second
+        backward of its dot product with the vecs (the points are
+        independent, so row k is point k's Hessian action)."""
+        cfg = self.cfg.replace(attn_impl="plain")
+        senss = torch.as_tensor(np.atleast_2d(np.asarray(senss, np.float32)),
+                                device=self.device)
+        vecs = torch.as_tensor(np.atleast_2d(np.asarray(vecs, np.float32)), device=self.device)
+        theta = self._theta(thetas).requires_grad_()
+        with torch.enable_grad():
+            hidden = self._hidden(cfg, theta)
+            total = sum(senss[k, 0] * self._nll(cfg, self._rows(hidden, k), theta[k])
+                        for k in range(len(theta)))
+            (grad,) = torch.autograd.grad(total, theta, create_graph=True)
+            (hvp,) = torch.autograd.grad(torch.sum(grad * vecs), theta)
+        return hvp.cpu().numpy().astype(float)
+
+    # -- machinery ----------------------------------------------------------
+    def _theta(self, thetas) -> torch.Tensor:
         thetas = np.atleast_2d(np.asarray(thetas, np.float32))
-        K = len(thetas)
-        cfg, params = self.cfg, self.params
-        tokens, targets = self.batch["tokens"], self.batch["targets"]
-        B = tokens.shape[0]
-        theta = torch.as_tensor(thetas, device=self.device)
+        return torch.as_tensor(thetas, device=self.device)
+
+    def _rows(self, hidden: torch.Tensor, k: int) -> torch.Tensor:
+        """Point k's B sequences of the wave's hidden states."""
+        B = self.batch["tokens"].shape[0]
+        return hidden[k * B:(k + 1) * B]
+
+    def _hidden(self, cfg, theta: torch.Tensor) -> torch.Tensor:
+        """The stack's final hidden states of the wave ``[K*B, S, d]``: ONE
+        forward over the K points' copies of the batch, point k's embedding
+        rows scaled by theta[k, 0]."""
+        tokens = self.batch["tokens"]
+        B, K = tokens.shape[0], len(theta)
         ctx_embed = self.batch.get("ctx_embed")
         hidden, _, _ = transformer.forward(
-            cfg, params, tokens.repeat(K, 1), mode="train", skip_head=True,
+            cfg, self.params, tokens.repeat(K, 1), mode="train", skip_head=True,
             embed_scale=theta[:, 0].repeat_interleave(B), points=K,
             ctx_embed=None if ctx_embed is None else ctx_embed.repeat(K, 1, 1),
         )
-        out = torch.empty(K, dtype=torch.float32, device=self.device)
-        for k in range(K):
-            logits = lm_head(params["embed"], hidden[k * B:(k + 1) * B], theta[k, 0])
-            logits = M.mask_padded_logits(cfg, logits.float()) / theta[k, 1]
-            logz = torch.logsumexp(logits, dim=-1)
-            tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
-            out[k] = torch.mean(logz - tgt)
-        return out.cpu().numpy().astype(float)[:, None]
+        return hidden
+
+    def _nll(self, cfg, hidden: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
+        """One point's mean NLL from its B sequences' hidden states: the head
+        (tied: the table scaled by theta[0]), the padded-vocab mask and the
+        log-softmax at temperature theta[1], in float32."""
+        logits = lm_head(self.params["embed"], hidden, theta[0])
+        logits = M.mask_padded_logits(cfg, logits.float()) / theta[1]
+        logz = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, self.batch["targets"][..., None])[..., 0]
+        return torch.mean(logz - tgt)
+
+    def _derivative_cfg(self):
+        """The config of a first-derivative wave: `self.cfg`, but the ssm and
+        hybrid families on the plain SSD (ROADMAP queue 2, item 13e)."""
+        if self.cfg.family in ("ssm", "hybrid"):
+            return self.cfg.replace(attn_impl="plain")
+        return self.cfg
+
+    def _reverse_wave(self, thetas, sens) -> tuple[np.ndarray, np.ndarray]:
+        """(values [K, 1], grads [K, 2]) of one wave, grads[k] = sens(k,
+        values[k]) * dF/dtheta at thetas[k]. ONE forward of the stack with
+        theta a leaf that requires grad; then per point, on a detached
+        leaf of its hidden states, its NLL and the gradient of sens * NLL
+        with respect to those hidden states and to its theta (the head's
+        part: the tied table's scale, the temperature), so that at most one
+        point's [B, S, V] float32 logits are alive at a time; then ONE
+        backward of the stack with the stacked hidden-state gradients,
+        which adds the embedding scale's part into theta's gradient."""
+        cfg = self._derivative_cfg()
+        theta = self._theta(thetas).requires_grad_()
+        K = len(theta)
+        values = np.empty((K, 1))
+        head_grad = torch.empty_like(theta)
+        with torch.enable_grad():
+            hidden = self._hidden(cfg, theta)
+            hidden_grad = torch.empty_like(hidden)
+            for k in range(K):
+                h = self._rows(hidden, k).detach().requires_grad_()
+                t = theta[k].detach().requires_grad_()
+                nll = self._nll(cfg, h, t)
+                values[k, 0] = float(nll.detach())
+                s = torch.tensor(sens(k, values[k, 0]), dtype=nll.dtype, device=self.device)
+                g_h, g_t = torch.autograd.grad(nll, (h, t), grad_outputs=s)
+                self._rows(hidden_grad, k).copy_(g_h)
+                head_grad[k] = g_t
+            torch.autograd.backward(hidden, hidden_grad, inputs=[theta])
+        return values, (theta.grad + head_grad).cpu().numpy().astype(float)

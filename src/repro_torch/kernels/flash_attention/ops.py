@@ -315,6 +315,24 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do, _dlse):
+        """First order only, on every device. On the card the backward
+        kernels fill fresh tensors that carry no graph, so a second
+        derivative through them would silently drop every attention term;
+        so a `create_graph=True` backward raises here (the CPU's plain
+        backward could carry a graph, and raises the same). `torch.func`'s
+        transforms call this through a generated Function (another ctx
+        type) with grad enabled: they pass, and `once_differentiable`
+        stops any transform of them from differentiating again."""
+        if torch.is_grad_enabled() and type(ctx) is FlashAttention._backward_cls:
+            raise RuntimeError(
+                "flash_attention: the kernels' backward is once-differentiable; a "
+                "create_graph=True backward (a second derivative) must run the plain "
+                "attention (cfg.attn_impl='plain')")
+        return FlashAttention._first_order(ctx, do)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def _first_order(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=ctx.causal,
                                          scale=ctx.scale)

@@ -91,7 +91,11 @@ def ssd_chunk_body(state, x_c, dt_c, B_c, C_c, A):
     cum_t = torch.movedim(cum, 1, -1)  # [B,g,r,Q]
     Q = x_c.shape[1]
     causal = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x_c.device))
-    L = torch.exp(cum_t[..., :, None] - cum_t[..., None, :]).masked_fill(~causal, 0.0)
+    # masked before the exp: above the diagonal cum_i - cum_j > 0 can
+    # overflow to inf, and exp's backward would then give 0 * inf = NaN
+    # there (the same values forward: exp(-inf) = 0)
+    seg = (cum_t[..., :, None] - cum_t[..., None, :]).masked_fill(~causal, float("-inf"))
+    L = torch.exp(seg)
     CB = torch.einsum("bign,bjgn->bgij", C_c, B_c)
     dtj = torch.movedim(dt_c, 1, -1)  # [B,g,r,Q] indexed by j
     scores = CB[:, :, None] * L * dtj[..., None, :]  # [B,g,r,i,j]

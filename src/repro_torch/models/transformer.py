@@ -33,7 +33,9 @@ keeps only the unit's input and recomputes the rest in the backward;
 the counterpart of `jax.checkpoint_policies.dots_saveable`); `"none"`
 keeps everything. A recompute runs the unit's forward again, kernels
 included: on the kernel path a layer's flash attention launches twice a
-training step (forward, recompute) beside its backward.
+training step (forward, recompute) beside its backward. The same holds
+for a derivative wave of `apps/lm_model.py::LMUQModel`, where only theta
+requires grad and it reaches the stack through `embed_scale`.
 """
 from __future__ import annotations
 
@@ -127,12 +129,14 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _maybe_remat(cfg: ModelConfig, fn, mode: str, params):
+def _maybe_remat(cfg: ModelConfig, fn, mode: str, params, x: torch.Tensor):
     """`fn` under the checkpoint `cfg.remat` names, in train mode with grad
-    enabled and a parameter that requires it (a training step); else `fn`
-    itself (an evaluation keeps every activation it makes anyway)."""
+    enabled and a parameter or the stack's input `x` that requires it (a
+    training step; a derivative wave of `LMUQModel`, whose theta reaches
+    the stack through the embedding scale); else `fn` itself (an evaluation
+    keeps every activation it makes anyway)."""
     if (mode != "train" or cfg.remat == "none" or not torch.is_grad_enabled()
-            or not any(t.requires_grad for t in tree_leaves(params))):
+            or not (x.requires_grad or any(t.requires_grad for t in tree_leaves(params)))):
         return fn
     if cfg.remat == "dots":
         context = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
@@ -432,7 +436,7 @@ def forward(
         gparams = params["groups"][gi]
         unit_caches = []
         run = _maybe_remat(cfg, functools.partial(_unit, cfg, group.kind, **unit_kw), mode,
-                           params)
+                           params, x)
         for layer in range(group.count):
             c = _layer(cache[gi], layer) if decode else None  # views: written in place
             x, nc, a = run(x, _layer(gparams, layer), c)

@@ -16,7 +16,8 @@ names) and its autograd
 Function (`ops.FlashAttention`): its log-sum-exp is `logsumexp` of the
 scaled scores, its gradients are `attention_bwd_ref`'s, it works under
 `torch.func.vjp`, and a call without grad is the forward alone, the same
-bits; `testing.bwd_errors` sees a wrong gradient and `held_to_plain` a
+bits; its backward is once-differentiable (a second derivative through it
+raises on every device); `testing.bwd_errors` sees a wrong gradient and `held_to_plain` a
 wrong log-sum-exp; `backward_tap` holds each attention call of a training
 step; an emulation of the float32 kernel's 3xBF16 products (its operands
 split as its first kernel splits them, `ref.bwd_split_ref`) lies within
@@ -155,6 +156,45 @@ def test_function_lse_and_gradients(case):
         torch.testing.assert_close(flash_attention(aq, ak, av, causal=causal, scale=scale), o,
                                    rtol=0, atol=0)
     # torch.func goes through the setup_context-style Function
+    _, vjp = torch.func.vjp(lambda q_, k_, v_: flash_attention(q_, k_, v_, causal=causal,
+                                                                scale=scale), q, k, v)
+    for g, w in zip(vjp(do), want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", CASES[:3])
+def test_second_derivative_through_the_kernel_path_raises(case):
+    """`FlashAttention.backward` is once-differentiable on every device. On
+    the card its kernels fill fresh tensors that carry no graph, so a
+    second derivative would silently drop every attention term; the CPU's
+    plain backward would carry one. A `create_graph=True` backward through
+    it now raises on both, while
+    `torch.func.vjp` still reaches the Function and matches
+    `attention_bwd_ref` bit for bit (ROADMAP queue 3)."""
+    B, nq, nkv, Sq, Sk, hd, causal, scale = case
+    q, k, v, do = (torch.from_numpy(a)
+                   for a in _arrays((B, nq, nkv, Sq, Sk, hd), 11, np.float32))
+    aq, ak, av = (t.clone().requires_grad_() for t in (q, k, v))
+    for loss_of in (lambda o: (o * do).sum(), lambda o: (o * do).square().sum()):
+        with pytest.raises(RuntimeError, match="once-differentiable"):
+            torch.autograd.grad(loss_of(flash_attention(aq, ak, av, causal=causal, scale=scale)),
+                                (aq, ak, av), create_graph=True)
+        with pytest.raises(RuntimeError, match="once-differentiable"):
+            loss_of(flash_attention(aq, ak, av, causal=causal, scale=scale)).backward(
+                create_graph=True)
+    # the first derivative as before
+    loss = (flash_attention(aq, ak, av, causal=causal, scale=scale) * do).square().sum()
+    got = torch.autograd.grad(loss, (aq, ak, av))
+    # the plain attention (the Hessian action's route) differentiates twice
+    rq, rk, rv = (t.clone().requires_grad_() for t in (q, k, v))
+    ref_loss = (attention_ref(rq, rk, rv, causal, scale) * do).square().sum()
+    gq, gk, gv = torch.autograd.grad(ref_loss, (rq, rk, rv), create_graph=True)
+    for g, w in zip(got, (gq, gk, gv)):
+        torch.testing.assert_close(g, w.detach(), rtol=1e-5, atol=1e-5)
+    second = torch.autograd.grad(gq.square().sum() + gk.sum() + gv.sum(), (rq, rk, rv))
+    assert all(bool(g.abs().max() > 0) for g in second)
+    o, lse = attention_lse_ref(q, k, v, causal=causal, scale=scale)
+    want = attention_bwd_ref(q, k, v, o, lse, do, causal, scale)
     _, vjp = torch.func.vjp(lambda q_, k_, v_: flash_attention(q_, k_, v_, causal=causal,
                                                                 scale=scale), q, k, v)
     for g, w in zip(vjp(do), want):

@@ -1,6 +1,7 @@
-"""PyTorch port: import hygiene. `repro_torch`, `chip_smoke.py` and the
-port's scripts (`scripts/`) import neither JAX nor anything of the JAX
-package `repro`, so all run on a GPU machine that has no JAX."""
+"""PyTorch port: import hygiene. `repro_torch` (its serving driver
+`launch/serve.py` too), `chip_smoke.py`, the port's scripts (`scripts/`)
+and its examples (`examples/torch_*.py`) import neither JAX nor anything of
+the JAX package `repro`, so all run on a GPU machine that has no JAX."""
 import ast
 import os
 import subprocess
@@ -13,7 +14,8 @@ PORT = ROOT / "src" / "repro_torch"
 
 def _port_files():
     return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-            + sorted((ROOT / "scripts").glob("*.py")))
+            + sorted((ROOT / "scripts").glob("*.py"))
+            + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _imported_roots(path: Path):
@@ -33,6 +35,9 @@ def test_port_sources_import_no_jax_and_no_repro():
     ]
     assert not bad, bad
     assert len(_port_files()) > 15
+    names = {p.name for p in _port_files()}
+    assert "serve.py" in names and {f"torch_{n}.py" for n in (
+        "quickstart", "sparse_grid_uq", "mlda_inversion", "serve_uq", "train_lm")} <= names
 
 
 def test_importing_every_port_module_loads_no_jax():

@@ -169,7 +169,7 @@ def test_lm_uq_nll_matches_jax(lm_pair):
     got = np.array([pm([list(t)])[0][0] for t in THETAS])
     print(f"{pm.cfg.attn_impl}: NLL {got}, rel err {np.abs(got / want - 1).max():.3g}")
     np.testing.assert_allclose(got, want, rtol=NLL_RTOL)
-    assert pm.capabilities().evaluate_batch and not pm.capabilities().gradient
+    assert pm.capabilities().to_json() == jm.capabilities().to_json()  # all eight
 
 
 def test_wave_equals_per_point_calls(lm_pair):
