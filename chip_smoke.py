@@ -106,7 +106,17 @@ user calls:
   subprocess: `/ModelInfo` lists all eight operations, an Evaluate and a
   Gradient round trip equal the in-process model's (`serve_driver`); and
   the five `examples/torch_*.py` as subprocesses on the card, side by side
-  (`examples_on_card`).
+  (`examples_on_card`);
+* the device mesh on the UQ path (`distributed/sharding.py`,
+  `launch/mesh.py`), after qwen3-0.6b's derivative operations: on a 1x1
+  mesh in this process (world size 1, NCCL) `main_path`'s campaign through
+  `SPMDBackend(ModelPool(TsunamiModel(), ctx))` and qwen3-0.6b's 8-point
+  wave through `LMUQModel(ctx=)`, each bit for bit against its run without
+  a mesh (`mesh_main_path`); then two ranks on the one card over `gloo`,
+  each a process of this script (`--mesh-rank`) under a host watchdog: a
+  fine wave split 8/8 and a fused coarse RWM split 8/8, bit for bit, the
+  RWM's rank-0 checkpoint resumed in this process, and the LM wave split
+  4/4 within LM_NLL_RTOL (`mesh_two_ranks`).
 
 Last, the port's analysis gate (`analysis_gate`, `repro_torch.analysis`):
 its linter over the port and this script (every rule 0 findings, against
@@ -834,7 +844,7 @@ def phase_main_path(torch, dev) -> dict:
          posterior_mean=res.samples.reshape(-1, 2).mean(0).tolist(),
          backend=tel["backend"])
     return {"launches": launches, "wall_s": wall, "n_waves": res.n_waves,
-            "samples": res.samples}
+            "samples": res.samples, "waves": waves}
 
 
 def tsunami_problem(torch, model, dev):
@@ -1577,7 +1587,7 @@ def phase_fused_kernel_vs_plain(torch, dev) -> dict:
     from repro_torch.apps.tsunami import TsunamiModel
     from repro_torch.kernels.swe import swe_step_ref_into
     from repro_torch.kernels.swe.testing import sources
-    from repro_torch.uq.fused import _rwm_step, fused_ensemble_rwm
+    from repro_torch.uq.fused import _Lanes, _rwm_step, fused_ensemble_rwm
 
     model = TsunamiModel()
     lp_kernel, _, _ = coarse_target(torch, model, dev)
@@ -1587,7 +1597,7 @@ def phase_fused_kernel_vs_plain(torch, dev) -> dict:
                              fused_steps=n)
     t0 = time.perf_counter()
     gen = _generator(torch, dev, 7)
-    step = _rwm_step(lp_plain, np.linalg.cholesky(MAIN_PROP_COV), dev)
+    step = _rwm_step(lp_plain, np.linalg.cholesky(MAIN_PROP_COV), dev, _Lanes.whole(len(x0t)))
     xs = torch.as_tensor(x0t, dtype=torch.float32, device=dev)
     carry = {"xs": xs, "lps": lp_plain(xs), "acc": torch.zeros_like(xs[:, 0])}
     samples, lps = [], []
@@ -2547,6 +2557,245 @@ def phase_pool_path(torch, lm, smi: str) -> dict:
                 for k, v in lm_runs.items()}},
          bound="bit for bit (submits, derivative ops, LM grid)")
     return {}
+
+
+# -- the device mesh on the UQ path (distributed/sharding.py, launch/mesh.py) ----
+
+#: the mesh phases' fine wave (16 lanes: 8 a rank on two), the fused coarse
+#: RWM's length (2 blocks of FUSED_TSUNAMI_S steps) and generator seed, and
+#: qwen3-0.6b's 8-point wave (4 a rank on two)
+MESH_WAVE_SEED, MESH_FUSED_STEPS, MESH_FUSED_SEED = 31, 100, 5
+MESH_LM_POINTS = np.array([[0.9 + 0.025 * i, 1.1 - 0.025 * i] for i in range(8)])
+#: the host watchdog of the two ranks, and their collectives' time limit
+MESH_RANKS_TIMEOUT_S, MESH_COLLECTIVE_TIMEOUT_S = 300.0, 120.0
+
+
+def _mesh_fused(torch, model, dev, ctx, checkpoint=None, seed=MESH_FUSED_SEED,
+                steps_run=MESH_FUSED_STEPS):
+    """The fused coarse-tsunami RWM of the mesh phases: 16 chains from
+    `fused_sampler`'s starts, MESH_FUSED_STEPS steps in blocks of
+    FUSED_TSUNAMI_S, on `ctx` (None: no mesh), with a checkpoint every
+    block if one is given; `steps_run` of them run here (fewer when the
+    checkpoint resumes the run), each one `swe_solve` launch of a replay,
+    beside the capture's warm-up block and the initial wave."""
+    from repro_torch.kernels.swe.testing import sources
+    from repro_torch.uq.fused import fused_ensemble_rwm
+
+    lp, _, _ = coarse_target(torch, model, dev)
+    reset_launches()
+    res = fused_ensemble_rwm(lp, sources(FUSED_TSUNAMI_K, 11).astype(float), MESH_FUSED_STEPS,
+                             MAIN_PROP_COV, _generator(torch, dev, seed),
+                             fused_steps=FUSED_TSUNAMI_S, ctx=ctx, checkpoint=checkpoint,
+                             checkpoint_every=FUSED_TSUNAMI_S if checkpoint else 0)
+    torch.cuda.synchronize()
+    want = FUSED_TSUNAMI_S + steps_run + 1
+    if read_launches()["swe_solve"] != want:
+        raise AssertionError(f"fused RWM on the mesh: launches {read_launches()}, expected "
+                             f"{want} of swe_solve")
+    return res
+
+
+def phase_mesh_main_path(torch, dev, main_path: dict, lm, smi: str) -> dict:
+    """The device mesh in this process: a 1x1 mesh (world size 1, NCCL,
+    `launch.mesh.make_mesh`). `main_path`'s campaign through
+    `EvaluationFabric(SPMDBackend(ModelPool(TsunamiModel(), ctx)))` gives
+    its samples and waves bit for bit, every wave one `swe_solve` launch;
+    qwen3-0.6b's 8-point wave (`lm`, full width and depth) through
+    `LMUQModel(ctx=)` equals the same wave without `ctx` bit for bit, one
+    forward's 28 flash launches. Also the references of `mesh_two_ranks`:
+    the one-process fine wave, the fused coarse RWM with this `ctx`."""
+    from repro_torch.apps.lm_model import LMUQModel
+    from repro_torch.apps.tsunami import TsunamiModel
+    from repro_torch.core.fabric import EvaluationFabric, SPMDBackend
+    from repro_torch.core.pool import ModelPool
+    from repro_torch.distributed.sharding import ShardingCtx
+    from repro_torch.kernels.swe.testing import sources
+    from repro_torch.launch.mesh import destroy_ranks, make_mesh
+    from repro_torch.uq.mlda import ensemble_mlda
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ctx = ShardingCtx(make_mesh((1, 1), ("data", "model"), backend="nccl"))
+    try:
+        model = TsunamiModel()
+        _, logprior, loglik, _ = tsunami_problem(torch, model, dev)
+        pool = ModelPool(model, ctx)
+        fabric = EvaluationFabric(SPMDBackend(pool), cache_size=8192)
+        try:
+            reset_launches()
+            waves0 = dict(model.waves)
+            wall, res = _timed(torch, lambda: ensemble_mlda(
+                None, sources(16, 11).astype(float), n_samples=4, subsampling=[5],
+                prop_cov=MAIN_PROP_COV, rng=np.random.default_rng(501),
+                fabric=fabric, level_configs=[L0, L1], loglik=loglik, logprior=logprior))
+            counts = read_launches()
+        finally:
+            fabric.shutdown()
+        waves = {lvl: model.waves[lvl] - waves0[lvl] for lvl in (0, 1)}
+        _same_bits(res.samples, main_path["samples"], "main_path's campaign on the 1x1 mesh")
+        if waves != main_path["waves"] or counts["swe_solve"] != main_path["launches"] \
+                or counts["swe_solve"] != sum(waves.values()) or pool.stats["padded"]:
+            raise AssertionError(f"1x1 mesh: waves {waves}, launches {counts}, pool "
+                                 f"{pool.stats}; main_path: {main_path['waves']}, "
+                                 f"{main_path['launches']} launches")
+        fine = model.evaluate_batch(sources(16, MESH_WAVE_SEED), L1)
+        fused = _mesh_fused(torch, model, dev, ctx)
+
+        plain = lm.evaluate_batch(MESH_LM_POINTS)
+        on_mesh = LMUQModel(DENSE_ARCH, reduced=False, batch=LM_BATCH, seq=LM_SEQ,
+                            params=lm.params, ctx=ctx)
+        _same_bits(on_mesh.batch["tokens"].cpu(), lm.batch["tokens"].cpu(), "the LM's batch")
+        reset_launches()
+        lm_wall, nlls = _timed(torch, lambda: on_mesh.evaluate_batch(MESH_LM_POINTS))
+        lm_launches_ = check_launches(read_launches(), lm.cfg, 1, "LMUQModel(ctx=) on 1x1")
+        _same_bits(nlls, plain, "qwen3-0.6b's 8-point wave with ctx= vs without")
+    finally:
+        destroy_ranks()
+    peak = torch.cuda.max_memory_allocated()
+    emit("mesh_main_path", card=smi, mesh=[1, 1], backend="nccl",
+         campaign={"wall_s": wall, "n_waves": res.n_waves, "model_waves_per_level": waves,
+                   "swe_solve_launches": counts["swe_solve"], "pool_stats": dict(pool.stats),
+                   "main_path_wall_s": main_path["wall_s"]},
+         fused_rwm={"chains": FUSED_TSUNAMI_K, "n_steps": MESH_FUSED_STEPS,
+                    "accept_rate": float(np.mean(fused.accept_rates))},
+         lm={"arch": DENSE_ARCH, "points": len(MESH_LM_POINTS), "wall_s": lm_wall,
+             "launches": lm_launches_, "nll": nlls[:, 0].tolist()},
+         wall_s=time.perf_counter() - t_phase, max_memory_allocated=peak,
+         bound="bit for bit (main_path's samples and waves; the LM wave with and without ctx)")
+    return {"fine": fine, "fused": fused, "nlls": nlls, "swe_solve": counts["swe_solve"],
+            "flash": lm_launches_}
+
+
+def phase_mesh_two_ranks(torch, dev, ref: dict, smi: str) -> dict:
+    """Two ranks on the one card, over `gloo` (NCCL refuses two ranks on one
+    GPU), each a process of this script (`--mesh-rank`) under a host
+    watchdog: a 16-lane fine wave through `ModelPool(TsunamiModel(), ctx)`
+    split 8/8 == the one-process wave bit for bit, one `swe_solve` launch a
+    rank; the fused coarse RWM of 16 chains split 8/8 == the one-rank `ctx`
+    run of `mesh_main_path` bit for bit, and its rank-0 checkpoint (after
+    the first block) resumed in this process == the same run bit for bit;
+    qwen3-0.6b's 8-point wave split 4/4 within LM_NLL_RTOL of the
+    one-process wave, one forward's 28 flash launches a rank. A rank that
+    fails fails the run."""
+    import shutil
+
+    from repro_torch.apps.tsunami import TsunamiModel
+    from repro_torch.core.fleet import CampaignCheckpoint
+
+    where = ROOT / "build" / "mesh_two_ranks"
+    shutil.rmtree(where, ignore_errors=True)
+    where.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    logs = [open(where / f"rank{r}.log", "w") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+                               str(r), "--mesh-dir", str(where)], stdout=logs[r],
+                              stderr=subprocess.STDOUT, cwd=ROOT) for r in range(2)]
+    try:
+        deadline = time.monotonic() + MESH_RANKS_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if failed or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(30)
+        for f in logs:
+            f.close()
+    codes = [p.returncode for p in procs]
+    if codes != [0, 0]:
+        tails = "\n".join(f"rank {r} (exit {c}):\n" + (where / f"rank{r}.log").read_text()[-3000:]
+                          for r, c in enumerate(codes))
+        raise AssertionError(f"mesh_two_ranks: exit codes {codes} (watchdog "
+                             f"{MESH_RANKS_TIMEOUT_S} s)\n{tails}")
+    ranks = [json.loads((where / f"rank{r}.json").read_text()) for r in range(2)]
+    arrays = [np.load(where / f"rank{r}.npz") for r in range(2)]
+    for r, (meta, arr) in enumerate(zip(ranks, arrays)):
+        _same_bits(arr["fine"], ref["fine"], f"rank {r}: the 16-lane fine wave split 8/8")
+        _same_bits(arr["samples"], ref["fused"].samples, f"rank {r}: fused RWM samples")
+        _same_bits(arr["logposts"], ref["fused"].logposts, f"rank {r}: fused RWM logposts")
+        if meta["launches"]["fine"]["swe_solve"] != 1:
+            raise AssertionError(f"rank {r}: fine wave launches {meta['launches']['fine']}")
+    lm_err = max(float(np.max(np.abs(arr["nlls"] / ref["nlls"] - 1.0))) for arr in arrays)
+    if not lm_err < LM_NLL_RTOL:
+        raise AssertionError(f"the 8-point wave split 4/4: NLLs off by {lm_err} relative "
+                             f"(bound {LM_NLL_RTOL})")
+    # rank 0's checkpoint after the first block, resumed in this process
+    ckpt = where / "fused_ckpt"
+    shutil.rmtree(ckpt / f"step_{MESH_FUSED_STEPS:08d}")
+    resumed = _mesh_fused(torch, TsunamiModel(), dev, None, CampaignCheckpoint(str(ckpt)),
+                          seed=999, steps_run=MESH_FUSED_STEPS - FUSED_TSUNAMI_S)
+    _same_bits(resumed.samples, ref["fused"].samples, "the rank-0 checkpoint resumed")
+    emit("mesh_two_ranks", card=smi, mesh=[2, 1], backend="gloo", ranks=ranks,
+         fine_wave={"lanes": 16, "per_rank": 8, "bound": "bit for bit"},
+         fused_rwm={"chains": FUSED_TSUNAMI_K, "per_rank": FUSED_TSUNAMI_K // 2,
+                    "n_steps": MESH_FUSED_STEPS, "bound": "bit for bit, and the resume"},
+         lm={"arch": DENSE_ARCH, "points": len(MESH_LM_POINTS), "per_rank": 4,
+             "nll_max_rel_diff": lm_err, "bound": LM_NLL_RTOL},
+         wall_s=time.perf_counter() - t_phase)
+    return {"swe_solve": [m["launches"]["fine"]["swe_solve"] + m["launches"]["fused"]["swe_solve"]
+                          for m in ranks],
+            "flash": [m["launches"]["lm"]["flash_attention_wgmma"] for m in ranks]}
+
+
+def mesh_rank_main(rank: int, where: Path) -> int:
+    """One rank of `mesh_two_ranks` (`--mesh-rank R --mesh-dir DIR`): joins
+    the 2-rank `gloo` group through a FileStore in DIR, runs the three
+    sharded parts on the card and writes rankR.json (launches, walls, peak
+    memory) and rankR.npz (the gathered results)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.apps.lm_model import LMUQModel
+    from repro_torch.apps.tsunami import TsunamiModel
+    from repro_torch.core.fleet import CampaignCheckpoint
+    from repro_torch.core.pool import ModelPool
+    from repro_torch.distributed.sharding import ShardingCtx
+    from repro_torch.kernels.swe.testing import sources
+    from repro_torch.launch.mesh import destroy_ranks, make_mesh, rank_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    ctx = ShardingCtx(make_mesh((2, 1), ("data", "model"), backend="gloo", rank=rank,
+                                world_size=2, store=dist.FileStore(str(where / "store"), 2),
+                                timeout_s=MESH_COLLECTIVE_TIMEOUT_S))
+    dev = rank_device()
+    walls, launches = {"start_s": time.perf_counter() - t0}, {}
+    try:
+        model = TsunamiModel()
+        thetas = sources(16, MESH_WAVE_SEED)
+        pool = ModelPool(model, ctx)
+        reset_launches()
+        walls["fine_s"], fine = _timed(torch, lambda: pool.evaluate(thetas, L1))
+        launches["fine"] = {k: n for k, n in read_launches().items() if n}
+        walls["fused_s"], fused = _timed(torch, lambda: _mesh_fused(
+            torch, model, dev, ctx,
+            CampaignCheckpoint(str(where / "fused_ckpt"), keep_last=4)))
+        launches["fused"] = {k: n for k, n in read_launches().items() if n}
+        t1 = time.perf_counter()
+        lm = LMUQModel(DENSE_ARCH, reduced=False, batch=LM_BATCH, seq=LM_SEQ, ctx=ctx)
+        torch.cuda.synchronize()
+        walls["lm_init_s"] = time.perf_counter() - t1
+        reset_launches()
+        walls["lm_wave_s"], nlls = _timed(torch, lambda: lm.evaluate_batch(MESH_LM_POINTS))
+        launches["lm"] = check_launches(read_launches(), lm.cfg, 1, f"rank {rank}'s LM wave")
+    finally:
+        destroy_ranks()
+    np.savez(where / f"rank{rank}.npz", fine=fine, samples=fused.samples,
+             logposts=fused.logposts, nlls=nlls)
+    rows = ctx.rows(len(thetas))
+    (where / f"rank{rank}.json").write_text(json.dumps({
+        "rank": rank, "rows": [rows.start, rows.stop], "walls": walls,
+        "launches": launches, "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "wall_s": time.perf_counter() - t0}, default=float))
+    return 0
 
 
 def ssd_work(B: int, H: int, G: int, S: int, P: int, N: int) -> dict:
@@ -4522,32 +4771,36 @@ def phase_examples_on_card(torch) -> dict:
     return {s: r["wall_s"] for s, r in results.items()}
 
 
-def run_lm_path(torch, arch: str, smi: str) -> dict:
+def run_lm_path(torch, arch: str, smi: str, main_path: dict | None = None) -> dict:
     """The main path, the kernel-vs-plain wave and the profiled wave of one
     LM, its serving steps, its gradient wave (mamba2: on the plain SSD),
     and for qwen3-0.6b (the model examples/serve_uq.py serves) the serving
-    batch, the device pool's path and the derivative operations; the
-    model's memory is released afterwards."""
+    batch, the device pool's path, the derivative operations and the mesh
+    phases (with the tsunami's `main_path`); the model's memory is released
+    afterwards."""
     lm = phase_lm_main_path(torch, arch)
     model = lm["model"]
     phase_lm_kernel_vs_plain(torch, model)
     phase_lm_profile(torch, model, lm["points"], lm["grid_s"])
     decode = phase_lm_decode(torch, model.cfg, model.params, model.batch,
                              f"{LM_PHASE[arch]}_decode")
-    serving = gradient = None
+    serving = gradient = mesh = None
     if arch == SSM_ARCH:
         phase_lm_gradient_plain_ssd(torch, model)
     if arch == DENSE_ARCH:
         serving = phase_serving_batch(torch, model)
         phase_pool_path(torch, model, smi)
         gradient = phase_dense_lm_gradient_path(torch, model, smi)
+        mesh_ref = phase_mesh_main_path(torch, model.device, main_path, model, smi)
+        mesh = {"main_path": mesh_ref,
+                "two_ranks": phase_mesh_two_ranks(torch, model.device, mesh_ref, smi)}
     launches = lm["launches"]
     del lm, model
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": launches, "decode": decode["launches"],
             "serving": serving and serving["launches"],
-            "gradient": gradient and gradient["launches"]}
+            "gradient": gradient and gradient["launches"], "mesh": mesh}
 
 
 def phase_zoo_lm(torch, arch: str, n_layers, points: int) -> dict:
@@ -4832,6 +5085,9 @@ def phase_analysis_gate(torch, dev) -> dict:
 
 
 def main() -> int:
+    if "--mesh-rank" in sys.argv:  # one rank of `mesh_two_ranks`
+        args = sys.argv[sys.argv.index("--mesh-rank"):]
+        return mesh_rank_main(int(args[1]), Path(args[args.index("--mesh-dir") + 1]))
     try:
         import torch
     except ImportError:
@@ -4892,7 +5148,7 @@ def main() -> int:
     flash_times = phase_flash_times(torch, dev, probe["smi"])
     bwd = phase_flash_bwd_vs_plain(torch, dev, probe["smi"])
     f32_path = phase_flash_f32_path(torch)
-    dense = run_lm_path(torch, DENSE_ARCH, probe["smi"])
+    dense = run_lm_path(torch, DENSE_ARCH, probe["smi"], main_path)
     decode_f32 = phase_decode_f32_path(torch)
     train = phase_train_path(torch, dev, probe["smi"])
     train_f32 = phase_train_f32_path(torch, dev)
@@ -4949,6 +5205,11 @@ def main() -> int:
         "launches_wire_main_path_http_backend": wire["launches_http_backend"],
         "launches_service_path": service["launches"],
         "launches_fleet_path": fleet["launches"],
+        # the device mesh: main_path's campaign through ModelPool(ctx=) on a
+        # 1x1 mesh; then two ranks on the card, each one launch for its 8
+        # lanes of the fine wave and its fused coarse RWM's 151
+        "launches_mesh_main_path": dense["mesh"]["main_path"]["swe_solve"],
+        "launches_mesh_two_ranks_per_rank": dense["mesh"]["two_ranks"]["swe_solve"],
         "max_abs_err": check["solve_max_abs_err"],
         "max_abs_err_fused_path": fused_check["max_abs_err"],
         # every other width the paths above gave it, each held as launched
@@ -5041,6 +5302,10 @@ def main() -> int:
         # the LM's gradient wave the same, 2 a layer
         "launches_train_path": train["launches"]["flash_attention_wgmma"],
         "launches_dense_lm_gradient_path": dense["gradient"]["flash_attention_wgmma"],
+        # the device mesh: the 8-point wave through LMUQModel(ctx=) on a 1x1
+        # mesh, and split 4/4 over two ranks (each one forward, 28)
+        "launches_mesh_main_path": dense["mesh"]["main_path"]["flash"]["flash_attention_wgmma"],
+        "launches_mesh_two_ranks_per_rank": dense["mesh"]["two_ranks"]["flash"],
         "max_abs_err": flash_check["wgmma"],
         "ms": flash_point["ms"],
         "plain_ms": flash_point["plain_ms"],

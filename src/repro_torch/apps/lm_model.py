@@ -25,6 +25,15 @@ reverse pass of the stack (`_reverse_wave`). Which path each takes:
   every family: no kernel has a second derivative (the flash backward is
   once-differentiable and raises if differentiated again), and the JAX
   package's own Hessian differentiates its XLA attention twice.
+
+On a device mesh (`ctx=`, a `distributed.sharding.ShardingCtx`, the model
+built on every rank with the same weights) an evaluate wave of K points is
+split over the batch axes: padded to a multiple of `ctx.n_data` (the last
+point repeated), each rank runs the forward above on its contiguous points,
+and the NLLs are gathered to every rank. The derivative operations stay
+unsharded: every rank runs the whole wave, as the JAX package's
+`SPMDBackend` runs derivative waves. The weights are replicated; their
+FSDP/TP/EP layout on the mesh waits for ROADMAP queue 1, item 14c.
 """
 from __future__ import annotations
 
@@ -35,7 +44,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.device import resolve_device
-from repro_torch.core.interface import Capabilities, Model
+from repro_torch.core.interface import Capabilities, Model, pad_to_bucket
 from repro_torch.models import model as M
 from repro_torch.models import transformer
 from repro_torch.models.layers import lm_head
@@ -53,7 +62,8 @@ class LMUQModel(Model):
     package by `repro_torch.convert.lm_params_from_numpy`). `n_layers` cuts
     the architecture's depth (widths kept; a vlm model's must be a multiple
     of its cross-attention period). Runs on `device` (default: the GPU;
-    raises if there is none)."""
+    raises if there is none; on a mesh, the rank's current card). `ctx`
+    splits evaluate waves over a mesh's batch axes (module docstring)."""
 
     # one forward per wave of N points, over N·B sequences. No `batch_bucket`:
     # the JAX package pads waves to powers of two to bound its jit trace
@@ -61,8 +71,10 @@ class LMUQModel(Model):
     # only add thrown-away forwards (41 points as a 64-point wave)
 
     def __init__(self, arch: str, reduced: bool = True, batch=2, seq: int = 64,
-                 seed: int = 0, device=None, params=None, n_layers: int | None = None):
+                 seed: int = 0, device=None, params=None, n_layers: int | None = None,
+                 ctx=None):
         super().__init__(f"lm-{arch}")
+        self.ctx = ctx
         self.cfg = get_config(arch, reduced=reduced)
         if n_layers is not None:
             self.cfg = self.cfg.replace(n_layers=int(n_layers))
@@ -100,8 +112,20 @@ class LMUQModel(Model):
         theta = np.asarray(parameters[0], float)
         return [[float(self.evaluate_batch(theta[None, :], config)[0, 0])]]
 
-    @torch.inference_mode()
     def evaluate_batch(self, thetas, config=None) -> np.ndarray:
+        """[K, 2] -> [K, 1]: one forward over the wave (`_evaluate_wave`); on
+        a mesh, one forward a rank over its points of the padded wave, the
+        NLLs gathered to every rank."""
+        thetas = np.atleast_2d(np.asarray(thetas, float))
+        if self.ctx is None or self.ctx.n_data == 1:
+            return self._evaluate_wave(thetas)
+        K = len(thetas)
+        wave, _ = pad_to_bucket(thetas, K + (-K) % self.ctx.n_data)
+        mine = self._evaluate_wave(wave[self.ctx.rows(len(wave))])
+        return self.ctx.gather_rows(mine)[:K]
+
+    @torch.inference_mode()
+    def _evaluate_wave(self, thetas) -> np.ndarray:
         """[K, 2] -> [K, 1]: ONE forward over the K points' [K*B, S] tokens
         (point k's copy of the batch has its embedding rows scaled by
         theta_k[0]; a vlm batch's context embeddings ride along unscaled;

@@ -349,10 +349,14 @@ class ModelBackend(FabricBackend):
 
 
 class SPMDBackend(ModelBackend):
-    """The device path: one `ModelPool` wave per fabric wave. Derivative
-    waves go straight to the pooled model's batched derivative programs
-    (for a `TorchModel`, its vmapped VJP/JVP/HVP: one program a wave), as
-    `ModelBackend` dispatches them."""
+    """The device path: one `ModelPool` wave per fabric wave, `n_instances`
+    the pool's (`ctx.n_data` on a mesh). Derivative waves go straight to
+    the pooled model's batched derivative programs (for a `TorchModel`, its
+    vmapped VJP/JVP/HVP: one program a wave), as `ModelBackend` dispatches
+    them — NOTE they are not yet mesh-sharded like evaluate waves and skip
+    the pool's instance-multiple padding, so on a multi-rank ctx mesh every
+    rank runs the whole gradient wave on its own device (per-capability
+    sharding is a ROADMAP item), as in the JAX package."""
 
     name = "spmd"
 

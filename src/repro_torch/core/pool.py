@@ -4,9 +4,10 @@ Two pools, matching the two deployment modes in the paper:
 
 * `ModelPool` — the device path. A wave of evaluation points is ONE call of
   the model's own batched program (`model.evaluate_batch`: a `TorchModel`'s
-  vmapped program, an `LMUQModel`'s one forward over the wave's sequences).
-  The UQ driver is completely oblivious to the devices — the paper's
-  separation-of-concerns invariant.
+  vmapped program, an `LMUQModel`'s one forward over the wave's sequences);
+  on a device mesh (`ctx=`), one such call a rank on its rows of the wave,
+  the rows gathered to every rank. The UQ driver is completely oblivious
+  to the devices — the paper's separation-of-concerns invariant.
 
 * `ThreadedPool` — the host-side path with literal HAProxy semantics: a queue
   and N worker threads, each representing one model server with AT MOST ONE
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.races import named_lock
-from repro_torch.core.interface import Model
+from repro_torch.core.interface import Model, pad_to_bucket
 
 
 # ---------------------------------------------------------------------------
@@ -40,42 +41,65 @@ class ModelPool:
     """Batched evaluation of a model on its device: one wave, one call of
     the model's batched program, in the model's dtype.
 
-    n_instances = `torch.cuda.device_count()` when the model lives on a
-    CUDA device (its `device`), else 1. A wave runs at its own width: the
-    JAX package pads a wave to a power of two to bound its jit cache, and
-    eager PyTorch keeps no such cache, so `stats["padded"]` stays 0 and
-    `stats["bucket_shapes"]` counts the distinct wave widths. There is no
-    mesh on one card: `ctx=` raises (ROADMAP queue 1, item 14).
+    Without `ctx`, n_instances = `torch.cuda.device_count()` when the model
+    lives on a CUDA device (its `device`), else 1, and a wave runs at its
+    own width: the JAX package pads a wave to a power of two to bound its
+    jit cache, and eager PyTorch keeps no such cache, so `stats["padded"]`
+    stays 0 and `stats["bucket_shapes"]` counts the distinct wave widths.
+
+    With `ctx` (a `distributed.sharding.ShardingCtx` over a `DeviceMesh`,
+    the pool replicated on every rank), n_instances = `ctx.n_data`: a wave
+    of N points is padded to a multiple of n_instances by repeating its
+    last point (the JAX package rounds its bucket up to an instance
+    multiple), each rank evaluates its contiguous rows with the model's one
+    batched program, and the rows are gathered to every rank
+    (`ShardingCtx.gather_rows`) before the padding is dropped;
+    `stats["padded"]` counts it. With `n_data == 1` nothing is padded or
+    gathered. A model that takes a `ctx` of its own (`LMUQModel(ctx=)`)
+    splits its waves itself and gets every wave whole.
     """
 
     def __init__(self, model: Model, ctx=None, config: dict | None = None):
-        if ctx is not None:
-            raise NotImplementedError(
-                "a ModelPool over a device mesh (ctx=) is not ported; one card "
-                "has no mesh: ROADMAP queue 1, item 14"
-            )
         self.model = model
+        self.ctx = ctx
         self.config = config
-        device = torch.device(getattr(model, "device", "cpu"))
-        self.n_instances = torch.cuda.device_count() if device.type == "cuda" else 1
+        if ctx is not None:
+            self.n_instances = ctx.n_data
+        else:
+            device = torch.device(getattr(model, "device", "cpu"))
+            self.n_instances = torch.cuda.device_count() if device.type == "cuda" else 1
+        # the model shards its own waves over its mesh
+        self._split = ctx is not None and ctx.n_data > 1 and getattr(model, "ctx", None) is None
         # waves arrive from fabric collector threads and direct batch calls
         self._lock = named_lock("model_pool.stats")
         self.stats = {"batches": 0, "evaluations": 0, "padded": 0, "bucket_shapes": 0}
         self._bucket_shapes: set[int] = set()
 
     def evaluate(self, thetas: np.ndarray, config: dict | None = None) -> np.ndarray:
-        """[N, n] -> [N, m]: one call of the model's batched program."""
+        """[N, n] -> [N, m]: one call of the model's batched program (on a
+        mesh, one a rank, on its rows of the padded wave)."""
         config = self.config if config is None else config
         thetas = np.atleast_2d(np.asarray(thetas, float))
-        out = np.asarray(self.model.evaluate_batch(thetas, config))
-        if out.ndim == 1:
-            out = out[:, None]
+        N, pad = len(thetas), 0
+        if self._split:
+            wave, pad = pad_to_bucket(thetas, N + (-N) % self.n_instances)
+            out = self._rows_out(self.model.evaluate_batch(wave[self.ctx.rows(len(wave))],
+                                                           config))
+            out = self.ctx.gather_rows(out)[:N]
+        else:
+            out = self._rows_out(self.model.evaluate_batch(thetas, config))
         with self._lock:
-            self._bucket_shapes.add(len(thetas))
+            self._bucket_shapes.add(N + pad)
             self.stats["bucket_shapes"] = len(self._bucket_shapes)
             self.stats["batches"] += 1
-            self.stats["evaluations"] += len(thetas)
+            self.stats["evaluations"] += N
+            self.stats["padded"] += pad
         return out
+
+    @staticmethod
+    def _rows_out(out) -> np.ndarray:
+        out = np.asarray(out)
+        return out[:, None] if out.ndim == 1 else out
 
     __call__ = evaluate
 

@@ -7,7 +7,9 @@
   * `save_async` snapshots to host memory and writes on a background thread
     (the caller continues — hides checkpoint latency, the standard trick);
   * `restore` puts the leaves on the device the caller names (the card by
-    default) or returns them as host numpy at their stored precision;
+    default) or returns them as host numpy at their stored precision, or
+    re-shards them onto a device mesh (`shardings=`, elastic: any mesh
+    shape whose shards divide the leaves);
   * retention: keep_last N, never deleting a checkpoint that is mid-write.
 
 The leaf order is `jax.tree.flatten`'s (dicts by sorted key, lists and
@@ -16,8 +18,7 @@ same files and the same META.json as the JAX package's, so a directory
 written by either package restores in the other. Torch tensors are leaves
 and move to the host on save; a bfloat16 leaf is saved as float32 (exact),
 and a JAX package's bfloat16 leaf (a 2-byte void array on disk) is read as
-its bits. There is no mesh on one card: `shardings=`
-raises (ROADMAP queue 1, item 14).
+its bits.
 """
 from __future__ import annotations
 
@@ -59,6 +60,22 @@ def _flatten(tree):
 
         return leaves, rebuild
     return [tree], lambda leaves: leaves[0]
+
+
+def _aligned(tree, like) -> list:
+    """`tree`'s nodes at the positions of `like`'s leaves (`_flatten`
+    order); a node that is not a container (a sharding, None) stands for
+    every leaf beneath it."""
+    if like is None:
+        return []
+    if isinstance(like, (dict, list, tuple)):
+        if isinstance(like, dict):
+            keys = list(like) if isinstance(like, OrderedDict) else sorted(like)
+        else:
+            keys = range(len(like))
+        nested = isinstance(tree, (dict, list, tuple))
+        return [x for k in keys for x in _aligned(tree[k] if nested else tree, like[k])]
+    return [tree]
 
 
 def _load_leaf(path) -> np.ndarray:
@@ -214,19 +231,18 @@ class CheckpointManager:
         needs (`core.fleet`).
         Otherwise every leaf is a tensor on `device` (default: the card, as
         every entry point of the port), in the dtype of its `state_like`
-        leaf. `shardings=` is the JAX package's elastic re-sharding onto a
-        mesh: there is no mesh on one card (ROADMAP queue 1, item 14).
+        leaf. `shardings=`: a matching tree of `distributed.sharding.Sharding`s
+        (from `sanitized_shardings`) for elastic re-sharding onto the
+        current mesh: such a leaf comes back as a `DTensor` with those
+        placements on the mesh's device, each rank reading the full array
+        and keeping its own shard, so nothing is broadcast; a leaf whose
+        sharding is None comes back as without `shardings=`.
 
         With `step=None` torn directories are SKIPPED — restore lands on
         the newest COMPLETE step, so a crash mid-save costs at most one
         checkpoint interval, never the campaign. An explicitly requested
         torn step raises (the caller named it; silently substituting a
         different step would be worse)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=): re-sharding onto a device mesh is not "
-                "ported; one card has no mesh (ROADMAP queue 1, item 14)"
-            )
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -248,15 +264,22 @@ class CheckpointManager:
         from repro_torch.core.device import resolve_device
 
         device = None if host else resolve_device(device)
+        placed = _aligned(shardings, state_like) if shardings is not None else [None] * len(leaves)
         out = []
-        for i, ref in enumerate(leaves):
+        for i, (ref, sh) in enumerate(zip(leaves, placed)):
             arr = _load_leaf(d / f"leaf_{i:05d}.npy")
             if isinstance(ref, torch.Tensor):
+                if sh is not None:
+                    out.append(sh.from_full(torch.as_tensor(arr).to(ref.dtype)))
+                    continue
                 if host:
                     out.append(arr.astype(_numpy_dtype(ref.dtype)))
                 else:
                     out.append(torch.as_tensor(arr).to(device=device, dtype=ref.dtype))
                 continue
             arr = arr.astype(ref.dtype) if hasattr(ref, "dtype") else arr
-            out.append(arr if host else torch.as_tensor(arr, device=device))
+            if sh is not None:
+                out.append(sh.from_full(torch.as_tensor(arr)))
+            else:
+                out.append(arr if host else torch.as_tensor(arr, device=device))
         return rebuild(out), step

@@ -1,0 +1,375 @@
+"""Logical-axis sharding rules and mesh utilities (counterpart of
+`repro.distributed.sharding`), over a `torch.distributed.DeviceMesh`.
+
+Logical axes used across the model code:
+  batch   -> ('pod', 'data')  (or ('data',) on a single-pod mesh)
+  fsdp    -> 'data'           (params ZeRO-3 sharded *within* a pod; replicated
+                               across pods so the only cross-pod traffic is the
+                               gradient all-reduce)
+  tp      -> 'model'          (tensor parallel / expert parallel / seq-parallel)
+  seq     -> 'model'          (decode-time KV sequence sharding)
+  (None)  -> replicated
+
+A `ShardingCtx` bundles the mesh with resolver helpers so model code never
+hard-codes mesh axis names (the same code runs on a 1x1 test mesh, the 16x16
+single-pod mesh and the 2x16x16 multi-pod mesh).
+
+PyTorch's SPMD idiom is one process per rank (`launch.mesh` builds the mesh
+and its process group): the UQ driver runs replicated on every rank, a wave
+or a chain ensemble is split over the batch axes (`ShardingCtx.rows`: each
+rank its contiguous rows), each rank runs its rows with the model's one
+batched program, and `ShardingCtx.gather_rows` hands every rank the whole
+result, so every rank's driver sees the same numbers and makes the same
+decisions. That holds only while every rank issues the same waves in the
+same order: a replicated driver does; waves formed by timing (per-point
+submits batched by a linger window) are not the same on every rank.
+
+A `PartitionSpec` (`P`) is the JAX package's: per tensor dimension, the mesh
+axis or tuple of axes that shards it, or None. A `Sharding` pairs one with
+the mesh and gives DTensor's per-mesh-dimension placements (`Shard(dim)` or
+`Replicate()`). The arithmetic (`logical_to_mesh`, `sanitize_spec`,
+`shard_size_bytes`, `row_shard`, `local_shard`) needs only the axis names
+and sizes, so it runs on an `AbstractMesh` without a process group.
+
+`torch.distributed.tensor` is imported where a placement or a DTensor is
+made (it takes over a second to import, and every port module that reaches
+the checkpoint would pay it).
+
+`shard_map_compat` has no counterpart: PyTorch has no `shard_map`. A rank's
+own program on its local shard, one process per rank, is what a shard_map
+body is; the LM layout that calls it waits for ROADMAP queue 1, item 14c.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import cached_property
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.analysis.races import named_lock
+
+
+class PartitionSpec(tuple):
+    """Per tensor dimension: a mesh axis name, a tuple of them, or None
+    (replicated); trailing dimensions not listed are replicated. As the
+    JAX package's, a tuple of one axis is that axis and an empty one None."""
+
+    def __new__(cls, *parts):
+        def canonical(p):
+            if isinstance(p, tuple) and len(p) <= 1:
+                return p[0] if p else None
+            return p
+
+        return super().__new__(cls, (canonical(p) for p in parts))
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+@dataclass(frozen=True)
+class AbstractMesh:
+    """Axis names and sizes without devices or ranks: the mesh of the
+    sharding arithmetic (a `DeviceMesh` has the same two attributes)."""
+
+    shape: tuple[int, ...]
+    mesh_dim_names: tuple[str, ...]
+
+
+def logical_to_mesh(mesh) -> dict[str, Any]:
+    axes = mesh.mesh_dim_names
+    has_pod = "pod" in axes
+    return {
+        "batch": ("pod", "data") if has_pod else ("data",),
+        "fsdp": "data",
+        "tp": "model",
+        "seq": "model",
+        "expert": "model",
+        None: None,
+    }
+
+
+def _names(entry) -> tuple:
+    """A spec entry's mesh axes: () for None, else a tuple of names."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _itemsize(dtype) -> int:
+    return dtype.itemsize if isinstance(dtype, torch.dtype) else np.dtype(dtype).itemsize
+
+
+def placements_of(spec: P, mesh_dim_names: Sequence[str]) -> tuple:
+    """DTensor placements, one per mesh dimension: `Shard(i)` where the
+    spec shards tensor dimension i over that mesh axis, else `Replicate()`.
+    A tensor dimension sharded over several axes lists them in mesh order
+    (DTensor splits over mesh dimensions left to right)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    owner: dict[str, int] = {}
+    for i, entry in enumerate(spec):
+        names = _names(entry)
+        order = [mesh_dim_names.index(n) for n in names if n in mesh_dim_names]
+        if order != sorted(order):
+            raise ValueError(f"spec entry {entry!r} lists mesh axes out of the mesh's "
+                             f"order {tuple(mesh_dim_names)}")
+        for n in names:
+            if n in owner:
+                raise ValueError(f"mesh axis {n!r} shards two dimensions of {spec!r}")
+            owner[n] = i
+    return tuple(Shard(owner[n]) if n in owner else Replicate() for n in mesh_dim_names)
+
+
+def row_shard(n: int, index: int, parts: int) -> slice:
+    """The contiguous rows of part `index` of `n` rows split in `parts`
+    equal parts (`n` a multiple of `parts`)."""
+    if n % parts:
+        raise ValueError(f"{n} rows do not split into {parts} equal parts")
+    per = n // parts
+    return slice(index * per, (index + 1) * per)
+
+
+def local_shard(full, spec: P, axis_sizes: dict, coordinate: dict):
+    """The shard of `full` (a tensor or array) at mesh `coordinate` (axis
+    name -> index) under `spec`: each sharded dimension cut into equal
+    contiguous parts, indexed by the coordinate over its axes (the first
+    axis the slowest), as DTensor lays a `Shard` out."""
+    index = [slice(None)] * len(full.shape)
+    for i, entry in enumerate(spec):
+        names = _names(entry)
+        if not names:
+            continue
+        part, parts = 0, 1
+        for n in names:
+            part = part * axis_sizes.get(n, 1) + coordinate.get(n, 0)
+            parts *= axis_sizes.get(n, 1)
+        index[i] = row_shard(full.shape[i], part, parts)
+    return full[tuple(index)]
+
+
+@dataclass(frozen=True)
+class Sharding:
+    """A `PartitionSpec` on a mesh (the counterpart of `NamedSharding`)."""
+
+    mesh: Any
+    spec: P
+
+    @property
+    def placements(self) -> tuple:
+        return placements_of(self.spec, self.mesh.mesh_dim_names)
+
+    def from_full(self, full: torch.Tensor):
+        """A DTensor of `full` with these placements on the mesh's device
+        (a rank's card is its current device), from this rank's own shard
+        of it: every rank holds the full tensor, so nothing is sent."""
+        from torch.distributed.tensor import DTensor
+
+        names = self.mesh.mesh_dim_names
+        coord = dict(zip(names, self.mesh.get_coordinate()))
+        full = full.to(self.mesh.device_type)
+        local = local_shard(full, self.spec, dict(zip(names, self.mesh.shape)), coord)
+        return DTensor.from_local(local.contiguous(), self.mesh, self.placements,
+                                  run_check=False, shape=full.shape, stride=full.stride())
+
+
+@dataclass(frozen=True)
+class ShardingCtx:
+    mesh: Any  # a DeviceMesh, or an AbstractMesh for the arithmetic alone
+
+    @cached_property
+    def rules(self) -> dict[str, Any]:
+        return logical_to_mesh(self.mesh)
+
+    @cached_property
+    def axis_sizes(self) -> dict[str, int]:
+        return dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))
+
+    @property
+    def n_data(self) -> int:
+        n = self.axis_sizes.get("data", 1)
+        n *= self.axis_sizes.get("pod", 1)
+        return n
+
+    @property
+    def n_model(self) -> int:
+        return self.axis_sizes.get("model", 1)
+
+    @property
+    def batch_axes(self):
+        return self.rules["batch"]
+
+    def spec(self, *logical: str | None) -> P:
+        """Translate logical axis names into a PartitionSpec."""
+        return P(*(self.rules.get(l, None) for l in logical))
+
+    def sharding(self, *logical: str | None) -> Sharding:
+        return Sharding(self.mesh, self.spec(*logical))
+
+    def constrain(self, x, *logical: str | None):
+        """A DTensor redistributed to the logical axes' placements; a plain
+        tensor as it is (the JAX package's constraint is a no-op off-mesh)."""
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(x, DTensor):
+            return x.redistribute(x.device_mesh, self.sharding(*logical).placements)
+        return x
+
+    def replicated(self) -> Sharding:
+        return Sharding(self.mesh, P())
+
+    # -- the replicated driver's waves ------------------------------------------
+    @cached_property
+    def coordinate(self) -> dict[str, int]:
+        """This rank's index along each mesh axis."""
+        names = self.mesh.mesh_dim_names
+        if isinstance(self.mesh, AbstractMesh):
+            if int(np.prod(self.mesh.shape)) != 1:
+                raise ValueError(f"an AbstractMesh of shape {self.mesh.shape} has no ranks: "
+                                 "build a DeviceMesh (launch.mesh.make_mesh)")
+            return dict.fromkeys(names, 0)
+        return dict(zip(names, self.mesh.get_coordinate()))
+
+    @property
+    def batch_index(self) -> int:
+        """This rank's index over the batch axes, the first the slowest."""
+        index = 0
+        for n in self.batch_axes:
+            index = index * self.axis_sizes.get(n, 1) + self.coordinate.get(n, 0)
+        return index
+
+    def rows(self, n: int) -> slice:
+        """This rank's contiguous rows of a wave of `n` (a multiple of
+        `n_data`); ranks that differ only off the batch axes share them."""
+        return row_shard(n, self.batch_index, self.n_data)
+
+    @cached_property
+    def _gather_order(self) -> list[int]:
+        """The ranks whose rows make up a gathered wave, in row order: for
+        each batch index, the rank at index 0 of every other axis."""
+        ranks = self.mesh.mesh.cpu().numpy()
+        names = self.mesh.mesh_dim_names
+        index = tuple(slice(None) if n in self.batch_axes else 0 for n in names)
+        return [int(r) for r in ranks[index].reshape(-1)]
+
+    @cached_property
+    def _collective_lock(self):
+        # the fabric's collector thread and direct calls may both run waves
+        return named_lock("sharding.gather_rows")
+
+    def gather_rows(self, local: np.ndarray) -> np.ndarray:
+        """Every rank's `rows` of a wave, concatenated in row order on every
+        rank. The arrays are host arrays (a wave's outputs, a block's
+        samples), as the JAX package's `np.asarray` brings them to the host:
+        a `gloo` group gathers them on the host; an NCCL group, which has
+        only device collectives, through the rank's card."""
+        if self.n_data == 1:
+            return local
+        if dist.get_world_size() != self.mesh.size():
+            raise ValueError(f"the mesh has {self.mesh.size()} ranks, the process group "
+                             f"{dist.get_world_size()}")
+        backend = str(dist.get_backend())
+        on = torch.device("cpu") if "gloo" in backend else torch.device(
+            "cuda", torch.cuda.current_device())
+        t = torch.from_numpy(np.ascontiguousarray(local)).to(on)
+        with self._collective_lock:
+            parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+            dist.all_gather(parts, t)
+        return np.concatenate([parts[r].cpu().numpy() for r in self._gather_order], axis=0)
+
+
+def make_test_mesh(data: int = 1, model: int = 1, pod: int | None = None, **kw):
+    """Small mesh over the process group's ranks (the CPU tests: `gloo`
+    ranks, `backend="gloo", device="cpu"`); `kw` as `launch.mesh.make_mesh`."""
+    from repro_torch.launch.mesh import make_mesh
+
+    if pod is None:
+        return make_mesh((data, model), ("data", "model"), **kw)
+    return make_mesh((pod, data, model), ("pod", "data", "model"), **kw)
+
+
+def _child(node, key):
+    return None if node is None else node[key]
+
+
+def _tree_map(fn, tree, *rest, is_leaf=lambda x: False):
+    """`fn` over the leaves of `tree` (dicts, lists, tuples) and the
+    matching nodes of `rest` (None under a None node); None stays None."""
+    if tree is None:
+        return None
+    if is_leaf(tree):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return type(tree)((k, _tree_map(fn, v, *(_child(r, k) for r in rest), is_leaf=is_leaf))
+                          for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v, *(_child(r, i) for r in rest), is_leaf=is_leaf)
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_shardings(ctx: ShardingCtx, spec_tree):
+    """Map a tree of PartitionSpecs to Shardings."""
+    return _tree_map(lambda s: Sharding(ctx.mesh, s), spec_tree,
+                     is_leaf=lambda x: isinstance(x, P))
+
+
+def chain_carry_shardings(ctx: ShardingCtx, carry: dict, K: int) -> dict:
+    """Mesh shardings for a fused-sampler carry (`uq.fused`): leaves with a
+    leading chain axis of length `K` shard over the logical batch axes, the
+    same discipline the evaluate path applies to its [N, d] waves, while
+    scalars (step size, step counter) replicate. Keyed by the carry dict's
+    own structure so RWM ({xs, lps, acc}) and MALA ({... gs, eps, i}) both
+    resolve without a per-sampler spec table."""
+    batch = ctx.sharding("batch")
+    rep = ctx.replicated()
+    return {
+        k: batch if (hasattr(v, "ndim") and v.ndim >= 1 and v.shape[0] == K)
+        else rep
+        for k, v in carry.items()
+    }
+
+
+def sanitize_spec(spec: P, shape: Sequence[int], ctx: ShardingCtx) -> P:
+    """Drop mesh axes that do not divide the corresponding dimension
+    (e.g. kv_heads=8 cannot shard over model=16 -> replicate)."""
+    out = []
+    for i, ax in enumerate(spec):
+        if ax is None or i >= len(shape):
+            out.append(ax)
+            continue
+        prod = 1
+        for name in _names(ax):
+            prod *= ctx.axis_sizes.get(name, 1)
+        out.append(ax if shape[i] % prod == 0 else None)
+    return P(*out)
+
+
+def sanitized_shardings(ctx: ShardingCtx, abstract_tree, spec_tree):
+    """Shardings with per-leaf divisibility sanitization; a None spec stays
+    None (a leaf restored without a mesh)."""
+
+    def f(a, s):
+        return None if s is None else Sharding(ctx.mesh, sanitize_spec(s, a.shape, ctx))
+
+    return _tree_map(f, abstract_tree, spec_tree)
+
+
+def shard_size_bytes(shape: Sequence[int], dtype, spec: P, ctx: ShardingCtx) -> int:
+    """Per-device bytes of an array with the given spec (for napkin math)."""
+    size = _itemsize(dtype)
+    for dim in shape:
+        size *= dim
+    denom = 1
+    for ax in spec:
+        for name in _names(ax):
+            denom *= ctx.axis_sizes.get(name, 1)
+    return int(size // max(denom, 1))

@@ -24,7 +24,8 @@ non-finite loss is answered by a restore and not by a retry. A restore
 first waits for a checkpoint still being written on the save thread (the
 reference looks only at complete ones, and re-initializes when the newest
 is still in flight: at full width a checkpoint takes seconds to write).
-Elastic restarts onto another mesh wait for ROADMAP queue 1 item 14.
+Training on a mesh, and elastic restarts onto another one, wait for ROADMAP
+queue 1 item 14c.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """LM top level: init, parameter count, the loss and `train_step`, NLL and
 the serving steps `prefill_step`/`decode_step` (counterpart of
 `repro.models.model`). The dry-run input specs, built on the JAX package's
-mesh, wait for ROADMAP queue 1 item 14.
+mesh, wait for ROADMAP queue 1 item 14c.
 
 `train_step` takes the gradient with `torch.autograd` where the JAX package
 takes `jax.value_and_grad`, and updates the parameters and moments in place

@@ -7,7 +7,8 @@ layer dimension to every leaf. `tree_leaves`, `tree_leaves_with_path` and
 `tree_map` walk any tree of parameters, gradients or moments in
 `jax.tree.flatten`'s order (dict keys sorted), which the optimizer's sums
 and the checkpoint format follow. The JAX package's `PartitionSpec` per leaf is
-dropped: the port runs on one device (sharding is ROADMAP queue 1, item 14).
+dropped: the port's LM runs on one device (its layout on a mesh is ROADMAP
+queue 1, item 14c).
 
 The initial distributions are the JAX package's, but torch's generator
 draws other numbers than `jax.random`: the parity tests carry weights across

@@ -15,7 +15,8 @@ returns the same trees, where the JAX package returns new ones and donates
 the old buffers to its jitted step (`repro/launch/train.py:56`): either way
 the inputs are consumed, so a step that fails after the update restores
 from a checkpoint (`launch.train`). The mesh specs (`adamw_init_abstract`,
-`opt_state_specs`) wait for ROADMAP queue 1 item 14.
+`opt_state_specs`) wait for the LM's layout on the mesh, ROADMAP queue 1
+item 14c.
 """
 from __future__ import annotations
 

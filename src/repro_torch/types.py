@@ -2,9 +2,9 @@
 
 `ModelConfig` describes one LM-family architecture; the config files under
 `repro_torch.configs` copy the JAX package's values verbatim, as
-`ShapeConfig`, `SHAPES` and `TrainConfig` copy theirs. The mesh and the TPU
-hardware constants (`MeshConfig`, `HardwareSpec`) are not ported: one card
-has no mesh (ROADMAP queue 1, item 14).
+`ShapeConfig`, `SHAPES`, `MeshConfig` and `TrainConfig` copy theirs. The
+TPU hardware constants (`HardwareSpec`) wait for an H100 counterpart beside
+them (ROADMAP queue 1, item 14c).
 """
 from __future__ import annotations
 
@@ -259,6 +259,28 @@ SHAPES: dict[str, ShapeConfig] = {
     "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Production mesh description (single pod: 16x16; multi-pod: 2x16x16)."""
+
+    multi_pod: bool = False
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return (2, 16, 16) if self.multi_pod else (16, 16)
+
+    @property
+    def axes(self) -> tuple[str, ...]:
+        return ("pod", "data", "model") if self.multi_pod else ("data", "model")
+
+    @property
+    def n_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
 
 
 @dataclass

@@ -40,8 +40,24 @@ generator's device type in the meta, so a killed campaign resumed with the
 same block size replays the identical stream — bit-exact, not just
 statistically indistinguishable.
 
-There is no mesh on one card: `ctx=` raises (ROADMAP queue 1, item 14), and
-without one the JAX package pads no chains either, so no lane is masked.
+On a device mesh (`ctx=`, a `distributed.sharding.ShardingCtx`, the driver
+replicated on every rank) the chains are padded to `max(next_pow2(K),
+ctx.n_data)` (rounded up to an `n_data` multiple), the last start repeated,
+as the JAX package's `_pad_chains` pads them; a padding lane always rejects
+and is dropped from the result. Each rank keeps its contiguous rows of the
+carry and captures its own block as one CUDA graph. Every Philox array is
+drawn at its GLOBAL shape [Kp, ...] and the rank keeps its rows, so a
+sharded run equals a one-rank run with the same Kp bit for bit wherever
+the target's rows are independent of the wave's width (the tsunami's
+lanes; a row-wise Gaussian). The block's samples are gathered to every
+rank at its one host pull (`ShardingCtx.gather_rows`; no collective enters
+a captured body), and rank 0 writes the checkpoints, the carry gathered,
+so a run resumes on any mesh whose padding gives the same Kp. Fused MALA's
+step-size adaptation pools the acceptance over every chain each step: on a
+mesh of more than one batch rank, with `adapt_steps > 0`, each step gathers
+the ranks' counts on the host, so that block runs eagerly instead of as a
+graph. Without a mesh no chain is padded.
+
 The host numpy loops in `uq.mcmc` remain the reference implementation and
 the only path for non-tensor backends (HTTP models, subprocess fleets); the
 `ensemble_*` entry points there expose this module as ``fused_steps=S``.
@@ -50,13 +66,16 @@ from __future__ import annotations
 
 import threading
 from collections import OrderedDict
+from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.analysis.races import named_lock
 from repro_torch.core.device import CAPTURE_LOCK
+from repro_torch.core.interface import next_pow2, pad_to_bucket
 from repro_torch.kernels import launches
 from repro_torch.uq.mcmc import EnsembleResult
 
@@ -193,29 +212,62 @@ def _value_and_grad_rows(logpost_fn: Callable) -> Callable:
 # ---------------------------------------------------------------------------
 
 
-def _normal(gen: torch.Generator, like: torch.Tensor) -> torch.Tensor:
-    return torch.randn(like.shape, generator=gen, dtype=like.dtype, device=like.device)
+@dataclass(frozen=True)
+class _Lanes:
+    """The chains of a run: `Kp` lanes, the first `K` real and the rest
+    padding, and this rank's contiguous rows `lo:hi` of them. Random
+    arrays are drawn for all `Kp` lanes and cut to the rank's rows, so a
+    rank's stream position is the same whatever the mesh."""
+
+    K: int
+    Kp: int
+    lo: int
+    hi: int
+
+    @classmethod
+    def whole(cls, K: int) -> "_Lanes":
+        return cls(K, K, 0, K)
+
+    def mine(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's rows of a [Kp, ...] array."""
+        return x if (self.lo, self.hi) == (0, self.Kp) else x[self.lo:self.hi]
+
+    def active(self, device) -> torch.Tensor | None:
+        """Which of the rank's rows are real chains (None: all of them),
+        made eagerly, so that a captured body finds it on the device."""
+        if self.K == self.Kp:
+            return None
+        return torch.arange(self.lo, self.hi, device=device) < self.K
 
 
-def _log_uniform(gen: torch.Generator, like: torch.Tensor) -> torch.Tensor:
-    return torch.log(torch.rand(like.shape, generator=gen, dtype=like.dtype,
-                                device=like.device))
+def _normal(gen: torch.Generator, like: torch.Tensor, lanes: _Lanes) -> torch.Tensor:
+    """Standard normals for all Kp lanes of `like`'s [K, ...] rows."""
+    return torch.randn((lanes.Kp, *like.shape[1:]), generator=gen, dtype=like.dtype,
+                       device=like.device)
 
 
-def _accept(log_alpha: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
-    """Metropolis test: a NaN ratio rejects (-inf)."""
+def _log_uniform(gen: torch.Generator, like: torch.Tensor, lanes: _Lanes) -> torch.Tensor:
+    return torch.log(torch.rand((lanes.Kp, *like.shape[1:]), generator=gen,
+                                dtype=like.dtype, device=like.device))
+
+
+def _accept(log_alpha: torch.Tensor, gen: torch.Generator, lanes: _Lanes,
+            active: torch.Tensor | None) -> torch.Tensor:
+    """Metropolis test: a NaN ratio rejects (-inf), a padding lane always."""
     log_alpha = torch.where(torch.isnan(log_alpha), -torch.inf, log_alpha)
-    return _log_uniform(gen, log_alpha) < log_alpha
+    accept = lanes.mine(_log_uniform(gen, log_alpha, lanes)) < log_alpha
+    return accept if active is None else accept & active
 
 
-def _rwm_step(logpost_fn, L, device):
+def _rwm_step(logpost_fn, L, device, lanes: _Lanes):
     (Lt,) = _per_device(np.asarray(L, float).T)(device)
+    active = lanes.active(device)
 
     def step(carry, gen):
         xs, lps = carry["xs"], carry["lps"]
-        props = xs + _normal(gen, xs) @ Lt
+        props = xs + lanes.mine(_normal(gen, xs, lanes) @ Lt)
         lp_props = logpost_fn(props)
-        accept = _accept(lp_props - lps, gen)
+        accept = _accept(lp_props - lps, gen, lanes, active)
         xs = torch.where(accept[:, None], props, xs)
         lps = torch.where(accept, lp_props, lps)
         out = {"xs": xs, "lps": lps, "acc": carry["acc"] + accept.to(lps.dtype)}
@@ -224,16 +276,17 @@ def _rwm_step(logpost_fn, L, device):
     return step
 
 
-def _pcn_step(loglik_fn, prior_chol, beta, device):
+def _pcn_step(loglik_fn, prior_chol, beta, device, lanes: _Lanes):
     (L0t,) = _per_device(np.asarray(prior_chol, float).T)(device)
     beta = float(beta)
     root = float(np.sqrt(1.0 - beta**2))
+    active = lanes.active(device)
 
     def step(carry, gen):
         xs, lls = carry["xs"], carry["lps"]
-        props = root * xs + beta * (_normal(gen, xs) @ L0t)
+        props = root * xs + beta * lanes.mine(_normal(gen, xs, lanes) @ L0t)
         ll_props = loglik_fn(props)
-        accept = _accept(ll_props - lls, gen)
+        accept = _accept(ll_props - lls, gen, lanes, active)
         xs = torch.where(accept[:, None], props, xs)
         lls = torch.where(accept, ll_props, lls)
         out = {"xs": xs, "lps": lls, "acc": carry["acc"] + accept.to(lls.dtype)}
@@ -242,10 +295,14 @@ def _pcn_step(loglik_fn, prior_chol, beta, device):
     return step
 
 
-def _mala_step(logpost_fn, C, L, Cinv, adapt_steps, target_accept, device):
+def _mala_step(logpost_fn, C, L, Cinv, adapt_steps, target_accept, device, lanes: _Lanes,
+               ctx=None):
+    """`ctx`: the mesh whose batch ranks hold the other chains, whose
+    acceptances the step-size adaptation pools (a host gather a step)."""
     value_grad = _value_and_grad_rows(logpost_fn)
     Ct, Lt, Cinv = _per_device(np.asarray(C, float).T, np.asarray(L, float).T,
                                Cinv)(device)
+    active = lanes.active(device)
 
     def _logq(diff_minus_drift, eps):
         return -0.5 / eps**2 * torch.einsum(
@@ -255,17 +312,22 @@ def _mala_step(logpost_fn, C, L, Cinv, adapt_steps, target_accept, device):
     def step(carry, gen):
         xs, lps, gs, eps, i = (carry[k] for k in ("xs", "lps", "gs", "eps", "i"))
         drift = 0.5 * eps**2 * gs @ Ct
-        props = xs + drift + eps * _normal(gen, xs) @ Lt
+        props = xs + drift + lanes.mine(eps * _normal(gen, xs, lanes) @ Lt)
         lp_props, g_props = value_grad(props)
         drift_rev = 0.5 * eps**2 * g_props @ Ct
         log_q_fwd = _logq(props - xs - drift, eps)
         log_q_rev = _logq(xs - props - drift_rev, eps)
-        accept = _accept((lp_props - lps) + (log_q_rev - log_q_fwd), gen)
+        accept = _accept((lp_props - lps) + (log_q_rev - log_q_fwd), gen, lanes, active)
         xs = torch.where(accept[:, None], props, xs)
         lps = torch.where(accept, lp_props, lps)
         gs = torch.where(accept[:, None], g_props, gs)
-        # Robbins-Monro on eps, acceptance pooled over the K chains
-        pooled = accept.to(lps.dtype).mean()
+        # Robbins-Monro on eps, acceptance pooled over the K real chains
+        # (padding lanes always reject and would bias the rate down)
+        accepted = accept.to(lps.dtype).sum()
+        if ctx is not None:
+            counts = ctx.gather_rows(accepted.reshape(1).cpu().numpy())
+            accepted = torch.as_tensor(counts.sum(), dtype=lps.dtype, device=lps.device)
+        pooled = accepted / lanes.K
         eps = torch.where(
             i < adapt_steps,
             eps * torch.exp((i + 1.0) ** -0.6 * (pooled - target_accept)),
@@ -298,15 +360,17 @@ class _Block:
     registered in it; `load` copies the start state into the graph's static
     inputs and the caller's generator state into the graph's generator, and
     each `run` is one replay plus one device→host copy. The graph writes
-    its final state back into its inputs, so replays chain. On the CPU the
-    body runs eagerly on the caller's generator."""
+    its final state back into its inputs, so replays chain. On the CPU, and
+    with `capture=False` (a step that gathers across ranks: no collective
+    enters a captured body), the body runs eagerly on the caller's
+    generator."""
 
-    def __init__(self, step, carry: dict, S: int):
+    def __init__(self, step, carry: dict, S: int, capture: bool = True):
         self.step, self.S = step, S
         self.device = carry["xs"].device
         self.lock = threading.Lock()  # one run at a time on the static buffers
         self.graph = None
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and capture:
             self._capture(carry)
 
     def _body(self, carry: dict, gen) -> tuple[dict, torch.Tensor]:
@@ -389,6 +453,7 @@ def _run_fused(
     carry: dict,
     key: torch.Generator,
     *,
+    lanes: _Lanes,
     n_steps: int,
     fused_steps: int,
     per_step: bool = False,
@@ -397,21 +462,20 @@ def _run_fused(
     checkpoint=None,
     checkpoint_every: int = 0,
     scalar_keys: tuple = (),
+    capture: bool = True,
 ):
-    """Drive `n_steps` of `step_fn` in blocks of `fused_steps`.
+    """Drive `n_steps` of `step_fn` in blocks of `fused_steps` (`capture`:
+    as `_Block`'s).
 
-    Returns (samples [K, n, d], lps_out [K, n] as host numpy, final carry,
-    n_blocks); `key` ends where the stream ends. ``per_step=True`` runs
-    the SAME body with S=1 once per step with a host round trip in between
-    — the per-step reference both the benchmark and the S=1 bit-exactness
-    test compare against. Checkpoints land at block boundaries (effective
-    interval: `checkpoint_every` rounded down to a block multiple) with the
-    generator state, so resume replays the identical stream."""
-    if ctx is not None:
-        raise NotImplementedError(
-            "fused samplers on a device mesh (ctx=) are not ported; one card "
-            "has no mesh: ROADMAP queue 1, item 14"
-        )
+    Returns (samples [Kp, n, d], lps_out [Kp, n] as host numpy, final carry
+    of this rank's rows, n_blocks); `key` ends where the stream ends.
+    ``per_step=True`` runs the SAME body with S=1 once per step with a host
+    round trip in between — the per-step reference both the benchmark and
+    the S=1 bit-exactness test compare against. Checkpoints land at block
+    boundaries (effective interval: `checkpoint_every` rounded down to a
+    block multiple) with the generator state, so resume replays the
+    identical stream; on a mesh rank 0 writes them, every chain's rows
+    gathered."""
     S = 1 if per_step else int(fused_steps)
     if S < 1:
         raise ValueError(f"fused_steps must be >= 1, got {S}")
@@ -419,10 +483,14 @@ def _run_fused(
         raise ValueError(f"n_steps={n_steps} not a multiple of fused_steps={S}")
     n_blocks = n_steps // S
     K, d = carry["xs"].shape
+    Kp = lanes.Kp
     device = carry["xs"].device
 
-    samples = np.empty((K, n_steps, d))
-    lps_out = np.empty((K, n_steps))
+    def gathered(rows: np.ndarray) -> np.ndarray:
+        return rows if ctx is None else ctx.gather_rows(rows)
+
+    samples = np.empty((Kp, n_steps, d))
+    lps_out = np.empty((Kp, n_steps))
     start_block = 0
     gen = key
     resumed = checkpoint.resume() if checkpoint is not None else None
@@ -435,23 +503,27 @@ def _run_fused(
         if meta["key_device"] != device.type:
             raise ValueError(f"the checkpoint's generator was on {meta['key_device']}, "
                              f"this run's chains are on {device}")
+        if len(arrays["samples"]) != Kp:
+            raise ValueError(f"the checkpoint holds {len(arrays['samples'])} chains, this "
+                             f"run pads to {Kp}")
         gen = CampaignCheckpoint.unpack_key(arrays["rng_key"], device)
-        carry = {k: torch.as_tensor(arrays[k]).to(device=device, dtype=v.dtype)
-                 for k, v in carry.items()}
+        carry = {k: torch.as_tensor(arrays[k][lanes.lo:lanes.hi] if v.ndim else arrays[k])
+                 .to(device=device, dtype=v.dtype) for k, v in carry.items()}
         samples[:, :done] = arrays["samples"]
         lps_out[:, :done] = arrays["lps_out"]
 
     # memoized on the (already memoized) step closure: a repeat call with
     # the same sampler config reuses the captured S-step graph
-    block = _memo(("block", step_fn, S, K, device), lambda: _Block(step_fn, carry, S))
+    block = _memo(("block", step_fn, S, K, device), lambda: _Block(step_fn, carry, S, capture))
     every_blocks = max(1, checkpoint_every // S) if checkpoint_every else 0
+    writes = ctx is None or not dist.is_initialized() or dist.get_rank() == 0
     with block.lock:
         block.load(carry, gen)
         for b in range(start_block, n_blocks):
-            out = block.run()
+            out = gathered(np.moveaxis(block.run(), 0, 1))  # [Kp, S, d + 1]
             lo = b * S
-            samples[:, lo:lo + S] = np.moveaxis(out[:, :, :d], 0, 1)
-            lps_out[:, lo:lo + S] = out[:, :, d].T
+            samples[:, lo:lo + S] = out[:, :, :d]
+            lps_out[:, lo:lo + S] = out[:, :, d]
             if telemetry is not None:
                 telemetry.note_steps(S, waves=1)
                 # service-tier campaigns meter device-resident work through
@@ -465,26 +537,50 @@ def _run_fused(
 
                 done = (b + 1) * S
                 now = block.carry()
-                arrays = {k: v.cpu().numpy() for k, v in now.items()}
-                arrays["rng_key"] = CampaignCheckpoint.pack_key(block.key())
-                arrays["samples"] = samples[:, :done].copy()
-                arrays["lps_out"] = lps_out[:, :done].copy()
-                checkpoint.save(done, arrays, {
-                    "steps_done": done, "fused_steps": S,
-                    "key_device": device.type,
-                    **{k: float(now[k]) for k in scalar_keys},
-                })
+                # every rank takes part in the gathers; rank 0 writes
+                arrays = {k: gathered(v.cpu().numpy()) if v.ndim else v.cpu().numpy()
+                          for k, v in now.items()}
+                if writes:
+                    arrays["rng_key"] = CampaignCheckpoint.pack_key(block.key())
+                    arrays["samples"] = samples[:, :done].copy()
+                    arrays["lps_out"] = lps_out[:, :done].copy()
+                    checkpoint.save(done, arrays, {
+                        "steps_done": done, "fused_steps": S,
+                        "key_device": device.type,
+                        **{k: float(now[k]) for k in scalar_keys},
+                    })
         carry = block.finish()
     if gen is not key:
         key.set_state(gen.get_state())
     return samples, lps_out, carry, n_blocks
 
 
-def _init_carry(x0s, key: torch.Generator) -> torch.Tensor:
-    """The chains' start states on the generator's device, in the carry
-    dtype."""
+def _init_carry(x0s, key: torch.Generator, ctx) -> tuple[torch.Tensor, _Lanes]:
+    """(this rank's start states on the generator's device, in the carry
+    dtype; the run's lanes). On a mesh the K starts are padded to
+    `max(next_pow2(K), n_data)`, rounded up to an `n_data` multiple, the
+    last start repeated (the JAX package's `_pad_chains`), and split over
+    the batch axes."""
     x0s = np.atleast_2d(np.asarray(x0s, float))
-    return torch.as_tensor(x0s, dtype=_f(), device=key.device)
+    K = len(x0s)
+    lanes = _Lanes.whole(K)
+    if ctx is not None:
+        Kp = max(next_pow2(K), ctx.n_data)
+        x0s, _ = pad_to_bucket(x0s, Kp + (-Kp) % ctx.n_data)
+        rows = ctx.rows(len(x0s))
+        lanes = _Lanes(K, len(x0s), rows.start, rows.stop)
+        x0s = x0s[rows]
+    return torch.as_tensor(x0s, dtype=_f(), device=key.device), lanes
+
+
+def _result(samples, lps_out, carry, n_blocks, lanes: _Lanes, ctx, n_steps: int, **kw):
+    """The runners' EnsembleResult: the K real chains of the gathered run."""
+    acc = carry["acc"].cpu().numpy()
+    if ctx is not None:
+        acc = ctx.gather_rows(acc)
+    K = lanes.K
+    return EnsembleResult(samples[:K], lps_out[:K], acc[:K] / n_steps, K * (n_steps + 1),
+                          n_blocks + 1, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -508,22 +604,18 @@ def fused_ensemble_rwm(
 ) -> EnsembleResult:
     """K lockstep RWM chains, S steps per device dispatch, on `key`'s
     device; `key` advances by what the run draws, as a numpy Generator
-    does."""
-    xs = _init_carry(x0s, key)
-    K = len(xs)
+    does. `ctx`: split the chains over a mesh's batch axes."""
+    xs, lanes = _init_carry(x0s, key, ctx)
     L = np.linalg.cholesky(np.atleast_2d(prop_cov))
-    step = _memo(("rwm", logpost_fn, L.tobytes(), K, xs.device, xs.dtype),
-                 lambda: _rwm_step(logpost_fn, L, xs.device))
+    step = _memo(("rwm", logpost_fn, L.tobytes(), lanes, xs.device, xs.dtype),
+                 lambda: _rwm_step(logpost_fn, L, xs.device, lanes))
     carry = {"xs": xs, "lps": logpost_fn(xs), "acc": torch.zeros_like(xs[:, 0])}
     samples, lps_out, carry, n_blocks = _run_fused(
-        step, carry, key, n_steps=n_steps, fused_steps=fused_steps,
+        step, carry, key, lanes=lanes, n_steps=n_steps, fused_steps=fused_steps,
         per_step=per_step, ctx=ctx, telemetry=telemetry,
         checkpoint=checkpoint, checkpoint_every=checkpoint_every,
     )
-    acc = carry["acc"].cpu().numpy()
-    return EnsembleResult(
-        samples, lps_out, acc / n_steps, K * (n_steps + 1), n_blocks + 1,
-    )
+    return _result(samples, lps_out, carry, n_blocks, lanes, ctx, n_steps)
 
 
 def fused_ensemble_pcn(
@@ -543,21 +635,18 @@ def fused_ensemble_pcn(
 ) -> EnsembleResult:
     """K lockstep pCN chains (centered Gaussian prior with Cholesky factor
     `prior_chol`, default I), S steps per device dispatch."""
-    xs = _init_carry(x0s, key)
-    K, d = xs.shape
+    xs, lanes = _init_carry(x0s, key, ctx)
+    d = xs.shape[1]
     L0 = np.eye(d) if prior_chol is None else np.atleast_2d(prior_chol)
-    step = _memo(("pcn", loglik_fn, L0.tobytes(), float(beta), K, xs.device, xs.dtype),
-                 lambda: _pcn_step(loglik_fn, L0, beta, xs.device))
+    step = _memo(("pcn", loglik_fn, L0.tobytes(), float(beta), lanes, xs.device, xs.dtype),
+                 lambda: _pcn_step(loglik_fn, L0, beta, xs.device, lanes))
     carry = {"xs": xs, "lps": loglik_fn(xs), "acc": torch.zeros_like(xs[:, 0])}
     samples, lps_out, carry, n_blocks = _run_fused(
-        step, carry, key, n_steps=n_steps, fused_steps=fused_steps,
+        step, carry, key, lanes=lanes, n_steps=n_steps, fused_steps=fused_steps,
         per_step=per_step, ctx=ctx, telemetry=telemetry,
         checkpoint=checkpoint, checkpoint_every=checkpoint_every,
     )
-    acc = carry["acc"].cpu().numpy()
-    return EnsembleResult(
-        samples, lps_out, acc / n_steps, K * (n_steps + 1), n_blocks + 1,
-    )
+    return _result(samples, lps_out, carry, n_blocks, lanes, ctx, n_steps)
 
 
 def fused_ensemble_mala(
@@ -581,17 +670,20 @@ def fused_ensemble_mala(
     come from ONE backward pass of the log-posterior per step (block-
     diagonal Jacobian, see `_value_and_grad_rows`; the target must be one
     autograd differentiates), and Robbins-Monro step-size adaptation runs
-    inside the block on the pooled acceptance rate."""
-    xs = _init_carry(x0s, key)
-    K, d = xs.shape
+    inside the block on the acceptance rate pooled over the K chains (on a
+    mesh of several batch ranks a host gather a step, the block eager: see
+    the module docstring)."""
+    xs, lanes = _init_carry(x0s, key, ctx)
+    pool_ctx = ctx if ctx is not None and ctx.n_data > 1 and adapt_steps > 0 else None
+    d = xs.shape[1]
     C = np.eye(d) if precond is None else np.atleast_2d(np.asarray(precond, float))
     L = np.linalg.cholesky(C)
     Cinv = np.linalg.inv(C)
     step = _memo(
         ("mala", logpost_fn, C.tobytes(), int(adapt_steps),
-         float(target_accept), K, xs.device, xs.dtype),
+         float(target_accept), lanes, pool_ctx, xs.device, xs.dtype),
         lambda: _mala_step(logpost_fn, C, L, Cinv, int(adapt_steps),
-                           float(target_accept), xs.device))
+                           float(target_accept), xs.device, lanes, pool_ctx))
     lps0, gs0 = _value_and_grad_rows(logpost_fn)(xs)
     carry = {
         "xs": xs, "lps": lps0, "gs": gs0, "acc": torch.zeros_like(xs[:, 0]),
@@ -599,17 +691,13 @@ def fused_ensemble_mala(
         "i": torch.tensor(0, dtype=torch.int32, device=xs.device),
     }
     samples, lps_out, carry, n_blocks = _run_fused(
-        step, carry, key, n_steps=n_steps, fused_steps=fused_steps,
+        step, carry, key, lanes=lanes, n_steps=n_steps, fused_steps=fused_steps,
         per_step=per_step, ctx=ctx, telemetry=telemetry,
         checkpoint=checkpoint, checkpoint_every=checkpoint_every,
-        scalar_keys=("eps",),
+        scalar_keys=("eps",), capture=pool_ctx is None,
     )
-    acc = carry["acc"].cpu().numpy()
-    return EnsembleResult(
-        samples, lps_out, acc / n_steps, K * (n_steps + 1), n_blocks + 1,
-        n_grad_waves=n_blocks + 1,
-        final_step_size=float(carry["eps"]),
-    )
+    return _result(samples, lps_out, carry, n_blocks, lanes, ctx, n_steps,
+                   n_grad_waves=n_blocks + 1, final_step_size=float(carry["eps"]))
 
 
 def make_fused_rwm_subchain(
@@ -629,13 +717,13 @@ def make_fused_rwm_subchain(
     blocks: dict = {}
 
     def run(xs, key: torch.Generator):
-        xs = _init_carry(xs, key)
+        xs, lanes = _init_carry(xs, key, None)
         lps = logpost_fn(xs)
         carry = {"xs": xs, "lps": lps, "acc": torch.zeros_like(lps)}
         where = (len(xs), xs.device)
         block = blocks.get(where)
         if block is None:
-            step = _rwm_step(logpost_fn, prop_chol, xs.device)
+            step = _rwm_step(logpost_fn, prop_chol, xs.device, lanes)
             block = blocks[where] = _Block(step, carry, int(n_sub))
         with block.lock:
             block.load(carry, key)

@@ -1,0 +1,221 @@
+"""Multi-rank harness of the port's mesh tests (tests/test_torch_mesh.py
+and the `ctx=` tests of test_torch_pool.py, test_torch_mlda.py and
+test_torch_checkpoint.py).
+
+`run_ranks(world, scenario, tmp_path, timeout_s=..., **kw)` starts `world`
+`gloo` ranks on the CPU with `torch.multiprocessing` (spawn: the test
+process has JAX loaded and threads running), each joining one process
+group through a `FileStore` in a fresh directory under `tmp_path` (never a
+fixed TCP port: the suite runs under xdist), and runs the function
+`scenario` of this module on every rank as ``scenario(rank, **kw)``. It
+returns every rank's result, in rank order. A rank that raises, or a run
+that outlasts `timeout_s` (a collective that hangs), fails the test with
+the rank's traceback; every process is gone when it returns.
+
+`one_rank_mesh()` is the in-process counterpart: a world of one `gloo` rank
+and its 1x1 CPU mesh as a `ShardingCtx`, torn down on exit.
+
+The scenarios import torch, numpy and the port only, never JAX: what a test
+compares them with, it computes in the test process and passes as numpy.
+"""
+from __future__ import annotations
+
+import contextlib
+import pickle
+import time
+import traceback
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.multiprocessing as mp
+
+#: the reduced tsunami of the port's hierarchy tests (64 / 128 cells)
+N_CELLS = {0: 64, 1: 128}
+
+
+def run_ranks(world: int, scenario: str, tmp_path: Path, *, timeout_s: float = 120.0,
+              **kw) -> list:
+    where = Path(tmp_path) / f"ranks_{scenario}_{world}"
+    where.mkdir(parents=True)
+    spawn = mp.get_context("spawn")
+    procs = [spawn.Process(target=_rank_main, args=(r, world, str(where), scenario, kw),
+                           daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout_s
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    errors = {r: (where / f"rank{r}.err").read_text() for r in range(world)
+              if (where / f"rank{r}.err").exists()}
+    if errors:
+        raise AssertionError("\n".join(f"rank {r} of {world} raised:\n{tb}"
+                                       for r, tb in errors.items()))
+    if hung:
+        raise AssertionError(f"ranks {hung} of {world} ran past {timeout_s} s ({scenario})")
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise AssertionError(f"{scenario}: exit codes {codes}")
+    return [pickle.loads((where / f"rank{r}.pkl").read_bytes()) for r in range(world)]
+
+
+def _rank_main(rank: int, world: int, where: str, scenario: str, kw: dict) -> None:
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import destroy_ranks, init_ranks
+
+    torch.set_num_threads(1)  # a batched solve hangs with more (verify skill)
+    try:
+        init_ranks("gloo", rank=rank, world_size=world, timeout_s=60.0,
+                   store=dist.FileStore(str(Path(where) / "store"), world))
+        out = globals()[scenario](rank, **kw)
+        (Path(where) / f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
+    except BaseException:
+        (Path(where) / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        destroy_ranks()
+
+
+def _mesh(shape, axes=("data", "model")):
+    from repro_torch.distributed.sharding import ShardingCtx
+    from repro_torch.launch.mesh import make_mesh
+
+    return ShardingCtx(make_mesh(shape, axes, backend="gloo", device="cpu"))
+
+
+@contextlib.contextmanager
+def one_rank_mesh():
+    """A `ShardingCtx` over a 1x1 CPU mesh of this process alone."""
+    from repro_torch.launch.mesh import destroy_ranks
+
+    try:
+        yield _mesh((1, 1))
+    finally:
+        destroy_ranks()
+
+
+# -- what the ranks run ---------------------------------------------------------
+
+
+def quad(th):
+    return torch.stack([torch.sum(th ** 2), th[0] * th[1]])
+
+
+def tsunami_model():
+    """The port's TsunamiModel on the CPU at the reduced levels."""
+    from repro_torch.apps import tsunami
+
+    model = tsunami.TsunamiModel(device="cpu")
+    model.N_CELLS = N_CELLS
+    return model
+
+
+def pool_waves(ctx, waves: dict) -> dict:
+    """Each named wave (quad: [N, 2]; tsunami levels: [N, 2] sources)
+    through `ModelPool(model, ctx)`: (outputs, the pool's stats)."""
+    from repro_torch.core.interface import TorchModel
+    from repro_torch.core.pool import ModelPool
+
+    out = {}
+    quad_pool = ModelPool(TorchModel(quad, 2, 2, device="cpu"), ctx=ctx)
+    tsunami_pool = ModelPool(tsunami_model(), ctx=ctx)
+    for name, thetas in waves.items():
+        if name.startswith("quad"):
+            out[name] = quad_pool.evaluate(thetas)
+        else:
+            out[name] = tsunami_pool.evaluate(thetas, {"level": int(name[-1])})
+    out["quad_stats"] = dict(quad_pool.stats)
+    out["n_instances"] = quad_pool.n_instances
+    return out
+
+
+def fused_rwm(ctx, x0s, n_steps: int, S: int, seed: int, per_step: bool = False,
+              checkpoint_dir: str | None = None):
+    """A fused RWM over a row-wise Gaussian target on the CPU: (samples,
+    logposts, accept rates)."""
+    from repro_torch.core.fleet import CampaignCheckpoint
+    from repro_torch.uq.fused import fused_ensemble_rwm, gaussian_target
+
+    d = x0s.shape[1]
+    ckpt = None if checkpoint_dir is None else CampaignCheckpoint(checkpoint_dir, keep_last=8)
+    res = fused_ensemble_rwm(gaussian_target(np.linspace(-1.0, 1.0, d)), x0s, n_steps,
+                             0.5 * np.eye(d), torch.Generator().manual_seed(seed),
+                             fused_steps=S, per_step=per_step, ctx=ctx, checkpoint=ckpt,
+                             checkpoint_every=S if ckpt is not None else 0)
+    return res.samples, res.logposts, res.accept_rates
+
+
+def fused_mala(ctx, x0s, n_steps: int, S: int, seed: int):
+    """A fused MALA with step-size adaptation over the whole run, on a
+    correlated Gaussian: (samples, logposts, final step size)."""
+    from repro_torch.uq.fused import fused_ensemble_mala, gaussian_target
+
+    d = x0s.shape[1]
+    cov = 0.5 * np.eye(d) + 0.25
+    res = fused_ensemble_mala(gaussian_target(np.zeros(d), cov), x0s, n_steps, 0.8,
+                              torch.Generator().manual_seed(seed), fused_steps=S,
+                              adapt_steps=n_steps, precond=cov, ctx=ctx)
+    return res.samples, res.logposts, res.final_step_size
+
+
+def lm_nlls(ctx, arch: str, params: dict, batch: dict, thetas) -> np.ndarray:
+    """The reduced LMUQModel on carried weights, `ctx=`: its wave's NLLs."""
+    from repro_torch.apps.lm_model import LMUQModel
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_numpy
+
+    weights = lm_params_from_numpy(get_config(arch, True), params, "cpu")
+    lm = LMUQModel(arch, reduced=True, device="cpu", params=weights, batch=batch, ctx=ctx)
+    return lm.evaluate_batch(thetas)
+
+
+def restore_sharded(ctx, directory: str, like: dict, specs: dict) -> dict:
+    """`restore(like, shardings=sanitized_shardings(ctx, like, specs))`:
+    each leaf's full tensor, local shape and placements (a leaf without a
+    spec: its value and type)."""
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.distributed.sharding import sanitized_shardings
+
+    got, step = CheckpointManager(directory).restore(
+        like, shardings=sanitized_shardings(ctx, like, specs), device="cpu")
+    out = {"step": step}
+    for k, v in got.items():
+        if specs.get(k) is None:
+            out[k] = (type(v).__name__, v.numpy())
+        else:
+            out[k] = (v.full_tensor().numpy(), tuple(v.to_local().shape),
+                      tuple(repr(p) for p in v.placements))
+    return out
+
+
+def two_rank_suite(rank: int, *, waves, fused, lm, restore, checkpoint_dir) -> dict:
+    """Everything the 2-rank tests check, in one process group: the pool's
+    waves on a 2x1 mesh, the fused RWM (fused, per step, and with a
+    checkpoint every block, written by rank 0), the fused MALA with its
+    step-size adaptation, the LM's wave and a restore onto the same mesh."""
+    ctx = _mesh((2, 1))
+    out = {"rows": ctx.rows(4), "pool": pool_waves(ctx, waves)}
+    out["fused"] = fused_rwm(ctx, **fused)
+    out["per_step"] = fused_rwm(ctx, **{**fused, "per_step": True})
+    out["checkpointed"] = fused_rwm(ctx, **fused, checkpoint_dir=checkpoint_dir)
+    out["mala"] = fused_mala(ctx, **fused)
+    out["lm"] = lm_nlls(ctx, **lm)
+    out["restore"] = restore_sharded(ctx, **restore)
+    return out
+
+
+def four_rank_suite(rank: int, *, waves, restore) -> dict:
+    """The pool's waves on a 4x1 mesh and on a 2x2 mesh (two model-axis
+    replicas of each row shard), and a restore onto the 2x2 mesh."""
+    ctx41, ctx22 = _mesh((4, 1)), _mesh((2, 2))
+    return {"pool41": pool_waves(ctx41, waves), "pool22": pool_waves(ctx22, waves),
+            "restore": restore_sharded(ctx22, **restore),
+            "coordinate": ctx22.coordinate, "batch_index": ctx22.batch_index}

@@ -21,6 +21,8 @@ import repro_torch.core.fabric as fabric
 import repro_torch.core.fleet as fleet
 import repro_torch.distributed.checkpoint as checkpoint
 import repro_torch.uq.mlda as mlda
+from _torch_mesh import one_rank_mesh
+from repro_torch.distributed.sharding import P, Sharding
 
 
 def _state():
@@ -90,10 +92,23 @@ def test_jax_checkpoint_restores_in_port(tmp_path):
 
 
 def test_restore_defaults_to_the_card_and_refuses_shardings(tmp_path):
+    """No silent CPU default; and `shardings=` re-shards onto a mesh (here
+    the 1x1 CPU mesh of this process: a DTensor of the saved array, and a
+    leaf whose sharding is None as without `shardings=`; across ranks:
+    tests/test_torch_mesh.py)."""
     port = checkpoint.CheckpointManager(str(tmp_path))
     port.save(1, {"x": np.zeros(2)})
-    with pytest.raises(NotImplementedError, match="queue 1, item 14"):
-        port.restore({"x": np.zeros(2)}, shardings={"x": None})
+    on_mesh = checkpoint.CheckpointManager(str(tmp_path / "mesh"))
+    saved = {"x": np.arange(6.0).reshape(3, 2), "y": np.ones(2)}
+    on_mesh.save(1, saved)
+    with one_rank_mesh() as ctx:
+        got, step = on_mesh.restore({"x": torch.zeros(3, 2), "y": np.zeros(2)}, device="cpu",
+                                 shardings={"x": Sharding(ctx.mesh, P("data")), "y": None})
+        assert step == 1 and type(got["x"]).__name__ == "DTensor"
+        np.testing.assert_array_equal(got["x"].to_local().numpy(), saved["x"])
+        assert got["x"].dtype == torch.float32 and got["x"].placements[0].is_shard(0)
+    assert type(got["y"]) is torch.Tensor
+    np.testing.assert_array_equal(got["y"].numpy(), saved["y"])
     if not torch.cuda.is_available():
         # no silent CPU default: the entry points' device is the card
         with pytest.raises(RuntimeError, match="no CUDA device"):

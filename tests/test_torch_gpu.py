@@ -792,7 +792,8 @@ def test_fused_graph_draws_what_the_eager_body_draws():
     got = fused.fused_ensemble_rwm(lp, X0S, 10, 0.4 * COV2,
                                    torch.Generator(device=dev).manual_seed(3), fused_steps=5)
     gen = torch.Generator(device=dev).manual_seed(3)
-    step = fused._rwm_step(lp, np.linalg.cholesky(0.4 * COV2), dev)
+    step = fused._rwm_step(lp, np.linalg.cholesky(0.4 * COV2), dev,
+                           fused._Lanes.whole(len(X0S)))
     xs = torch.as_tensor(X0S, dtype=torch.float32, device=dev)
     carry = {"xs": xs, "lps": lp(xs), "acc": torch.zeros_like(xs[:, 0])}
     eager = []

@@ -16,6 +16,7 @@ import repro_torch.core.fabric as fabric
 import repro_torch.uq.fused as fused
 import repro_torch.uq.mcmc as mcmc
 import repro_torch.uq.mlda as mlda
+from _torch_mesh import one_rank_mesh
 
 # the solves here run [cells, 4] states, far below the size where torch's
 # intra-op threads pay; one thread keeps the xdist workers from
@@ -56,23 +57,31 @@ def test_ensemble_mlda_exact_parity_with_jax_package(adaptive):
 
 
 def test_fused_paths_name_their_roadmap_item():
-    """The fused samplers run (tests/test_torch_fused.py); what they cannot
-    do yet names its ROADMAP row: a device mesh (`ctx=`, queue 1, item 14)
-    and fused MALA over a forward that autograd cannot differentiate, the
-    tsunami, whose SWE solve kernel has no autograd rule (queue 1, item 7b,
-    after the hand-written adjoint)."""
+    """The fused samplers run (tests/test_torch_fused.py), on a device mesh
+    too (`ctx=`: here the 1x1 CPU mesh of this process, where 2 chains are
+    not padded and the run is the run without a mesh, bit for bit; across
+    ranks: tests/test_torch_mesh.py). What they cannot do yet names its
+    ROADMAP row: fused MALA over a forward that autograd cannot
+    differentiate, the tsunami, whose SWE solve kernel has no autograd rule
+    (queue 1, item 7b, after the hand-written adjoint)."""
     x0s = np.array([[84.0, 2.3], [97.0, 2.7]])
-    gen = torch.Generator().manual_seed(0)
     target = fused.gaussian_likelihood_target(
         partial(tsunami.solve_batch, n_cells=64, smoothed=True),
         np.zeros(4), np.ones(4))
-    with pytest.raises(NotImplementedError, match="queue 1, item 14"):
-        mcmc.ensemble_random_walk_metropolis(
+
+    def rwm(ctx):
+        return mcmc.ensemble_random_walk_metropolis(
             target, x0s, 2, np.eye(2), np.random.default_rng(0),
-            fused_steps=2, fused_key=gen, ctx=object())
+            fused_steps=2, fused_key=torch.Generator().manual_seed(0), ctx=ctx)
+
+    with one_rank_mesh() as ctx:
+        got = rwm(ctx)
+    want = rwm(None)
+    np.testing.assert_array_equal(got.samples, want.samples)
+    np.testing.assert_array_equal(got.logposts, want.logposts)
     with pytest.raises(NotImplementedError, match="queue 1, item 7b"):
         mcmc.ensemble_mala(target, x0s, 2, 0.5, np.random.default_rng(0),
-                           fused_steps=2, fused_key=gen)
+                           fused_steps=2, fused_key=torch.Generator().manual_seed(0))
 
 
 # -- the slice as a whole: the §4.3 campaign through fabric and model ---------

@@ -15,6 +15,7 @@ import torch
 import repro.core.fabric as jax_fabric
 import repro.core.pool as jax_pool
 from repro.core.interface import JAXModel
+from _torch_mesh import one_rank_mesh
 from repro_torch.core.fabric import (
     CallableBackend,
     EvaluationFabric,
@@ -205,9 +206,16 @@ def test_spmd_backend_refuses_what_the_model_does_not_advertise():
 
 
 def test_pool_on_the_cpu_is_one_instance_and_ctx_raises(quad_model):
+    """One instance on the CPU; on a mesh (`ctx=`, here the 1x1 CPU mesh of
+    this process) n_instances = ctx.n_data, and a one-rank wave is the
+    unsharded wave, unpadded (across ranks: tests/test_torch_mesh.py)."""
     assert ModelPool(quad_model).n_instances == 1
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ModelPool(quad_model, ctx=object())
+    thetas = np.random.default_rng(4).standard_normal((5, 2))
+    with one_rank_mesh() as ctx:
+        pool = ModelPool(quad_model, ctx=ctx)
+        assert pool.n_instances == ctx.n_data == 1
+        np.testing.assert_array_equal(pool.evaluate(thetas), quad_model.evaluate_batch(thetas))
+    assert pool.stats["padded"] == 0 and pool.stats["evaluations"] == 5
 
 
 def test_pool_config_is_the_default_of_a_wave():
