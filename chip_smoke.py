@@ -149,6 +149,7 @@ import contextlib
 import copy
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -2666,6 +2667,36 @@ def phase_mesh_main_path(torch, dev, main_path: dict, lm, smi: str) -> dict:
             "flash": lm_launches_}
 
 
+def _watched_ranks(flag: str, where: Path, timeout_s: float) -> list:
+    """Two processes of this script (`flag R --mesh-dir DIR`), their logs in
+    DIR, under a host watchdog: returns each rank's JSON; a rank that fails
+    or outlasts the watchdog fails the run."""
+    logs = [open(where / f"rank{r}.log", "w") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), flag, str(r),
+                               "--mesh-dir", str(where)], stdout=logs[r],
+                              stderr=subprocess.STDOUT, cwd=ROOT) for r in range(2)]
+    try:
+        deadline = time.monotonic() + timeout_s
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if failed or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(30)
+        for f in logs:
+            f.close()
+    codes = [p.returncode for p in procs]
+    if codes != [0, 0]:
+        tails = "\n".join(f"rank {r} (exit {c}):\n" + (where / f"rank{r}.log").read_text()[-3000:]
+                          for r, c in enumerate(codes))
+        raise AssertionError(f"{flag}: exit codes {codes} (watchdog {timeout_s} s)\n{tails}")
+    return [json.loads((where / f"rank{r}.json").read_text()) for r in range(2)]
+
+
 def phase_mesh_two_ranks(torch, dev, ref: dict, smi: str) -> dict:
     """Two ranks on the one card, over `gloo` (NCCL refuses two ranks on one
     GPU), each a process of this script (`--mesh-rank`) under a host
@@ -2686,31 +2717,7 @@ def phase_mesh_two_ranks(torch, dev, ref: dict, smi: str) -> dict:
     shutil.rmtree(where, ignore_errors=True)
     where.mkdir(parents=True)
     t_phase = time.perf_counter()
-    logs = [open(where / f"rank{r}.log", "w") for r in range(2)]
-    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
-                               str(r), "--mesh-dir", str(where)], stdout=logs[r],
-                              stderr=subprocess.STDOUT, cwd=ROOT) for r in range(2)]
-    try:
-        deadline = time.monotonic() + MESH_RANKS_TIMEOUT_S
-        while any(p.poll() is None for p in procs):
-            failed = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
-            if failed or time.monotonic() > deadline:
-                break
-            time.sleep(0.2)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait(30)
-        for f in logs:
-            f.close()
-    codes = [p.returncode for p in procs]
-    if codes != [0, 0]:
-        tails = "\n".join(f"rank {r} (exit {c}):\n" + (where / f"rank{r}.log").read_text()[-3000:]
-                          for r, c in enumerate(codes))
-        raise AssertionError(f"mesh_two_ranks: exit codes {codes} (watchdog "
-                             f"{MESH_RANKS_TIMEOUT_S} s)\n{tails}")
-    ranks = [json.loads((where / f"rank{r}.json").read_text()) for r in range(2)]
+    ranks = _watched_ranks("--mesh-rank", where, MESH_RANKS_TIMEOUT_S)
     arrays = [np.load(where / f"rank{r}.npz") for r in range(2)]
     for r, (meta, arr) in enumerate(zip(ranks, arrays)):
         _same_bits(arr["fine"], ref["fine"], f"rank {r}: the 16-lane fine wave split 8/8")
@@ -2796,6 +2803,195 @@ def mesh_rank_main(rank: int, where: Path) -> int:
         "launches": launches, "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "wall_s": time.perf_counter() - t0}, default=float))
     return 0
+
+
+#: the LM's layout on a mesh (`mesh_lm_sharded`): the two ranks' TP mesh, and
+#: the q and kv heads each rank's flash launches take there (qwen3-0.6b's 16
+#: and 8 over model = 2)
+LM_TP_MESH, LM_TP_HEADS = (1, 2), (8, 4)
+
+
+def phase_mesh_lm_sharded(torch, model, smi: str) -> dict:
+    """The LM's layout on a mesh at full width and depth (qwen3-0.6b, `model`
+    its one-device LMUQModel). On a 1x1 NCCL mesh in this process,
+    `LMUQModel(ctx=)` holds its weights as DTensors placed by
+    `param_specs`: its 8-point evaluate wave == the wave without ctx bit for
+    bit (one forward's 28 flash launches, on each rank's local shard by
+    `local_map`), and its gradient wave == the unsharded gradient wave bit
+    for bit (2 x 28 forward launches, forward and remat recompute, and 28 of
+    each backward kernel). Then two `gloo` ranks on the one card on the
+    (data, model) = (1, 2) mesh (`--lm-tp-rank`, a host watchdog): the same
+    8-point wave with TP over 'model', each rank's NLLs within LM_NLL_RTOL
+    of the one-process wave, 28 flash launches a rank, every one on 8 q
+    heads and 4 kv heads."""
+    import shutil
+
+    from repro_torch.apps.lm_model import LMUQModel
+    from repro_torch.distributed.sharding import ShardingCtx
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.mesh import destroy_ranks, make_mesh
+    from repro_torch.models.params import tree_leaves
+
+    cfg = model.cfg
+    t_phase = time.perf_counter()
+    K = len(MESH_LM_POINTS)
+    senss = np.array([[(-2.0) ** (i % 3 - 1)] for i in range(K)])
+    plain = model.evaluate_batch(MESH_LM_POINTS)
+    plain_grads = model.gradient_batch(MESH_LM_POINTS, senss)
+    per_grad_wave = {"flash_attention_wgmma": 2 * cfg.n_layers,
+                     **dict.fromkeys(ops.BWD_KERNELS[ops.bwd_stem(torch.bfloat16)],
+                                     cfg.n_layers)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ctx = ShardingCtx(make_mesh((1, 1), ("data", "model"), backend="nccl"))
+    try:
+        on_mesh = LMUQModel(DENSE_ARCH, reduced=False, batch=LM_BATCH, seq=LM_SEQ,
+                            params=model.params, ctx=ctx)
+        if not all(type(t).__name__ == "DTensor" for t in tree_leaves(on_mesh.params)):
+            raise AssertionError("LMUQModel(ctx=): weights that are not DTensors")
+        reset_launches()
+        eval_s, nlls = _timed(torch, lambda: on_mesh.evaluate_batch(MESH_LM_POINTS))
+        eval_launches = check_launches(read_launches(), cfg, 1, "LMUQModel(ctx=) on 1x1")
+        _same_bits(nlls, plain, "the 8-point wave on DTensor weights vs without ctx")
+        reset_launches()
+        grad_s, grads = _timed(torch, lambda: on_mesh.gradient_batch(MESH_LM_POINTS, senss))
+        counts = read_launches()
+        want = dict.fromkeys(counts, 0)
+        want.update(per_grad_wave)
+        if counts != want:
+            raise AssertionError(f"the gradient wave on DTensor weights: launches {counts}, "
+                                 f"expected {want}")
+        _same_bits(grads, plain_grads, "the gradient wave on DTensor weights vs without ctx")
+        del on_mesh
+    finally:
+        destroy_ranks()
+    peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    where = ROOT / "build" / "mesh_lm_sharded"
+    shutil.rmtree(where, ignore_errors=True)
+    where.mkdir(parents=True)
+    t_ranks = time.perf_counter()
+    ranks = _watched_ranks("--lm-tp-rank", where, MESH_RANKS_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t_ranks
+    tp_nlls = [np.load(where / f"rank{r}.npz")["nlls"] for r in range(2)]
+    tp_err = max(float(np.max(np.abs(n / plain - 1.0))) for n in tp_nlls)
+    print(f"mesh_lm_sharded: TP over model = 2, largest relative NLL difference from the "
+          f"one-process wave {tp_err:.3g} (bound {LM_NLL_RTOL})", flush=True)
+    problems = []
+    if not tp_err < LM_NLL_RTOL:
+        problems.append(f"TP wave NLLs off by {tp_err} relative (bound {LM_NLL_RTOL})")
+    for meta in ranks:
+        if meta["launches"] != {"flash_attention_wgmma": cfg.n_layers}:
+            problems.append(f"rank {meta['rank']}: launches {meta['launches']}")
+        if meta["heads"] != [list(LM_TP_HEADS)]:
+            problems.append(f"rank {meta['rank']}: flash launches on (q, kv) heads "
+                            f"{meta['heads']}, expected {list(LM_TP_HEADS)}")
+    if problems:
+        raise AssertionError("mesh_lm_sharded: " + "; ".join(problems))
+    emit("mesh_lm_sharded", card=smi, arch=DENSE_ARCH, points=K,
+         one_by_one={"mesh": [1, 1], "backend": "nccl", "evaluate_s": eval_s,
+                     "gradient_s": grad_s, "evaluate_launches": eval_launches,
+                     "gradient_launches": {k: n for k, n in counts.items() if n},
+                     "bound": "bit for bit (evaluate and gradient waves)",
+                     "max_memory_allocated": peak},
+         tp={"mesh": list(LM_TP_MESH), "backend": "gloo", "ranks": ranks,
+             "nll_max_rel_diff": tp_err, "bound": LM_NLL_RTOL, "wall_s": ranks_s},
+         wall_s=time.perf_counter() - t_phase)
+    return {"flash": eval_launches["flash_attention_wgmma"],
+            "gradient": {k: n for k, n in counts.items() if n},
+            "tp_flash": [m["launches"]["flash_attention_wgmma"] for m in ranks]}
+
+
+def lm_tp_rank_main(rank: int, where: Path) -> int:
+    """One rank of `mesh_lm_sharded`'s TP pair (`--lm-tp-rank R --mesh-dir
+    DIR`): joins the 2-rank `gloo` group on the (1, 2) mesh, builds
+    qwen3-0.6b at full width and depth sharded over it, runs the 8-point
+    wave with every flash launch's head counts recorded, and writes rankR.json
+    (launches, heads, walls, peak memory) and rankR.npz (the NLLs)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.apps.lm_model import LMUQModel
+    from repro_torch.distributed.sharding import ShardingCtx
+    from repro_torch.launch.mesh import destroy_ranks, make_mesh
+    from repro_torch.models import attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    ctx = ShardingCtx(make_mesh(LM_TP_MESH, ("data", "model"), backend="gloo", rank=rank,
+                                world_size=2, store=dist.FileStore(str(where / "store"), 2),
+                                timeout_s=MESH_COLLECTIVE_TIMEOUT_S))
+    walls, heads = {"start_s": time.perf_counter() - t0}, set()
+    real = attention.flash_attention
+
+    def recording(q, k, v, **kw):
+        heads.add((q.shape[1], k.shape[1]))
+        return real(q, k, v, **kw)
+
+    try:
+        t1 = time.perf_counter()
+        lm = LMUQModel(DENSE_ARCH, reduced=False, batch=LM_BATCH, seq=LM_SEQ, ctx=ctx)
+        torch.cuda.synchronize()
+        walls["lm_init_s"] = time.perf_counter() - t1
+        attention.flash_attention = recording
+        reset_launches()
+        walls["lm_wave_s"], nlls = _timed(torch, lambda: lm.evaluate_batch(MESH_LM_POINTS))
+        launches = {k: n for k, n in read_launches().items() if n}
+    finally:
+        attention.flash_attention = real
+        destroy_ranks()
+    np.savez(where / f"rank{rank}.npz", nlls=nlls)
+    (where / f"rank{rank}.json").write_text(json.dumps({
+        "rank": rank, "walls": walls, "launches": launches, "heads": sorted(heads),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "wall_s": time.perf_counter() - t0}, default=float))
+    return 0
+
+
+#: the dry run's full-size cells on the host (`dryrun_cells`): (arch, shape,
+#: mesh name of `launch.dryrun.MESHES`)
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", "single"), ("deepseek-moe-16b", "decode_32k", "multi"))
+
+
+def phase_dryrun_cells(smi: str) -> dict:
+    """The dry run (`repro_torch.launch.dryrun.run_cell`) of DRYRUN_CELLS at
+    full size on the host, in this process, each cell on a fake process
+    group of 256 or 512 ranks (torn down after): per-device flops, bytes
+    and collectives and the roofline terms against the H100 datasheet
+    peaks, printed as ANALYSIS (no card runs them), and each cell's JSON
+    in build/dryrun_cells; the two cells' trace times summed."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+
+    where = ROOT / "build" / "dryrun_cells"
+    where.mkdir(parents=True, exist_ok=True)
+    t_phase = time.perf_counter()
+    cells = []
+    try:
+        for arch, shape, mesh in DRYRUN_CELLS:
+            data = dryrun.run_cell(arch, shape, dryrun.fake_mesh(*dryrun.MESHES[mesh]))
+            (where / f"{arch}__{shape}__{mesh}.json").write_text(json.dumps(data, indent=1))
+            cells.append({k: data[k] for k in (
+                "arch", "shape", "mesh", "n_devices", "flops_per_device", "bytes_per_device",
+                "collectives", "collective_bytes_per_device", "roofline_terms_s", "dominant",
+                "model_flops_per_device", "param_local_bytes", "cache_local_bytes",
+                "t_trace_s")})
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    emit("dryrun_cells", card=smi, kind="analysis: predicted per-device flops, bytes and "
+         "collectives of one rank of a fake 256/512-rank mesh, terms against the H100 SXM5 "
+         "datasheet peaks (no card ran them)", hardware="h100-sxm5-80gb", cells=cells,
+         trace_s_total=sum(c["t_trace_s"] for c in cells), wall_s=time.perf_counter() - t_phase)
+    return {"cells": cells}
 
 
 def ssd_work(B: int, H: int, G: int, S: int, P: int, N: int) -> dict:
@@ -4793,7 +4989,8 @@ def run_lm_path(torch, arch: str, smi: str, main_path: dict | None = None) -> di
         gradient = phase_dense_lm_gradient_path(torch, model, smi)
         mesh_ref = phase_mesh_main_path(torch, model.device, main_path, model, smi)
         mesh = {"main_path": mesh_ref,
-                "two_ranks": phase_mesh_two_ranks(torch, model.device, mesh_ref, smi)}
+                "two_ranks": phase_mesh_two_ranks(torch, model.device, mesh_ref, smi),
+                "lm_sharded": phase_mesh_lm_sharded(torch, model, smi)}
     launches = lm["launches"]
     del lm, model
     gc.collect()
@@ -5088,6 +5285,9 @@ def main() -> int:
     if "--mesh-rank" in sys.argv:  # one rank of `mesh_two_ranks`
         args = sys.argv[sys.argv.index("--mesh-rank"):]
         return mesh_rank_main(int(args[1]), Path(args[args.index("--mesh-dir") + 1]))
+    if "--lm-tp-rank" in sys.argv:  # one rank of `mesh_lm_sharded`'s TP pair
+        args = sys.argv[sys.argv.index("--lm-tp-rank"):]
+        return lm_tp_rank_main(int(args[1]), Path(args[args.index("--mesh-dir") + 1]))
     try:
         import torch
     except ImportError:
@@ -5157,6 +5357,7 @@ def main() -> int:
            for arch, n_layers, points in ZOO_PATHS}
     phase_serve_driver(torch, probe["smi"])
     phase_examples_on_card(torch)
+    phase_dryrun_cells(probe["smi"])
     phase_analysis_gate(torch, dev)
 
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro.")))
@@ -5306,6 +5507,11 @@ def main() -> int:
         # mesh, and split 4/4 over two ranks (each one forward, 28)
         "launches_mesh_main_path": dense["mesh"]["main_path"]["flash"]["flash_attention_wgmma"],
         "launches_mesh_two_ranks_per_rank": dense["mesh"]["two_ranks"]["flash"],
+        # the LM's layout on the mesh: the 8-point wave and the gradient wave
+        # on DTensor weights (1x1), and the wave with TP over model = 2
+        "launches_mesh_lm_sharded": dense["mesh"]["lm_sharded"]["flash"],
+        "launches_mesh_lm_sharded_gradient": dense["mesh"]["lm_sharded"]["gradient"],
+        "launches_mesh_lm_tp_per_rank": dense["mesh"]["lm_sharded"]["tp_flash"],
         "max_abs_err": flash_check["wgmma"],
         "ms": flash_point["ms"],
         "plain_ms": flash_point["plain_ms"],

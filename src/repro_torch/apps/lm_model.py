@@ -27,13 +27,27 @@ reverse pass of the stack (`_reverse_wave`). Which path each takes:
   package's own Hessian differentiates its XLA attention twice.
 
 On a device mesh (`ctx=`, a `distributed.sharding.ShardingCtx`, the model
-built on every rank with the same weights) an evaluate wave of K points is
-split over the batch axes: padded to a multiple of `ctx.n_data` (the last
-point repeated), each rank runs the forward above on its contiguous points,
-and the NLLs are gathered to every rank. The derivative operations stay
-unsharded: every rank runs the whole wave, as the JAX package's
-`SPMDBackend` runs derivative waves. The weights are replicated; their
-FSDP/TP/EP layout on the mesh waits for ROADMAP queue 1, item 14c.
+built on every rank with the same weights) the weights are DTensors placed
+by `models.model.param_specs`: FSDP over 'data', TP and EP over 'model'
+(`models.model.shard_params`; each rank keeps its shards). Every wave is
+then one program over the mesh, the kernels on each rank's local shards
+(`models/attention.py::_attend_local`):
+
+* an evaluate wave of K points is split over the batch axes: padded to a
+  multiple of `ctx.n_data` (the last point repeated), its sequences placed
+  so that each rank's rows are its contiguous points, one forward of the
+  stack, then point by point each rank's j-th point's head and NLL (the
+  vocabulary over 'model'; the scaled tied head, the padded-vocab mask and
+  the temperature on local shards, `_mesh_logits`), and the NLLs gathered
+  to every rank on the host;
+* the derivative operations take the whole wave on every rank and return
+  the whole wave's results on every rank, as the JAX package's
+  `SPMDBackend` runs derivative waves: the stack runs as any step on the
+  mesh, its hidden states are gathered, and the reverse pass is DTensor's
+  autograd through the sharded weights (the flash backward kernel on local
+  shards). The Hessian action raises on a mesh: reverse over reverse
+  through `local_map` (the attention, the SSD scan, the MoE dispatch)
+  disagreed with the one-device Hessian in the CPU tests.
 """
 from __future__ import annotations
 
@@ -45,10 +59,18 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.device import resolve_device
 from repro_torch.core.interface import Capabilities, Model, pad_to_bucket
+from repro_torch.distributed.sharding import P, on_mesh, reduce_partial
 from repro_torch.models import model as M
 from repro_torch.models import transformer
 from repro_torch.models.layers import lm_head
 from repro_torch.types import dtype_of
+
+
+def _plain(t: torch.Tensor) -> torch.Tensor:
+    """A small result (a value, theta's gradient) as a plain tensor on this
+    rank. On a mesh theta is a plain tensor that meets the DTensors as
+    replicated, so its gradient comes back a DTensor: its full value."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
 class LMUQModel(Model):
@@ -63,7 +85,8 @@ class LMUQModel(Model):
     the architecture's depth (widths kept; a vlm model's must be a multiple
     of its cross-attention period). Runs on `device` (default: the GPU;
     raises if there is none; on a mesh, the rank's current card). `ctx`
-    splits evaluate waves over a mesh's batch axes (module docstring)."""
+    shards the weights over a mesh and runs every wave on it (module
+    docstring)."""
 
     # one forward per wave of N points, over N·B sequences. No `batch_bucket`:
     # the JAX package pads waves to powers of two to bound its jit trace
@@ -82,7 +105,7 @@ class LMUQModel(Model):
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = M.init_params(self.cfg, gen)
-        self.params = params
+        self.params = params if ctx is None else M.shard_params(self.cfg, params, ctx)
         if isinstance(batch, Mapping):
             self.batch = {k: torch.as_tensor(np.array(batch[k]), dtype=torch.long,
                                              device=self.device)
@@ -103,9 +126,9 @@ class LMUQModel(Model):
 
     def capabilities(self, config=None) -> Capabilities:
         return Capabilities(
-            evaluate=True, gradient=True, apply_jacobian=True, apply_hessian=True,
+            evaluate=True, gradient=True, apply_jacobian=True, apply_hessian=self.ctx is None,
             evaluate_batch=True, gradient_batch=True,
-            apply_jacobian_batch=True, apply_hessian_batch=True,
+            apply_jacobian_batch=True, apply_hessian_batch=self.ctx is None,
         )
 
     def __call__(self, parameters, config=None):
@@ -114,15 +137,14 @@ class LMUQModel(Model):
 
     def evaluate_batch(self, thetas, config=None) -> np.ndarray:
         """[K, 2] -> [K, 1]: one forward over the wave (`_evaluate_wave`); on
-        a mesh, one forward a rank over its points of the padded wave, the
-        NLLs gathered to every rank."""
+        a mesh, one forward of the padded wave over the mesh, each rank's
+        points' NLLs gathered to every rank (`_evaluate_wave_on_mesh`)."""
         thetas = np.atleast_2d(np.asarray(thetas, float))
-        if self.ctx is None or self.ctx.n_data == 1:
+        if self.ctx is None:
             return self._evaluate_wave(thetas)
         K = len(thetas)
         wave, _ = pad_to_bucket(thetas, K + (-K) % self.ctx.n_data)
-        mine = self._evaluate_wave(wave[self.ctx.rows(len(wave))])
-        return self.ctx.gather_rows(mine)[:K]
+        return self.ctx.gather_rows(self._evaluate_wave_on_mesh(wave))[:K]
 
     @torch.inference_mode()
     def _evaluate_wave(self, thetas) -> np.ndarray:
@@ -141,6 +163,69 @@ class LMUQModel(Model):
         for k in range(len(theta)):
             out[k] = self._nll(self.cfg, self._rows(hidden, k), theta[k])
         return out.cpu().numpy().astype(float)[:, None]
+
+    @torch.no_grad()  # DTensor's views fail on inference tensors
+    def _evaluate_wave_on_mesh(self, wave) -> np.ndarray:
+        """This rank's points of the padded wave [K, 2] -> [K / n_data, 1]:
+        ONE forward of the whole wave over the mesh, its sequences placed
+        over the batch axes so that each rank's rows are its own points
+        (`ctx.rows`), then for j = 0, 1, ... the NLLs of every rank's j-th
+        point at once (`_mesh_nlls`), of which each rank keeps its own."""
+        ctx = self.ctx
+        theta = self._theta(wave)
+        per = len(theta) // ctx.n_data
+        with on_mesh(ctx):
+            hidden = self._hidden(self.cfg, theta)
+            out = np.empty((per, 1))
+            for j in range(per):
+                nll = self._mesh_nlls(self.cfg, hidden, theta[j::per], j)
+                out[j, 0] = float(nll.to_local()[0])
+        return out
+
+    def _mesh_nlls(self, cfg, hidden, theta_j: torch.Tensor, j: int):
+        """The NLLs ``[n_data]`` (a DTensor over the batch axes) of each batch
+        rank's j-th point: its B rows of the wave's hidden states (picked on
+        each rank's local shard), the logits over the vocabulary sharded
+        over 'model' (`_mesh_logits`), then DTensor's log-softmax and the
+        mean of each point's rows on its rank. `theta_j` ``[n_data, 2]``:
+        those points' thetas in batch-rank order."""
+        ctx = self.ctx
+        B = self.batch["tokens"].shape[0]
+        bat = ctx.batch_axes
+        rows = P(bat, None, None)
+        h = ctx.local_map(lambda hl: hl[j * B:(j + 1) * B], rows, (rows,))(hidden)
+        logits = self._mesh_logits(cfg, h, ctx.put(theta_j, "batch", None))
+        targets = ctx.put(self.batch["targets"].repeat(ctx.n_data, 1), "batch", None)
+        logz = M.logsumexp(logits)
+        tgt = reduce_partial(torch.gather(logits, -1, targets[..., None]))[..., 0]
+        return ctx.local_map(lambda d: torch.mean(d).reshape(1), P(bat), (P(bat, None),))(
+            logz - tgt)
+
+    def _mesh_logits(self, cfg, h, theta):
+        """``[n_data*B, S, V]`` float32 logits of each batch rank's point,
+        the vocabulary over 'model' where it divides: on each rank's local
+        shards, its point's head (a tied head reads the table scaled by the
+        point's theta[0], gathered over 'data', the FSDP all-gather), the
+        padded-vocab mask (its local columns) and the temperature, the
+        operations `_nll` runs on one device."""
+        ctx = self.ctx
+        V = cfg.padded_vocab
+        vocab = "model" if V % ctx.n_model == 0 else None
+        c0 = ctx.coordinate["model"] * (V // ctx.n_model) if vocab else 0
+        embed = ctx.gather_fsdp(self.params["embed"])
+        name = "head" if "head" in embed else "embedding"
+        w_spec = P(None, vocab) if name == "head" else P(vocab, None)
+        bat = ctx.batch_axes
+
+        def local(x, w, th):
+            logits = lm_head({name: w}, x, th[0, 0]).float()
+            if cfg.padded_vocab != cfg.vocab_size:
+                cols = c0 + torch.arange(logits.shape[-1], device=logits.device)
+                logits = logits.masked_fill(cols >= cfg.vocab_size, -1e9)
+            return logits / th[0, 1]
+
+        return ctx.local_map(local, P(bat, None, vocab),
+                             (P(bat, None, None), w_spec, P(bat, None)))(h, embed[name], theta)
 
     # -- the derivative surface ---------------------------------------------
     def gradient(self, out_wrt, in_wrt, parameters, sens, config=None):
@@ -201,18 +286,24 @@ class LMUQModel(Model):
         graph, a first backward that keeps its own graph, and a second
         backward of its dot product with the vecs (the points are
         independent, so row k is point k's Hessian action)."""
+        if self.ctx is not None:
+            raise NotImplementedError(
+                "the Hessian action on a mesh: the attention, the SSD scan and the MoE "
+                "dispatch run through local_map, and reverse over reverse through it "
+                "disagreed with the one-device Hessian in the CPU tests (ROADMAP queue 3)")
         cfg = self.cfg.replace(attn_impl="plain")
-        senss = torch.as_tensor(np.atleast_2d(np.asarray(senss, np.float32)),
+        K = len(np.atleast_2d(thetas))
+        senss = torch.as_tensor(self._even_wave(np.asarray(senss, np.float32)),
                                 device=self.device)
-        vecs = torch.as_tensor(np.atleast_2d(np.asarray(vecs, np.float32)), device=self.device)
-        theta = self._theta(thetas).requires_grad_()
-        with torch.enable_grad():
-            hidden = self._hidden(cfg, theta)
+        vecs = torch.as_tensor(self._even_wave(np.asarray(vecs, np.float32)), device=self.device)
+        theta = self._theta(self._even_wave(thetas)).requires_grad_()
+        with torch.enable_grad(), on_mesh(self.ctx):
+            hidden = self._whole_wave(self._hidden(cfg, theta))
             total = sum(senss[k, 0] * self._nll(cfg, self._rows(hidden, k), theta[k])
                         for k in range(len(theta)))
             (grad,) = torch.autograd.grad(total, theta, create_graph=True)
-            (hvp,) = torch.autograd.grad(torch.sum(grad * vecs), theta)
-        return hvp.cpu().numpy().astype(float)
+            (hvp,) = torch.autograd.grad(torch.sum(_plain(grad) * vecs), theta)
+        return _plain(hvp).cpu().numpy().astype(float)[:K]
 
     # -- machinery ----------------------------------------------------------
     def _theta(self, thetas) -> torch.Tensor:
@@ -234,18 +325,40 @@ class LMUQModel(Model):
         hidden, _, _ = transformer.forward(
             cfg, self.params, tokens.repeat(K, 1), mode="train", skip_head=True,
             embed_scale=theta[:, 0].repeat_interleave(B), points=K,
-            ctx_embed=None if ctx_embed is None else ctx_embed.repeat(K, 1, 1),
+            ctx_embed=None if ctx_embed is None else ctx_embed.repeat(K, 1, 1), ctx=self.ctx,
         )
         return hidden
 
+    def _even_wave(self, rows):
+        """A derivative wave's rows (thetas, senss or vecs), on a mesh
+        padded (the last row repeated) to a multiple of the mesh's ranks;
+        as they are without one. DTensor's propagation may shard the points
+        (and their K·B sequences) over every mesh axis, and the backward of
+        a view fails on ragged shards. The points are independent, so the
+        padding leaves the real points' results as they are."""
+        rows = np.atleast_2d(np.asarray(rows))
+        if self.ctx is None:
+            return rows
+        K, n = len(rows), self.ctx.mesh.size()
+        return pad_to_bucket(rows, K + (-K) % n)[0]
+
+    def _whole_wave(self, hidden):
+        """A derivative wave's hidden states on every rank: on a mesh, the
+        stack's DTensor gathered over the batch axes (each point's head
+        then runs on every rank; its vocabulary stays over 'model')."""
+        return hidden if self.ctx is None else self.ctx.constrain(hidden, None, None, None)
+
     def _nll(self, cfg, hidden: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
         """One point's mean NLL from its B sequences' hidden states: the head
-        (tied: the table scaled by theta[0]), the padded-vocab mask and the
-        log-softmax at temperature theta[1], in float32."""
-        logits = lm_head(self.params["embed"], hidden, theta[0])
+        (tied: the table scaled by theta[0]; on a mesh gathered over 'data'),
+        the padded-vocab mask and the log-softmax at temperature theta[1],
+        in float32."""
+        embed = self.params["embed"] if self.ctx is None else self.ctx.gather_fsdp(
+            self.params["embed"])
+        logits = lm_head(embed, hidden, theta[0])
         logits = M.mask_padded_logits(cfg, logits.float()) / theta[1]
-        logz = torch.logsumexp(logits, dim=-1)
-        tgt = torch.gather(logits, -1, self.batch["targets"][..., None])[..., 0]
+        logz = M.logsumexp(logits)
+        tgt = reduce_partial(torch.gather(logits, -1, self.batch["targets"][..., None]))[..., 0]
         return torch.mean(logz - tgt)
 
     def _derivative_cfg(self):
@@ -266,21 +379,24 @@ class LMUQModel(Model):
         backward of the stack with the stacked hidden-state gradients,
         which adds the embedding scale's part into theta's gradient."""
         cfg = self._derivative_cfg()
-        theta = self._theta(thetas).requires_grad_()
-        K = len(theta)
-        values = np.empty((K, 1))
+        K = len(np.atleast_2d(thetas))
+        theta = self._theta(self._even_wave(thetas)).requires_grad_()
+        n = len(theta)
+        values = np.empty((n, 1))
         head_grad = torch.empty_like(theta)
-        with torch.enable_grad():
-            hidden = self._hidden(cfg, theta)
-            hidden_grad = torch.empty_like(hidden)
-            for k in range(K):
+        with torch.enable_grad(), on_mesh(self.ctx):
+            hidden = self._whole_wave(self._hidden(cfg, theta))
+            hidden_grads = []
+            for k in range(n):
                 h = self._rows(hidden, k).detach().requires_grad_()
                 t = theta[k].detach().requires_grad_()
                 nll = self._nll(cfg, h, t)
-                values[k, 0] = float(nll.detach())
-                s = torch.tensor(sens(k, values[k, 0]), dtype=nll.dtype, device=self.device)
-                g_h, g_t = torch.autograd.grad(nll, (h, t), grad_outputs=s)
-                self._rows(hidden_grad, k).copy_(g_h)
-                head_grad[k] = g_t
-            torch.autograd.backward(hidden, hidden_grad, inputs=[theta])
-        return values, (theta.grad + head_grad).cpu().numpy().astype(float)
+                values[k, 0] = float(_plain(nll.detach()))
+                s = torch.tensor(sens(min(k, K - 1), values[k, 0]), dtype=nll.dtype,
+                                 device=self.device)
+                g_h, g_t = torch.autograd.grad(nll * s, (h, t))
+                hidden_grads.append(g_h)
+                head_grad[k] = _plain(g_t)
+            torch.autograd.backward(hidden, torch.cat(hidden_grads), inputs=[theta])
+        grads = (_plain(theta.grad) + head_grad).cpu().numpy().astype(float)
+        return values[:K], grads[:K]

@@ -16,7 +16,7 @@ Threefry and Philox streams never match, so the token streams equal the JAX
 package's in law; the formulas equal its formulas exactly on the same
 uniforms (`tests/test_torch_data.py`). Tokens and targets are int64 (the
 index type of `torch.nn.functional.embedding`; the JAX package's are
-int32). No `ctx`: the sharded pipeline waits for ROADMAP queue 1, item 14c.
+int32). No `ctx`: the sharded pipeline waits for ROADMAP queue 1, item 14d.
 """
 from __future__ import annotations
 

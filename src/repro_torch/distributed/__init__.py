@@ -2,8 +2,8 @@
 onto a mesh: `restore(shardings=)`), the fault harness (`fault.py`:
 `StepFailure`, `FlakyStep`, `FaultPolicy`, `loss_is_bad`) and the mesh's
 sharding rules (`sharding.py`: `ShardingCtx` over a `DeviceMesh`; the
-meshes themselves come from `repro_torch.launch.mesh`). The LM's layout on
-the mesh waits in ROADMAP queue 1, item 14c."""
+meshes themselves come from `repro_torch.launch.mesh`; the LM's layout on
+them is `models.model.param_specs` and `shard_params`)."""
 from repro_torch.distributed.checkpoint import CheckpointManager  # noqa: F401
 from repro_torch.distributed.fault import (  # noqa: F401
     FaultPolicy,

@@ -35,12 +35,18 @@ and sizes, so it runs on an `AbstractMesh` without a process group.
 made (it takes over a second to import, and every port module that reaches
 the checkpoint would pay it).
 
-`shard_map_compat` has no counterpart: PyTorch has no `shard_map`. A rank's
-own program on its local shard, one process per rank, is what a shard_map
-body is; the LM layout that calls it waits for ROADMAP queue 1, item 14c.
+`shard_map_compat` has no counterpart: PyTorch's is
+`torch.distributed.tensor.experimental.local_map`, which runs a function on
+each rank's local shards of DTensors and wraps its results back as
+DTensors. The LM runs its hand-written kernels (flash attention, the SSD)
+and the MoE's expert dispatch that way (`models/attention.py`,
+`models/ssm.py`, `models/moe.py`; `ShardingCtx.local_map`); everything else
+on a mesh is DTensor's own sharding propagation, with the parameters placed
+by their `PartitionSpec`s and the activations by `ShardingCtx.constrain`.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from functools import cached_property
 from typing import Any, Sequence
@@ -170,15 +176,18 @@ class Sharding:
     def from_full(self, full: torch.Tensor):
         """A DTensor of `full` with these placements on the mesh's device
         (a rank's card is its current device), from this rank's own shard
-        of it: every rank holds the full tensor, so nothing is sent."""
+        of it: every rank holds the full tensor, so nothing is sent. The
+        shard is a copy: an in-place update of the DTensor (an optimizer
+        step) leaves `full` as it was."""
         from torch.distributed.tensor import DTensor
 
         names = self.mesh.mesh_dim_names
         coord = dict(zip(names, self.mesh.get_coordinate()))
         full = full.to(self.mesh.device_type)
         local = local_shard(full, self.spec, dict(zip(names, self.mesh.shape)), coord)
-        return DTensor.from_local(local.contiguous(), self.mesh, self.placements,
-                                  run_check=False, shape=full.shape, stride=full.stride())
+        return DTensor.from_local(local.clone(memory_format=torch.contiguous_format), self.mesh,
+                                  self.placements, run_check=False, shape=full.shape,
+                                  stride=full.stride())
 
 
 @dataclass(frozen=True)
@@ -215,16 +224,138 @@ class ShardingCtx:
         return Sharding(self.mesh, self.spec(*logical))
 
     def constrain(self, x, *logical: str | None):
-        """A DTensor redistributed to the logical axes' placements; a plain
-        tensor as it is (the JAX package's constraint is a no-op off-mesh)."""
+        """A DTensor redistributed to the logical axes' placements, an axis
+        that does not divide its dimension left out (`sanitize_spec`: every
+        rank keeps shards of one shape, where the JAX package pads); a
+        plain tensor as it is (the JAX package's constraint is a no-op
+        off-mesh)."""
         from torch.distributed.tensor import DTensor
 
         if isinstance(x, DTensor):
-            return x.redistribute(x.device_mesh, self.sharding(*logical).placements)
+            return x.redistribute(x.device_mesh, self.placements(self.spec(*logical), x.shape))
         return x
 
     def replicated(self) -> Sharding:
         return Sharding(self.mesh, P())
+
+    def gather_fsdp(self, tree):
+        """Every DTensor of `tree` all-gathered over the FSDP axis ('data'),
+        its other placements kept (TP and EP over 'model'): the ZeRO-3
+        gather of a layer's weights as the layer starts, whose backward
+        reduce-scatters their gradients. Plain tensors pass as they are.
+
+        On a `gloo` group with CUDA tensors (two ranks on one card) the
+        gather is a sum instead: each rank's shard zero-padded to the
+        gathered size (a partial sum over the axis), then DTensor's
+        all-reduce. PyTorch's functional all-gather, which DTensor's own
+        redistribution issues, crashes there (a segmentation fault in its
+        wait, torch 2.11 on the H100), while its all-reduce works; the sum
+        of one shard and zeros is the shard exactly."""
+        from torch.distributed.tensor import DTensor, Replicate
+
+        names = self.mesh.mesh_dim_names
+        fsdp = self.rules["fsdp"]
+
+        def gather(t):
+            if not isinstance(t, DTensor):
+                return t
+            i = names.index(fsdp)
+            if self._gather_by_sum and t.placements[i].is_shard():
+                t = self._padded_shard(t, i)
+            placements = [Replicate() if n == fsdp else p for n, p in zip(names, t.placements)]
+            return t.redistribute(t.device_mesh, placements)
+
+        return _tree_map(gather, tree)
+
+    @cached_property
+    def _gather_by_sum(self) -> bool:
+        """A `gloo` group whose DTensors are CUDA tensors (`gather_fsdp`)."""
+        return (getattr(self.mesh, "device_type", None) == "cuda"
+                and "gloo" in str(dist.get_backend()))
+
+    def _padded_shard(self, t, i: int):
+        """`t`, sharded along some dim over mesh dim `i`, as a partial sum
+        over that mesh dim: each rank's shard in its place in zeros of the
+        size gathered over `i` (its other placements kept)."""
+        from torch.distributed.tensor import Partial
+
+        dim = t.placements[i].dim
+        n, at = self.mesh.shape[i], self.mesh.get_coordinate()[i]
+
+        def pad(local):
+            full = local.new_zeros(local.shape[:dim] + (local.shape[dim] * n,)
+                                   + local.shape[dim + 1:])
+            full.narrow(dim, at * local.shape[dim], local.shape[dim]).copy_(local)
+            return full
+
+        placements = tuple(t.placements)
+        out = placements[:i] + (Partial(),) + placements[i + 1:]
+        return self.local_map(pad, out, (placements,))(t)
+
+    def fence(self, t, *logical: str | None):
+        """A DTensor constrained to the logical axes' placements, and its
+        gradient constrained to them on the way back (an identity on each
+        rank's local shard, `local_map`). DTensor's propagation picks the
+        backward's placements itself, and where it picks a strided shard
+        its redistribution planning takes minutes; a fence keeps the
+        backward on the forward's layout."""
+        spec = sanitize_spec(self.spec(*logical), t.shape, self)
+        return self.local_map(lambda x: x, spec, (spec,))(t)
+
+    def put(self, t: torch.Tensor, *logical: str | None):
+        """`t`, the same full tensor on every rank, as a DTensor placed by the
+        logical axes (an axis that does not divide its dimension
+        replicates it: a ragged batch runs whole on every rank); a DTensor
+        as it is."""
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(t, DTensor):
+            return t
+        return Sharding(self.mesh, sanitize_spec(self.spec(*logical), t.shape, self)).from_full(t)
+
+    def placements(self, spec: P, shape: Sequence[int]) -> tuple:
+        """DTensor placements of `spec` on this mesh, sanitized for `shape`."""
+        return placements_of(sanitize_spec(spec, shape, self), self.mesh.mesh_dim_names)
+
+    def local_map(self, fn, out_specs, in_specs, in_grad_specs=None):
+        """`fn` run on each rank's local shards (PyTorch's `local_map`, the
+        JAX package's `shard_map`): `in_specs` and `out_specs` are
+        `PartitionSpec`s of the arguments and results (None for a
+        non-tensor argument; a tuple of DTensor placements where a spec
+        cannot say it, e.g. a result that is a partial sum over an axis),
+        sanitized for their shapes by the caller; DTensor arguments are
+        redistributed to them first. `fn` sees plain tensors and returns
+        plain tensors, which come back as DTensors. `in_grad_specs` give
+        the placements of the arguments' gradients where they differ from
+        the arguments' own (an argument replicated over an axis whose
+        ranks each use a part of it has a gradient that is a partial sum
+        over that axis)."""
+        from torch.distributed.tensor import Placement
+        from torch.distributed.tensor.experimental import local_map
+
+        names = self.mesh.mesh_dim_names
+
+        def place(spec):
+            if spec is None or not isinstance(spec, P):
+                return spec
+            return placements_of(spec, names)
+
+        single = isinstance(out_specs, P) or all(isinstance(s, Placement) for s in out_specs)
+        outs = (place(out_specs),) if single else tuple(place(s) for s in out_specs)
+        grads = None if in_grad_specs is None else tuple(place(s) for s in in_grad_specs)
+        return local_map(fn, out_placements=outs,
+                         in_placements=tuple(place(s) for s in in_specs),
+                         in_grad_placements=grads, redistribute_inputs=True,
+                         device_mesh=self.mesh)
+
+    def partial_over(self, spec: P, *axes: str) -> tuple:
+        """The placements of `spec` with each mesh axis of `axes` that the
+        spec leaves replicated made a partial sum instead."""
+        from torch.distributed.tensor import Partial
+
+        placed = placements_of(spec, self.mesh.mesh_dim_names)
+        return tuple(Partial() if name in axes and p.is_replicate() else p
+                     for name, p in zip(self.mesh.mesh_dim_names, placed))
 
     # -- the replicated driver's waves ------------------------------------------
     @cached_property
@@ -284,6 +415,44 @@ class ShardingCtx:
             parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
             dist.all_gather(parts, t)
         return np.concatenate([parts[r].cpu().numpy() for r in self._gather_order], axis=0)
+
+
+def reduce_partial(t):
+    """A DTensor that is a partial sum over some mesh axes, reduced over
+    them (an all-reduce); anything else as it is. Called right where the
+    partial value is made: DTensor's masked partial of a gather over a
+    sharded dimension must be reduced before the result is reshaped."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(t, DTensor) and any(p.is_partial() for p in t.placements):
+        return t.redistribute(t.device_mesh, [Replicate() if p.is_partial() else p
+                                              for p in t.placements])
+    return t
+
+
+def on_mesh(ctx: ShardingCtx | None):
+    """The scope of a step on `ctx`'s mesh: plain tensors made inside it
+    (positions, masks, a theta that requires grad) meet the DTensors as
+    replicated (`implicit_replication`); without a ctx, nothing. Run a
+    backward inside it too: it meets the plain tensors its forward saved.
+    Scopes nest (PyTorch's own `implicit_replication` clears the flag on
+    leaving an inner scope; this one restores what it found)."""
+    if ctx is None:
+        return contextlib.nullcontext()
+    return _implicit_replication()
+
+
+@contextlib.contextmanager
+def _implicit_replication():
+    from torch.distributed.tensor import DTensor
+
+    dispatcher = DTensor._op_dispatcher
+    before = dispatcher._allow_implicit_replication
+    dispatcher._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        dispatcher._allow_implicit_replication = before
 
 
 def make_test_mesh(data: int = 1, model: int = 1, pod: int | None = None, **kw):

@@ -24,8 +24,9 @@ non-finite loss is answered by a restore and not by a retry. A restore
 first waits for a checkpoint still being written on the save thread (the
 reference looks only at complete ones, and re-initializes when the newest
 is still in flight: at full width a checkpoint takes seconds to write).
-Training on a mesh, and elastic restarts onto another one, wait for ROADMAP
-queue 1 item 14c.
+The loop on a mesh, and elastic restarts onto another one, wait for ROADMAP
+queue 1 item 14d (`models.model.train_step(..., ctx=)` is one step on a
+mesh).
 """
 from __future__ import annotations
 

@@ -35,9 +35,10 @@ import math
 
 import torch
 
+from repro_torch.distributed.sharding import P
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
-from repro_torch.models.layers import apply_rope, rmsnorm_scaleless
+from repro_torch.models.layers import apply_rope, project_in, project_out, rmsnorm_scaleless
 from repro_torch.models.params import ParamDecl
 from repro_torch.types import ModelConfig
 
@@ -47,27 +48,28 @@ def decl_attention(cfg: ModelConfig, cross: bool = False) -> dict:
     if cfg.attn_type == "mla" and not cross:
         qk_head = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
         return {
-            "wq_a": ParamDecl((d, cfg.q_lora_rank)),
-            "q_a_norm": ParamDecl((cfg.q_lora_rank,), init="ones", dtype="float32"),
-            "wq_b": ParamDecl((cfg.q_lora_rank, nq, qk_head)),
-            "wkv_a": ParamDecl((d, cfg.kv_lora_rank + cfg.qk_rope_head_dim)),
-            "kv_a_norm": ParamDecl((cfg.kv_lora_rank,), init="ones", dtype="float32"),
-            "wkv_b": ParamDecl((cfg.kv_lora_rank, nq, cfg.qk_nope_head_dim + cfg.v_head_dim)),
-            "wo": ParamDecl((nq, cfg.v_head_dim, d), fan_in_axis=-3),
+            "wq_a": ParamDecl((d, cfg.q_lora_rank), P("data", None)),
+            "q_a_norm": ParamDecl((cfg.q_lora_rank,), P(None), init="ones", dtype="float32"),
+            "wq_b": ParamDecl((cfg.q_lora_rank, nq, qk_head), P(None, "model", None)),
+            "wkv_a": ParamDecl((d, cfg.kv_lora_rank + cfg.qk_rope_head_dim), P("data", None)),
+            "kv_a_norm": ParamDecl((cfg.kv_lora_rank,), P(None), init="ones", dtype="float32"),
+            "wkv_b": ParamDecl((cfg.kv_lora_rank, nq, cfg.qk_nope_head_dim + cfg.v_head_dim),
+                               P(None, "model", None)),
+            "wo": ParamDecl((nq, cfg.v_head_dim, d), P("model", None, "data"), fan_in_axis=-3),
         }
     decls = {
-        "wq": ParamDecl((d, nq, hd)),
-        "wk": ParamDecl((d, nkv, hd)),
-        "wv": ParamDecl((d, nkv, hd)),
-        "wo": ParamDecl((nq, hd, d), fan_in_axis=-3),
+        "wq": ParamDecl((d, nq, hd), P("data", "model", None)),
+        "wk": ParamDecl((d, nkv, hd), P("data", "model", None)),
+        "wv": ParamDecl((d, nkv, hd), P("data", "model", None)),
+        "wo": ParamDecl((nq, hd, d), P("model", None, "data"), fan_in_axis=-3),
     }
     if cfg.use_bias:
-        decls["bq"] = ParamDecl((nq, hd), init="zeros")
-        decls["bk"] = ParamDecl((nkv, hd), init="zeros")
-        decls["bv"] = ParamDecl((nkv, hd), init="zeros")
+        decls["bq"] = ParamDecl((nq, hd), P("model", None), init="zeros")
+        decls["bk"] = ParamDecl((nkv, hd), P("model", None), init="zeros")
+        decls["bv"] = ParamDecl((nkv, hd), P("model", None), init="zeros")
     if cfg.qk_norm and not cross:
-        decls["q_norm"] = ParamDecl((hd,), init="ones", dtype="float32")
-        decls["k_norm"] = ParamDecl((hd,), init="ones", dtype="float32")
+        decls["q_norm"] = ParamDecl((hd,), P(None), init="ones", dtype="float32")
+        decls["k_norm"] = ParamDecl((hd,), P(None), init="ones", dtype="float32")
     return decls
 
 
@@ -125,10 +127,11 @@ def _grouped_attention(
     return out.reshape(B, Sq, nq, -1)
 
 
-def _project_qkv(cfg: ModelConfig, params: dict, xq: torch.Tensor, xkv: torch.Tensor):
-    q = torch.einsum("bsd,dnh->bsnh", xq, params["wq"])
-    k = torch.einsum("bsd,dnh->bsnh", xkv, params["wk"])
-    v = torch.einsum("bsd,dnh->bsnh", xkv, params["wv"])
+def _project_qkv(cfg: ModelConfig, params: dict, xq: torch.Tensor, xkv: torch.Tensor,
+                 ctx=None):
+    q = project_in(xq, params["wq"], ctx)
+    k = project_in(xkv, params["wk"], ctx)
+    v = project_in(xkv, params["wv"], ctx)
     if "bq" in params:
         q = q + params["bq"]
         k = k + params["bk"]
@@ -147,15 +150,16 @@ def gqa_full(
     positions: torch.Tensor,
     want_cache: bool = False,
     cache_len: int | None = None,
+    ctx=None,
 ):
     """Train / prefill self-attention. Returns (out, cache | None); the
     cache is ``{"k", "v"}`` of ``[B, cache_len or S, nkv, hd]``, zero-padded
-    past S."""
-    q, k, v = _project_qkv(cfg, params, x, x)
+    past S. `ctx`: the mesh the DTensors are on (`_attend`)."""
+    q, k, v = _project_qkv(cfg, params, x, x, ctx)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = _attend(cfg, q, k, v, causal=True)
-    out = torch.einsum("bsnh,nhd->bsd", out, params["wo"])
+    out = _attend(cfg, q, k, v, causal=True, ctx=ctx)
+    out = project_out(out, params["wo"], ctx)
     cache = None
     if want_cache:
         cache = {"k": _pad_seq(k, cache_len), "v": _pad_seq(v, cache_len)}
@@ -163,7 +167,7 @@ def gqa_full(
 
 
 def _attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-            causal: bool, scale: float | None = None) -> torch.Tensor:
+            causal: bool, scale: float | None = None, ctx=None) -> torch.Tensor:
     """``[B, Sq, nq, dqk]`` q against ``[B, Sk, nkv, dqk]`` k and
     ``[B, Sk, nkv, dv]`` v -> ``[B, Sq, nq, dv]`` at `scale` (None:
     1/sqrt(dqk)), on the path `cfg.attn_impl` names. The kernel path hands
@@ -171,8 +175,11 @@ def _attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     through strides; o comes back in q's memory order, a contiguous
     ``[B, Sq, nq, hd]``); where dqk and dv differ, or are no head dim the
     kernels are built for, q, k and v are zero-padded to the next one, and
-    o's first dv columns kept."""
+    o's first dv columns kept. On a mesh (`ctx`, DTensor q, k and v) either
+    path runs on each rank's local shard (`_attend_local`)."""
     dqk, dv = q.shape[-1], v.shape[-1]
+    if ctx is not None:
+        return _attend_local(cfg, q, k, v, causal=causal, scale=scale, ctx=ctx)
     if cfg.attn_impl != "kernel":
         return _grouped_attention(q, k, v, scale=1.0 / math.sqrt(dqk) if scale is None else scale,
                                   causal=causal, q_chunk=cfg.q_chunk,
@@ -189,6 +196,54 @@ def _attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out[..., :dv]
 
 
+def _kv_heads_of(nq: int, nkv: int, n_model: int, m: int) -> slice:
+    """The kv heads that model rank `m`'s q heads attend to, where the q
+    heads are split over `n_model` ranks and the kv heads replicated: the
+    group of q head i is i // (nq / nkv), and the slice keeps that pairing
+    on the rank (the kernel pairs local q head i with local kv head
+    i // (local nq / local nkv)). Raises where no slice can (a rank's q
+    heads spanning part of a group)."""
+    qloc, g = nq // n_model, nq // nkv
+    if g % qloc and (qloc % g or (m * qloc) % g):
+        raise ValueError(f"{nq} q heads over {n_model} ranks split the groups of {nkv} kv "
+                         "heads unevenly")
+    return slice(m * qloc // g, ((m + 1) * qloc - 1) // g + 1)
+
+
+def _attend_local(cfg: ModelConfig, q, k, v, *, causal: bool, scale: float | None, ctx,
+                  fn=None):
+    """Attention on a mesh: on each rank's local shard, by `local_map`, the
+    flash kernel (forward and backward, through its autograd Function) or
+    the plain path. The plain path runs here too, not as DTensor
+    operations: its einsums merge the batch and head dimensions, which
+    DTensor then shards over several mesh axes at once (a strided shard),
+    whose redistribution it plans slowly and, on the dry run's meta
+    tensors, not at all. Batch is placed over the batch axes where B
+    divides, the q heads over 'model' where they divide, the kv heads too
+    where they divide; where they do not (`sanitize_spec`), the kv heads
+    are replicated and each rank takes the kv heads of its own q heads
+    (`_kv_heads_of`), whose gradient is then a partial sum over 'model'.
+    `fn(q, k, v)` replaces `_attend` as the local computation (a decode
+    step's attention over the cache)."""
+    B, nq, nkv = q.shape[0], q.shape[2], k.shape[2]
+    bat = ctx.batch_axes if B % ctx.n_data == 0 else None
+    heads = "model" if nq % ctx.n_model == 0 else None
+    kv_heads = "model" if heads and nkv % ctx.n_model == 0 else None
+    q_spec, kv_spec = P(bat, None, heads, None), P(bat, None, kv_heads, None)
+    pick = slice(None)
+    if heads and not kv_heads:
+        pick = _kv_heads_of(nq, nkv, ctx.n_model, ctx.coordinate["model"])
+    kv_grad = ctx.partial_over(kv_spec, "model") if pick != slice(None) else kv_spec
+
+    def local(ql, kl, vl):
+        if fn is not None:
+            return fn(ql, kl[:, :, pick], vl[:, :, pick])
+        return _attend(cfg, ql, kl[:, :, pick], vl[:, :, pick], causal=causal, scale=scale)
+
+    return ctx.local_map(local, q_spec, (q_spec, kv_spec, kv_spec),
+                         in_grad_specs=(q_spec, kv_grad, kv_grad))(q, k, v)
+
+
 def _pad_seq(t: torch.Tensor, cache_len: int | None) -> torch.Tensor:
     """``[B, S, ...]`` zero-padded to ``cache_len`` rows along S."""
     pad = (cache_len or t.shape[1]) - t.shape[1]
@@ -200,53 +255,66 @@ def _decode_positions(x: torch.Tensor, pos: int) -> torch.Tensor:
     return torch.full((x.shape[0], 1), pos, dtype=torch.long, device=x.device)
 
 
-def gqa_decode(cfg: ModelConfig, params: dict, x: torch.Tensor, cache: dict, pos: int):
+def gqa_decode(cfg: ModelConfig, params: dict, x: torch.Tensor, cache: dict, pos: int,
+               ctx=None):
     """One token's self-attention: x ``[B, 1, d]`` at position `pos` (a
     Python int, the same for every sequence) against the cache ``{"k",
     "v"}`` of ``[B, cache_len, nkv, hd]``. q, k and v are projected,
     qk-normed and rotated at `pos`; k and v are written into the cache's
     row `pos` in place, and the first pos + 1 rows are attended, non-causal,
     on the plain path. Returns (out ``[B, 1, d]``, cache), the cache the
-    same dict of the same tensors. `cfg.decode_seq_shard_kv` is ignored, as
-    the JAX package ignores it without a sharding context."""
-    q, k, v = _project_qkv(cfg, params, x, x)
+    same dict of the same tensors. With `ctx` and `cfg.decode_seq_shard_kv`
+    the cache read is constrained to (batch, seq) as the JAX package's
+    is; without a ctx the flag is ignored, as the JAX package ignores it."""
+    q, k, v = _project_qkv(cfg, params, x, x, ctx)
     positions = _decode_positions(x, pos)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     cache["k"][:, pos] = k[:, 0]
     cache["v"][:, pos] = v[:, 0]
-    out = _grouped_attention(q, cache["k"], cache["v"], scale=1.0 / math.sqrt(cfg.head_dim),
-                             causal=False, kv_len=pos + 1, q_chunk=cfg.q_chunk)
-    return torch.einsum("bsnh,nhd->bsd", out, params["wo"]), cache
+    kc, vc = cache["k"], cache["v"]
+
+    def attend(ql, kl, vl):
+        return _grouped_attention(ql, kl, vl, scale=1.0 / math.sqrt(cfg.head_dim),
+                                  causal=False, kv_len=pos + 1, q_chunk=cfg.q_chunk)
+
+    if ctx is None:
+        out = attend(q, kc, vc)
+    else:
+        if cfg.decode_seq_shard_kv:
+            kc = ctx.constrain(kc, "batch", "seq", None, None)
+            vc = ctx.constrain(vc, "batch", "seq", None, None)
+        out = _attend_local(cfg, q, kc, vc, causal=False, scale=None, ctx=ctx, fn=attend)
+    return project_out(out, params["wo"], ctx), cache
 
 
 def cross_attention(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
                     ctx_kv: dict | None = None, ctx: torch.Tensor | None = None,
-                    decode: bool = False):
+                    decode: bool = False, shard_ctx=None):
     """Cross-attention of x ``[B, S, d]`` against context embeddings ``ctx``
     ``[B, Sk, d]`` (k and v projected here) or a precomputed ``ctx_kv``
     ``{"k", "v"}`` of ``[B, Sk, nkv, hd]``: full (non-causal) attention, no
     RoPE, no qk-norm. `decode` takes the plain path whatever
-    `cfg.attn_impl` says, as every decode step does. Returns (out,
-    ctx_kv)."""
-    q = torch.einsum("bsd,dnh->bsnh", x, params["wq"])
+    `cfg.attn_impl` says, as every decode step does. `shard_ctx` is the
+    mesh of DTensor inputs (`_attend`). Returns (out, ctx_kv)."""
+    q = project_in(x, params["wq"], shard_ctx)
     if ctx_kv is None:
         if ctx is None:
             raise ValueError("cross_attention needs the context embeddings or ctx_kv")
-        ctx_kv = {"k": torch.einsum("bsd,dnh->bsnh", ctx, params["wk"]),
-                  "v": torch.einsum("bsd,dnh->bsnh", ctx, params["wv"])}
+        ctx_kv = {"k": project_in(ctx, params["wk"], shard_ctx),
+                  "v": project_in(ctx, params["wv"], shard_ctx)}
     if decode:
         out = _grouped_attention(q, ctx_kv["k"], ctx_kv["v"], causal=False,
                                  scale=1.0 / math.sqrt(cfg.head_dim), q_chunk=cfg.q_chunk)
     else:
-        out = _attend(cfg, q, ctx_kv["k"], ctx_kv["v"], causal=False)
-    out = torch.einsum("bsnh,nhd->bsd", out, params["wo"])
+        out = _attend(cfg, q, ctx_kv["k"], ctx_kv["v"], causal=False, ctx=shard_ctx)
+    out = project_out(out, params["wo"], shard_ctx)
     return out, ctx_kv
 
 
-def _mla_q(cfg: ModelConfig, params: dict, x: torch.Tensor, positions: torch.Tensor):
+def _mla_q(cfg: ModelConfig, params: dict, x: torch.Tensor, positions: torch.Tensor, ctx=None):
     cq = rmsnorm_scaleless(x @ params["wq_a"], params["q_a_norm"], cfg.norm_eps)
-    q = torch.einsum("bsl,lnh->bsnh", cq, params["wq_b"])
+    q = project_in(cq, params["wq_b"], ctx)
     q_nope, q_pe = torch.split(q, [cfg.qk_nope_head_dim, cfg.qk_rope_head_dim], dim=-1)
     return q_nope, apply_rope(q_pe, positions, cfg.rope_theta)
 
@@ -267,29 +335,31 @@ def mla_full(
     positions: torch.Tensor,
     want_cache: bool = False,
     cache_len: int | None = None,
+    ctx=None,
 ):
     """Naive (uncompressed) MLA for train/prefill: k and v expanded from the
     latent per head, k's rope part shared by the heads; scale
     1/sqrt(nope + rope). Returns (out, cache | None); the cache holds the
     latent, ``{"c_kv": [B, cache_len or S, kv_lora], "k_pe": [B, cache_len
     or S, rope]}``, zero-padded past S."""
-    q_nope, q_pe = _mla_q(cfg, params, x, positions)
+    q_nope, q_pe = _mla_q(cfg, params, x, positions, ctx)
     c_kv, k_pe = _mla_latent(cfg, params, x, positions)
-    kv = torch.einsum("bsl,lnh->bsnh", c_kv, params["wkv_b"])
+    kv = project_in(c_kv, params["wkv_b"], ctx)
     k_nope, v = torch.split(kv, [cfg.qk_nope_head_dim, cfg.v_head_dim], dim=-1)
     k = torch.cat([k_nope, k_pe[:, :, None, :].expand(*k_nope.shape[:3], cfg.qk_rope_head_dim)],
                   dim=-1)
     q = torch.cat([q_nope, q_pe], dim=-1)
     scale = 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
-    out = _attend(cfg, q, k, v, scale=scale, causal=True)
-    out = torch.einsum("bsnv,nvd->bsd", out, params["wo"])
+    out = _attend(cfg, q, k, v, scale=scale, causal=True, ctx=ctx)
+    out = project_out(out, params["wo"], ctx)
     cache = None
     if want_cache:
         cache = {"c_kv": _pad_seq(c_kv, cache_len), "k_pe": _pad_seq(k_pe, cache_len)}
     return out, cache
 
 
-def mla_decode(cfg: ModelConfig, params: dict, x: torch.Tensor, cache: dict, pos: int):
+def mla_decode(cfg: ModelConfig, params: dict, x: torch.Tensor, cache: dict, pos: int,
+               ctx=None):
     """One token's MLA in the absorbed form (DeepSeek-V2): x ``[B, 1, d]``
     at position `pos` against the latent cache ``{"c_kv": [B, cache_len,
     kv_lora], "k_pe": [B, cache_len, rope]}`` that `mla_full` writes. The
@@ -298,19 +368,35 @@ def mla_decode(cfg: ModelConfig, params: dict, x: torch.Tensor, cache: dict, pos
     output, so the scores are ``q_lat·c_kvᵀ + q_pe·k_peᵀ`` over the first
     pos + 1 rows, in float32, at 1/sqrt(nope + rope), and the
     probabilities are cast to x's dtype before ``p·c_kv``, as in the JAX
-    package. Returns (out ``[B, 1, d]``, cache)."""
+    package. Returns (out ``[B, 1, d]``, cache). On a mesh (`ctx`) the
+    scores, softmax and ``p·c_kv`` run on each rank's local shard
+    (`local_map`: batch over the batch axes, heads over 'model'), as the
+    prefill's attention does."""
     positions = _decode_positions(x, pos)
-    q_nope, q_pe = _mla_q(cfg, params, x, positions)
+    q_nope, q_pe = _mla_q(cfg, params, x, positions, ctx)
     c_kv_new, k_pe_new = _mla_latent(cfg, params, x, positions)
     cache["c_kv"][:, pos] = c_kv_new[:, 0]
     cache["k_pe"][:, pos] = k_pe_new[:, 0]
     c_kv, k_pe = cache["c_kv"][:, :pos + 1], cache["k_pe"][:, :pos + 1]
     w_uk, w_uv = torch.split(params["wkv_b"], [cfg.qk_nope_head_dim, cfg.v_head_dim], dim=-1)
     q_lat = torch.einsum("bqnh,lnh->bqnl", q_nope, w_uk)
-    s = torch.einsum("bqnl,bsl->bnqs", q_lat.float(), c_kv.float())
-    s = s + torch.einsum("bqnr,bsr->bnqs", q_pe.float(), k_pe.float())
-    s = s / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
-    p = torch.softmax(s, dim=-1).to(x.dtype)
-    ctx_lat = torch.einsum("bnqs,bsl->bqnl", p, c_kv)
+
+    def latent(q_lat, q_pe, c_kv, k_pe):
+        s = torch.einsum("bqnl,bsl->bnqs", q_lat.float(), c_kv.float())
+        s = s + torch.einsum("bqnr,bsr->bnqs", q_pe.float(), k_pe.float())
+        s = s / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+        p = torch.softmax(s, dim=-1).to(x.dtype)
+        return torch.einsum("bnqs,bsl->bqnl", p, c_kv)
+
+    if ctx is None:
+        ctx_lat = latent(q_lat, q_pe, c_kv, k_pe)
+    else:
+        bat = ctx.batch_axes if x.shape[0] % ctx.n_data == 0 else None
+        heads = "model" if cfg.n_heads % ctx.n_model == 0 else None
+        q_spec, c_spec = P(bat, None, heads, None), P(bat, None, None)
+        c_grad = ctx.partial_over(c_spec, "model") if heads else c_spec
+        ctx_lat = ctx.local_map(latent, q_spec, (q_spec, q_spec, c_spec, c_spec),
+                                in_grad_specs=(q_spec, q_spec, c_grad, c_grad))(
+            q_lat, q_pe, c_kv, k_pe)
     out_v = torch.einsum("bqnl,lnv->bqnv", ctx_lat, w_uv)
-    return torch.einsum("bqnv,nvd->bqd", out_v, params["wo"]), cache
+    return project_out(out_v, params["wo"], ctx), cache

@@ -6,9 +6,14 @@ Modules *declare* parameters (shape, initializer) as a nested dict/list of
 layer dimension to every leaf. `tree_leaves`, `tree_leaves_with_path` and
 `tree_map` walk any tree of parameters, gradients or moments in
 `jax.tree.flatten`'s order (dict keys sorted), which the optimizer's sums
-and the checkpoint format follow. The JAX package's `PartitionSpec` per leaf is
-dropped: the port's LM runs on one device (its layout on a mesh is ROADMAP
-queue 1, item 14c).
+and the checkpoint format follow.
+
+Each declaration carries the JAX package's `PartitionSpec` (the layout on a
+device mesh: FSDP over 'data', TP and EP over 'model'). Three more
+interpreters read it: `specs(tree)` (the spec tree), `abstract(tree, dtype)`
+(meta tensors of each leaf's shape and dtype: the dry run's stand-ins,
+which allocate nothing) and `shard(params, spec_tree, ctx)` (full weights,
+identical on every rank, as DTensors on the mesh).
 
 The initial distributions are the JAX package's, but torch's generator
 draws other numbers than `jax.random`: the parity tests carry weights across
@@ -22,12 +27,14 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.distributed.sharding import P, sanitized_shardings
 from repro_torch.types import dtype_of
 
 
 @dataclass(frozen=True)
 class ParamDecl:
     shape: tuple[int, ...]
+    spec: P = P()
     init: str = "normal"  # normal | zeros | ones | embed | a_log | dt_bias
     scale: float | None = None  # stddev for normal; None -> 1/sqrt(fan_in)
     dtype: str | None = None  # override the model param dtype (e.g. float32)
@@ -85,10 +92,32 @@ def materialize(tree: Any, gen: torch.Generator, dtype: torch.dtype) -> Any:
     return walk(tree, lambda d, _p: _init_leaf(d, gen, dtype))
 
 
+def abstract(tree: Any, dtype: torch.dtype) -> Any:
+    """Meta tensors of every declaration's shape and dtype (the JAX
+    package's `ShapeDtypeStruct`s): nothing is allocated."""
+    return walk(tree, lambda d, _p: torch.empty(
+        d.shape, dtype=dtype_of(d.dtype) if d.dtype else dtype, device="meta"))
+
+
+def specs(tree: Any) -> Any:
+    """The `PartitionSpec` of every declaration."""
+    return walk(tree, lambda d, _p: d.spec)
+
+
+def shard(params: Any, spec_tree: Any, ctx) -> Any:
+    """`params`, the full weights, the same on every rank of `ctx`'s mesh,
+    as DTensors placed by `spec_tree` (`sanitized_shardings`: a mesh axis
+    that does not divide a dimension replicates it). Each rank keeps its
+    own shard of each leaf (`Sharding.from_full`), so nothing is sent."""
+    shardings = sanitized_shardings(ctx, params, spec_tree)
+    return tree_map(lambda p, sh: sh.from_full(p), params, shardings)
+
+
 def stack(tree: Any, n: int) -> Any:
-    """Prepend a layer dimension of size n to every leaf declaration (the
-    fan-in axis is counted from the end, so it is unchanged)."""
-    return walk(tree, lambda d, _p: replace(d, shape=(n, *d.shape)))
+    """Prepend a layer dimension of size n to every leaf declaration, left
+    unsharded (the fan-in axis is counted from the end, so it is
+    unchanged)."""
+    return walk(tree, lambda d, _p: replace(d, shape=(n, *d.shape), spec=P(None, *d.spec)))
 
 
 def count_params(tree: Any) -> int:

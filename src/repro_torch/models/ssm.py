@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import P
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models.layers import rmsnorm_scaleless
 from repro_torch.models.params import ParamDecl
@@ -37,14 +38,14 @@ def decl_ssm(cfg: ModelConfig) -> dict:
     g, ns, nh = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads
     proj_out = 2 * di + 2 * g * ns + nh  # z, xBC, dt
     return {
-        "in_proj": ParamDecl((d, proj_out)),
-        "conv_w": ParamDecl((cfg.ssm_conv, conv_dim(cfg)), scale=0.1),
-        "conv_b": ParamDecl((conv_dim(cfg),), init="zeros"),
-        "A_log": ParamDecl((nh,), init="a_log", dtype="float32"),
-        "D": ParamDecl((nh,), init="ones", dtype="float32"),
-        "dt_bias": ParamDecl((nh,), init="dt_bias", dtype="float32"),
-        "norm_scale": ParamDecl((di,), init="ones", dtype="float32"),
-        "out_proj": ParamDecl((di, d)),
+        "in_proj": ParamDecl((d, proj_out), P("data", "model")),
+        "conv_w": ParamDecl((cfg.ssm_conv, conv_dim(cfg)), P(None, "model"), scale=0.1),
+        "conv_b": ParamDecl((conv_dim(cfg),), P("model"), init="zeros"),
+        "A_log": ParamDecl((nh,), P("model"), init="a_log", dtype="float32"),
+        "D": ParamDecl((nh,), P("model"), init="ones", dtype="float32"),
+        "dt_bias": ParamDecl((nh,), P("model"), init="dt_bias", dtype="float32"),
+        "norm_scale": ParamDecl((di,), P("model"), init="ones", dtype="float32"),
+        "out_proj": ParamDecl((di, d), P("model", "data")),
     }
 
 
@@ -166,9 +167,11 @@ def ssd_reference_sequential(x, dt, Bm, Cm, A, init_state=None):
 # ---------------------------------------------------------------------------
 
 
-def _in_proj_split(cfg: ModelConfig, params: dict, x: torch.Tensor):
+def _in_proj_split(cfg: ModelConfig, params: dict, x: torch.Tensor, ctx=None):
     di, g, ns = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state
     zxbcdt = x @ params["in_proj"]
+    if ctx is not None:  # TP over the projection's columns, forward and backward
+        zxbcdt = ctx.fence(zxbcdt, "batch", None, "tp")
     return torch.split(zxbcdt, [di, di + 2 * g * ns, cfg.ssm_nheads], dim=-1)
 
 
@@ -192,25 +195,73 @@ def ssm_block(
     cache: dict | None = None,
     want_cache: bool = False,
     use_kernel: bool = False,
+    ctx=None,
 ):
-    """Full-sequence (train/prefill) Mamba-2 block. Returns (out, cache|None)."""
+    """Full-sequence (train/prefill) Mamba-2 block. Returns (out, cache|None).
+    On a mesh (`ctx`, DTensor inputs) the chunk scan, the kernel or the
+    plain one, runs on each rank's local shard (`_ssd_local`)."""
     B, S, _ = x.shape
-    z, xBC, dt_raw = _in_proj_split(cfg, params, x)
+    z, xBC, dt_raw = _in_proj_split(cfg, params, x, ctx)
     conv_state = cache["conv"] if cache is not None else None
     xBC, conv_tail = causal_conv(params, xBC, conv_state)
     xh, dt, Bn, Cn, A = _ssm_pre(cfg, params, xBC, dt_raw)
     init_state = cache["state"] if cache is not None else None
-    if use_kernel:
+    if ctx is not None:
+        y, final_state = _ssd_local(cfg, ctx, xh, dt, Bn, Cn, A, init_state, use_kernel)
+    elif use_kernel:
         y, final_state = ssd_ops.ssd(cfg, xh, dt, Bn, Cn, A, init_state)
     else:
         y, final_state = ssd_scan(cfg, xh, dt, Bn, Cn, A, init_state)
     D = params["D"].float().reshape(cfg.ssm_ngroups, -1)
     y = y + xh * D[None, None, :, :, None]
-    y = y.reshape(B, S, cfg.d_inner).to(x.dtype)
+    y = _merge_heads(cfg, ctx, y).to(x.dtype)
     y = rmsnorm_scaleless(y * F.silu(z), params["norm_scale"], cfg.norm_eps)
     out = y @ params["out_proj"]
     new_cache = {"conv": conv_tail, "state": final_state} if want_cache else None
     return out, new_cache
+
+
+def _merge_heads(cfg: ModelConfig, ctx, y):
+    """``[B, S, g, r, P] -> [B, S, d_inner]``. On a mesh with one group and
+    the heads over 'model', on each rank's local shard (`local_map`): a
+    rank's heads are then one contiguous block of d_inner, where DTensor's
+    own view gives a strided shard whose propagation into `out_proj` takes
+    minutes."""
+    B, S = y.shape[:2]
+    r = cfg.ssm_nheads // cfg.ssm_ngroups
+    if ctx is None or cfg.ssm_ngroups != 1 or r % ctx.n_model:
+        return y.reshape(B, S, cfg.d_inner)
+    bat = ctx.batch_axes if B % ctx.n_data == 0 else None
+    return ctx.local_map(lambda yl: yl.flatten(2), P(bat, None, "model"),
+                         (P(bat, None, None, "model", None),))(y)
+
+
+def _ssd_local(cfg: ModelConfig, ctx, xh, dt, Bn, Cn, A, init_state, use_kernel: bool):
+    """The chunk scan on each rank's local shard (`local_map`), the SSD
+    kernel or `ssd_scan`: batch over the batch axes where B divides, the
+    heads of each group over 'model' where they divide (the JAX package's
+    `ssm.py` TP layout), B and C replicated over 'model' (their gradient a
+    partial sum over it). The plain scan runs here too, not as DTensor
+    operations: with a batch that the whole mesh does not divide, DTensor's
+    propagation shards it unevenly over 'model' as well, and the backward
+    of its einsums then fails on the ragged shards."""
+    bat = ctx.batch_axes if xh.shape[0] % ctx.n_data == 0 else None
+    r = "model" if xh.shape[3] % ctx.n_model == 0 else None
+    x_spec, state_spec = P(bat, None, None, r, None), P(bat, None, r, None, None)
+    bc_spec = P(bat, None, None, None)
+    bc_grad = ctx.partial_over(bc_spec, "model") if r else bc_spec
+    s_spec = None if init_state is None else state_spec
+    scan = ssd_ops.ssd if use_kernel else ssd_scan
+
+    def local(x_l, dt_l, b_l, c_l, a_l, s_l):
+        return scan(cfg, x_l, dt_l, b_l, c_l, a_l, s_l)
+
+    in_specs = (x_spec, P(bat, None, None, r), bc_spec, bc_spec, P(None, r), s_spec)
+    # A is the same on every batch rank: its gradient a partial sum over them
+    a_grad = ctx.partial_over(P(None, r), *ctx.batch_axes) if bat else P(None, r)
+    return ctx.local_map(local, (x_spec, state_spec), in_specs,
+                         in_grad_specs=in_specs[:2] + (bc_grad, bc_grad, a_grad, s_spec))(
+        xh, dt, Bn, Cn, A, init_state)
 
 
 def ssm_decode(cfg: ModelConfig, params: dict, x: torch.Tensor, cache: dict):

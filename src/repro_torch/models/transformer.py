@@ -50,6 +50,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.core.device import resolve_device
+from repro_torch.distributed.sharding import AbstractMesh, P, ShardingCtx, on_mesh
 from repro_torch.kernels.flash_attention.ops import KERNEL_OF
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
@@ -192,7 +193,7 @@ def decl_group_unit(cfg: ModelConfig, kind: str) -> dict:
 def decl_model(cfg: ModelConfig) -> dict:
     decls: dict = {"embed": decl_embed(cfg)}
     if cfg.family == "vlm":
-        decls["ctx_proj"] = ParamDecl((cfg.d_ctx or cfg.d_model, cfg.d_model))
+        decls["ctx_proj"] = ParamDecl((cfg.d_ctx or cfg.d_model, cfg.d_model), P(None, "data"))
     decls["groups"] = [
         stack(decl_group_unit(cfg, g.kind), g.count) for g in make_groups(cfg)
     ]
@@ -202,34 +203,75 @@ def decl_model(cfg: ModelConfig) -> dict:
     return decls
 
 
+#: the sharding arithmetic's context when the caller gives none: one device
+ONE_DEVICE = ShardingCtx(AbstractMesh((1, 1), ("data", "model")))
+
+
 @dataclass(frozen=True)
 class CacheDecl:
     """One cache leaf: its shape and dtype (the JAX package's
-    `ShapeDtypeStruct`, without a PartitionSpec: one device)."""
+    `ShapeDtypeStruct`) and its `PartitionSpec` on the mesh it was declared
+    for."""
     shape: tuple[int, ...]
     dtype: torch.dtype
+    spec: P = P()
 
 
-def _attn_cache_decl(cfg: ModelConfig, B: int, S: int, lead: tuple[int, ...]) -> dict:
+def _batch_ax(ctx: ShardingCtx, B: int):
+    """The batch axes where they divide B, else None (replicated): a ragged
+    batch runs whole on every rank."""
+    return ctx.rules["batch"] if B % ctx.n_data == 0 else None
+
+
+def constrain_act(cfg: ModelConfig, ctx: ShardingCtx | None, x, mode: str):
+    """Residual-stream sharding between blocks. Baseline: batch only.
+    seq_shard_activations (train) / context_parallel (prefill) additionally
+    shard the SEQ dim over 'model' (Megatron SP / context parallelism). A
+    plain tensor (no mesh) passes as it is."""
+    if ctx is None:
+        return x
+    sp = (cfg.seq_shard_activations and mode == "train") or (
+        cfg.context_parallel and mode == "prefill"
+    )
+    if sp and x.ndim == 3 and x.shape[1] % max(ctx.n_model, 1) == 0:
+        return ctx.constrain(x, "batch", "seq", None)
+    return ctx.constrain(x, "batch", None, None)
+
+
+def _attn_cache_decl(cfg: ModelConfig, B: int, S: int, ctx: ShardingCtx,
+                     lead: tuple[int, ...]) -> dict:
     dt = dtype_of(cfg.act_dtype)
+    bat = _batch_ax(ctx, B)
+    nm = ctx.n_model
+    lead_sp = (None,) * len(lead)
     if cfg.attn_type == "mla":
-        return {"c_kv": CacheDecl((*lead, B, S, cfg.kv_lora_rank), dt),
-                "k_pe": CacheDecl((*lead, B, S, cfg.qk_rope_head_dim), dt)}
-    kv = CacheDecl((*lead, B, S, cfg.n_kv_heads, cfg.head_dim), dt)
+        seq_ax = "model" if S % nm == 0 else None
+        return {"c_kv": CacheDecl((*lead, B, S, cfg.kv_lora_rank), dt,
+                                  P(*lead_sp, bat, seq_ax, None)),
+                "k_pe": CacheDecl((*lead, B, S, cfg.qk_rope_head_dim), dt,
+                                  P(*lead_sp, bat, seq_ax, None))}
+    kv_ax = "model" if cfg.n_kv_heads % nm == 0 else None
+    seq_ax = "model" if (kv_ax is None and S % nm == 0) else None
+    kv = CacheDecl((*lead, B, S, cfg.n_kv_heads, cfg.head_dim), dt,
+                   P(*lead_sp, bat, seq_ax, kv_ax, None))
     return {"k": kv, "v": kv}
 
 
-def _ssm_cache_decl(cfg: ModelConfig, B: int, lead: tuple[int, ...]) -> dict:
-    g = cfg.ssm_ngroups
+def _ssm_cache_decl(cfg: ModelConfig, B: int, ctx: ShardingCtx, lead: tuple[int, ...]) -> dict:
+    g, r = cfg.ssm_ngroups, cfg.ssm_nheads // cfg.ssm_ngroups
+    bat = _batch_ax(ctx, B)
+    nm = ctx.n_model
+    cdim = ssm_mod.conv_dim(cfg)
+    lead_sp = (None,) * len(lead)
     return {
-        "conv": CacheDecl((*lead, B, cfg.ssm_conv - 1, ssm_mod.conv_dim(cfg)),
-                          dtype_of(cfg.act_dtype)),
-        "state": CacheDecl((*lead, B, g, cfg.ssm_nheads // g, cfg.ssm_state, cfg.ssm_headdim),
-                           torch.float32),
+        "conv": CacheDecl((*lead, B, cfg.ssm_conv - 1, cdim), dtype_of(cfg.act_dtype),
+                          P(*lead_sp, bat, None, "model" if cdim % nm == 0 else None)),
+        "state": CacheDecl((*lead, B, g, r, cfg.ssm_state, cfg.ssm_headdim), torch.float32,
+                           P(*lead_sp, bat, None, "model" if r % nm == 0 else None, None, None)),
     }
 
 
-def cache_decl(cfg: ModelConfig, B: int, S: int) -> list:
+def cache_decl(cfg: ModelConfig, B: int, S: int, ctx: ShardingCtx | None = None) -> list:
     """The caches of B sequences of `S` rows, one tree a group, as the JAX
     package declares them (`repro/models/transformer.py::cache_decl`):
     ``{"attn": {k, v}}`` (MLA: ``{c_kv, k_pe}``) of a dense or moe group,
@@ -237,23 +279,36 @@ def cache_decl(cfg: ModelConfig, B: int, S: int) -> list:
     and its shared block's ``attn [n, ...]``, a vlm group's ``self [n,
     period-1, ...]`` and ``cross [n, B, n_ctx_tokens, nkv, hd]``. Every
     leaf in the activation dtype but the SSM state (float32). Allocates
-    nothing."""
+    nothing.
+
+    Each leaf's spec is the JAX package's on `ctx`'s mesh (default: one
+    device): batch over the batch axes where B divides; kv heads over
+    'model' where they divide, else the sequence; MLA's latent by sequence;
+    the SSM's conv channels and heads per group over 'model'."""
+    ctx = ONE_DEVICE if ctx is None else ctx
     decls = []
     for g in make_groups(cfg):
         n = g.count
         if g.kind in ("dense", "moe"):
-            decls.append({"attn": _attn_cache_decl(cfg, B, S, (n,))})
+            decls.append({"attn": _attn_cache_decl(cfg, B, S, ctx, (n,))})
         elif g.kind == "ssm":
-            decls.append({"ssm": _ssm_cache_decl(cfg, B, (n,))})
+            decls.append({"ssm": _ssm_cache_decl(cfg, B, ctx, (n,))})
         elif g.kind == "hybrid":
-            decls.append({"ssm": _ssm_cache_decl(cfg, B, (n, cfg.hybrid_period - 1)),
-                          "attn": _attn_cache_decl(cfg, B, S, (n,))})
+            decls.append({"ssm": _ssm_cache_decl(cfg, B, ctx, (n, cfg.hybrid_period - 1)),
+                          "attn": _attn_cache_decl(cfg, B, S, ctx, (n,))})
         else:  # vlm
+            kv_ax = "model" if cfg.n_kv_heads % ctx.n_model == 0 else None
             kv = CacheDecl((n, B, cfg.n_ctx_tokens, cfg.n_kv_heads, cfg.head_dim),
-                           dtype_of(cfg.act_dtype))
-            decls.append({"self": _attn_cache_decl(cfg, B, S, (n, cfg.cross_attn_period - 1)),
+                           dtype_of(cfg.act_dtype), P(None, _batch_ax(ctx, B), None, kv_ax, None))
+            decls.append({"self": _attn_cache_decl(cfg, B, S, ctx,
+                                                   (n, cfg.cross_attn_period - 1)),
                           "cross": {"k": kv, "v": kv}})
     return decls
+
+
+def cache_specs(decls: list) -> list:
+    """The `PartitionSpec` tree of a `cache_decl` tree."""
+    return walk(decls, lambda d, _p: d.spec)
 
 
 def init_cache(cfg: ModelConfig, B: int, S: int, device=None) -> list:
@@ -266,43 +321,45 @@ def init_cache(cfg: ModelConfig, B: int, S: int, device=None) -> list:
 
 def _dense_unit(cfg: ModelConfig, params: dict, x: torch.Tensor, *, positions, mode: str,
                 cache_len: int | None, cache: dict | None = None, pos: int | None = None,
-                is_moe: bool = False, points: int = 1):
+                is_moe: bool = False, points: int = 1, ctx: ShardingCtx | None = None):
     """Attention (GQA or MLA) and an MLP or MoE: (x, {"attn": cache} or None,
     aux). In decode, `cache` is this unit's {"attn": ...}, updated in
-    place at row `pos`."""
+    place at row `pos`. On a mesh the residual stream is constrained after
+    each block, as the JAX package's is."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if mode == "decode":
         step = attn_mod.mla_decode if cfg.attn_type == "mla" else attn_mod.gqa_decode
-        a, new_attn = step(cfg, params["attn"], h, cache["attn"], pos)
+        a, new_attn = step(cfg, params["attn"], h, cache["attn"], pos, ctx=ctx)
     else:
         full = attn_mod.mla_full if cfg.attn_type == "mla" else attn_mod.gqa_full
         a, new_attn = full(cfg, params["attn"], h, positions=positions,
-                           want_cache=(mode == "prefill"), cache_len=cache_len)
-    x = x + a
+                           want_cache=(mode == "prefill"), cache_len=cache_len, ctx=ctx)
+    x = constrain_act(cfg, ctx, x + a, mode)
     h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)
     if is_moe:
-        m, aux = moe_block(cfg, params["moe"], h2, points=points)
+        m, aux = moe_block(cfg, params["moe"], h2, points=points, ctx=ctx)
     else:
         m, aux = mlp(params["mlp"], h2), None
-    x = x + m
+    x = constrain_act(cfg, ctx, x + m, mode)
     return x, ({"attn": new_attn} if new_attn is not None else None), aux
 
 
 def _ssm_unit(cfg: ModelConfig, params: dict, x: torch.Tensor, *, mode: str, use_kernel: bool,
-              cache: dict | None = None):
+              cache: dict | None = None, ctx: ShardingCtx | None = None):
     h = rmsnorm(params["ln"], x, cfg.norm_eps)
     if mode == "decode":
         s, new_ssm = ssm_mod.ssm_decode(cfg, params["ssm"], h, cache["ssm"])
     else:
         s, new_ssm = ssm_mod.ssm_block(
             cfg, params["ssm"], h, cache=None, want_cache=(mode == "prefill"),
-            use_kernel=use_kernel,
+            use_kernel=use_kernel, ctx=ctx,
         )
-    return x + s, ({"ssm": new_ssm} if new_ssm is not None else None)
+    return constrain_act(cfg, ctx, x + s, mode), ({"ssm": new_ssm} if new_ssm is not None else None)
 
 
 def _cross_unit(cfg: ModelConfig, params: dict, x: torch.Tensor, *, mode: str,
-                ctx_embed: torch.Tensor | None, cache: dict | None = None):
+                ctx_embed: torch.Tensor | None, cache: dict | None = None,
+                ctx: ShardingCtx | None = None):
     """Cross-attention against the projected context (in decode: the
     cached {"k", "v"}, which passes through unchanged), then the MLP: (x,
     the context's {"k", "v"} in prefill, else None)."""
@@ -310,10 +367,10 @@ def _cross_unit(cfg: ModelConfig, params: dict, x: torch.Tensor, *, mode: str,
     if mode == "decode":
         a, ctx_kv = attn_mod.cross_attention(cfg, params["xattn"], h, ctx_kv=cache, decode=True)
     else:
-        a, ctx_kv = attn_mod.cross_attention(cfg, params["xattn"], h, ctx=ctx_embed)
+        a, ctx_kv = attn_mod.cross_attention(cfg, params["xattn"], h, ctx=ctx_embed, shard_ctx=ctx)
     x = x + a
     x = x + mlp(params["mlp"], rmsnorm(params["ln2"], x, cfg.norm_eps))
-    return x, (ctx_kv if mode == "prefill" else None)
+    return constrain_act(cfg, ctx, x, mode), (ctx_kv if mode == "prefill" else None)
 
 
 def _layer(tree, i: int):
@@ -333,20 +390,31 @@ def _unit(cfg: ModelConfig, kind: str, x: torch.Tensor, p: dict, c, *, dense: di
           use_kernel: bool, points: int, ctx_embed, shared):
     """One unit of a group of `kind` (the body the JAX package scans): its
     parameters `p`, its cache `c` in decode (else None). Returns (x, its
-    new cache in prefill or None, the MoE's aux loss or None)."""
-    mode = dense["mode"]
+    new cache in prefill or None, the MoE's aux loss or None). On a mesh it
+    enters `on_mesh` itself: a remat recompute runs it again in the
+    backward, outside the forward's scope."""
+    with on_mesh(dense["ctx"]):
+        return _unit_body(cfg, kind, x, p, c, dense=dense, use_kernel=use_kernel,
+                          points=points, ctx_embed=ctx_embed, shared=shared)
+
+
+def _unit_body(cfg: ModelConfig, kind: str, x: torch.Tensor, p: dict, c, *, dense: dict,
+               use_kernel: bool, points: int, ctx_embed, shared):
+    mode, ctx = dense["mode"], dense["ctx"]
+    if ctx is not None:  # FSDP: the unit's weights gathered over 'data' as it starts
+        p, shared = ctx.gather_fsdp(p), ctx.gather_fsdp(shared)
     decode = mode == "decode"
     if kind in ("dense", "moe"):
         return _dense_unit(cfg, p, x, is_moe=kind == "moe", points=points, cache=c, **dense)
     if kind == "ssm":
-        x, nc = _ssm_unit(cfg, p, x, mode=mode, use_kernel=use_kernel, cache=c)
+        x, nc = _ssm_unit(cfg, p, x, mode=mode, use_kernel=use_kernel, cache=c, ctx=ctx)
         return x, nc, None
     if kind == "hybrid":
         inner = []
         for i in range(cfg.hybrid_period - 1):
             ci = {"ssm": _layer(c["ssm"], i)} if decode else None
             x, ci = _ssm_unit(cfg, _layer(p["ssm"], i), x, mode=mode, use_kernel=use_kernel,
-                              cache=ci)
+                              cache=ci, ctx=ctx)
             inner.append(ci)
         x, c_attn, _ = _dense_unit(cfg, shared, x, cache={"attn": c["attn"]} if decode else None,
                                    **dense)
@@ -360,7 +428,7 @@ def _unit(cfg: ModelConfig, kind: str, x: torch.Tensor, p: dict, c, *, dense: di
         x, ci, _ = _dense_unit(cfg, _layer(p["self"], i), x, cache=ci, **dense)
         inner.append(ci)
     x, c_cross = _cross_unit(cfg, p["cross"], x, mode=mode, ctx_embed=ctx_embed,
-                             cache=c["cross"] if decode else None)
+                             cache=c["cross"] if decode else None, ctx=ctx)
     nc = {"self": _stacked(inner)["attn"], "cross": c_cross} if mode == "prefill" else None
     return x, nc, None
 
@@ -378,6 +446,7 @@ def forward(
     skip_head: bool = False,
     embed_scale: torch.Tensor | None = None,
     points: int = 1,
+    ctx: ShardingCtx | None = None,
 ):
     """Returns (logits | hidden states if skip_head, caches | None, aux).
 
@@ -403,7 +472,17 @@ def forward(
     `cfg.attn_impl` picks the kernel or the plain path of the SSD
     ("kernel": the CUDA kernel, "plain": `ssd_scan`) and of attention
     ("kernel": the flash kernel, "plain": `_grouped_attention`); see
-    `types.ModelConfig.attn_impl`."""
+    `types.ModelConfig.attn_impl`.
+
+    `ctx` (a `ShardingCtx`) runs the step on its mesh: `params` are then
+    DTensors (`models.model.shard_params`); tokens and `ctx_embed`, full
+    tensors the same on every rank or DTensors, are placed over the batch
+    axes where B divides (else replicated), `embed_scale` is met as
+    replicated; the
+    residual stream is constrained after the embedding and after every
+    block (`constrain_act`) and the logits to (batch, -, tp), as the JAX
+    package constrains them; the kernels run on each rank's local shards
+    (`local_map`). The results are DTensors."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got {mode!r}")
     if cfg.attn_impl not in ("kernel", "plain"):
@@ -414,12 +493,30 @@ def forward(
     if decode and (embed_scale is not None or points != 1):
         raise ValueError("decode takes neither embed_scale nor points (the JAX package's "
                          "decode step has neither)")
+    if ctx is not None:
+        # embed_scale stays a plain tensor, met as replicated (`on_mesh`): a
+        # theta that requires grad then gets every rank's part of its gradient
+        tokens = ctx.put(tokens, "batch", None)
+        if ctx_embed is not None:
+            ctx_embed = ctx.put(ctx_embed, "batch", None, None)
+    with on_mesh(ctx):
+        return _forward(cfg, params, tokens, ctx_embed=ctx_embed, mode=mode, cache=cache,
+                        pos=pos, cache_len=cache_len, skip_head=skip_head,
+                        embed_scale=embed_scale, points=points, ctx=ctx)
+
+
+def _forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, ctx_embed, mode: str,
+             cache, pos, cache_len, skip_head: bool, embed_scale, points: int, ctx):
+    decode = mode == "decode"
     use_kernel = cfg.attn_impl == "kernel"
     B, S = tokens.shape
-    x = embed_tokens(params["embed"], tokens)
+    if ctx is not None:  # the top-level weights gathered over 'data' (FSDP)
+        params = dict(params, **ctx.gather_fsdp({k: params[k] for k in params
+                                                 if k not in ("groups", "shared")}))
+    x = embed_tokens(params["embed"], tokens, ctx)
     if embed_scale is not None:
         x = x * embed_scale.to(x.dtype)[:, None, None]
-    x = x.to(dtype_of(cfg.act_dtype))
+    x = constrain_act(cfg, ctx, x.to(dtype_of(cfg.act_dtype)), mode)
     positions = None if decode else torch.arange(S, device=tokens.device).expand(B, S)
     if cfg.family == "vlm" and not decode:
         if ctx_embed is None:
@@ -427,7 +524,7 @@ def forward(
         proj = params["ctx_proj"]
         dt = torch.promote_types(ctx_embed.dtype, proj.dtype)
         ctx_embed = (ctx_embed.to(dt) @ proj.to(dt)).to(x.dtype)
-    dense = dict(positions=positions, mode=mode, cache_len=cache_len, pos=pos)
+    dense = dict(positions=positions, mode=mode, cache_len=cache_len, pos=pos, ctx=ctx)
     unit_kw = dict(dense=dense, use_kernel=use_kernel, points=points, ctx_embed=ctx_embed,
                    shared=params.get("shared"))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -450,7 +547,11 @@ def forward(
     if skip_head:
         return x, caches, aux
     if embed_scale is None or "head" in params["embed"]:
-        return lm_head(params["embed"], x), caches, aux
-    # tied: each sequence's logits read its own scaled table
-    logits = torch.cat([lm_head(params["embed"], x[i:i + 1], embed_scale[i]) for i in range(B)])
+        logits = lm_head(params["embed"], x)
+    else:
+        # tied: each sequence's logits read its own scaled table
+        logits = torch.cat([lm_head(params["embed"], x[i:i + 1], embed_scale[i])
+                            for i in range(B)])
+    if ctx is not None:
+        logits = ctx.constrain(logits, "batch", None, "tp")
     return logits, caches, aux

@@ -14,9 +14,15 @@ tree_leaves`).
 returns the same trees, where the JAX package returns new ones and donates
 the old buffers to its jitted step (`repro/launch/train.py:56`): either way
 the inputs are consumed, so a step that fails after the update restores
-from a checkpoint (`launch.train`). The mesh specs (`adamw_init_abstract`,
-`opt_state_specs`) wait for the LM's layout on the mesh, ROADMAP queue 1
-item 14c.
+from a checkpoint (`launch.train`).
+
+On a mesh the parameters are DTensors (`models.model.shard_params`): the
+moments are DTensors placed as their parameters (`adamw_init`;
+`opt_state_specs` gives their specs, `adamw_init_abstract` the dry run's
+meta stand-ins), the update runs on each rank's shards, and the global
+gradient norm is DTensor's sum over every shard. Call `adamw_update` inside
+`distributed.sharding.on_mesh(ctx)` (`models.model.train_step` does), where
+its plain 0-d step tensors meet the DTensors.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import math
 
 import torch
 
+from repro_torch.distributed.sharding import P
 from repro_torch.models.params import tree_leaves, tree_leaves_with_path, tree_map
 from repro_torch.types import TrainConfig, dtype_of
 
@@ -57,20 +64,40 @@ def _decay_mask(path: tuple, leaf) -> bool:
 
 
 def adamw_init(params, tc: TrainConfig) -> dict:
-    """Zero moments in `tc.opt_state_dtype` beside each parameter, and step
-    0 (int32) on the first parameter's device."""
+    """Zero moments in `tc.opt_state_dtype` beside each parameter (a
+    DTensor's placed as it is), and step 0 (int32) on the first parameter's
+    device."""
     dt = dtype_of(tc.opt_state_dtype)
     leaves = tree_leaves(params)
     device = leaves[0].device if leaves else None
 
     def zeros_like(p):
-        return torch.zeros(p.shape, dtype=dt, device=p.device)
+        return torch.zeros_like(p, dtype=dt)
 
     return {
         "mu": tree_map(zeros_like, params),
         "nu": tree_map(zeros_like, params),
         "step": torch.zeros((), dtype=torch.int32, device=device),
     }
+
+
+def adamw_init_abstract(params_abstract, tc: TrainConfig) -> dict:
+    """Meta stand-ins of `adamw_init`'s state for abstract parameters."""
+    dt = dtype_of(tc.opt_state_dtype)
+
+    def z(p):
+        return torch.empty(p.shape, dtype=dt, device="meta")
+
+    return {
+        "mu": tree_map(z, params_abstract),
+        "nu": tree_map(z, params_abstract),
+        "step": torch.empty((), dtype=torch.int32, device="meta"),
+    }
+
+
+def opt_state_specs(param_specs) -> dict:
+    """The moments sharded as their parameters; the step replicated."""
+    return {"mu": param_specs, "nu": param_specs, "step": P()}
 
 
 @torch.no_grad()

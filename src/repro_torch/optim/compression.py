@@ -5,8 +5,8 @@ On a mesh the gradient all-reduce crosses slow links; int8 quantization
 cuts those bytes 4x against float32. Error feedback keeps the quantization
 unbiased over time: each step's residual is added to the next step's
 gradient before it is quantized (Seide et al. 2014; Karimireddy et al.
-2019). Training has no all-reduce yet (the LM's training on a mesh is
-ROADMAP queue 1, item 14c), so here the compression changes only what the
+2019). `launch/train.py` has no all-reduce yet (its loop on a mesh is
+ROADMAP queue 1, item 14d), so here the compression changes only what the
 optimizer sees, as the JAX package's does on one device (`launch/train.py`,
 `--grad-compression int8_ef`).
 `torch.round` rounds half to even, as `jnp.round` does, so the two packages

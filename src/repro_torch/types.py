@@ -2,9 +2,9 @@
 
 `ModelConfig` describes one LM-family architecture; the config files under
 `repro_torch.configs` copy the JAX package's values verbatim, as
-`ShapeConfig`, `SHAPES`, `MeshConfig` and `TrainConfig` copy theirs. The
-TPU hardware constants (`HardwareSpec`) wait for an H100 counterpart beside
-them (ROADMAP queue 1, item 14c).
+`ShapeConfig`, `SHAPES`, `MeshConfig` and `TrainConfig` copy theirs.
+`HardwareSpec` has the reference's fields with the port's card in them,
+`H100` (the dry run's roofline terms).
 """
 from __future__ import annotations
 
@@ -281,6 +281,30 @@ class MeshConfig:
         for s in self.shape:
             n *= s
         return n
+
+
+@dataclass(frozen=True)
+class HardwareSpec:
+    """One accelerator's peaks for the dry run's roofline terms (the
+    reference's fields). These are DATASHEET peaks, not measurements: a card
+    under a lower power limit, or a kernel below its peak, runs slower. The
+    dry run reckons every collective at `ici_link_bandwidth`, the NVLink
+    rate, which is a lower bound on the collective term of an axis whose
+    ranks leave one 8-card NVLink node (InfiniBand between nodes is
+    slower)."""
+
+    name: str
+    peak_flops_bf16: float  # FLOP/s per card, dense
+    hbm_bandwidth: float  # B/s per card
+    ici_link_bandwidth: float  # B/s per card and direction, the card-to-card link
+    hbm_bytes: float  # per card
+
+
+#: NVIDIA H100 SXM5 80GB at 700 W, from NVIDIA's H100 datasheet: dense
+#: bf16 989 TFLOP/s (1,979 with sparsity), HBM3 3.35 TB/s, NVLink 4
+#: 900 GB/s per card both directions together (450 GB/s each way), 80 GB.
+H100 = HardwareSpec(name="h100-sxm5-80gb", peak_flops_bf16=989e12, hbm_bandwidth=3.35e12,
+                    ici_link_bandwidth=450e9, hbm_bytes=80e9)
 
 
 @dataclass

@@ -219,3 +219,97 @@ def four_rank_suite(rank: int, *, waves, restore) -> dict:
     return {"pool41": pool_waves(ctx41, waves), "pool22": pool_waves(ctx22, waves),
             "restore": restore_sharded(ctx22, **restore),
             "coordinate": ctx22.coordinate, "batch_index": ctx22.batch_index}
+
+
+# -- the LM's layout on the mesh (tests/test_torch_lm_mesh.py) -----------------------
+
+
+def lm_case(arch: str, B: int, S: int, **replace):
+    """The reduced `arch` (fields `replace`d), its weights from seed 0 and a
+    [B, S] batch from seed 1, on the CPU: the same on every rank and in the
+    test process."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config(arch, reduced=True).replace(**replace)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    return cfg, params, M.make_synth_batch(cfg, B, S, torch.Generator().manual_seed(1))
+
+
+def _full(tree):
+    """A tree of DTensors (or tensors) as numpy leaves, in tree order."""
+    from repro_torch.models.params import tree_leaves
+
+    return [(t.full_tensor() if hasattr(t, "full_tensor") else t).detach().numpy()
+            for t in tree_leaves(tree)]
+
+
+def mesh_nlls(ctx, archs, B: int, S: int) -> dict:
+    """Each reduced arch's per-sequence NLLs [B] on the mesh, its weights
+    sharded by `param_specs` (`eval_nll(..., ctx)`), gathered."""
+    from repro_torch.models import model as M
+
+    out = {}
+    for arch in archs:
+        cfg, params, batch = lm_case(arch, B, S)
+        sharded = M.shard_params(cfg, params, ctx)
+        out[arch] = M.eval_nll(cfg, sharded, batch, ctx).full_tensor().numpy()
+    return out
+
+
+def mesh_train_step(ctx, arch: str, B: int, S: int) -> dict:
+    """A training step of the reduced arch on the mesh: `loss_and_grads`'
+    gradients, then `train_step`'s metrics and updated weights (from the
+    same sharded weights), all gathered."""
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.types import TrainConfig
+
+    cfg, params, batch = lm_case(arch, B, S)
+    tc = TrainConfig(warmup_steps=0)
+    _, _, grads = M.loss_and_grads(cfg, M.shard_params(cfg, params, ctx), batch, ctx)
+    sharded = M.shard_params(cfg, params, ctx)
+    opt = adamw_init(sharded, tc)
+    sharded, opt, metrics = M.train_step(cfg, tc, sharded, opt, batch, ctx)
+    return {"grads": _full(grads), "params": _full(sharded),
+            "metrics": {k: float(_full([v])[0]) for k, v in metrics.items()},
+            "sharded": any(p.is_shard() for leaf in _leaves(sharded) for p in leaf.placements)}
+
+
+def _leaves(tree):
+    from repro_torch.models.params import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def lm_mesh_waves(ctx, arch: str, params: dict, batch: dict, thetas, senss) -> dict:
+    """The reduced LMUQModel on carried weights, sharded over the mesh: its
+    evaluate and gradient waves, its capabilities, and whether its Hessian
+    action raises there."""
+    from repro_torch.apps.lm_model import LMUQModel
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_numpy
+
+    weights = lm_params_from_numpy(get_config(arch, True), params, "cpu")
+    lm = LMUQModel(arch, reduced=True, device="cpu", params=weights, batch=batch, ctx=ctx)
+    out = {"evaluate": lm.evaluate_batch(thetas), "gradient": lm.gradient_batch(thetas, senss),
+           "capabilities": lm.capabilities().to_json(),
+           "sharded": any(p.is_shard() for t in _leaves(lm.params) for p in t.placements)}
+    try:
+        lm.apply_hessian_batch(thetas[:1], senss[:1], np.ones((1, 2)))
+        out["hessian"] = "ran"
+    except NotImplementedError:
+        out["hessian"] = "raises"
+    return out
+
+
+def lm_mesh_suite(rank: int, *, meshes, nll, train, lm) -> dict:
+    """On each mesh shape of `meshes` (over this world's ranks): the zoo's
+    NLLs, a training step and the LMUQModel waves."""
+    out = {}
+    for shape in meshes:
+        ctx = _mesh(tuple(shape))
+        out["x".join(map(str, shape))] = {
+            "nll": mesh_nlls(ctx, **nll), "train": mesh_train_step(ctx, **train),
+            "lm": lm_mesh_waves(ctx, **lm), "batch_index": ctx.batch_index}
+    return out

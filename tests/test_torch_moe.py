@@ -222,7 +222,7 @@ def test_wave_with_dropped_tokens_equals_per_point_calls_and_jax(dropping, monke
     # one dispatch over the whole wave (points not told apart, one capacity
     # for all) routes and drops across points: another function
     monkeypatch.setattr(transformer, "moe_block",
-                        lambda cfg, p, x, points=1: moe.moe_block(cfg, p, x))
+                        lambda cfg, p, x, points=1, ctx=None: moe.moe_block(cfg, p, x))
     mixed = pm.evaluate_batch(THETAS)
     print(f"routed over the whole wave: vs per point {np.abs(mixed / single - 1).max():.3g}")
     assert np.abs(mixed / single - 1).max() > 100 * UNPADDED_RTOL
