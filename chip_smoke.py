@@ -90,8 +90,11 @@ user calls:
   checkpoint every 4, a StepFailure and a NaN injected: retried, restored
   and replayed bit for bit; launches exactly 56 forward and 28 of each
   backward kernel a step; every attention's gradients held in situ against
-  the plain backward; `train_path`), and one float32 step of its first 4
-  layers against the plain path's gradients (`train_f32_path`);
+  the plain backward; `train_path`), the same training on a 1x1 NCCL mesh
+  (`train(..., ctx=)`: its first 6 steps, the failure and the NaN
+  included, train_path's losses bit for bit, its checkpoint restored
+  without a mesh leaf for leaf; `train_mesh_path`), and one float32 step of
+  its first 4 layers against the plain path's gradients (`train_f32_path`);
 * the LM-as-UQ-model's derivative operations (`apps/lm_model.py`): on
   qwen3-0.6b at full width and depth a `gradient_batch` wave of 8 points
   through the fabric, one forward and one reverse pass of the stack,
@@ -115,8 +118,12 @@ user calls:
   a mesh (`mesh_main_path`); then two ranks on the one card over `gloo`,
   each a process of this script (`--mesh-rank`) under a host watchdog: a
   fine wave split 8/8 and a fused coarse RWM split 8/8, bit for bit, the
-  RWM's rank-0 checkpoint resumed in this process, and the LM wave split
-  4/4 within LM_NLL_RTOL (`mesh_two_ranks`).
+  RWM's rank-0 checkpoint resumed in this process, the LM wave split 4/4
+  within LM_NLL_RTOL; then qwen3-0.6b (2 layers) trained FSDP over data = 2
+  and, from that checkpoint, TP over model = 2, within MESH_TRAIN_RTOL of
+  one device, and minicpm3-4b (2 layers, float32) served on (1, 2), its
+  latent cache split over its rows, by flash decoding with no all-gather,
+  within MLA_MESH_RTOL of one device (`mesh_two_ranks`).
 
 Last, the port's analysis gate (`analysis_gate`, `repro_torch.analysis`):
 its linter over the port and this script (every rule 0 findings, against
@@ -528,6 +535,13 @@ def solve_work(C: int, N: int, n_steps: int, R: int) -> dict:
             "ops": SWE_OPS_PER_CELL_LANE * C * N * n_steps}
 
 
+#: the waves whose plain loop `solve_times` times beside the 16-lane ones
+#: (the kernel table's 512-lane fine wave; (512, 64), (2048, 64) and
+#: (512, 512) were timed too until the trainer on a mesh needed the run's
+#: time: ~15 s of eager loops)
+SOLVE_PLAIN_TIMED = ((2048, 512),)
+
+
 def phase_times(torch, dev, smi: str, solves: dict) -> dict:
     """Device time of one step-kernel launch at the main path's shapes, at
     the plan's strip depth and at every depth, beside its bytes bound and
@@ -615,9 +629,10 @@ def phase_times(torch, dev, smi: str, solves: dict) -> dict:
         # one loop a window: its ~50 small kernels a step overrun the
         # launch queue, so the host's issue rate enters, as it does on
         # the plain path
-        plain = []
-        plain_ms = _device_ms(torch, lambda: plain.append(swe_solve_ref(h, hu, b, **kw)),
-                              calls=1, windows=1)
+        plain, plain_ms = [], None
+        if N == 16 or (C, N) in SOLVE_PLAIN_TIMED:
+            plain_ms = _device_ms(torch, lambda: plain.append(swe_solve_ref(h, hu, b, **kw)),
+                                  calls=1, windows=1)
         if N == 16:
             # every cluster size against the plain loop, bit for bit
             for cs in CLUSTER_SIZES:
@@ -646,15 +661,23 @@ def phase_times(torch, dev, smi: str, solves: dict) -> dict:
     emit("solve_times", kernel="swe_solve",
          timer="one CUDA event pair around 5 back-to-back solves (one wave each), per "
                "solve, median of 5 windows, at every cluster size; plain: one CUDA event "
-               "pair around one plain loop",
+               "pair around one plain loop (16 lanes and SOLVE_PLAIN_TIMED; else null)",
          waves=waves, library_ms=None, card=smi)
     return {"shapes": shapes, "waves": waves, "floor_ms": floor_ms, "step_path": path}
+
+
+#: the lanes at which `full_solves` holds the model's wave to its plain path
+#: (eager, ~50 kernels a step: ~2.8 s coarse, ~10 s fine on the card's
+#: host); 4 and 64 lanes were held too until the trainer on a mesh needed
+#: the run's time: `kernel_vs_plain` holds the kernel itself at 1, 4, 8, 13,
+#: 16 and 64 lanes (`testing.SOLVE_SHAPES`)
+FULL_SOLVE_PLAIN_LANES = (16,)
 
 
 def phase_full_solves(torch, dev) -> dict:
     """Whole waves through `TsunamiModel.evaluate_batch` at both levels and
     4, 16, 64 and 512 lanes: each ONE launch of the solve kernel and none of
-    the step kernel. At 4, 16 and 64 lanes held bit for bit to the same
+    the step kernel. At FULL_SOLVE_PLAIN_LANES held bit for bit to the same
     solve on the plain path; at 512 lanes, where the plain path (x 8,899
     steps) would not fit the time limit, to the per-step kernel path
     (`solve_batch(step=swe_step)`, one step-kernel launch a step). The
@@ -707,7 +730,7 @@ def phase_full_solves(torch, dev) -> dict:
                                               err_msg=f"level {level}, {lanes} lanes, per step")
                 if lanes == 16:
                     step_path_launches += counts["swe_step"]
-            if lanes <= 64:
+            if lanes in FULL_SOLVE_PLAIN_LANES:
                 t0 = time.perf_counter()
                 plain = solve_batch(t_dev, n_cells, smoothed,
                                     step=swe_step_ref_into).cpu().numpy().astype(float)
@@ -716,8 +739,8 @@ def phase_full_solves(torch, dev) -> dict:
                                               err_msg=f"level {level}, {lanes} lanes")
             out[f"{level}x{lanes}"] = entry
     emit("full_solves", waves=out, step_path_launches=step_path_launches,
-         bound="bit for bit: against the plain path at 4, 16 and 64 lanes, against "
-               "the per-step kernel path at 16 and 512")
+         bound=f"bit for bit: against the plain path at {FULL_SOLVE_PLAIN_LANES} lanes, "
+               "against the per-step kernel path at 16 and 512")
     return {"waves": out, "step_path_launches": step_path_launches}
 
 
@@ -876,8 +899,10 @@ def tsunami_problem(torch, model, dev):
 
 
 #: time steps of a profiled derivative wave: a whole one traces ~10^6
-#: kernels, whose export alone takes minutes
-PROFILED_STEPS = 256
+#: kernels, whose export alone takes minutes (256 until the trainer on a
+#: mesh needed the run's time: their six traces took ~33 s to export and
+#: read; every step replays the same graph)
+PROFILED_STEPS = 64
 
 
 def _device_busy(torch, fn, what: str) -> dict:
@@ -933,26 +958,6 @@ def _profiled(torch, fn, wall: float, n_steps: int) -> dict:
             "trace_seconds": p["trace_seconds"]}
 
 
-def _derivative_waves_vs_cpu(torch, config, thetas, senss, vecs, card: dict) -> dict:
-    """Hold the card's gradient, JVP and HVP rows `card` on (thetas, senss,
-    vecs) to `TsunamiModel(device="cpu")` on the same float32 inputs, the
-    HVP lane by lane against the float64 HVP (`derivative_errors`); -> the
-    errors and the CPU's wall."""
-    from repro_torch.apps import tsunami
-    from repro_torch.kernels.swe.testing import derivative_errors
-
-    t0 = time.perf_counter()
-    cpu = tsunami.TsunamiModel(device="cpu")
-    want = {"gradient": cpu.gradient_batch(thetas, senss, config),
-            "apply_jacobian": cpu.apply_jacobian_batch(thetas, vecs, config),
-            "apply_hessian": cpu.apply_hessian_batch(thetas, senss, vecs, config)}
-    level = config["level"]
-    f64 = [torch.as_tensor(a.astype(np.float32).astype(float)) for a in (thetas, senss, vecs)]
-    hvp64 = tsunami._hvp_batch(*f64, cpu.N_CELLS[level], level == 0).numpy()
-    errors = derivative_errors(card, want, hvp64)
-    return {"lanes": len(thetas), "errors": errors, "cpu_wall_s": time.perf_counter() - t0}
-
-
 def phase_derivative_waves(torch, dev, smi: str) -> dict:
     """One fused value-and-gradient wave, one JVP wave and one HVP wave of
     16 lanes at both published levels through `TsunamiModel`: each wave's
@@ -962,12 +967,11 @@ def phase_derivative_waves(torch, dev, smi: str) -> dict:
     under the profiler, for the device's busy time. Checks: the fused
     wave's primal equals the evaluate wave (one `swe_solve` launch) bit for
     bit; sens.(J v) == (J^T sens).v within the JAX package's bound
-    (tests/test_capabilities.py); every value finite; and at the coarse
-    level, the card's waves (each step a replayed CUDA graph) on two lanes
-    against the same model on the CPU (the eager step the JAX-parity tests
-    pin), within the float32 bounds of `kernels.swe.testing` (the fine
-    level's CPU waves would take minutes; tests/test_torch_gpu.py holds
-    both levels of the small hierarchy)."""
+    (tests/test_capabilities.py); every value finite. The card's waves
+    against the same model on the CPU are tests/test_torch_gpu.py's
+    (`test_derivative_waves_on_cuda_match_the_cpu`, both levels of the small
+    hierarchy); this phase held two coarse lanes so too until the trainer on
+    a mesh needed the run's time (~40 s of CPU)."""
     from repro_torch.apps import tsunami
     from repro_torch.kernels.swe.testing import sources
 
@@ -1034,11 +1038,6 @@ def phase_derivative_waves(torch, dev, smi: str) -> dict:
         out[level] = {"n_cells": n_cells, "n_steps": n_steps, "lanes": lanes,
                       "duality_max_rel": float(np.max(np.abs(lhs - rhs) / np.maximum(np.abs(rhs), 1e-30))),
                       "primal_equals_evaluate": True, "waves": waves}
-        if level == 0:
-            out[level]["vs_cpu"] = _derivative_waves_vs_cpu(
-                torch, c, thetas[:2], senss[:2], vecs[:2],
-                {"gradient": gs[:2], "apply_jacobian": jv[:2],
-                 "apply_hessian": results["apply_hessian"][:2]})
         emit("derivative_waves", level=level, **out[level], card=smi)
     return out
 
@@ -1101,10 +1100,17 @@ def phase_mala_main_path(torch, dev) -> dict:
     return {"launches": counts["swe_solve"], "wall_s": wall}
 
 
+#: `laplace_path`'s Gauss-Newton / Newton iterations (benchmarks/
+#: second_order.py runs 4, as this phase did until the trainer on a mesh
+#: needed the run's time: ~10 s an iteration of both modes)
+LAPLACE_ITERS = 2
+
+
 def phase_laplace_path(torch, dev) -> dict:
     """`laplace_preview` on the coarse level with both curvature modes
-    (benchmarks/second_order.py's settings, 4 iterations): "full" rides the
-    HVP waves (reverse-over-forward), "gn" is the Jacobian-only control."""
+    (benchmarks/second_order.py's settings but LAPLACE_ITERS iterations):
+    "full" rides the HVP waves (reverse-over-forward), "gn" is the
+    Jacobian-only control."""
     from repro_torch.apps.tsunami import TsunamiModel
     from repro_torch.core.fabric import EvaluationFabric, ModelBackend
     from repro_torch.uq.inference import laplace_preview
@@ -1118,7 +1124,8 @@ def phase_laplace_path(torch, dev) -> dict:
             t0 = time.perf_counter()
             res = laplace_preview(
                 fab, data, np.diag(NOISE_SD**2), TRUE_THETA + [5.0, -0.3],
-                np.diag([100.0, 0.25]), curvature=curvature, n_ensemble=4, n_iters=4,
+                np.diag([100.0, 0.25]), curvature=curvature, n_ensemble=4,
+                n_iters=LAPLACE_ITERS,
                 rng=np.random.default_rng(0), config={"level": 0},
             )
             torch.cuda.synchronize()
@@ -1138,7 +1145,7 @@ def phase_laplace_path(torch, dev) -> dict:
                           "value_grad_waves": pc["value_and_gradient"]["waves"],
                           "jacobian_waves": pc["apply_jacobian"]["waves"]}
     agreement = float(np.max(np.abs(np.asarray(out["full"]["map"]) - out["gn"]["map"])))
-    emit("laplace_path", level=0, n_ensemble=4, n_iters=4, **out,
+    emit("laplace_path", level=0, n_ensemble=4, n_iters=LAPLACE_ITERS, **out,
          map_agreement_gn_vs_full=agreement)
     return out
 
@@ -2697,6 +2704,124 @@ def _watched_ranks(flag: str, where: Path, timeout_s: float) -> list:
     return [json.loads((where / f"rank{r}.json").read_text()) for r in range(2)]
 
 
+#: `mesh_two_ranks`' trainer: qwen3-0.6b at full width, MESH_TRAIN_LAYERS
+#: layers, bf16 as published, MESH_TRAIN_BATCH x MESH_TRAIN_SEQ tokens a step;
+#: MESH_TRAIN_FIRST steps FSDP over data = 2 (a checkpoint at the last), then
+#: the elastic restart onto model = 2 (TP) from that checkpoint, continued to
+#: MESH_TRAIN_STEPS; every loss within MESH_TRAIN_RTOL (relative) of the same
+#: training on one device in this process
+MESH_TRAIN_LAYERS, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 2, 2, 512
+MESH_TRAIN_FIRST, MESH_TRAIN_STEPS, MESH_TRAIN_RTOL = 2, 4, 1e-4
+#: its learning rate (no warmup). At train_path's 1e-3 the losses of 3 FSDP
+#: and 3 TP steps drifted up to 2.1e-4 (relative) from one device's (NVIDIA
+#: H100 80GB HBM3, 700.00 W; `scripts/mesh_slice_check.py --lr 1e-3 --steps
+#: 3,6`): the bf16 gradient summed over two ranks rounds
+#: once more than one device's, and AdamW's first steps move every weight
+#: by about the learning rate whatever the gradient's size, so the bf16
+#: weights round apart; the drift scales with the rate
+MESH_TRAIN_LR = 1e-4
+#: `mesh_two_ranks`' sharded serving: minicpm3-4b at full width,
+#: MLA_MESH_LAYERS layers, in float32 (so that the float32 decode tests'
+#: bound holds: MLA_MESH_RTOL is tests/_torch_zoo.py's LOGITS_RTOL for
+#: minicpm3-4b), on (data, model) = (1, 2): a prompt of MLA_MESH_PROMPT tokens
+#: in a latent cache of MLA_MESH_CACHE rows split over model (the second rank
+#: holds rows 32..63, every one masked at the first decode steps), then
+#: MLA_MESH_STEPS decode steps
+MLA_MESH_ARCH, MLA_MESH_LAYERS = "minicpm3-4b", 2
+MLA_MESH_PROMPT, MLA_MESH_CACHE, MLA_MESH_STEPS, MLA_MESH_RTOL = 28, 64, 8, 1e-5
+
+
+def mesh_train_case():
+    """(config, TrainConfig) of `mesh_two_ranks`' training."""
+    from repro_torch.configs import get_config
+    from repro_torch.types import TrainConfig
+
+    cfg = get_config(DENSE_ARCH).replace(n_layers=MESH_TRAIN_LAYERS)
+    return cfg, TrainConfig(lr=MESH_TRAIN_LR, warmup_steps=1, total_steps=MESH_TRAIN_STEPS,
+                            checkpoint_every=0, keep_checkpoints=2)
+
+
+def mla_mesh_case(torch, dev):
+    """(config, weights, tokens) of `mesh_two_ranks`' sharded serving: the
+    weights from seed 0 and a [2, prompt + steps] batch from seed 1 on
+    `dev`, the same on every rank and in this process."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config(MLA_MESH_ARCH).replace(param_dtype="float32", act_dtype="float32",
+                                            n_layers=MLA_MESH_LAYERS)
+    params = M.init_params(cfg, _generator(torch, dev, 0))
+    batch = M.make_synth_batch(cfg, 2, MLA_MESH_PROMPT + MLA_MESH_STEPS, _generator(torch, dev, 1))
+    return cfg, params, batch["tokens"]
+
+
+def mla_serve(torch, cfg, params, tokens, ctx=None) -> dict:
+    """`prefill_step` of the prompt at MLA_MESH_CACHE rows, then
+    MLA_MESH_STEPS `decode_step`s; on `ctx`'s mesh the weights sharded by
+    `param_specs` and the latent cache split over its rows on 'model' (flash
+    decoding). -> the logits of each step as float32 numpy (on a mesh
+    assembled by all-reduces, `sharding.assemble`), each decode step's
+    all-gathers (those of its op stream, `launch.hlo_analysis.OpRecorder`,
+    and those made sums on a `gloo` mesh on the card), whether the cache's
+    rows are split, the launches and the walls."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.hlo_analysis import OpRecorder, analyze
+    from repro_torch.models import model as M
+
+    def full(t):
+        return (sharding.assemble(t) if ctx is not None else t).float().cpu().numpy()
+
+    if ctx is not None:
+        params = M.shard_params(cfg, params, ctx)
+    reset_launches()
+    prefill_s, (last, cache) = _timed(torch, lambda: M.prefill_step(
+        cfg, params, tokens[:, :MLA_MESH_PROMPT], cache_len=MLA_MESH_CACHE, ctx=ctx))
+    logits, gathers = [full(last)], []
+    t0 = time.perf_counter()
+    for j in range(MLA_MESH_STEPS):
+        pos = MLA_MESH_PROMPT + j
+        if ctx is None:
+            step, cache = M.decode_step(cfg, params, cache, tokens[:, pos:pos + 1], pos)
+            logits.append(full(step))
+            continue
+        before = sharding.GATHERS_BY_SUM["n"]
+        with OpRecorder() as rec:
+            step, cache = M.decode_step(cfg, params, cache, tokens[:, pos:pos + 1], pos, ctx=ctx)
+        gathers.append(analyze(rec.ops, 1)["collective_counts"]["all-gather"]
+                       + sharding.GATHERS_BY_SUM["n"] - before)
+        logits.append(full(step))
+    torch.cuda.synchronize()
+    c_kv = cache[0]["attn"]["c_kv"]
+    split = ctx is not None and repr(c_kv.placements[-1]) == "Shard(dim=2)"
+    return {"logits": np.stack(logits), "all_gathers": gathers, "rows_split": split,
+            "launches": {k: n for k, n in read_launches().items() if n},
+            "prefill_s": prefill_s, "decode_s": time.perf_counter() - t0}
+
+
+def rank_train_elastic(torch, where: Path, ctx21, ctx12) -> dict:
+    """One rank's part of `mesh_two_ranks`' training: `launch.train.train`
+    FSDP over data = 2 (`ctx21`) for MESH_TRAIN_FIRST steps, its checkpoint
+    assembled by all-reduces and written by rank 0, then TP over model = 2
+    (`ctx12`) from that checkpoint (`restore(shardings=)`) to
+    MESH_TRAIN_STEPS: each part's history, launches and walls."""
+    from repro_torch.launch import train as L
+
+    cfg, tc = mesh_train_case()
+    out = {}
+    for name, ctx, steps in (("fsdp", ctx21, MESH_TRAIN_FIRST), ("tp", ctx12, MESH_TRAIN_STEPS)):
+        log = []
+        reset_launches()
+        wall, (_, _, hist) = _timed(torch, lambda: L.train(
+            cfg, tc, steps, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, str(where / "train_ckpt"),
+            log_every=1000, log=log, ctx=ctx))
+        out[name] = {"hist": hist, "launches": {k: n for k, n in read_launches().items() if n},
+                     "steps_run": sum(e.get("action") == "ok" for e in log),
+                     "checkpoint_s": [e["s"] for e in log if "checkpoint" in e], "wall_s": wall}
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_mesh_two_ranks(torch, dev, ref: dict, smi: str) -> dict:
     """Two ranks on the one card, over `gloo` (NCCL refuses two ranks on one
     GPU), each a process of this script (`--mesh-rank`) under a host
@@ -2706,8 +2831,14 @@ def phase_mesh_two_ranks(torch, dev, ref: dict, smi: str) -> dict:
     run of `mesh_main_path` bit for bit, and its rank-0 checkpoint (after
     the first block) resumed in this process == the same run bit for bit;
     qwen3-0.6b's 8-point wave split 4/4 within LM_NLL_RTOL of the
-    one-process wave, one forward's 28 flash launches a rank. A rank that
-    fails fails the run."""
+    one-process wave, one forward's 28 flash launches a rank; then the
+    trainer (`rank_train_elastic`: FSDP over data = 2, its checkpoint
+    assembled by all-reduces and written by rank 0, then the elastic
+    restart onto model = 2) within MESH_TRAIN_RTOL of the same training on
+    one device, and minicpm3-4b's serving on a latent cache split over its
+    rows (`mla_serve`) within MLA_MESH_RTOL of one device, no all-gather in
+    any decode step (`_check_two_rank_slice`). A rank that fails fails the
+    run."""
     import shutil
 
     from repro_torch.apps.tsunami import TsunamiModel
@@ -2729,6 +2860,13 @@ def phase_mesh_two_ranks(torch, dev, ref: dict, smi: str) -> dict:
     if not lm_err < LM_NLL_RTOL:
         raise AssertionError(f"the 8-point wave split 4/4: NLLs off by {lm_err} relative "
                              f"(bound {LM_NLL_RTOL})")
+    ranks_s = time.perf_counter() - t_phase
+    # the one-device references, after the ranks: run beside them, they
+    # slowed the ranks' host-bound work by more than they took (~30 s)
+    t_ref = time.perf_counter()
+    train_ref, mla_ref = mesh_two_ranks_references(torch, dev)
+    refs_s = time.perf_counter() - t_ref
+    elastic, mla = _check_two_rank_slice(torch, ranks, arrays, train_ref, mla_ref)
     # rank 0's checkpoint after the first block, resumed in this process
     ckpt = where / "fused_ckpt"
     shutil.rmtree(ckpt / f"step_{MESH_FUSED_STEPS:08d}")
@@ -2741,17 +2879,116 @@ def phase_mesh_two_ranks(torch, dev, ref: dict, smi: str) -> dict:
                     "n_steps": MESH_FUSED_STEPS, "bound": "bit for bit, and the resume"},
          lm={"arch": DENSE_ARCH, "points": len(MESH_LM_POINTS), "per_rank": 4,
              "nll_max_rel_diff": lm_err, "bound": LM_NLL_RTOL},
+         elastic_train=elastic, mla_serving=mla, ranks_s=ranks_s, references_s=refs_s,
          wall_s=time.perf_counter() - t_phase)
     return {"swe_solve": [m["launches"]["fine"]["swe_solve"] + m["launches"]["fused"]["swe_solve"]
                           for m in ranks],
-            "flash": [m["launches"]["lm"]["flash_attention_wgmma"] for m in ranks]}
+            "flash": [m["launches"]["lm"]["flash_attention_wgmma"] for m in ranks],
+            "train": [{part: m["train"][part]["launches"] for part in ("fsdp", "tp")}
+                      for m in ranks],
+            "mla": [m["mla"]["launches"] for m in ranks],
+            "seconds": {"ranks": [m["wall_s"] for m in ranks],
+                        "train_fsdp": [m["train"]["fsdp"]["wall_s"] for m in ranks],
+                        "train_tp": [m["train"]["tp"]["wall_s"] for m in ranks],
+                        "mla_serving": [m["mla"]["prefill_s"] + m["mla"]["decode_s"]
+                                        for m in ranks],
+                        "references": refs_s}}
+
+
+def mesh_two_ranks_references(torch, dev):
+    """The one-device runs the two ranks' trainer and MLA serving are held
+    to: (the history of `mesh_train_case` trained MESH_TRAIN_STEPS steps on
+    `dev`, `mla_serve` of `mla_mesh_case` without a mesh)."""
+    import tempfile
+
+    from repro_torch.launch import train as L
+
+    cfg, tc = mesh_train_case()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_train_") as ckpt_dir:
+        _, _, hist = L.train(cfg, tc, MESH_TRAIN_STEPS, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ,
+                             ckpt_dir, log_every=1000, device=dev)
+    mla = mla_serve(torch, *mla_mesh_case(torch, dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return hist, mla
+
+
+def _check_two_rank_slice(torch, ranks: list, arrays: list, train_ref: list, mla_ref: dict):
+    """Hold the ranks' trainer (FSDP, then TP from its checkpoint) to the
+    one-device history within MESH_TRAIN_RTOL, with each step's flash
+    launches (forward and remat recompute, each backward kernel once a
+    layer), and their MLA serving to the one-device logits within
+    MLA_MESH_RTOL, the cache's rows split, no all-gather in any decode step,
+    every logit finite. -> the two summaries."""
+    from repro_torch.kernels.flash_attention import ops
+
+    cfg, _ = mesh_train_case()
+    per_step = {"flash_attention_wgmma": 2 * cfg.n_layers,
+                **dict.fromkeys(ops.BWD_KERNELS[ops.bwd_stem(torch.bfloat16)],
+                                cfg.n_layers)}
+    want_losses = np.array([l for _, l in train_ref])
+    problems, errs, mla_errs = [], [], []
+    for meta, arr in zip(ranks, arrays):
+        r, t = meta["rank"], meta["train"]
+        hist = t["fsdp"]["hist"] + t["tp"]["hist"]
+        if [s for s, _ in hist] != [s for s, _ in train_ref]:
+            problems.append(f"rank {r}: trained steps {[s for s, _ in hist]}")
+            continue
+        errs.append(float(np.max(np.abs(np.array([l for _, l in hist]) / want_losses - 1.0))))
+        for part in ("fsdp", "tp"):
+            want = {k: n * t[part]["steps_run"] for k, n in per_step.items()}
+            if t[part]["launches"] != want:
+                problems.append(f"rank {r} {part}: launches {t[part]['launches']}, want {want}")
+        m = meta["mla"]
+        got = arr["mla_logits"]
+        if not np.isfinite(got).all() or got.shape != mla_ref["logits"].shape:
+            problems.append(f"rank {r}: MLA logits {got.shape}, finite {np.isfinite(got).all()}")
+            continue
+        mla_errs.append(max(float(np.abs(g - w).max() / np.abs(w).max())
+                            for g, w in zip(got, mla_ref["logits"])))
+        if not m["rows_split"] or any(m["all_gathers"]):
+            problems.append(f"rank {r}: MLA cache rows split {m['rows_split']}, all-gathers "
+                            f"a decode step {m['all_gathers']}")
+    worst = max(errs, default=float("inf"))
+    mla_worst = max(mla_errs, default=float("inf"))
+    print(f"mesh_two_ranks: FSDP then TP training within {worst:.3g} of one device "
+          f"(bound {MESH_TRAIN_RTOL}); MLA serving on split caches within {mla_worst:.3g} "
+          f"(bound {MLA_MESH_RTOL})", flush=True)
+    if not worst <= MESH_TRAIN_RTOL:
+        problems.append(f"training losses off by {worst} relative (bound {MESH_TRAIN_RTOL})")
+    if not mla_worst <= MLA_MESH_RTOL:
+        problems.append(f"MLA logits off by {mla_worst} (bound {MLA_MESH_RTOL})")
+    if problems:
+        raise AssertionError("mesh_two_ranks: " + "; ".join(problems))
+    elastic = {"arch": DENSE_ARCH, "layers": MESH_TRAIN_LAYERS, "batch": MESH_TRAIN_BATCH,
+               "seq": MESH_TRAIN_SEQ, "fsdp_mesh": [2, 1], "tp_mesh": [1, 2],
+               "fsdp_steps": MESH_TRAIN_FIRST, "steps": MESH_TRAIN_STEPS,
+               "losses_one_device": train_ref, "losses_rank0": ranks[0]["train"]["fsdp"]["hist"]
+               + ranks[0]["train"]["tp"]["hist"], "max_rel_diff": worst,
+               "bound": MESH_TRAIN_RTOL, "launches_per_step": per_step,
+               "by_rank": [m["train"] for m in ranks],
+               "reduced": [f"n_layers 28 -> {MESH_TRAIN_LAYERS} (widths kept)",
+                           f"tokens a step {MESH_TRAIN_BATCH} x {MESH_TRAIN_SEQ}"]}
+    mla = {"arch": MLA_MESH_ARCH, "layers": MLA_MESH_LAYERS, "dtype": "float32",
+           "mesh": [1, 2], "prompt": MLA_MESH_PROMPT, "cache_rows": MLA_MESH_CACHE,
+           "decode_steps": MLA_MESH_STEPS, "max_rel_diff": mla_worst, "bound": MLA_MESH_RTOL,
+           "all_gathers": [m["mla"]["all_gathers"] for m in ranks],
+           "rows_split": [m["mla"]["rows_split"] for m in ranks],
+           "launches": [m["mla"]["launches"] for m in ranks],
+           "walls": [{k: m["mla"][k] for k in ("prefill_s", "decode_s")} for m in ranks],
+           "one_device_walls": {k: mla_ref[k] for k in ("prefill_s", "decode_s")},
+           "reduced": ["n_layers 62 -> 2 (widths kept)", "bfloat16 -> float32"]}
+    return elastic, mla
 
 
 def mesh_rank_main(rank: int, where: Path) -> int:
     """One rank of `mesh_two_ranks` (`--mesh-rank R --mesh-dir DIR`): joins
-    the 2-rank `gloo` group through a FileStore in DIR, runs the three
-    sharded parts on the card and writes rankR.json (launches, walls, peak
-    memory) and rankR.npz (the gathered results)."""
+    the 2-rank `gloo` group through a FileStore in DIR, runs the sharded
+    parts on the card (on the (2, 1) mesh the fine wave, the fused RWM and
+    the LM wave; the trainer's FSDP steps, then on the (1, 2) mesh its TP
+    steps and the MLA serving) and writes rankR.json (launches, walls,
+    histories, all-gathers, peak memory) and rankR.npz (the gathered
+    results)."""
     import torch
     import torch.distributed as dist
 
@@ -2793,14 +3030,21 @@ def mesh_rank_main(rank: int, where: Path) -> int:
         reset_launches()
         walls["lm_wave_s"], nlls = _timed(torch, lambda: lm.evaluate_batch(MESH_LM_POINTS))
         launches["lm"] = check_launches(read_launches(), lm.cfg, 1, f"rank {rank}'s LM wave")
+        del lm
+        gc.collect()
+        torch.cuda.empty_cache()
+        ctx12 = ShardingCtx(make_mesh((1, 2), ("data", "model"), backend="gloo"))
+        train = rank_train_elastic(torch, where, ctx, ctx12)
+        mla = mla_serve(torch, *mla_mesh_case(torch, dev), ctx=ctx12)
     finally:
         destroy_ranks()
     np.savez(where / f"rank{rank}.npz", fine=fine, samples=fused.samples,
-             logposts=fused.logposts, nlls=nlls)
+             logposts=fused.logposts, nlls=nlls, mla_logits=mla.pop("logits"))
     rows = ctx.rows(len(thetas))
     (where / f"rank{rank}.json").write_text(json.dumps({
         "rank": rank, "rows": [rows.start, rows.stop], "walls": walls,
-        "launches": launches, "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": launches, "train": train, "mla": mla,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "wall_s": time.perf_counter() - t0}, default=float))
     return 0
 
@@ -3811,19 +4055,22 @@ DECODE_F32_RTOL = 1e-4
 UNIT_RTOL = {"bfloat16": 2.0 ** -5, "float32": 1e-3}
 #: the float32 serving runs: (arch, layers kept at full width or None for
 #: all). deepseek-moe-16b's 28 layers are 65 GB in float32: 4 (one dense,
-#: three MoE) keep its widths; kimi-k2's one MoE layer alone is 68 GB in
+#: three MoE) kept its widths; kimi-k2's one MoE layer alone is 68 GB in
 #: float32, and deepseek's MoE layers run the same code. To make room for
-#: the training phases in the run's time, three more are cut in depth,
+#: the training phases in the run's time, three more were cut in depth,
 #: widths kept (every unit kind still runs): qwen3-0.6b 28 -> 4 layers and
 #: mamba2-1.3b 48 -> 4 (their end-to-end logits bound, 1e-4, holds at any
 #: depth: 6.0e-6 and 4.3e-6 at 4 layers on an H100), minicpm3-4b 62 -> 8
-#: and llama-3.2-vision 10 -> 5 (one vlm group: 4 self and 1 cross). The
+#: and llama-3.2-vision 10 -> 5 (one vlm group: 4 self and 1 cross); to make
+#: room for the trainer on a mesh, qwen3-0.6b, mamba2-1.3b and
+#: deepseek-moe-16b (one dense layer, one MoE) are cut to 2 and minicpm3-4b
+#: to 4. The
 #: chaotic models' end-to-end bound is twice the forward's own spread, and
 #: zamba2-1.2b's decode logits sit at 1.8-2.1x its plain path's spread at 8
 #: and 14 layers (1.008e-4 against a bound of 1e-4 at 8): it runs whole,
 #: as before, its units teacher-forced within 1.6e-5 at every depth
-F32_DECODE_PATHS = ((DENSE_ARCH, 4), (SSM_ARCH, 4), (ZOO_SSM_ARCH, None),
-                    ("minicpm3-4b", 8), ("llama-3.2-vision-90b", 5), (MOE_ARCH, 4))
+F32_DECODE_PATHS = ((DENSE_ARCH, 2), (SSM_ARCH, 2), (ZOO_SSM_ARCH, None),
+                    ("minicpm3-4b", 4), ("llama-3.2-vision-90b", 5), (MOE_ARCH, 2))
 #: layer 0's cache rows that decode wrote against a prefill's: K and V after
 #: rope, MLA's latent and k_pe, the SSM conv window and the cross caches
 #: within one bf16 ulp of the largest value (two float32 sums that differ in
@@ -4614,7 +4861,111 @@ def phase_train_path(torch, dev, smi: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": {k: v for k, v in counts.items() if v}, "per_step": per_step,
-            "step_ms": step_ms, "in_situ": in_situ, "in_situ_lse": in_situ_lse}
+            "step_ms": step_ms, "in_situ": in_situ, "in_situ_lse": in_situ_lse,
+            "hist": hist, "attempts": [(e["step"], e["action"]) for e in attempts]}
+
+
+#: `train_mesh_path`: the first TRAIN_MESH_STEPS steps of train_path's
+#: schedule (the failure at TRAIN_FAIL_STEP retried, the NaN at
+#: TRAIN_NAN_STEP restored from step TRAIN_CKPT_EVERY - 1 and replayed)
+TRAIN_MESH_STEPS = 6
+
+
+def phase_train_mesh_path(torch, dev, smi: str, train: dict) -> dict:
+    """train_path's training through `launch.train.train(..., ctx=)` on a
+    1x1 NCCL mesh in this process (`launch.mesh.make_mesh`): qwen3-0.6b at
+    full width and depth in bf16, B x S as train_path, the parameters,
+    moments and batches as DTensors, the first TRAIN_MESH_STEPS steps of
+    train_path's schedule. Held: the losses and fault actions == train_path's
+    bit for bit (every DTensor op on a 1x1 mesh runs the one-device op); the
+    launches exactly the step executions' (56 forward, 28 of each backward
+    kernel a step); its last checkpoint (assembled from the DTensors and
+    written by rank 0) restored without a mesh == the mesh's final weights
+    and moments leaf for leaf bit for bit. Measured: step ms (median of the
+    unfaulted steps after the first), peak memory, the checkpoints'
+    seconds on the train thread."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.distributed.sharding import ShardingCtx
+    from repro_torch.launch import train as L
+    from repro_torch.launch.mesh import destroy_ranks, make_mesh
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.types import SHAPES, TrainConfig
+
+    cfg = get_config(DENSE_ARCH)
+    S, B = SHAPES["train_4k"].seq_len, TRAIN_BATCH
+    tc = TrainConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS,
+                     checkpoint_every=TRAIN_CKPT_EVERY, keep_checkpoints=2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    log = []
+    ctx = ShardingCtx(make_mesh((1, 1), ("data", "model"), backend="nccl"))
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_train_mesh_") as ckpt_dir:
+            reset_launches()
+            t0 = time.perf_counter()
+            params, opt, hist = L.train(cfg, tc, TRAIN_MESH_STEPS, B, S, ckpt_dir,
+                                        inject_fail=(TRAIN_FAIL_STEP,),
+                                        inject_nan=(TRAIN_NAN_STEP,), log_every=1, device=dev,
+                                        log=log, ctx=ctx)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_launches()
+            peak = torch.cuda.max_memory_allocated()
+            mesh_leaves = tree_leaves((params, opt))
+            # every leaf a DTensor but the step counter (a plain tensor, as adamw_init makes it)
+            plain = [i for i, t in enumerate(mesh_leaves) if type(t).__name__ != "DTensor"]
+            t0 = time.perf_counter()
+            restored, step = CheckpointManager(ckpt_dir).restore((params, opt), device=dev)
+            differ = [i for i, (t, r) in enumerate(zip(mesh_leaves, tree_leaves(restored)))
+                      if type(r).__name__ == "DTensor" or not torch.equal(
+                          t.to_local() if type(t).__name__ == "DTensor" else t, r)]
+            restore_s = time.perf_counter() - t0
+    finally:
+        destroy_ranks()
+    del params, opt, restored, mesh_leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    attempts = [e for e in log if "action" in e]
+    runs = [e for e in attempts if e["action"] in ("ok", "restore")]  # a step executed
+    want = dict.fromkeys(counts, 0)
+    want.update({k: n * len(runs) for k, n in train["per_step"].items()})
+    ok = [e for e in attempts if e["action"] == "ok"]
+    step_s = [e["wall_s"] for e in ok[1:]]
+    step_ms = statistics.median(step_s) * 1e3
+    checkpoints = [e for e in log if "checkpoint" in e]
+    same = bool(hist) and hist == train["hist"][:len(hist)]
+    problems = []
+    if not same:
+        problems.append(f"losses {hist}, train_path's {train['hist'][:len(hist)]}")
+    if [(e["step"], e["action"]) for e in attempts] != train["attempts"][:len(attempts)]:
+        problems.append(f"fault actions {[(e['step'], e['action']) for e in attempts]}")
+    if counts != want:
+        problems.append(f"launches {counts}, expected {len(runs)} steps' {want}")
+    if len(plain) != 1:
+        problems.append(f"leaves {plain} of the state are not DTensors")
+    if step != TRAIN_MESH_STEPS - 1 or differ:
+        problems.append(f"the checkpoint of step {step} restored without a mesh: leaves "
+                        f"{differ} differ from the mesh's")
+    emit("train_mesh_path", arch=cfg.name, mesh=[1, 1], backend="nccl", batch=B, seq=S,
+         steps=TRAIN_MESH_STEPS, schedule="train_path's first steps",
+         injected={"step_failure": TRAIN_FAIL_STEP, "nan": TRAIN_NAN_STEP},
+         losses=[[s, l] for s, l in hist], losses_equal_train_path=same,
+         step_executions=len(runs), launches=counts, launches_per_step=train["per_step"],
+         step_ms_median=step_ms, step_ms_min=min(step_s) * 1e3, step_ms_max=max(step_s) * 1e3,
+         train_path_step_ms=train["step_ms"], tokens_per_s=B * S / (step_ms / 1e3),
+         max_memory_allocated=peak, plain_leaves=plain, checkpoint_step=step,
+         checkpoint_leaves_bit_for_bit=not differ, checkpoint_restore_s=restore_s,
+         checkpoint_s=[e["s"] for e in checkpoints], train_wall_s=wall,
+         wall_s=time.perf_counter() - t_phase, card=smi)
+    if problems:
+        raise AssertionError("train_mesh_path: " + "; ".join(problems))
+    return {"launches": {k: v for k, v in counts.items() if v}, "step_ms": step_ms,
+            "wall_s": time.perf_counter() - t_phase}
 
 
 def phase_train_f32_path(torch, dev) -> dict:
@@ -5351,6 +5702,7 @@ def main() -> int:
     dense = run_lm_path(torch, DENSE_ARCH, probe["smi"], main_path)
     decode_f32 = phase_decode_f32_path(torch)
     train = phase_train_path(torch, dev, probe["smi"])
+    train_mesh = phase_train_mesh_path(torch, dev, probe["smi"], train)
     train_f32 = phase_train_f32_path(torch, dev)
     moe = run_lm_path(torch, MOE_ARCH, probe["smi"])
     zoo = {arch: phase_zoo_lm(torch, arch, n_layers, points)
@@ -5379,6 +5731,8 @@ def main() -> int:
     bwd_point = next(s for s in bwd["shapes"] if s["case"] == "qwen3-0.6b_train")
     bwd_f32_point = next(s for s in bwd["shapes"] if s["case"] == "float32_path")
     from repro_torch.kernels.flash_attention import ops
+    two = dense["mesh"]["two_ranks"]
+    emit("mesh_slice_seconds", train_mesh_path=train_mesh["wall_s"], **two["seconds"])
     print(probe["smi"], flush=True)
     print(json.dumps({"kernels": [{
         "name": "swe_solve",
@@ -5512,6 +5866,11 @@ def main() -> int:
         "launches_mesh_lm_sharded": dense["mesh"]["lm_sharded"]["flash"],
         "launches_mesh_lm_sharded_gradient": dense["mesh"]["lm_sharded"]["gradient"],
         "launches_mesh_lm_tp_per_rank": dense["mesh"]["lm_sharded"]["tp_flash"],
+        # the trainer on a mesh: train_path's first steps on a 1x1 mesh (56 a
+        # step), and two ranks' FSDP then TP steps of 2 layers (4 a step)
+        "launches_train_mesh_path": train_mesh["launches"]["flash_attention_wgmma"],
+        "launches_mesh_two_ranks_train_per_rank": [
+            {part: r[part].get("flash_attention_wgmma", 0) for part in r} for r in two["train"]],
         "max_abs_err": flash_check["wgmma"],
         "ms": flash_point["ms"],
         "plain_ms": flash_point["plain_ms"],
@@ -5535,6 +5894,9 @@ def main() -> int:
         **{f"launches_{phase}": n["flash_attention"] for phase, n in decode_f32.items()
            if "flash_attention" in n},
         "launches_train_f32_path": train_f32["launches"]["flash_attention"],
+        # minicpm3-4b's prefill in float32 on (1, 2), a layer's heads halved
+        "launches_mesh_two_ranks_mla_prefill_per_rank": [
+            r.get("flash_attention", 0) for r in two["mla"]],
         "max_abs_err": flash_check["f32_kernel"],
         "max_abs_err_bf16": flash_check["f32_kernel_bf16"],
         "ms": f32_point["ms"],
@@ -5567,6 +5929,12 @@ def main() -> int:
         # the LM's gradient wave (dense_lm_gradient_path): once a layer each
         "launches_dense_lm_gradient_path": {k: v for k, v in dense["gradient"].items()
                                             if k.startswith("flash_attention_bwd_wgmma")},
+        # the trainer on a mesh (1x1, and each of two ranks' FSDP and TP steps)
+        "launches_train_mesh_path": {k: v for k, v in train_mesh["launches"].items()
+                                     if k.startswith("flash_attention_bwd_wgmma")},
+        "launches_mesh_two_ranks_train_per_rank": [
+            {part: {k: v for k, v in r[part].items() if k.startswith("flash_attention_bwd")}
+             for part in r} for r in two["train"]],
         "max_abs_err": max(bwd_point[g]["max_abs_err"] for g in ("dq", "dk", "dv")),
         "max_rel_err": bwd["worst"]["bfloat16"],
         # the forward kernel's log-sum-exp, which the backward reads

@@ -5,8 +5,12 @@
     through `numpy.random.SeedSequence`, so a restart or a replay after a
     fault sees the same tokens (the JAX package folds them into a threefry
     key);
-  * sharded construction: each data shard's tokens are drawn on their own,
-    so no host builds the global batch (one card: one shard);
+  * sharded placement (`ctx=`): as the JAX package's `batch()` does, every
+    rank builds the GLOBAL batch exactly as without a mesh and keeps its
+    rows as a DTensor over the batch axes (`ShardingCtx.put`), so the token
+    stream is the same on every mesh shape and an elastic restart replays it
+    exactly (`synth_batch_fn`'s `shard`/`n_shards` draw a shard on its own,
+    as the JAX package's do; neither package's loop uses them);
   * a Zipf-like marginal over the vocabulary (inverse CDF of a uniform,
     rank = floor(u^(-1/(alpha-1))) - 1) under a Markov backbone (with
     probability 0.7 a token is (previous * 31 + 7) % vocab), so the loss has
@@ -16,7 +20,7 @@ Threefry and Philox streams never match, so the token streams equal the JAX
 package's in law; the formulas equal its formulas exactly on the same
 uniforms (`tests/test_torch_data.py`). Tokens and targets are int64 (the
 index type of `torch.nn.functional.embedding`; the JAX package's are
-int32). No `ctx`: the sharded pipeline waits for ROADMAP queue 1, item 14d.
+int32).
 """
 from __future__ import annotations
 
@@ -79,14 +83,18 @@ class SyntheticLMData:
     """Batches of `global_batch` sequences of `seq_len` tokens on `device`
     (default: the card); the vlm family's batches also hold ``ctx_embed
     [B, n_ctx_tokens, d_ctx]``, standard normals times 0.02 in the
-    activation dtype (the stubbed frontend's patch embeddings)."""
+    activation dtype (the stubbed frontend's patch embeddings). With `ctx`
+    (a `ShardingCtx`; `device` is then the rank's) every leaf is a DTensor
+    over the batch axes (`ctx_embed` over ("batch", None, None)), each rank
+    holding its rows of the same global batch."""
 
     def __init__(self, cfg: ModelConfig, global_batch: int, seq_len: int, seed: int = 0,
-                 device=None):
+                 device=None, ctx=None):
         self.cfg = cfg
         self.B = global_batch
         self.S = seq_len
         self.seed = seed
+        self.ctx = ctx
         self.device = resolve_device(device)
         self._fn = synth_batch_fn(cfg, seed, global_batch, seq_len, self.device)
 
@@ -98,6 +106,8 @@ class SyntheticLMData:
             ce = torch.randn((self.B, self.cfg.n_ctx_tokens, d_ctx), generator=gen,
                              device=self.device, dtype=torch.float32) * 0.02
             out["ctx_embed"] = ce.to(dtype_of(self.cfg.act_dtype))
+        if self.ctx is not None:
+            out = {k: self.ctx.put(v, "batch", *(None,) * (v.dim() - 1)) for k, v in out.items()}
         return out
 
     def __iter__(self):

@@ -6,6 +6,17 @@
     corrupts the latest checkpoint);
   * `save_async` snapshots to host memory and writes on a background thread
     (the caller continues — hides checkpoint latency, the standard trick);
+    the snapshot is a copy taken on the calling thread before `save`
+    returns, so the caller may update the saved tensors in place at once
+    (a CPU tensor's `.numpy()` and a numpy leaf would otherwise be the live
+    storage, which the writer would read after the update);
+  * on a device mesh (a state with DTensor leaves) every rank calls `save`:
+    each DTensor is assembled whole on the calling thread with all-reduces
+    only (`sharding.assemble`), rank 0 writes and publishes, the others
+    return; `wait` (and so `restore`, and the next `save`) is then a
+    barrier of every rank after rank 0's writer, so no rank reads the
+    directory before rank 0 has published. The writer thread issues no
+    collective;
   * `restore` puts the leaves on the device the caller names (the card by
     default) or returns them as host numpy at their stored precision, or
     re-shards them onto a device mesh (`shardings=`, elastic: any mesh
@@ -32,6 +43,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.distributed.sharding import assemble, is_dtensor
 
 
 def _flatten(tree):
@@ -97,15 +111,24 @@ def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
 
 
 def _to_host(leaf) -> np.ndarray:
-    """A leaf as a host numpy array; a bfloat16 tensor (numpy has no
-    bfloat16) as float32, which holds it exactly and restores into a
-    bfloat16 leaf bit for bit."""
+    """A leaf as a host numpy array that shares no memory with it (the
+    snapshot); a bfloat16 tensor (numpy has no bfloat16) as float32, which
+    holds it exactly and restores into a bfloat16 leaf bit for bit; a
+    DTensor assembled whole first (every rank of its mesh takes part)."""
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach()
+        if is_dtensor(leaf):
+            leaf = assemble(leaf)
         if leaf.dtype == torch.bfloat16:
-            leaf = leaf.float()
-        return leaf.cpu().numpy()
-    return np.asarray(leaf)
+            leaf = leaf.float()  # a copy
+        elif leaf.device.type == "cpu":
+            leaf = leaf.clone()
+        return leaf.cpu().numpy()  # on the card, `.cpu()` is the copy
+    return np.array(leaf, copy=True)
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
 
 class CheckpointManager:
@@ -114,6 +137,8 @@ class CheckpointManager:
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep_last = keep_last
         self._save_thread: threading.Thread | None = None
+        # a save of DTensors whose publication every rank has yet to wait for
+        self._mesh_save_pending = False
 
     # -- paths ---------------------------------------------------------------
     def _step_dir(self, step: int) -> Path:
@@ -169,18 +194,29 @@ class CheckpointManager:
         counters) — readable via `meta()` without loading a single leaf.
         `campaign_id`: multi-tenant provenance stamped at the META.json top
         level, so a service-tier checkpoint directory names the campaign
-        that produced it."""
+        that produced it.
+
+        The snapshot is a copy, taken here before this returns. A state
+        with DTensor leaves is a mesh's: every rank of it calls `save` (the
+        leaves are assembled with collectives), rank 0 writes, and each
+        rank's `wait` waits for rank 0's publication (a blocking save waits
+        before it returns)."""
+        self.wait()  # one save in flight at a time
         leaves, _ = _flatten(state)
         host_leaves = [_to_host(l) for l in leaves]  # device->host snapshot
+        on_mesh = any(is_dtensor(l) for l in leaves)
+        if _rank() == 0 or not on_mesh:
+            if blocking:
+                self._write(step, host_leaves, manifest, campaign_id)
+            else:
+                self._save_thread = threading.Thread(
+                    target=self._write,
+                    args=(step, host_leaves, manifest, campaign_id), daemon=True,
+                )
+                self._save_thread.start()
+        self._mesh_save_pending = on_mesh and dist.get_world_size() > 1
         if blocking:
-            self._write(step, host_leaves, manifest, campaign_id)
-        else:
-            self.wait()  # one async save in flight at a time
-            self._save_thread = threading.Thread(
-                target=self._write,
-                args=(step, host_leaves, manifest, campaign_id), daemon=True,
-            )
-            self._save_thread.start()
+            self.wait()
 
     def save_async(self, step: int, state: dict, manifest: dict | None = None,
                    campaign_id: str | None = None):
@@ -188,8 +224,16 @@ class CheckpointManager:
                   campaign_id=campaign_id)
 
     def wait(self):
+        """Until this process's save thread has published; after a save of
+        a mesh's state, a barrier of every rank, so that on each rank the
+        save is published (by rank 0) when this returns. Every rank of the
+        mesh calls it at the same point (the train loop's replicated
+        decisions do)."""
         if self._save_thread is not None and self._save_thread.is_alive():
             self._save_thread.join()
+        if self._mesh_save_pending:
+            self._mesh_save_pending = False
+            dist.barrier()
 
     def _write(self, step: int, host_leaves: list, manifest: dict | None = None,
                campaign_id: str | None = None):
@@ -242,7 +286,9 @@ class CheckpointManager:
         the newest COMPLETE step, so a crash mid-save costs at most one
         checkpoint interval, never the campaign. An explicitly requested
         torn step raises (the caller named it; silently substituting a
-        different step would be worse)."""
+        different step would be worse). A save still being written, here
+        or (on a mesh) by rank 0, is waited for first (`wait`)."""
+        self.wait()
         if step is None:
             step = self.latest_step()
             if step is None:

@@ -47,6 +47,7 @@ by their `PartitionSpec`s and the activations by `ShardingCtx.constrain`.
 from __future__ import annotations
 
 import contextlib
+import sys
 from dataclasses import dataclass
 from functools import cached_property
 from typing import Any, Sequence
@@ -242,15 +243,9 @@ class ShardingCtx:
         """Every DTensor of `tree` all-gathered over the FSDP axis ('data'),
         its other placements kept (TP and EP over 'model'): the ZeRO-3
         gather of a layer's weights as the layer starts, whose backward
-        reduce-scatters their gradients. Plain tensors pass as they are.
-
-        On a `gloo` group with CUDA tensors (two ranks on one card) the
-        gather is a sum instead: each rank's shard zero-padded to the
-        gathered size (a partial sum over the axis), then DTensor's
-        all-reduce. PyTorch's functional all-gather, which DTensor's own
-        redistribution issues, crashes there (a segmentation fault in its
-        wait, torch 2.11 on the H100), while its all-reduce works; the sum
-        of one shard and zeros is the shard exactly."""
+        reduce-scatters their gradients. Plain tensors pass as they are. (On
+        a `gloo` mesh on the card the gather is a sum: `launch.mesh.
+        make_mesh` installs `sum_gloo_cuda_gathers`.)"""
         from torch.distributed.tensor import DTensor, Replicate
 
         names = self.mesh.mesh_dim_names
@@ -259,19 +254,26 @@ class ShardingCtx:
         def gather(t):
             if not isinstance(t, DTensor):
                 return t
-            i = names.index(fsdp)
-            if self._gather_by_sum and t.placements[i].is_shard():
-                t = self._padded_shard(t, i)
             placements = [Replicate() if n == fsdp else p for n, p in zip(names, t.placements)]
             return t.redistribute(t.device_mesh, placements)
 
         return _tree_map(gather, tree)
 
-    @cached_property
-    def _gather_by_sum(self) -> bool:
-        """A `gloo` group whose DTensors are CUDA tensors (`gather_fsdp`)."""
-        return (getattr(self.mesh, "device_type", None) == "cuda"
-                and "gloo" in str(dist.get_backend()))
+    def replicate_by_sum(self, t, axis: str):
+        """The DTensor `t` replicated over mesh axis `axis` (its other
+        placements kept) by a zero-padded sum, an all-reduce, where it is
+        sharded there: never an all-gather, on any backend (flash decoding
+        issues all-reduces only). A plain tensor passes as it is."""
+        from torch.distributed.tensor import DTensor, Replicate
+
+        if not isinstance(t, DTensor):
+            return t
+        i = self.mesh.mesh_dim_names.index(axis)
+        if not t.placements[i].is_shard():
+            return t
+        t = self._padded_shard(t, i)
+        return t.redistribute(t.device_mesh, [Replicate() if j == i else p
+                                              for j, p in enumerate(t.placements)])
 
     def _padded_shard(self, t, i: int):
         """`t`, sharded along some dim over mesh dim `i`, as a partial sum
@@ -415,6 +417,127 @@ class ShardingCtx:
             parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
             dist.all_gather(parts, t)
         return np.concatenate([parts[r].cpu().numpy() for r in self._gather_order], axis=0)
+
+
+#: gathers of CUDA tensors over a `gloo` group that `sum_gloo_cuda_gathers`
+#: turned into zero-padded sums (every one DTensor asked for, by its
+#: redistribution or otherwise)
+GATHERS_BY_SUM = {"n": 0}
+#: the device types whose gathers `sum_gloo_cuda_gathers` replaces (the CPU
+#: tests add "cpu" to run the card's path on `gloo` CPU ranks)
+SUM_GATHER_DEVICES = {"cuda"}
+_REAL_GATHERS: dict = {}
+
+
+def sum_gloo_cuda_gathers() -> None:
+    """Make every functional all-gather of a CUDA tensor over one dimension
+    of a `gloo` mesh a sum (an all-reduce) of each rank's part put in its
+    place in zeros: PyTorch's functional all-gather crashes there (a
+    segmentation fault in its wait, two ranks on one card, torch 2.11),
+    while its all-reduce works. DTensor issues its gathers through
+    `torch.distributed._functional_collectives` (`all_gather_tensor`;
+    `all_gather_single` in newer releases), wherever
+    its sharding propagation picks one (a backward's products, a
+    redistribution to `Replicate`), so the gathers are replaced there: a
+    CPU tensor, another group or another backend takes the real gather.
+    The sum of one value and zeros is that value (a -0.0 becomes +0.0).
+    `launch.mesh.make_mesh` calls this for a `gloo` mesh on the card;
+    `restore_gathers` undoes it. Each replaced gather counts in
+    `GATHERS_BY_SUM`."""
+    import torch.distributed._functional_collectives as funcol
+
+    for name in ("all_gather_tensor", "all_gather_single"):
+        real = getattr(funcol, name, None)
+        if real is None or name in _REAL_GATHERS:
+            continue
+        _REAL_GATHERS[name] = real
+        setattr(funcol, name, _gather_by_sum(real))
+
+
+def restore_gathers() -> None:
+    """Undo `sum_gloo_cuda_gathers`."""
+    import torch.distributed._functional_collectives as funcol
+
+    for name, real in _REAL_GATHERS.items():
+        setattr(funcol, name, real)
+    _REAL_GATHERS.clear()
+
+
+def _gather_by_sum(real):
+    import torch.distributed._functional_collectives as funcol
+
+    def gather(self, gather_dim: int, group, tag: str = ""):
+        mesh, dim = group if isinstance(group, tuple) and len(group) == 2 else (None, None)
+        if (mesh is None or self.device.type not in SUM_GATHER_DEVICES
+                or "gloo" not in str(dist.get_backend(mesh.get_group(dim)))):
+            return real(self, gather_dim, group, tag)
+        n, at = mesh.size(dim), mesh.get_local_rank(dim)
+        k = self.shape[gather_dim]
+        shape = list(self.shape)
+        shape[gather_dim] = k * n
+        full = self.new_zeros(shape)
+        full.narrow(gather_dim, at * k, k).copy_(self)
+        GATHERS_BY_SUM["n"] += 1
+        return funcol.all_reduce(full, "sum", group)
+
+    return gather
+
+
+def is_dtensor(x) -> bool:
+    """Whether `x` is a DTensor (without importing `torch.distributed.tensor`:
+    where it was never imported, no DTensor exists)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def all_reduce_mesh(x: torch.Tensor, mesh, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """`x`, a plain tensor on every rank of `mesh`, reduced in place by `op`
+    over the whole mesh: one all-reduce a mesh dimension of more than one
+    rank, in turn (a sum or a max over the dimensions in turn is the sum or
+    max over the mesh)."""
+    for i, n in enumerate(mesh.shape):
+        if n > 1:
+            dist.all_reduce(x, op=op, group=mesh.get_group(i))
+    return x
+
+
+def assemble(t) -> torch.Tensor:
+    """The whole value of the DTensor `t` as a plain tensor on every rank of
+    its mesh (on the rank's device), with all-reduces only: each rank puts
+    its shard at its place in zeros of the full shape (of the ranks that
+    hold the same replica, only the one at index 0 of each replicating mesh
+    dimension), and the ranks sum those, as integers of the same width (a
+    bfloat16 or float16 tensor as float32 first, which holds it exactly), so
+    the sum of one value and zeros is that value's bits, -0.0 and NaN's
+    included. A partial sum is reduced first (at its own precision). Used
+    where an all-gather cannot run (`gloo` on CUDA tensors, see
+    `sum_gloo_cuda_gathers`) and by the checkpoint's snapshot."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    t = reduce_partial(t)
+    local = t.to_local()
+    mesh = t.device_mesh
+    if local.dtype in (torch.bfloat16, torch.float16):
+        local = local.float()
+    if mesh.size() == 1:
+        return local
+    shape, offset = compute_local_shape_and_global_offset(t.shape, mesh, t.placements)
+    full = torch.zeros(t.shape, dtype=local.dtype, device=local.device)
+    owner = all(c == 0 for c, p in zip(mesh.get_coordinate(), t.placements) if p.is_replicate())
+    if owner and local.numel():
+        full[tuple(slice(o, o + n) for o, n in zip(offset, shape))] = local
+    all_reduce_mesh(_as_integers(full), mesh)
+    return full
+
+
+def _as_integers(t: torch.Tensor) -> torch.Tensor:
+    """`t`'s storage as integers of its element's width (a view), for an
+    exact sum of one value and zeros; integer tensors as they are."""
+    if t.dtype == torch.bool:
+        return t.view(torch.uint8)
+    if not t.is_floating_point():
+        return t
+    return t.view({8: torch.int64, 4: torch.int32}[t.element_size()])
 
 
 def reduce_partial(t):

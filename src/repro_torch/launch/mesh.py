@@ -17,7 +17,9 @@ The backend is the caller's: `backend="nccl"` (the default, the card's)
 or `backend="gloo"` by name (the CPU tests; two ranks on one card, which
 NCCL refuses). A group that is already up with another backend raises.
 Rank r's device is ``cuda:(local_rank % device_count)``, and the CPU only
-when the caller passes ``device="cpu"``.
+when the caller passes ``device="cpu"``. A `gloo` mesh on the card has its
+functional all-gathers made sums (`distributed.sharding.
+sum_gloo_cuda_gathers`: PyTorch's crash there) until `destroy_ranks`.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from repro_torch.core.device import resolve_device
+from repro_torch.distributed.sharding import restore_gathers, sum_gloo_cuda_gathers
 
 #: a collective that waits longer than this raises instead of hanging
 DEFAULT_TIMEOUT_S = 600.0
@@ -93,6 +96,8 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *, backend: str = "
     dev = rank_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
+        if backend == "gloo":  # its all-gathers of CUDA tensors crash: sums instead
+            sum_gloo_cuda_gathers()
     return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
 
 
@@ -108,3 +113,4 @@ def destroy_ranks() -> None:
     """Tear the default process group down (every rank calls it)."""
     if dist.is_initialized():
         dist.destroy_process_group()
+    restore_gathers()

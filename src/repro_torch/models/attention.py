@@ -27,7 +27,20 @@ A decode step attends one query row per sequence on the plain path, as the
 JAX package's decode does (XLA, outside any Pallas kernel): it launches no
 kernel. It writes its token's row into the caller's cache IN PLACE, where
 the JAX package returns a new cache: a functional copy would move the whole
-cache a token (ROADMAP queue 3, "Known differences, by design").
+cache a token (ROADMAP queue 3, "Known differences, by design"). On a mesh
+the row is written on the rank that owns it (`_write_row`).
+
+Where the cache is split over its rows on 'model' (`cache_decl`: kv heads
+that do not divide 'model', and MLA's latent always), a decode step attends
+without gathering the cache: flash decoding, as the JAX package's
+`gqa_decode` docstring describes it (`_flash_decode`). Each 'model' rank
+scores its own rows of [0, pos] and keeps the row max m; the ranks take the
+max M by an all-reduce; each rank's sum l and product o of e^(s − M) with
+its rows of v are summed by all-reduces, and the output is o / l. A rank
+holding no row ≤ pos adds zeros. The query is replicated over 'model' by a
+zero-padded sum (`ShardingCtx.replicate_by_sum`), so the step issues
+all-reduces only: they run where an all-gather cannot (`gloo` on CUDA
+tensors, two ranks on one card).
 """
 from __future__ import annotations
 
@@ -35,7 +48,7 @@ import math
 
 import torch
 
-from repro_torch.distributed.sharding import P
+from repro_torch.distributed.sharding import P, is_dtensor
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
 from repro_torch.models.layers import apply_rope, project_in, project_out, rmsnorm_scaleless
@@ -245,9 +258,21 @@ def _attend_local(cfg: ModelConfig, q, k, v, *, causal: bool, scale: float | Non
 
 
 def _pad_seq(t: torch.Tensor, cache_len: int | None) -> torch.Tensor:
-    """``[B, S, ...]`` zero-padded to ``cache_len`` rows along S."""
-    pad = (cache_len or t.shape[1]) - t.shape[1]
-    return torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+    """``[B, S, ...]`` zero-padded to ``cache_len`` rows along S. A DTensor
+    (its rows not sharded) is padded on each rank's shard and keeps its
+    placements: DTensor's own pad gives a spec that has lost a mesh
+    dimension in torch 2.11, which the caches' stacking then refuses."""
+    widths = (0, 0) * (t.dim() - 2) + (0, (cache_len or t.shape[1]) - t.shape[1])
+    if not is_dtensor(t):
+        return torch.nn.functional.pad(t, widths)
+    from torch.distributed.tensor import DTensor
+
+    if any(p.is_shard() and p.dim == 1 for p in t.placements):
+        raise ValueError(f"a prefill's rows are sharded ({t.placements}): no cache to pad")
+    local = torch.nn.functional.pad(t.to_local(), widths)
+    shape = torch.Size((t.shape[0], cache_len or t.shape[1], *t.shape[2:]))
+    return DTensor.from_local(local, t.device_mesh, t.placements, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def _decode_positions(x: torch.Tensor, pos: int) -> torch.Tensor:
@@ -265,27 +290,134 @@ def gqa_decode(cfg: ModelConfig, params: dict, x: torch.Tensor, cache: dict, pos
     on the plain path. Returns (out ``[B, 1, d]``, cache), the cache the
     same dict of the same tensors. With `ctx` and `cfg.decode_seq_shard_kv`
     the cache read is constrained to (batch, seq) as the JAX package's
-    is; without a ctx the flag is ignored, as the JAX package ignores it."""
+    is; without a ctx the flag is ignored, as the JAX package ignores it. A
+    cache split over its rows on 'model' is attended by flash decoding
+    (`_flash_decode`), never gathered."""
     q, k, v = _project_qkv(cfg, params, x, x, ctx)
     positions = _decode_positions(x, pos)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    cache["k"][:, pos] = k[:, 0]
-    cache["v"][:, pos] = v[:, 0]
+    _write_row(cache["k"], k[:, 0], pos)
+    _write_row(cache["v"], v[:, 0], pos)
     kc, vc = cache["k"], cache["v"]
+    scale = 1.0 / math.sqrt(cfg.head_dim)
 
     def attend(ql, kl, vl):
-        return _grouped_attention(ql, kl, vl, scale=1.0 / math.sqrt(cfg.head_dim),
-                                  causal=False, kv_len=pos + 1, q_chunk=cfg.q_chunk)
+        return _grouped_attention(ql, kl, vl, scale=scale, causal=False, kv_len=pos + 1,
+                                  q_chunk=cfg.q_chunk)
 
     if ctx is None:
         out = attend(q, kc, vc)
+    elif _rows_split(kc, ctx):
+        out = _flash_decode(ctx, (q,), (kc, vc), pos, _gqa_scores(scale), 5, _gqa_weigh)
     else:
         if cfg.decode_seq_shard_kv:
             kc = ctx.constrain(kc, "batch", "seq", None, None)
             vc = ctx.constrain(vc, "batch", "seq", None, None)
         out = _attend_local(cfg, q, kc, vc, causal=False, scale=None, ctx=ctx, fn=attend)
     return project_out(out, params["wo"], ctx), cache
+
+
+def _write_row(cache: torch.Tensor, row: torch.Tensor, pos: int) -> None:
+    """``cache[:, pos] = row`` in place (`cache` ``[B, S, ...]``, `row`
+    ``[B, ...]``). A DTensor cache is written on each rank's local shard,
+    by the ranks that hold row `pos` (all of them unless the rows are
+    split), `row` placed as the cache is but for the row dimension: no
+    collective where they already agree."""
+    if not is_dtensor(cache):
+        cache[:, pos] = row
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    def of_row(p):
+        if not p.is_shard():
+            return p
+        return Replicate() if p.dim == 1 else Shard(p.dim - 1 if p.dim > 1 else 0)
+
+    mesh = cache.device_mesh
+    if is_dtensor(row):
+        row = row.redistribute(mesh, [of_row(p) for p in cache.placements]).to_local()
+    shape, offset = compute_local_shape_and_global_offset(cache.shape, mesh, cache.placements)
+    if offset[1] <= pos < offset[1] + shape[1]:
+        cache.to_local()[:, pos - offset[1]] = row
+
+
+def _rows_split(cache, ctx) -> bool:
+    """Whether a decode cache ``[B, S, ...]`` is split over its rows (dim
+    1) on a 'model' axis of more than one rank."""
+    if ctx is None or ctx.n_model == 1 or not is_dtensor(cache):
+        return False
+    p = cache.placements[ctx.mesh.mesh_dim_names.index("model")]
+    return p.is_shard() and p.dim == 1
+
+
+def _gqa_scores(scale: float):
+    def scores(q, k):
+        # q [B, 1, nq, hd] against this rank's rows k [B, Sl, nkv, hd] -> [B, nkv, g, 1, Sl]
+        B, _, nq, hd = q.shape
+        qg = q.reshape(B, 1, k.shape[2], nq // k.shape[2], hd).to(torch.float32)
+        return torch.einsum("bqkgh,bskh->bkgqs", qg, k.to(torch.float32)) * scale
+
+    return scores
+
+
+def _gqa_weigh(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    # p [B, nkv, g, 1, Sl] with v [B, Sl, nkv, hd] -> [B, 1, nq, hd], float32
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.to(torch.float32))
+    return o.reshape(o.shape[0], 1, -1, o.shape[-1])
+
+
+def _flash_decode(ctx, qs: tuple, kvs: tuple, pos: int, scores, s_rank: int,
+                  weigh) -> torch.Tensor:
+    """Flash decoding over a cache split over its rows on 'model' (module
+    docstring). `qs`: the step's query tensors ``[B, 1, heads, ...]``
+    (DTensors, replicated over 'model' here by a zero-padded sum); `kvs`:
+    the cache leaves ``[B, S, ...]``, rows over 'model', the LAST the
+    values. `scores(*q_locals, *kv_locals[:-1])` gives float32 scores
+    ``[B, ..., 1, Sl]`` of `s_rank` dims over this rank's Sl rows, the
+    heads in their flattened order; `weigh(p, v_local)` the float32
+    product of weights p (the scores' shape) with this rank's values,
+    ``[B, 1, heads, dv]``. Returns the output ``[B, 1, heads, dv]`` in the
+    values' dtype, replicated over 'model'."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    names = ctx.mesh.mesh_dim_names
+    B, S = kvs[0].shape[0], kvs[0].shape[1]
+    bat = ctx.batch_axes if B % ctx.n_data == 0 else None
+    qs = tuple(ctx.replicate_by_sum(q, "model") for q in qs)
+    q_specs = tuple(P(bat, *(None,) * (q.dim() - 1)) for q in qs)
+    kv_specs = tuple(P(bat, "model", *(None,) * (t.dim() - 2)) for t in kvs)
+    lo = ctx.coordinate["model"] * (S // ctx.n_model)
+
+    def placed(over_model) -> tuple:
+        """Batch (dim 0) over the batch axes, `over_model` over 'model'."""
+        return tuple(over_model if n == "model" else Shard(0) if bat and n in bat
+                     else Replicate() for n in names)
+
+    def local_scores(*parts):
+        s = scores(*parts)
+        rows = lo + torch.arange(s.shape[-1], device=s.device)
+        s = s.masked_fill(rows > pos, float("-inf"))  # a rank past pos: all -inf
+        return s, torch.amax(s, dim=-1, keepdim=True)
+
+    s, m = ctx.local_map(local_scores, (placed(Shard(s_rank - 1)), placed(Partial("max"))),
+                         (*q_specs, *kv_specs[:-1]))(*qs, *kvs[:-1])
+    m = m.redistribute(m.device_mesh, placed(Replicate()))  # the max over the ranks
+
+    def local_sums(s, m, v):
+        m = torch.where(torch.isneginf(m), torch.zeros_like(m), m)  # -inf - -inf
+        p = torch.exp(s - m)
+        l = torch.sum(p, dim=-1).reshape(p.shape[0], -1)[:, None, :, None]
+        return l, weigh(p, v)
+
+    total = placed(Partial())
+    l, o = ctx.local_map(local_sums, (total, total),
+                         (placed(Shard(s_rank - 1)), placed(Replicate()), kv_specs[-1]))(
+        s, m, kvs[-1])
+    l = l.redistribute(l.device_mesh, placed(Replicate()))
+    o = o.redistribute(o.device_mesh, placed(Replicate()))
+    return (o / l).to(kvs[-1].dtype)
 
 
 def cross_attention(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
@@ -371,26 +503,34 @@ def mla_decode(cfg: ModelConfig, params: dict, x: torch.Tensor, cache: dict, pos
     package. Returns (out ``[B, 1, d]``, cache). On a mesh (`ctx`) the
     scores, softmax and ``p·c_kv`` run on each rank's local shard
     (`local_map`: batch over the batch axes, heads over 'model'), as the
-    prefill's attention does."""
+    prefill's attention does; where the latent cache is split over its
+    rows on 'model' (`cache_decl` splits it so wherever S divides), by
+    flash decoding (`_flash_decode`), the cache never gathered."""
     positions = _decode_positions(x, pos)
     q_nope, q_pe = _mla_q(cfg, params, x, positions, ctx)
     c_kv_new, k_pe_new = _mla_latent(cfg, params, x, positions)
-    cache["c_kv"][:, pos] = c_kv_new[:, 0]
-    cache["k_pe"][:, pos] = k_pe_new[:, 0]
-    c_kv, k_pe = cache["c_kv"][:, :pos + 1], cache["k_pe"][:, :pos + 1]
+    _write_row(cache["c_kv"], c_kv_new[:, 0], pos)
+    _write_row(cache["k_pe"], k_pe_new[:, 0], pos)
     w_uk, w_uv = torch.split(params["wkv_b"], [cfg.qk_nope_head_dim, cfg.v_head_dim], dim=-1)
     q_lat = torch.einsum("bqnh,lnh->bqnl", q_nope, w_uk)
 
-    def latent(q_lat, q_pe, c_kv, k_pe):
+    def scores(q_lat, q_pe, c_kv, k_pe):
         s = torch.einsum("bqnl,bsl->bnqs", q_lat.float(), c_kv.float())
         s = s + torch.einsum("bqnr,bsr->bnqs", q_pe.float(), k_pe.float())
-        s = s / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
-        p = torch.softmax(s, dim=-1).to(x.dtype)
+        return s / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+
+    def latent(q_lat, q_pe, c_kv, k_pe):
+        p = torch.softmax(scores(q_lat, q_pe, c_kv, k_pe), dim=-1).to(x.dtype)
         return torch.einsum("bnqs,bsl->bqnl", p, c_kv)
 
-    if ctx is None:
-        ctx_lat = latent(q_lat, q_pe, c_kv, k_pe)
+    c_kv, k_pe = cache["c_kv"], cache["k_pe"]
+    if _rows_split(c_kv, ctx):
+        ctx_lat = _flash_decode(ctx, (q_lat, q_pe), (c_kv, k_pe, c_kv), pos, scores, 4,
+                                lambda p, c: torch.einsum("bnqs,bsl->bqnl", p, c.float()))
+    elif ctx is None:
+        ctx_lat = latent(q_lat, q_pe, c_kv[:, :pos + 1], k_pe[:, :pos + 1])
     else:
+        c_kv, k_pe = c_kv[:, :pos + 1], k_pe[:, :pos + 1]
         bat = ctx.batch_axes if x.shape[0] % ctx.n_data == 0 else None
         heads = "model" if cfg.n_heads % ctx.n_model == 0 else None
         q_spec, c_spec = P(bat, None, heads, None), P(bat, None, None)

@@ -138,14 +138,22 @@ def decl_embed(cfg: ModelConfig) -> dict:
 
 
 def embed_tokens(params: dict, tokens: torch.Tensor, ctx=None) -> torch.Tensor:
-    """The embedding rows of `tokens`. On a mesh whose 'model' axis shards
-    the vocabulary, each rank looks its own rows up (the others zero) and
-    the rows are a partial sum over 'model' (Megatron's vocabulary-parallel
-    embedding), where DTensor's own lookup gathers the table."""
+    """The embedding rows of `tokens`. On a mesh the lookup runs on each
+    rank's local shards (`local_map`), and the table's gradient is each
+    batch rank's partial sum over its own rows (DTensor's own lookup
+    gathers the table, and its `index_put` backward fails to propagate in
+    torch 2.11). Where the 'model' axis shards the vocabulary, each rank
+    looks its own rows up (the others zero) and the rows are a partial sum
+    over 'model' (Megatron's vocabulary-parallel embedding)."""
     table = params["embedding"]
-    if ctx is None or ctx.n_model == 1 or table.shape[0] % ctx.n_model:
+    if ctx is None:
         return table[tokens]
     bat = ctx.batch_axes if tokens.shape[0] % ctx.n_data == 0 else None
+    if ctx.n_model == 1 or table.shape[0] % ctx.n_model:
+        whole = P(None, None)
+        table_grad = ctx.partial_over(whole, *ctx.batch_axes) if bat else whole
+        return ctx.local_map(lambda tok, tab: tab[tok], P(bat, None, None), (P(bat, None), whole),
+                             in_grad_specs=(P(bat, None), table_grad))(tokens, table)
     v0 = ctx.coordinate["model"] * (table.shape[0] // ctx.n_model)
 
     def local(tok, tab):

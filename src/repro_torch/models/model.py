@@ -199,14 +199,19 @@ def prefill_step(cfg: ModelConfig, params, tokens: torch.Tensor, ctx_embed=None,
     position only, where the JAX package builds ``[B, S, V]`` and keeps the
     last row: the head is per row, so the numbers are the same, and at B =
     82, S = 2,016 and a 153,600-token vocabulary ``[B, S, V]`` would be ~51
-    GB in bf16."""
+    GB in bf16. On `ctx`'s mesh the caches are DTensors placed as
+    `cache_decl(cfg, B, cache_len, ctx)` declares them (`init_cache(...,
+    ctx=)` makes the same placements), which `decode_step(..., ctx=)`
+    takes."""
+    cache_len = cache_len or tokens.shape[1]
     hidden, cache, _ = transformer.forward(cfg, params, tokens, ctx_embed=ctx_embed,
-                                           mode="prefill", cache_len=cache_len or tokens.shape[1],
+                                           mode="prefill", cache_len=cache_len,
                                            skip_head=True, ctx=ctx)
     with on_mesh(ctx):
         logits = lm_head(params["embed"], hidden[:, -1:])[:, 0]
         if ctx is not None:
             logits = ctx.constrain(logits, "batch", "tp")
+            cache = transformer.place_caches(cfg, cache, tokens.shape[0], cache_len, ctx)
     return logits, cache
 
 
@@ -215,7 +220,10 @@ def decode_step(cfg: ModelConfig, params, cache, token: torch.Tensor, pos: int,
     """One token ``[B, 1]`` at position `pos` (a Python int) against a
     filled cache: returns (logits ``[B, V]``, cache). The cache's rows
     `pos` (and SSM windows and states) are written in place and the same
-    tree is returned (`transformer.forward`, mode "decode"); no host sync."""
+    tree is returned (`transformer.forward`, mode "decode"); no host sync.
+    On `ctx`'s mesh the cache is `prefill_step`'s or `init_cache`'s DTensors
+    (row `pos` written on the ranks that hold it; a cache split over its
+    rows attended by flash decoding, `models.attention`)."""
     logits, cache, _ = transformer.forward(cfg, params, token, mode="decode", cache=cache,
                                            pos=pos, ctx=ctx)
     return logits[:, -1], cache

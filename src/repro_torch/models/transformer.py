@@ -50,7 +50,13 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.core.device import resolve_device
-from repro_torch.distributed.sharding import AbstractMesh, P, ShardingCtx, on_mesh
+from repro_torch.distributed.sharding import (
+    AbstractMesh,
+    P,
+    ShardingCtx,
+    on_mesh,
+    placements_of,
+)
 from repro_torch.kernels.flash_attention.ops import KERNEL_OF
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
@@ -311,12 +317,49 @@ def cache_specs(decls: list) -> list:
     return walk(decls, lambda d, _p: d.spec)
 
 
-def init_cache(cfg: ModelConfig, B: int, S: int, device=None) -> list:
+def init_cache(cfg: ModelConfig, B: int, S: int, device=None,
+               ctx: ShardingCtx | None = None) -> list:
     """Zero caches of `cache_decl(cfg, B, S)` on `device` (default: the
-    GPU; raises if there is none)."""
+    GPU; raises if there is none). On `ctx`'s mesh each leaf is a DTensor
+    placed by `cache_decl(cfg, B, S, ctx)`'s spec, each rank holding its
+    shard on its current device (`device` then only says which kind, the
+    card by default)."""
     device = resolve_device(device)
-    return walk(cache_decl(cfg, B, S),
-                lambda d, _p: torch.zeros(d.shape, dtype=d.dtype, device=device))
+    if ctx is None:
+        return walk(cache_decl(cfg, B, S),
+                    lambda d, _p: torch.zeros(d.shape, dtype=d.dtype, device=device))
+    from torch.distributed.tensor import zeros
+
+    if device.type != ctx.mesh.device_type:
+        raise ValueError(f"the mesh is on {ctx.mesh.device_type}, the cache asked for {device}")
+    names = ctx.mesh.mesh_dim_names
+    return walk(cache_decl(cfg, B, S, ctx),
+                lambda d, _p: zeros(d.shape, dtype=d.dtype, device_mesh=ctx.mesh,
+                                    placements=placements_of(d.spec, names)))
+
+
+def place_caches(cfg: ModelConfig, caches: list, B: int, S: int, ctx: ShardingCtx) -> list:
+    """Caches of `cache_decl`'s structure (a prefill's DTensors) placed by
+    `cache_decl(cfg, B, S, ctx)`'s specs: where the rows are split over
+    'model', each rank keeps its rows of a cache it holds whole (a local
+    slice, no collective)."""
+    names = ctx.mesh.mesh_dim_names
+    specs = cache_specs(cache_decl(cfg, B, S, ctx))
+
+    def place(t, spec):
+        return t.redistribute(t.device_mesh, placements_of(spec, names))
+
+    return _zip_walk(place, caches, specs)
+
+
+def _zip_walk(fn, tree, specs):
+    """`fn(leaf, spec)` over a cache tree and its spec tree (lists and
+    dicts; a spec is a tuple, so it is met as a leaf)."""
+    if isinstance(tree, dict):
+        return {k: _zip_walk(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_zip_walk(fn, v, sp) for v, sp in zip(tree, specs)]
+    return fn(tree, specs)
 
 
 def _dense_unit(cfg: ModelConfig, params: dict, x: torch.Tensor, *, positions, mode: str,

@@ -313,3 +313,206 @@ def lm_mesh_suite(rank: int, *, meshes, nll, train, lm) -> dict:
             "nll": mesh_nlls(ctx, **nll), "train": mesh_train_step(ctx, **train),
             "lm": lm_mesh_waves(ctx, **lm), "batch_index": ctx.batch_index}
     return out
+
+
+# -- the trainer on a mesh (tests/test_torch_train_mesh.py) --------------------------
+
+#: the train loop's settings in tests/test_torch_train_mesh.py (a failure at
+#: step 3 retried once, a NaN at step 6 restored from step 3's checkpoint)
+TRAIN_TC = dict(lr=1e-3, warmup_steps=1, total_steps=12, checkpoint_every=4,
+                max_step_retries=1)
+
+
+def train_case(arch: str = "qwen3-0.6b", **tc_kw):
+    """(reduced config, TrainConfig) of a trainer test (the ssm family on
+    the plain SSD, as `launch.train.main` runs it)."""
+    from repro_torch.configs import get_config
+    from repro_torch.types import TrainConfig
+
+    cfg = get_config(arch, reduced=True)
+    if cfg.family in ("ssm", "hybrid"):
+        cfg = cfg.replace(attn_impl="plain")
+    return cfg, TrainConfig(**{**TRAIN_TC, **tc_kw})
+
+
+def mesh_train(ctx, ckpt_dir: str, steps: int, B: int, S: int, arch: str = "qwen3-0.6b",
+               fail=(), nan=(), tc_kw=None) -> dict:
+    """`launch.train.train(..., ctx=)` of the reduced arch on the CPU: its
+    history, the actions of its attempts, and the final weights gathered."""
+    from repro_torch.launch import train as T
+
+    cfg, tc = train_case(arch, **(tc_kw or {}))
+    log = []
+    params, _, hist = T.train(cfg, tc, steps, B, S, ckpt_dir, inject_fail=tuple(fail),
+                              inject_nan=tuple(nan), log_every=10_000, device="cpu",
+                              log=log, ctx=ctx)
+    return {"hist": hist, "actions": [(e["step"], e["action"]) for e in log if "action" in e],
+            "params": _full(params)}
+
+
+def train_two_ranks(rank: int, *, where: str, B: int, S: int, steps: int, fail, nan,
+                    elastic_steps: int, data_step: int) -> dict:
+    """The 2-rank trainer checks: the fault loop on (2, 1) and (1, 2);
+    int8 error feedback on (2, 1); mamba2 on the plain SSD on (2, 1); each
+    rank's rows of `SyntheticLMData(ctx=)`; and the elastic restart: a run
+    of `elastic_steps` written on (2, 1) (copied by rank 0 for a restore
+    without a mesh), continued on (1, 2) to `steps`."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import SyntheticLMData
+
+    root = Path(where)
+    out = {}
+    ctx21, ctx12 = _mesh((2, 1)), _mesh((1, 2))
+    for name, ctx in (("2x1", ctx21), ("1x2", ctx12)):
+        out[name] = mesh_train(ctx, str(root / name), steps, B, S, fail=fail, nan=nan)
+    out["int8_ef"] = mesh_train(ctx21, str(root / "int8"), 4, B, S,
+                                tc_kw={"grad_compression": "int8_ef"})
+    out["mamba2"] = mesh_train(ctx21, str(root / "mamba2"), 3, B, S, arch="mamba2-1.3b")
+    cfg, tc = train_case()
+    data = SyntheticLMData(cfg, B, S, seed=tc.seed, device="cpu", ctx=ctx21).batch(data_step)
+    rows = ctx21.rows(B)
+    out["data"] = {"rows": (rows.start, rows.stop),
+                   "local": {k: v.to_local().numpy() for k, v in data.items()},
+                   "placements": {k: [repr(p) for p in v.placements] for k, v in data.items()}}
+    first = mesh_train(ctx21, str(root / "elastic"), elastic_steps, B, S)
+    if rank == 0:
+        shutil.copytree(root / "elastic", root / "elastic_copy")
+    dist.barrier()
+    out["elastic"] = {"first": first,
+                      "then": mesh_train(ctx12, str(root / "elastic"), steps, B, S)}
+    out["by_sum"] = elastic_by_sum(ctx21, ctx12, str(root / "by_sum"), elastic_steps, steps,
+                                   B, S)
+    return out
+
+
+def elastic_by_sum(ctx21, ctx12, ckpt_dir: str, first: int, steps: int, B: int, S: int):
+    """The card's two-rank path on the CPU: every gather made a sum
+    (`sharding.sum_gloo_cuda_gathers`, here for CPU tensors too), the
+    trainer on (2, 1) for `first` steps, then continued on (1, 2) to
+    `steps` from its checkpoint: the histories, the all-gathers left in
+    the op stream (`stream_gathers`) and the gathers made sums."""
+    from repro_torch.distributed import sharding
+
+    sharding.SUM_GATHER_DEVICES.add("cpu")
+    sharding.sum_gloo_cuda_gathers()
+    try:
+        before = sharding.GATHERS_BY_SUM["n"]
+        a, n_a = stream_gathers(lambda: mesh_train(ctx21, ckpt_dir, first, B, S))
+        b, n_b = stream_gathers(lambda: mesh_train(ctx12, ckpt_dir, steps, B, S))
+        return {"hist": a["hist"] + b["hist"], "all_gathers": n_a + n_b,
+                "by_sum": sharding.GATHERS_BY_SUM["n"] - before}
+    finally:
+        sharding.restore_gathers()
+        sharding.SUM_GATHER_DEVICES.discard("cpu")
+
+
+def train_four_ranks(rank: int, *, where: str, B: int, S: int, steps: int, fail, nan,
+                     jax_ckpt: str, jax_batch: dict) -> dict:
+    """The 4-rank trainer checks: the fault loop on (2, 2), and a checkpoint
+    the JAX package wrote restored onto (2, 2) (`state_shardings`) with the
+    next `train_step` on the JAX package's batch."""
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_leaves
+
+    ctx = _mesh((2, 2))
+    out = {"2x2": mesh_train(ctx, str(Path(where) / "2x2"), steps, B, S, fail=fail, nan=nan)}
+    cfg, tc = train_case(total_steps=10, checkpoint_every=2)
+    like = T.init_state(cfg, tc, seed=123, device="cpu", ctx=ctx)
+    (params, opt), step = CheckpointManager(jax_ckpt).restore(
+        like, shardings=T.state_shardings(cfg, tc, ctx), device="cpu")
+    placed = all(type(t).__name__ == "DTensor" for t in tree_leaves((params, opt["mu"])))
+    batch = {k: torch.from_numpy(v.astype(np.int64)) for k, v in jax_batch.items()}
+    _, opt, metrics = M.train_step(cfg, tc, params, opt, batch, ctx)
+    out["jax"] = {"step": step, "placed": placed, "opt_step": int(opt["step"]),
+                  "metrics": {k: T.scalar(v) for k, v in metrics.items()},
+                  "mu": _full(opt["mu"])}
+    return out
+
+
+# -- serving on sharded caches (tests/test_torch_decode_mesh.py) ---------------------
+
+
+def stream_gathers(fn):
+    """(fn(), the all-gathers in its op stream): the functional collectives
+    `launch.hlo_analysis.OpRecorder` sees, every one DTensor's
+    redistribution issues."""
+    from repro_torch.launch.hlo_analysis import OpRecorder, analyze
+
+    with OpRecorder() as rec:
+        out = fn()
+    return out, analyze(rec.ops, 1)["collective_counts"]["all-gather"]
+
+
+def all_gathers(fn):
+    """(fn(), the all-gathers it asked for), counted twice over: those of
+    its op stream (`stream_gathers`), plus the calls of PyTorch's
+    functional all-gather functions, patched for the duration
+    (`sharding.sum_gloo_cuda_gathers`, here for CPU tensors too, which
+    makes each a sum and counts it in `GATHERS_BY_SUM`)."""
+    from repro_torch.distributed import sharding
+
+    sharding.SUM_GATHER_DEVICES.add("cpu")
+    sharding.sum_gloo_cuda_gathers()
+    before = sharding.GATHERS_BY_SUM["n"]
+    try:
+        out, n = stream_gathers(fn)
+    finally:
+        sharding.restore_gathers()
+        sharding.SUM_GATHER_DEVICES.discard("cpu")
+    return out, n + sharding.GATHERS_BY_SUM["n"] - before
+
+
+def mesh_serve(ctx, arch: str, replace: dict, params: dict, tokens, prompt: int,
+               cache_len: int, steps: int) -> dict:
+    """The reduced arch (fields `replace`d; carried numpy weights) on the
+    mesh: `init_cache(ctx=)`'s placements and local shapes, `prefill_step`
+    of the first `prompt` tokens at `cache_len` rows (its last logits and
+    caches, gathered, and its caches' placements), then `steps`
+    `decode_step`s of the next tokens (each one's logits gathered, the
+    all-gathers they issue counted), and the caches after them."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer
+    from repro_torch.models.params import tree_leaves
+
+    cfg = get_config(arch, reduced=True).replace(**replace)
+    weights = M.shard_params(cfg, lm_params_from_numpy(cfg, params, "cpu"), ctx)
+    tokens = torch.from_numpy(tokens)
+    B = tokens.shape[0]
+    zeros = transformer.init_cache(cfg, B, cache_len, device="cpu", ctx=ctx)
+    specs = [d.spec for d in tree_leaves(transformer.cache_decl(cfg, B, cache_len, ctx))]
+    out = {"init": [(tuple(t.shape), tuple(t.to_local().shape), [repr(p) for p in t.placements],
+                     ctx.placements(sp, t.shape) == tuple(t.placements), bool(t.to_local().any()))
+                    for t, sp in zip(tree_leaves(zeros), specs)]}
+    last, cache = M.prefill_step(cfg, weights, tokens[:, :prompt], cache_len=cache_len, ctx=ctx)
+    out["prefill"] = {"logits": last.full_tensor().numpy(), "cache": _full(cache),
+                      "placements": [repr(tuple(t.placements)) for t in tree_leaves(cache)],
+                      "as_declared": [ctx.placements(sp, t.shape) == tuple(t.placements)
+                                      for t, sp in zip(tree_leaves(cache), specs)]}
+    logits, gathers = [], []
+    for j in range(steps):
+        (step_logits, cache), n = all_gathers(lambda: M.decode_step(
+            cfg, weights, cache, tokens[:, prompt + j:prompt + j + 1], prompt + j, ctx=ctx))
+        gathers.append(n)
+        logits.append(step_logits)
+    # the count's control: gathering the logits (vocabulary over 'model') is an all-gather
+    full, control = all_gathers(lambda: [l.full_tensor().numpy() for l in logits])
+    out["decode"] = {"logits": full, "all_gathers": gathers, "control": control,
+                     "cache": _full(cache)}
+    return out
+
+
+def decode_mesh_suite(rank: int, *, meshes, cases: dict) -> dict:
+    """`mesh_serve` of every case on each mesh shape of `meshes`."""
+    out = {}
+    for shape in meshes:
+        ctx = _mesh(tuple(shape))
+        out["x".join(map(str, shape))] = {name: mesh_serve(ctx, **case)
+                                          for name, case in cases.items()}
+    return out

@@ -6,6 +6,7 @@ same META.json); torn directories are skipped; and a host MLDA campaign
 killed under the JAX package's checkpoint resumes in the port and gives the
 JAX package's uninterrupted samples bit for bit."""
 import json
+import threading
 from collections import OrderedDict
 
 import jax
@@ -151,6 +152,37 @@ def test_keep_last_and_async_save(tmp_path):
     assert port.completed_steps() == [3, 4]
     got, step = port.restore({"x": torch.zeros(2)}, device="cpu")
     assert step == 4 and torch.equal(got["x"], torch.full((2,), 4.0))
+
+
+@pytest.mark.parametrize("blocking", [False, True])
+def test_save_snapshots_a_copy_before_it_returns(tmp_path, monkeypatch, blocking):
+    """The saved values are those at the `save` call, whatever the caller
+    does to its tensors while the writer runs: the writer is held on an
+    Event until the float32 CPU tensor, the numpy leaf and the bfloat16
+    tensor have been updated in place (the optimizer's step on the CPU)."""
+    port = checkpoint.CheckpointManager(str(tmp_path))
+    release, write = threading.Event(), port._write
+
+    def held(*args, **kw):
+        assert release.wait(30)
+        return write(*args, **kw)
+
+    monkeypatch.setattr(port, "_write", held)
+    state = {"w": torch.zeros(4), "m": np.zeros(3, np.float32),
+             "b": torch.zeros(2, dtype=torch.bfloat16), "t": torch.arange(6.0)[::2]}
+    if blocking:
+        release.set()
+    port.save(3, state, blocking=blocking)
+    for leaf in state.values():
+        leaf += 1  # in place
+    release.set()
+    port.wait()
+    got, step = port.restore({k: np.zeros(v.shape, np.float32) if isinstance(v, np.ndarray)
+                              else torch.zeros_like(v) for k, v in state.items()}, host=True)
+    assert step == 3
+    for k in ("w", "m", "b"):
+        np.testing.assert_array_equal(got[k], np.zeros(len(got[k]), np.float32), err_msg=k)
+    np.testing.assert_array_equal(got["t"], np.array([0.0, 2.0, 4.0], np.float32))
 
 
 # -- campaigns across packages ------------------------------------------------
