@@ -14,14 +14,18 @@ user calls:
   `EvaluationFabric(ModelBackend(TsunamiModel()))`, every wave (all its
   time steps and the buoy reduction) one launch of the SWE solve kernel;
   and the SWE step kernel on its own path, `solve_batch(step=swe_step)`,
-  one launch per time step; then the model's derivative surface: a fused
-  value-and-gradient, a JVP and an HVP wave of 16 lanes per level (wall,
-  busy share under the profiler, peak memory, no kernel launch: the
-  kernel is forward-only, derivative waves are PyTorch ops under autograd,
-  as the JAX package's are scan ops), the gradient-informed campaign
-  (`coarse_sampler="mala"`: coarse subchains on fused value-and-gradient
-  waves, fine waves on the solve kernel) and the Laplace preview on the
-  coarse level with both curvature modes; then the GP level of the
+  one launch per time step; the solve's hand-written adjoint
+  (`swe_solve_vjp`: the reverse mode of a whole wave in one launch, from
+  the checkpoints the solve's launch keeps) against the plain
+  differentiable solver, timed (`swe_vjp_vs_plain`); then the model's
+  derivative surface: a fused value-and-gradient, a JVP and an HVP wave of
+  16 lanes per level (wall, busy share under the profiler, peak memory;
+  the fused wave one solve and one adjoint launch, the JVP and HVP waves
+  PyTorch ops under autograd, as the JAX package's are scan ops), the
+  gradient-informed campaign (`coarse_sampler="mala"`: coarse subchains on
+  fused value-and-gradient waves, fine waves on the solve kernel) and the
+  Laplace preview on the coarse level with both curvature modes; then the
+  GP level of the
   hierarchy (`gp_level`: a 128-point Sobol' design solved as one coarse
   wave, four GPs fitted on the card), the paper's three-level ensemble
   MLDA over GP, smoothed and fully resolved levels through a
@@ -34,9 +38,11 @@ user calls:
   Gaussian and on the coarse tsunami posterior, fused == per-step bit for
   bit (`fused_sampler`), two fused steps through the kernel against the
   same steps through the plain loop (`fused_kernel_vs_plain`),
-  `main_path`'s campaign with fused coarse subchains (`fused_main_path`)
-  and a fused MALA kill-and-resume (`fused_checkpoint`); then the same
-  campaign behind UM-Bridge HTTP model servers in this process
+  `main_path`'s campaign with fused coarse subchains (`fused_main_path`),
+  a fused MALA kill-and-resume (`fused_checkpoint`), and fused MALA over
+  the coarse tsunami (`fused_mala_tsunami`: S solve and S adjoint launches
+  a replay, fused == per-step bit for bit, the host loop in law); then the
+  same campaign behind UM-Bridge HTTP model servers in this process
   (`core/server.py`): through `HTTPBackend` and a router of two servers
   (`wire_main_path`), two tenants at once under `UQService`
   (`service_path`), and a router whose second member dies halfway, under
@@ -177,6 +183,13 @@ BF16_FLOPS = 989e12
 # float operations per (cell, lane) of one SWE step, counting each face and
 # each velocity once: velocity 10, face flux 48, divergence + update 9
 SWE_OPS_PER_CELL_LANE = 67
+# float operations per (cell, lane) of one reverse step of the SWE adjoint
+# (csrc/swe_solve_vjp.cu), counted from its source as above: the step again
+# up to the limiter (velocity 10, face 48, divergence, limiter and wet mask
+# 9), each face's adjoint (its cotangents 2, its reconstruction again 19,
+# the transpose 73) and each cell's (its shares 3, the velocity's adjoint
+# 30). The kernel also recomputes each forward step once (67 more)
+SWE_VJP_OPS_PER_CELL_LANE = 194
 # the solve's planned cluster size may take at most this much longer than
 # one block a lane at a timed shape: the windows' spread is ~1-3%
 PLAN_SLACK = 1.10
@@ -243,9 +256,10 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.rmsnorm import rmsnorm_fused
     from repro_torch.kernels.ssd import ssd
-    from repro_torch.kernels.swe import swe_solve, swe_step
+    from repro_torch.kernels.swe import swe_solve, swe_solve_vjp, swe_step
 
-    return {"swe_solve": swe_solve, "swe_step": swe_step, "ssd": ssd,
+    return {"swe_solve": swe_solve, "swe_solve_vjp": swe_solve_vjp, "swe_step": swe_step,
+            "ssd": ssd,
             "flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
             "rmsnorm": rmsnorm_fused}
 
@@ -317,9 +331,12 @@ class WaveWidths:
         with self._lock:
             self.by_phase.setdefault(self.phase, set()).add(key)
             if key not in self.first:
-                inputs = {k: v.clone() if self.torch.is_tensor(v) else v for k, v in kw.items()}
-                self.first[key] = (dict(h=h.clone(), hu=hu.clone(), b=b.clone(), **inputs),
-                                   tuple(t.clone() for t in out))
+                # a gradient wave's tensors carry its graph: keep their values
+                inputs = {k: v.detach().clone() if self.torch.is_tensor(v) else v
+                          for k, v in kw.items()}
+                self.first[key] = (dict(h=h.detach().clone(), hu=hu.detach().clone(),
+                                        b=b.detach().clone(), **inputs),
+                                   tuple(t.detach().clone() for t in out))
 
 
 def nvidia_smi() -> str:
@@ -385,6 +402,10 @@ def phase_build() -> None:
         emit("sass", library=str(libs[stem].relative_to(ROOT)),
              **{f"{op.lower()}_instructions": sum(kernels.values()),
                 f"{op.lower()}_by_function": kernels}, **fields)
+    # the SWE adjoint: registers and spills of its two instances (1 and 2
+    # cells a thread; 1,024 threads a block allow 64 registers)
+    emit("ptxas", library=str(libs["swe_solve_vjp"].relative_to(ROOT)),
+         ptxas=ptxas_lines(libs["swe_solve_vjp"]))
 
 
 def ptxas_lines(library: Path) -> list:
@@ -664,6 +685,115 @@ def phase_times(torch, dev, smi: str, solves: dict) -> dict:
                "pair around one plain loop (16 lanes and SOLVE_PLAIN_TIMED; else null)",
          waves=waves, library_ms=None, card=smi)
     return {"shapes": shapes, "waves": waves, "floor_ms": floor_ms, "step_path": path}
+
+
+def vjp_work(C: int, N: int, n_steps: int, R: int) -> dict:
+    """Bytes one adjoint launch must move (the checkpoints, b, the depths at
+    rest and the cotangent read once, (gh, ghu) written once; its scratch
+    is its own) and its float operations (a forward step recomputed and a
+    reverse step per cell, lane and step)."""
+    from repro_torch.kernels.swe.ref import checkpoint_every
+
+    n_seg = -(-n_steps // checkpoint_every(n_steps))
+    return {"bytes": (n_seg * (2 * C * N + R * N) + C + R + R * N + 2 * C * N) * 4,
+            "ops": (SWE_OPS_PER_CELL_LANE + SWE_VJP_OPS_PER_CELL_LANE) * C * N * n_steps}
+
+
+#: the adjoint's timed cases: both levels at 16 lanes (a derivative wave's
+#: chunk) and the coarse level at 512 lanes
+VJP_TIMED = ("wave_512x16", "wave_2048x16", "wave_512x512")
+
+
+def phase_swe_vjp_vs_plain(torch, dev, smi: str) -> dict:
+    """The SWE solve's adjoint kernel (`swe_solve_vjp`, through `swe_solve`'s
+    autograd rule: the solve's checkpointing launch, then the adjoint's)
+    against the plain differentiable solver (`apps.tsunami._Sweep`, float32,
+    a replayed CUDA graph a step) on the same inputs at every
+    `testing.VJP_CASES` case, within GRAD_RTOL32 of each cotangent's largest
+    entry, each case twice, bit for bit; the limiter cases against the
+    kernel's plain version `swe_solve_vjp_ref` too; the checkpointing launch
+    against the launch without checkpoints, bit for bit, at every cluster
+    size (both levels, 16 lanes). Times at `VJP_TIMED`: the adjoint launch
+    alone beside its bound, the solve with and without checkpoints, and the
+    `_Sweep` wave's wall (the plain path, forward and reverse)."""
+    from repro_torch.kernels.swe import ops as swe_ops
+    from repro_torch.kernels.swe import swe_solve, swe_solve_vjp, swe_solve_vjp_ref
+    from repro_torch.kernels.swe.ref import checkpoint_every
+    from repro_torch.kernels.swe.testing import (
+        CLUSTER_SIZES,
+        GRAD_RTOL32,
+        VJP_CASES,
+        assert_solve_equal,
+        assert_vjp_close,
+        solve_vjp,
+        sweep_vjp,
+        vjp_case_inputs,
+    )
+
+    cases = {}
+    for case in VJP_CASES:
+        kw = vjp_case_inputs(case, dev)
+        h, hu, b, cot = kw.pop("h"), kw.pop("hu"), kw.pop("b"), kw.pop("cot_mx")
+        C, N = h.shape
+        reset_launches()
+        got = solve_vjp(h, hu, b, cot, **kw)
+        again = solve_vjp(h, hu, b, cot, **kw)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        if (counts["swe_solve"], counts["swe_solve_vjp"]) != (2, 2):
+            raise AssertionError(f"{case}: launches {counts}, expected 2 of swe_solve and "
+                                 "2 of swe_solve_vjp")
+        if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+            raise AssertionError(f"{case}: two calls of the adjoint differ")
+        sweep_s, want = _timed(torch, lambda: sweep_vjp(h, hu, b, cot, **kw))
+        entry = {"shape": [C, N], "n_steps": kw["n_steps"],
+                 "checkpoint_every": checkpoint_every(kw["n_steps"]),
+                 "vs_sweep": assert_vjp_close(got, want, f"{case} against _Sweep"),
+                 "two_calls_bit_for_bit": True, "sweep_wall_s": sweep_s}
+        if case.startswith("solve_"):
+            ref_s, ref = _timed(torch, lambda: swe_solve_vjp_ref(h, hu, b, cot, **kw))
+            entry["vs_plain_version"] = assert_vjp_close(got, ref, f"{case} against the "
+                                                         "plain version")
+            entry["bit_for_bit_with_plain_version"] = bool(
+                torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]))
+            entry["plain_version_wall_s"] = ref_s
+        if case in VJP_TIMED:
+            args = (h, hu, b, kw["dt_dx"], kw["n_steps"], kw["rows"], kw["h0_rows"], None)
+            _, _, ck, ck_mx = swe_ops._solve(*args, keep=True)
+            calls = 1 if C * N > 16 * 512 else 3
+            ms = _device_ms(torch, lambda: swe_solve_vjp(b, ck, ck_mx, cot, **kw), calls=calls)
+            work = vjp_work(C, N, kw["n_steps"], len(kw["rows"]))
+            t_bytes, t_ops = work["bytes"] / HBM_BYTES_PER_S, work["ops"] / FP32_FLOPS
+            bound_ms = max(t_bytes, t_ops) * 1e3
+            entry.update(
+                ms=ms, ms_per_step=ms / kw["n_steps"],
+                solve_with_checkpoints_ms=_device_ms(
+                    torch, lambda: swe_ops._solve(*args, keep=True), calls=5),
+                solve_ms=_device_ms(torch, lambda: swe_solve(h, hu, b, **kw), calls=5),
+                plain_ms=sweep_s * 1e3, bound_ms=bound_ms,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                share_of_bound=bound_ms / ms, **work)
+            del ck, ck_mx
+        cases[case] = entry
+    primal = {}
+    for case in ("wave_512x16", "wave_2048x16"):
+        kw = vjp_case_inputs(case, dev)
+        h, hu, b, _ = kw.pop("h"), kw.pop("hu"), kw.pop("b"), kw.pop("cot_mx")
+        for cs in CLUSTER_SIZES:
+            want = swe_solve(h, hu, b, **kw, cluster=cs)
+            got = swe_ops._solve(h, hu, b, kw["dt_dx"], kw["n_steps"], kw["rows"],
+                                 kw["h0_rows"], cs, keep=True)
+            torch.cuda.synchronize()
+            assert_solve_equal(got[:2], want, f"{case}, cluster {cs}, with checkpoints")
+        primal[case] = {"cluster_sizes": list(CLUSTER_SIZES), "bit_for_bit": True}
+    worst = max(e["vs_sweep"][k]["rel_to_largest"] for e in cases.values() for k in ("gh", "ghu"))
+    emit("swe_vjp_vs_plain", kernel="swe_solve_vjp",
+         bound=f"{GRAD_RTOL32} of each cotangent's largest entry against _Sweep (float32) "
+               "and the plain version; two calls and the checkpointing primal bit for bit",
+         timer="adjoint and solves: one CUDA event pair around back-to-back launches, median "
+               "of 5 windows; _Sweep and the plain version: host wall ending in a sync",
+         cases=cases, checkpointing_primal=primal, worst_rel_to_largest=worst, card=smi)
+    return {"cases": cases, "max_rel_err": worst}
 
 
 #: the lanes at which `full_solves` holds the model's wave to its plain path
@@ -961,12 +1091,14 @@ def _profiled(torch, fn, wall: float, n_steps: int) -> dict:
 def phase_derivative_waves(torch, dev, smi: str) -> dict:
     """One fused value-and-gradient wave, one JVP wave and one HVP wave of
     16 lanes at both published levels through `TsunamiModel`: each wave's
-    wall, its kernel launches (none: derivative waves run PyTorch ops under
-    autograd, as the JAX package's run its scan; the kernel is
-    forward-only) and peak device memory; then the same three waves again
-    under the profiler, for the device's busy time. Checks: the fused
-    wave's primal equals the evaluate wave (one `swe_solve` launch) bit for
-    bit; sens.(J v) == (J^T sens).v within the JAX package's bound
+    wall, its kernel launches (the fused wave exactly one `swe_solve`, which
+    keeps the adjoint's checkpoints, and one `swe_solve_vjp`, the reverse
+    mode on the hand-written adjoint; the JVP and HVP waves none: PyTorch
+    ops under autograd, as the JAX package's run its scan) and peak device
+    memory; then the same three waves again under the profiler, for the
+    device's busy time. Checks: the fused wave's primal equals the evaluate
+    wave (one `swe_solve` launch) bit for bit; sens.(J v) == (J^T sens).v
+    within the JAX package's bound
     (tests/test_capabilities.py); every value finite. The card's waves
     against the same model on the CPU are tests/test_torch_gpu.py's
     (`test_derivative_waves_on_cuda_match_the_cpu`, both levels of the small
@@ -1010,8 +1142,10 @@ def phase_derivative_waves(torch, dev, smi: str) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = read_launches()
-            if sum(launches.values()) != 0:
-                raise AssertionError(f"level {level} {kind}: kernel launches {launches}")
+            want = {"swe_solve": 1, "swe_solve_vjp": 1} if kind == "value_and_gradient" else {}
+            if {k: v for k, v in launches.items() if v} != want:
+                raise AssertionError(f"level {level} {kind}: kernel launches {launches}, "
+                                     f"expected {want}")
             for r in (res if isinstance(res, tuple) else (res,)):
                 if not np.isfinite(r).all():
                     raise AssertionError(f"level {level} {kind}: non-finite values")
@@ -1046,7 +1180,8 @@ def phase_mala_main_path(torch, dev) -> dict:
     """`ensemble_mlda(coarse_sampler="mala")` through
     `EvaluationFabric(ModelBackend(TsunamiModel()))` with `main_path`'s
     settings: every coarse subchain step one fused value-and-gradient wave
-    (PyTorch ops), every fine wave one `swe_solve` launch."""
+    (one `swe_solve` and one `swe_solve_vjp` launch: 16 chains, one
+    chunk), every fine wave one `swe_solve` launch."""
     from repro_torch.apps.tsunami import TsunamiModel
     from repro_torch.core.fabric import EvaluationFabric, ModelBackend
     from repro_torch.kernels.swe.testing import sources
@@ -1087,9 +1222,13 @@ def phase_mala_main_path(torch, dev) -> dict:
     if vg_waves < 1 or evaluate_waves[0] != 0:
         raise AssertionError(f"level 0: {vg_waves} value-and-gradient waves and "
                              f"{evaluate_waves[0]} evaluate waves, expected >= 1 and 0")
-    if counts["swe_solve"] != evaluate_waves[1] or evaluate_waves[1] < 1 or counts["swe_step"]:
+    if (counts["swe_solve_vjp"] != vg_waves
+            or counts["swe_solve"] != evaluate_waves[1] + vg_waves
+            or evaluate_waves[1] < 1 or counts["swe_step"]):
         raise AssertionError(f"kernel launches {counts}, expected one swe_solve per fine "
-                             f"evaluate wave ({evaluate_waves[1]}) and no swe_step")
+                             f"evaluate wave ({evaluate_waves[1]}), one swe_solve and one "
+                             f"swe_solve_vjp per value-and-gradient wave ({vg_waves}), "
+                             "and no swe_step")
     emit("mala_main_path", chains=K, n_samples=4, subsampling=[5], coarse_sampler="mala",
          n_waves=res.n_waves, evals_per_level=res.evals_per_level,
          model_solves_per_level=solves, evaluate_waves_per_level=evaluate_waves,
@@ -1097,7 +1236,8 @@ def phase_mala_main_path(torch, dev) -> dict:
          swe_solve_launches=counts["swe_solve"], launches=counts,
          posterior_mean=res.samples.reshape(-1, 2).mean(0).tolist(),
          per_capability=pc)
-    return {"launches": counts["swe_solve"], "wall_s": wall}
+    return {"launches": counts["swe_solve"], "vjp_launches": counts["swe_solve_vjp"],
+            "wall_s": wall}
 
 
 #: `laplace_path`'s Gauss-Newton / Newton iterations (benchmarks/
@@ -1737,6 +1877,133 @@ def phase_fused_checkpoint(torch, dev) -> dict:
          key_device=meta["key_device"], final_step_size=got.final_step_size,
          bound="bit for bit (samples, log-densities, step size; and fused == per step)")
     return {}
+
+
+#: fused MALA over the coarse tsunami: K chains, S steps a block, steps of
+#: each run, the step-size adaptation's steps, and the law check's burn-in
+#: share (past the adaptation), its sigmas and least pooled ESS
+#: (tests/_stat_harness.py's)
+FUSED_MALA_K, FUSED_MALA_S, FUSED_MALA_STEPS, FUSED_MALA_ADAPT = 16, 5, 300, 50
+FUSED_MALA_BURN, FUSED_MALA_Z, FUSED_MALA_MIN_ESS = 0.3, 5.0, 50.0
+FUSED_MALA_PRECOND = np.diag([4.0, 0.01])
+
+
+def _pooled_moments(samples: np.ndarray, burn: float) -> dict:
+    """Pooled mean, variance and per-dimension ESS (summed over chains) of
+    [K, n, d] samples after the first `burn` share of each chain, as
+    tests/_stat_harness.py pools them (with the port's ESS)."""
+    from repro_torch.uq.mcmc import effective_sample_size
+
+    x = np.asarray(samples, float)[:, int(burn * samples.shape[1]):]
+    d = x.shape[2]
+    ess = np.asarray([sum(effective_sample_size(x[k, :, j]) for k in range(len(x)))
+                      for j in range(d)])
+    flat = x.reshape(-1, d)
+    return {"mean": flat.mean(0), "var": flat.var(0), "ess": ess}
+
+
+def assert_same_law(a: np.ndarray, b: np.ndarray, what: str) -> dict:
+    """Two samplers' chains in law: tests/_stat_harness.py's bounds on the
+    pooled mean and variance, each sample's Monte Carlo error from its
+    pooled ESS, for the difference of two samples: |mean_a - mean_b| <= z
+    sqrt(var_a / ess_a + var_b / ess_b), |var_a - var_b| <= z sqrt(2
+    var_a^2 / ess_a + 2 var_b^2 / ess_b), each ESS at least the harness's
+    least (chains too short certify nothing)."""
+    ma, mb = (_pooled_moments(s, FUSED_MALA_BURN) for s in (a, b))
+    if min(ma["ess"].min(), mb["ess"].min()) < FUSED_MALA_MIN_ESS:
+        raise AssertionError(f"{what}: pooled ESS {ma['ess']} / {mb['ess']} below "
+                             f"{FUSED_MALA_MIN_ESS}: the chains are too short to compare")
+    se_mean = np.sqrt(ma["var"] / ma["ess"] + mb["var"] / mb["ess"])
+    se_var = np.sqrt(2 * ma["var"] ** 2 / ma["ess"] + 2 * mb["var"] ** 2 / mb["ess"])
+    mean_err, var_err = np.abs(ma["mean"] - mb["mean"]), np.abs(ma["var"] - mb["var"])
+    report = {"mean": [ma["mean"].tolist(), mb["mean"].tolist()],
+              "var": [ma["var"].tolist(), mb["var"].tolist()],
+              "ess": [ma["ess"].tolist(), mb["ess"].tolist()],
+              "mean_err_in_se": (mean_err / se_mean).tolist(),
+              "var_err_in_se": (var_err / se_var).tolist()}
+    if np.any(mean_err > FUSED_MALA_Z * se_mean) or np.any(var_err > FUSED_MALA_Z * se_var):
+        raise AssertionError(f"{what}: the two samplers differ in law: {report}")
+    return report
+
+
+def phase_fused_mala_tsunami(torch, dev) -> dict:
+    """Fused MALA over the coarse tsunami posterior (512 cells, `main_path`'s
+    data, noise and prior box), FUSED_MALA_K chains started near the true
+    source, through `ensemble_mala(fused_steps=FUSED_MALA_S)`: each step's
+    drift through `swe_solve`'s autograd rule, so a block's graph holds S
+    `swe_solve` and S `swe_solve_vjp` launches (the backward captured from
+    the autograd engine's thread). A warm run captures the graph; then the
+    timed run (launches == 1 + n of each: the start's value and gradient,
+    then one forward and one adjoint a step), the per-step reference (bit
+    for bit), and `ensemble_mala`'s host loop over
+    `EvaluationFabric(ModelBackend(TsunamiModel()))` (a fused
+    value-and-gradient wave a step), held to the fused run in law
+    (`assert_same_law`). Steps/s of each."""
+    from repro_torch.apps.tsunami import TsunamiModel
+    from repro_torch.core.fabric import EvaluationFabric, ModelBackend
+    from repro_torch.kernels.swe import swe_solve, swe_solve_vjp
+    from repro_torch.uq import fused
+    from repro_torch.uq.mcmc import batched_value_grad_logpost, ensemble_mala
+
+    model = TsunamiModel()
+    lp, logprior, loglik = coarse_target(torch, model, dev)
+    *_, grad_loglik = tsunami_problem(torch, model, dev)
+    K, S, n = FUSED_MALA_K, FUSED_MALA_S, FUSED_MALA_STEPS
+    x0s = TRUE_THETA + np.random.default_rng(SEED).standard_normal((K, 2)) * [2.0, 0.1]
+    kw = dict(precond=FUSED_MALA_PRECOND, adapt_steps=FUSED_MALA_ADAPT)
+
+    def run(steps, seed):
+        return ensemble_mala(lp, x0s, steps, 1.0, np.random.default_rng(0), fused_steps=S,
+                             fused_key=_generator(torch, dev, seed), **kw)
+
+    def run_per_step(steps, seed):
+        return fused.fused_ensemble_mala(lp, x0s, steps, 1.0, _generator(torch, dev, seed),
+                                         fused_steps=S, per_step=True, **kw)
+
+    run(S, 1)  # warm: the captures of the S-step graph and the one-step one
+    run_per_step(1, 1)
+    blocks = [b for b in fused._BLOCK_MEMO.values()
+              if isinstance(b, fused._Block) and b.S == S and b.graph is not None
+              and (swe_solve_vjp, None) in b.held]
+    if len(blocks) != 1 or blocks[0].held != {(swe_solve, None): S, (swe_solve_vjp, None): S}:
+        raise AssertionError(f"fused MALA blocks {[b.held for b in blocks]}, expected one "
+                             f"holding {S} swe_solve and {S} swe_solve_vjp launches")
+    reset_launches()
+    fused_wall, got = _timed(torch, lambda: run(n, 7))
+    counts = read_launches()
+    if (counts["swe_solve"], counts["swe_solve_vjp"], counts["swe_step"]) != (1 + n, 1 + n, 0):
+        raise AssertionError(f"fused MALA: launches {counts}, expected {1 + n} of swe_solve "
+                             f"and of swe_solve_vjp ({n // S} replays of {S} + the start)")
+    per_wall, per_step = _timed(torch, lambda: run_per_step(n, 7))
+    for name in ("samples", "logposts"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(per_step, name),
+                                      err_msg=f"fused MALA vs per-step {name}")
+    if got.final_step_size != per_step.final_step_size:
+        raise AssertionError("fused MALA's adapted step size differs per step")
+    if not np.isfinite(got.samples).all() or not 0.0 < got.accept_rate <= 1.0:
+        raise AssertionError(f"fused MALA: acceptance {got.accept_rates}")
+    fabric = EvaluationFabric(ModelBackend(model), cache_size=0)
+    try:
+        value_grad = batched_value_grad_logpost(fabric, loglik, grad_loglik, logprior,
+                                                config=L0)
+        ensemble_mala(value_grad, x0s, 2, 1.0, np.random.default_rng(1), **kw)
+        host_wall, host = _timed(torch, lambda: ensemble_mala(
+            value_grad, x0s, n, 1.0, np.random.default_rng(11), **kw))
+    finally:
+        fabric.shutdown()
+    law = assert_same_law(got.samples, host.samples, "fused MALA vs the host loop")
+    rates = {"fused": n / fused_wall, "per_step": n / per_wall, "host_fabric": n / host_wall}
+    emit("fused_mala_tsunami", chains=K, fused_steps=S, n_steps=n, adapt_steps=FUSED_MALA_ADAPT,
+         level=0, walls_s={"fused": fused_wall, "per_step": per_wall, "host_fabric": host_wall},
+         steps_per_s=rates, speedup_vs_per_step=rates["fused"] / rates["per_step"],
+         speedup_vs_host_fabric=rates["fused"] / rates["host_fabric"],
+         launches=counts, launches_per_replay={"swe_solve": S, "swe_solve_vjp": S},
+         accept_rate={"fused": got.accept_rate, "host_fabric": host.accept_rate},
+         final_step_size={"fused": got.final_step_size, "host_fabric": host.final_step_size},
+         law=law, bound="fused == per-step bit for bit; fused vs host loop in law "
+                        f"(z = {FUSED_MALA_Z}, burn-in {FUSED_MALA_BURN})",
+         timer="host clock around a whole run ending in a device sync, after a warm run")
+    return {"launches": counts, "steps_per_s": rates}
 
 
 # -- the wire, the service tier and the fleet (UM-Bridge over HTTP) -------------
@@ -5442,7 +5709,8 @@ def _gate_card_locks(torch, dev) -> dict:
     """The race detector over the card's own locks: a fabric over a coarse
     `TsunamiModel`, both built inside `monitored(LockMonitor(...))`, takes
     evaluate waves from GATE_CALLERS threads while GATE_GRAD_THREADS threads
-    each run a 2-lane gradient wave through it, whose step graphs are
+    each run a 2-lane gradient wave through it (one solve launch and one
+    adjoint launch) and then a 2-lane JVP wave, whose step graphs are
     captured under `CAPTURE_LOCK` (built at import, so each module's binding
     of it is instrumented here, and put back after). Every row is held to a
     serial run of the same points bit for bit."""
@@ -5465,16 +5733,19 @@ def _gate_card_locks(torch, dev) -> dict:
                        rng.uniform(*SOURCE_BOX[1], GATE_POINTS)], axis=1)
     lanes = [points[2 * i:2 * i + 2] for i in range(GATE_GRAD_THREADS)]
     senss = [rng.standard_normal((2, 4)) for _ in range(GATE_GRAD_THREADS)]
+    vecs = [rng.standard_normal((2, 2)) for _ in range(GATE_GRAD_THREADS)]
     serial = TsunamiModel(dev)
     t0 = time.perf_counter()
     want = serial.evaluate_batch(points)
     want_g = [serial.gradient_batch(th, ss) for th, ss in zip(lanes, senss)]
+    want_j = [serial.apply_jacobian_batch(th, v) for th, v in zip(lanes, vecs)]
     serial_s = time.perf_counter() - t0
 
     mon = LockMonitor(seed=0, perturb=True)
     bindings = (core_device, tsunami, fused, composite)
     plain = [mod.CAPTURE_LOCK for mod in bindings]
-    rows, grads, errors, rounds = [], [None] * GATE_GRAD_THREADS, [], [0] * GATE_CALLERS
+    rows, errors, rounds = [], [], [0] * GATE_CALLERS
+    grads, jvps = [None] * GATE_GRAD_THREADS, [None] * GATE_GRAD_THREADS
     book = threading.Lock()  # the harness's own, outside the monitor
     grads_left = [GATE_GRAD_THREADS]
     grads_done = threading.Event()
@@ -5500,6 +5771,7 @@ def _gate_card_locks(torch, dev) -> dict:
     def gradient(i: int) -> None:
         try:
             grads[i] = fabric.gradient_batch(lanes[i], senss[i])
+            jvps[i] = fabric.apply_jacobian_batch(lanes[i], vecs[i])
         except Exception as e:  # noqa: BLE001 — raised after the join
             errors.append(f"gradient {i}: {e!r}")
         finally:
@@ -5545,6 +5817,7 @@ def _gate_card_locks(torch, dev) -> dict:
         _same_bits(got, want[idx], f"analysis_gate: rows {idx.tolist()} against the serial wave")
     for i in range(GATE_GRAD_THREADS):
         _same_bits(grads[i], want_g[i], f"analysis_gate: gradient wave {i} against serial")
+        _same_bits(jvps[i], want_j[i], f"analysis_gate: JVP wave {i} against serial")
     report = mon.report()
     captures = report["acquisitions_by_lock"].get("cuda.capture", 0)
     if report["lock_order_cycles"] or report["unguarded_writes"]:
@@ -5552,12 +5825,18 @@ def _gate_card_locks(torch, dev) -> dict:
                              f"unguarded writes {report['unguarded_writes']}")
     if captures < GATE_GRAD_THREADS:
         raise AssertionError(f"cuda.capture taken {captures} times under the monitor: the "
-                             f"gradient waves' captures went unseen")
-    # every evaluate wave one launch of the solve kernel; derivative waves none
-    if counts["swe_solve"] != model.waves[0] or not model.waves[0] or model.waves[1]:
-        raise AssertionError(f"launches {counts} for the model's waves {dict(model.waves)}")
+                             f"JVP waves' captures went unseen")
+    # every evaluate wave one launch of the solve kernel, every gradient wave
+    # one of the solve and one of its adjoint; the JVP waves none
+    if (counts["swe_solve"] != model.waves[0] + GATE_GRAD_THREADS
+            or counts["swe_solve_vjp"] != GATE_GRAD_THREADS
+            or not model.waves[0] or model.waves[1]):
+        raise AssertionError(f"launches {counts} for the model's waves {dict(model.waves)} "
+                             f"and {GATE_GRAD_THREADS} gradient waves")
     return {"rounds": sum(rounds), "rows_checked": sum(len(idx) for idx, _ in rows),
             "gradient_lanes_checked": 2 * GATE_GRAD_THREADS,
+            "jvp_lanes_checked": 2 * GATE_GRAD_THREADS,
+            "swe_solve_vjp_launches": counts["swe_solve_vjp"],
             "model_waves": dict(model.waves), "swe_solve_launches": counts["swe_solve"],
             "fabric": {k: tel[k] for k in ("waves", "points", "cache_hits", "coalesced")
                        if k in tel},
@@ -5663,13 +5942,15 @@ def main() -> int:
     check = phase_kernel_vs_plain(torch, dev)
     solves = phase_full_solves(torch, dev)
     times = phase_times(torch, dev, probe["smi"], solves)
+    vjp = phase_swe_vjp_vs_plain(torch, dev, probe["smi"])
     phase_profile(torch)
     # every wave the paths hand the solve kernel, by width, for
     # `wave_widths_vs_plain`
     widths = WaveWidths(torch)
     with widths.installed():
         main_path = widths.run("main_path", phase_main_path, torch, dev)
-        widths.run("derivative_waves", phase_derivative_waves, torch, dev, probe["smi"])
+        derivative = widths.run("derivative_waves", phase_derivative_waves, torch, dev,
+                                probe["smi"])
         mala = widths.run("mala_main_path", phase_mala_main_path, torch, dev)
         widths.run("laplace_path", phase_laplace_path, torch, dev)
         gp_level = widths.run("gp_level", phase_gp_level, torch, dev)
@@ -5681,6 +5962,7 @@ def main() -> int:
                                  dev)
         fused_main = widths.run("fused_main_path", phase_fused_main_path, torch, dev, main_path)
         widths.run("fused_checkpoint", phase_fused_checkpoint, torch, dev)
+        fused_mala = widths.run("fused_mala_tsunami", phase_fused_mala_tsunami, torch, dev)
         wire = widths.run("wire_main_path", phase_wire_main_path, torch, dev, main_path)
         service = widths.run("service_path", phase_service_path, torch, dev)
         fleet = widths.run("fleet_path", phase_fleet_path, torch, dev, main_path, wire)
@@ -5741,9 +6023,11 @@ def main() -> int:
         "replaces": "src/repro/kernels/swe/swe.py:54",
         "replaces_scan": "src/repro/apps/tsunami.py:172",
         "launches": main_path["launches"],
-        # the gradient-informed campaign's fine waves (its coarse waves are
-        # derivative waves, PyTorch ops: the kernel is forward-only)
+        # the gradient-informed campaign: its fine waves, and one
+        # checkpointing launch a coarse value-and-gradient wave
         "launches_mala_main_path": mala["launches"],
+        # fused MALA over the coarse tsunami: the start, then one a step
+        "launches_fused_mala_tsunami": fused_mala["launches"]["swe_solve"],
         # the GP level's design wave, and the three-level and surrogate-DA
         # campaigns (their warm-ups apart): every PDE wave one launch
         "launches_gp_level": gp_level["launches"],
@@ -5787,6 +6071,40 @@ def main() -> int:
         "launches_per_wave": {k: v["launches"]["swe_solve"]
                               for k, v in solves["waves"].items()},
         "wall_s_per_wave": {k: v["wall_s"] for k, v in solves["waves"].items()},
+        "card": probe["smi"],
+    }, {
+        "name": "swe_solve_vjp",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/swe/csrc/swe_solve_vjp.cu",
+        "replaces": None,
+        "replaces_note": "no TPU kernel: the JAX package differentiates its lax.scan over "
+                         "the checkpointed step (src/repro/apps/tsunami.py:172, the scan "
+                         "body of src/repro/kernels/swe/swe.py:54); the same adjoint, by "
+                         "hand, from checkpoints every ceil(sqrt(n_steps)) steps",
+        # the gradient-informed campaign: one a coarse value-and-gradient wave
+        "launches": mala["vjp_launches"],
+        # one a fused value-and-gradient wave of 16 lanes, per level
+        "launches_derivative_waves": {
+            level: v["waves"]["value_and_gradient"]["launches"]["swe_solve_vjp"]
+            for level, v in derivative.items()},
+        # fused MALA over the coarse tsunami: the start, then one a step
+        "launches_fused_mala_tsunami": fused_mala["launches"]["swe_solve_vjp"],
+        # against the plain differentiable solver (_Sweep, float32), each
+        # cotangent's error relative to its largest entry, worst case
+        "max_abs_err": max(e["vs_sweep"][k]["max_abs"] for e in vjp["cases"].values()
+                           for k in ("gh", "ghu")),
+        "max_rel_err": vjp["max_rel_err"],
+        "ms": vjp["cases"]["wave_2048x16"]["ms"],
+        # the plain path's wall on the same wave (_Sweep: forward and reverse)
+        "plain_ms": vjp["cases"]["wave_2048x16"]["plain_ms"],
+        "bound_ms": vjp["cases"]["wave_2048x16"]["bound_ms"],
+        "bound_by": vjp["cases"]["wave_2048x16"]["bound_by"],
+        "library_ms": None,
+        "shape": vjp["cases"]["wave_2048x16"]["shape"],
+        "n_steps": vjp["cases"]["wave_2048x16"]["n_steps"],
+        "by_shape": {case: {k: e[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                              "solve_with_checkpoints_ms", "solve_ms")}
+                     for case, e in vjp["cases"].items() if "ms" in e},
         "card": probe["smi"],
     }, {
         "name": "swe_step",

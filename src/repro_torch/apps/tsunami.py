@@ -15,9 +15,13 @@ On the GPU a whole evaluate wave, every time step and the buoy reduction,
 is ONE launch of the hand-written SWE solve kernel (`repro_torch.kernels.
 swe.swe_solve`); on the CPU the same wave runs its plain PyTorch loop.
 
-The derivative surface (VJP, JVP and HVP waves, and the fused
-value-and-gradient wave) runs the same step as PyTorch ops under autograd,
-as the JAX package runs its scan body: the kernel is forward-only. The
+The reverse mode (VJP waves and the fused value-and-gradient wave) of a
+float32 wave on the GPU is `solve_batch` under autograd: one launch of the
+solve kernel that keeps a checkpoint every ~sqrt(n_steps) steps, and one
+launch of its hand-written adjoint (`kernels.swe.SweSolve`). Everywhere
+else (the CPU, and float64 on any device), and for the JVP and HVP waves
+on every device, the derivative waves run the same step as PyTorch ops
+under autograd, as the JAX package runs its scan body. The
 differentiable step computes the plain step's values bit for bit, with
 derivative rules that match JAX's at the kinks the solver sits on (u == 0
 in still water, dry cells): a `where` absolute value (slope 1 at 0),
@@ -397,6 +401,12 @@ class _Sweep:
         return torch.autograd.grad([c for c, _ in pairs], thetas, [g for _, g in pairs])[0]
 
 
+#: `torch.func.jvp` enters a forward-AD level, which is process-wide state:
+#: two threads inside it at once fail (a server answers each request on its
+#: own thread), so the tangent waves take turns for their initial state
+_JVP_LOCK = named_lock("tsunami.jvp")
+
+
 def _wave_setup(thetas: torch.Tensor, n_cells: int, smoothed: bool, vecs=None):
     """(first carry, step, n_steps, dt) of a differentiable wave in thetas'
     dtype: the carry (h, hu, mx), with tangents `vecs` [N, 2] also
@@ -406,7 +416,9 @@ def _wave_setup(thetas: torch.Tensor, n_cells: int, smoothed: bool, vecs=None):
         tangent = ()
     else:
         init = partial(initial_state, n_cells=n_cells, smoothed=smoothed)
-        (h, hu, b), (dh, dhu, _) = torch.func.jvp(init, (thetas,), (vecs.to(thetas.dtype),))
+        with _JVP_LOCK:
+            (h, hu, b), (dh, dhu, _) = torch.func.jvp(init, (thetas,),
+                                                       (vecs.to(thetas.dtype),))
         tangent = (dh, dhu, h.new_zeros((2, h.shape[1])))
     dt, n_steps, buoy_rows = level_grid(n_cells)
     b = b.to(h.dtype)
@@ -428,8 +440,26 @@ def _height_cotangent(carry, senss: torch.Tensor, at: int):
 
 def _reverse_mode(thetas: torch.Tensor, n_cells: int, smoothed: bool, senss_of):
     """([N, 4], [N, 2]): the wave y and senss_of(y)^T J per lane, in one
-    forward (keeping each step's input) and one reverse sweep. The lanes'
-    Jacobians are block-diagonal, so the batch VJP is the per-lane VJP."""
+    forward and one reverse sweep. The lanes' Jacobians are block-diagonal,
+    so the batch VJP is the per-lane VJP. A float32 wave on the GPU is
+    `solve_batch` under autograd: the solve kernel's checkpointing launch
+    and its adjoint's launch (`kernels.swe.SweSolve`), and nothing of
+    `_Sweep`. Elsewhere (the CPU, float64) `_Sweep` keeps each step's
+    input and sweeps back through `_ad_step`."""
+    th = thetas.detach().requires_grad_()
+    if not (th.is_cuda and th.dtype == torch.float32):
+        return _sweep_reverse_mode(th, n_cells, smoothed, senss_of)
+    with torch.enable_grad():
+        y = solve_batch(th, n_cells, smoothed)
+    cot = senss_of(y.detach()).to(y.dtype)
+    (g,) = torch.autograd.grad(y, th, cot)
+    return y.detach(), g
+
+
+def _sweep_reverse_mode(thetas: torch.Tensor, n_cells: int, smoothed: bool, senss_of):
+    """`_reverse_mode` through `_Sweep` on any device and dtype: the plain
+    path the CPU and float64 waves take, and what the adjoint kernel is
+    held to on the card (`kernels.swe.testing`)."""
     th = thetas.detach().requires_grad_()
     with torch.enable_grad():
         carry0, step, n_steps, dt = _wave_setup(th, n_cells, smoothed)
@@ -560,8 +590,10 @@ class TsunamiModel(Model):
     exactly N lanes on the device: on the GPU, one launch of the SWE solve
     kernel, one block a lane. Native batched gradient, apply_jacobian and
     apply_hessian, and the fused value-and-gradient wave gradient-based
-    samplers ride: lockstep AD through the differentiable solver, in chunks
-    of at most `GRAD_CHUNK_MAX` lanes run one after another, unpadded."""
+    samplers ride, in chunks of at most `GRAD_CHUNK_MAX` lanes run one after
+    another, unpadded: on the GPU a gradient or fused wave is one launch of
+    the solve kernel and one of its adjoint a chunk, the JVP and HVP waves
+    lockstep AD through the differentiable solver."""
 
     N_CELLS = {0: 512, 1: 2048}
     # lanes are independent and the solver keeps no trace cache, so a wave

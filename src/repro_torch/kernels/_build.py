@@ -7,10 +7,12 @@ build takes seconds), for Hopper only:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 [per-source flags]
          -shared -Xcompiler -fPIC -o lib<stem>_<hash>.so <stem>.cu
 
-The per-source flags are `SOURCE_FLAGS`. `swe_step.cu` and `swe_solve.cu`
-are built with `-fmad=false`: every multiply and add stays separately
-rounded, as in the eager plain PyTorch version, which is what their
-bit-equality with that version rests on. `ssd.cu` lets the compiler
+The per-source flags are `SOURCE_FLAGS`. `swe_step.cu`, `swe_solve.cu` and
+`swe_solve_vjp.cu` are built with `-fmad=false`: every multiply and add
+stays separately rounded, as in the eager plain PyTorch version, which is
+what the first two's bit-equality with that version rests on, and what
+makes the adjoint's recomputed states the solve's own (the adjoint is
+built with `-Xptxas -v` too). `ssd.cu` lets the compiler
 contract multiply-adds: its products sum in another order than the plain
 version's, so they cannot be bit-equal anyway. It, `flash_attention.cu`
 (both mma.sync in 3xTF32), `flash_attention_bwd_wgmma.cu` and
@@ -50,6 +52,7 @@ NVCC_FLAGS = (
 )
 #: flags of one source on top of NVCC_FLAGS, by stem
 SOURCE_FLAGS = {"swe_step": ("-fmad=false",), "swe_solve": ("-fmad=false",),
+                "swe_solve_vjp": ("-fmad=false", "-Xptxas", "-v"),
                 "ssd": ("-Xptxas", "-v"), "flash_attention": ("-Xptxas", "-v"),
                 "flash_attention_bwd_wgmma": ("-Xptxas", "-v"),
                 "flash_attention_bwd_3xbf16": ("-Xptxas", "-v")}

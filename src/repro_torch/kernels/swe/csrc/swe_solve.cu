@@ -62,10 +62,16 @@
 // edge cell a step, each measured slower (PERF.md).
 //
 // Device memory is read once at the start and [R, N] is written once at the
-// end. Built with -fmad=false and IEEE sqrtf and division (no fast math), so
-// the solve equals the plain PyTorch loop bit for bit at every cs.
+// end; with a checkpoint pointer (the reverse mode's forward, swe_solve_vjp.cu)
+// each block also writes its owned cells' state and the running max every
+// k_ck steps, and nothing else changes. Built with -fmad=false and IEEE sqrtf
+// and division (no fast math), so the solve equals the plain PyTorch loop bit
+// for bit at every cs. The step's arithmetic is in swe_math.cuh, shared with
+// the adjoint, whose recomputed states must be these bits.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "swe_math.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -74,62 +80,6 @@ namespace {
 constexpr int kMaxThreads = 1024;
 constexpr int kRows = 2;  // buoy rows a solve reduces (wrapper: N_ROWS)
 constexpr int kGhost = 32;  // ghost cells a side of a cluster's block: steps between exchanges
-
-__device__ __forceinline__ float pow4(float x) {
-  const float x2 = x * x;  // (x^2)^2, as jax.lax.integer_pow lowers x**4
-  return x2 * x2;
-}
-
-// desingularized velocity (no division blow-up at the shoreline). A zero
-// numerator (a cell at rest) gives its own signed zero, which is what the
-// division gives (the denominator is at least h_dry^2 > 0), without the IEEE
-// division's slow path for a zero dividend.
-__device__ __forceinline__ float velocity(float h, float hu, float h_dry) {
-  const float sqrt2 = 1.41421356237309515f;
-  const float num = sqrt2 * h * hu;
-  const float den = sqrtf(pow4(h) + pow4(fmaxf(h, h_dry)));
-  return num == 0.0f ? num : num / den;
-}
-
-// sqrtf(x), with a zero (a dry face) returned as it is, as sqrtf returns it,
-// without the IEEE square root's slow path for zero
-__device__ __forceinline__ float sqrt_or_zero(float x) {
-  return x == 0.0f ? x : sqrtf(x);
-}
-
-struct Face {
-  float Fh;  // mass flux
-  float A;   // momentum flux + well-balanced correction, seen from the left cell
-  float B;   // the same, seen from the right cell
-};
-
-// Rusanov flux with hydrostatic reconstruction at the face between a left
-// cell (hl, ul, bl) and a right cell (hr, ur, br); as in swe_step.cu.
-__device__ __forceinline__ Face face(float hl, float ul, float bl, float hr,
-                                     float ur, float br, float g) {
-  const float hg = 0.5f * g;
-  const float bstar = fmaxf(bl, br);
-  const float hsL = fmaxf(hl + bl - bstar, 0.0f);
-  const float hsR = fmaxf(hr + br - bstar, 0.0f);
-  const float mL = hsL * ul;
-  const float mR = hsR * ur;
-  const float a =
-      fmaxf(fabsf(ul) + sqrt_or_zero(g * hsL), fabsf(ur) + sqrt_or_zero(g * hsR));
-  Face f;
-  f.Fh = 0.5f * (mL + mR) - 0.5f * a * (hsR - hsL);
-  const float Fq =
-      0.5f * ((mL * ul + hg * hsL * hsL) + (mR * ur + hg * hsR * hsR)) -
-      0.5f * a * (mR - mL);
-  f.A = Fq + hg * (hl * hl - hsL * hsL);
-  f.B = Fq + hg * (hr * hr - hsR * hsR);
-  return f;
-}
-
-// torch.maximum(a, b): NaN if either is NaN, else the larger (a on a tie)
-__device__ __forceinline__ float maximum_nan(float a, float b) {
-  if (a != a || b != b) return __int_as_float(0x7fc00000);
-  return a < b ? b : a;
-}
 
 // The ghost cells' transport. Shared-memory addresses are 32-bit
 // (`.shared::cta` of this block; `.shared::cluster` after `mapa`, of another
@@ -190,6 +140,7 @@ __global__ void __launch_bounds__(kMaxThreads)
                      const float* __restrict__ b,
                      const float* __restrict__ h0_rows,
                      float* __restrict__ mx_out, float* __restrict__ arr_out,
+                     float* __restrict__ ck, float* __restrict__ ck_mx, int k_ck,
                      int C, int N, int n_steps, int r0, int r1,
                      float dt_dx, float g, float h_dry, float thresh) {
   int cs = 1, rank = 0;
@@ -281,7 +232,28 @@ __global__ void __launch_bounds__(kMaxThreads)
   // [round k, round k + k) from the ghost cells of state round k; `left`
   // steps of it remain (counted down: no division in the step loop)
   int round = 0, left = k;
+  // the checkpoints (with a non-null ck): every k_ck steps, counted down
+  int ck_left = 0, seg = 0;
   for (int s = 0; s < n_steps; ++s) {
+    if (ck != nullptr) {
+      if (ck_left == 0) {
+        // state s = seg k_ck of the owned cells, exact in registers (a ghost
+        // cell may be stale), and the running max before step s
+#pragma unroll
+        for (int m = 0; m < CPT; ++m) {
+          const int e = t + m * T;
+          if (e >= gl && e < gl + n) {
+            const long long i = elo + e;
+            ck[((long long)(2 * seg) * C + i) * N + lane] = hc[m];
+            ck[((long long)(2 * seg + 1) * C + i) * N + lane] = huc[m];
+          }
+        }
+        if (erow >= 0) ck_mx[((long long)seg * kRows + t) * N + lane] = mx;
+        ++seg;
+        ck_left = k_ck;
+      }
+      --ck_left;
+    }
     if constexpr (kCluster) {
       if (left == 0) {
         // a new round: the ghost cells of state s, pushed at the end of the
@@ -430,21 +402,22 @@ cudaLaunchConfig_t cluster_config(int blocks, int cs, const Shape& sh,
 
 template <int CPT>
 cudaError_t launch(const float* h, const float* hu, const float* b,
-                   const float* h0_rows, float* mx, float* arr, int C, int N,
+                   const float* h0_rows, float* mx, float* arr, float* ck,
+                   float* ck_mx, int k_ck, int C, int N,
                    int n_steps, int r0, int r1, float dt_dx, float g,
                    float h_dry, float thresh, int cs, const Shape& sh,
                    cudaStream_t stream) {
   if (cs == 1) {
     swe_solve_kernel<CPT, false><<<N, sh.threads, sh.smem, stream>>>(
-        h, hu, b, h0_rows, mx, arr, C, N, n_steps, r0, r1, dt_dx, g, h_dry,
-        thresh);
+        h, hu, b, h0_rows, mx, arr, ck, ck_mx, k_ck, C, N, n_steps, r0, r1, dt_dx,
+        g, h_dry, thresh);
     return cudaGetLastError();
   }
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(N * cs, cs, sh, &attr, stream);
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, swe_solve_kernel<CPT, true>, h, hu, b, h0_rows, mx, arr, C, N, n_steps,
-      r0, r1, dt_dx, g, h_dry, thresh);
+      &cfg, swe_solve_kernel<CPT, true>, h, hu, b, h0_rows, mx, arr, ck, ck_mx, k_ck,
+      C, N, n_steps, r0, r1, dt_dx, g, h_dry, thresh);
   // read and clear the launch error either way, so that it is not reported
   // later against another kernel
   const cudaError_t last = cudaGetLastError();
@@ -460,26 +433,33 @@ bool valid_cluster(int C, int cs) {
 // C entry point, bound with ctypes. h, hu: [C, N] row-major; b: [C];
 // h0_rows: [2], the depths at rest of buoy rows r0 and r1; mx, arr: [2, N]
 // outputs; cs: the cluster size, blocks a lane (a power of two, at most C;
-// a Hopper card schedules at most 8, the portable limit). Launches on `stream` and returns the launch's
-// cudaError (0 on success); it never synchronises. The wrapper checks the
-// arguments; this rejects what the kernel cannot take (2 <= C <= 2048,
-// N >= 1, 0 <= n_steps, r0 and r1 in [0, C)). A cluster size the card
-// refuses is returned as the launch's error, never retried at another.
+// a Hopper card schedules at most 8, the portable limit). With a non-null
+// ck, also the checkpoints of the adjoint (swe_solve_vjp.cu): before each
+// step s = j k_ck, the state (h, hu) into ck [n_seg, 2, C, N] at j and the
+// running max into ck_mx [n_seg, 2, N] at j, n_seg = ceil(n_steps / k_ck);
+// they change nothing else (null: none are written). Launches on `stream`
+// and returns the launch's cudaError (0 on success); it never synchronises.
+// The wrapper checks the arguments; this rejects what the kernel cannot take
+// (2 <= C <= 2048, N >= 1, 0 <= n_steps, r0 and r1 in [0, C), k_ck >= 1 with
+// a ck). A cluster size the card refuses is returned as the launch's error,
+// never retried at another.
 extern "C" int swe_solve_f32(const float* h, const float* hu, const float* b,
                              const float* h0_rows, float* mx, float* arr,
                              int C, int N, int n_steps, int r0, int r1,
                              float dt_dx, float g, float h_dry, float thresh,
-                             int cs, void* stream) {
+                             int cs, float* ck, float* ck_mx, int k_ck,
+                             void* stream) {
   if (C < 2 || C > 2 * kMaxThreads || N < 1 || n_steps < 0 || r0 < 0 ||
-      r0 >= C || r1 < 0 || r1 >= C || !valid_cluster(C, cs))
+      r0 >= C || r1 < 0 || r1 >= C || !valid_cluster(C, cs) ||
+      (ck != nullptr && (k_ck < 1 || ck_mx == nullptr)))
     return (int)cudaErrorInvalidValue;
   const Shape sh = shape_of(C, cs);
   const cudaStream_t s = (cudaStream_t)stream;
   if (sh.cpt == 1)
-    return (int)launch<1>(h, hu, b, h0_rows, mx, arr, C, N, n_steps, r0, r1,
-                          dt_dx, g, h_dry, thresh, cs, sh, s);
-  return (int)launch<2>(h, hu, b, h0_rows, mx, arr, C, N, n_steps, r0, r1,
-                        dt_dx, g, h_dry, thresh, cs, sh, s);
+    return (int)launch<1>(h, hu, b, h0_rows, mx, arr, ck, ck_mx, k_ck, C, N,
+                          n_steps, r0, r1, dt_dx, g, h_dry, thresh, cs, sh, s);
+  return (int)launch<2>(h, hu, b, h0_rows, mx, arr, ck, ck_mx, k_ck, C, N,
+                        n_steps, r0, r1, dt_dx, g, h_dry, thresh, cs, sh, s);
 }
 
 // How many clusters of cs blocks of a C-cell solve the current device holds

@@ -10,16 +10,24 @@ the JAX package's `lax.scan` over `swe_step_kernel`
 over a thread block cluster of `cs` blocks; `cluster_plan` picks `cs` from
 the wave's shape and the card (`_cluster_plan`), and `cluster=` forces it.
 
+`swe_solve` is differentiable in (h, hu), first order: under autograd it
+goes through `SweSolve`, whose forward is the same launch keeping a
+checkpoint of the state every `k` steps (`ref.checkpoint_every`), and
+whose backward is `swe_solve_vjp`, the wave's reverse mode in one launch
+of `csrc/swe_solve_vjp.cu` (the JAX package differentiates its scan
+instead: it has no Pallas kernel for this).
+
 A CUDA tensor goes to the hand-written Hopper kernel or the call raises; a
 CPU tensor goes to the plain version (`ref.swe_step_ref`,
-`ref.swe_solve_ref`). There is no switch and no fallback: on the card the
-kernel is the step, or the solve. `swe_step.launches` and
-`swe_solve.launches` count kernel launches, so a run can show that its path
-went through the kernel; a launch captured into a CUDA graph counts once
-per replay of the graph (`kernels.launches`).
+`ref.swe_solve_ref`, `ref.swe_solve_vjp_ref`). There is no switch and no
+fallback: on the card the kernel is the step, the solve, or its adjoint.
+`swe_step.launches`, `swe_solve.launches` and `swe_solve_vjp.launches` count
+kernel launches, so a run can show that its path went through the kernel;
+a launch captured into a CUDA graph counts once per replay of the graph
+(`kernels.launches`).
 
-On the CPU the plain version runs under `torch.no_grad()`: neither kernel
-has an autograd rule, on any device.
+On the CPU the plain versions run under `torch.no_grad()`. `swe_step` has
+no autograd rule; `swe_solve`'s is `SweSolve`, on every device.
 """
 from __future__ import annotations
 
@@ -33,7 +41,9 @@ from repro_torch.kernels.swe.ref import (
     ARRIVAL_THRESH,
     G,
     H_DRY,
+    checkpoint_every,
     swe_solve_ref,
+    swe_solve_vjp_ref,
     swe_step_ref,
     swe_step_ref_into,
 )
@@ -59,6 +69,7 @@ STRIP_THREADS_PER_SM = 384
 
 _fn = None
 _solve_fn = None
+_vjp_fn = None
 #: SMs of each CUDA device, read at its first step
 _sm_counts: dict[int, int] = {}
 _occupancy_fn = None
@@ -97,11 +108,32 @@ def _solve_kernel():
             ctypes.c_float, ctypes.c_float,  # dt_dx, g
             ctypes.c_float, ctypes.c_float,  # h_dry, arrival threshold
             ctypes.c_int,  # cluster size
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # checkpoints: ck, ck_mx, k
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
         _solve_fn = fn
     return _solve_fn
+
+
+def _vjp_kernel():
+    global _vjp_fn
+    if _vjp_fn is None:
+        fn = _build.load("swe_solve_vjp").swe_solve_vjp_f32
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p,  # b, h0_rows
+            ctypes.c_void_p, ctypes.c_void_p,  # ck, ck_mx
+            ctypes.c_void_p,  # cot_mx
+            ctypes.c_void_p, ctypes.c_void_p,  # scratch: states, buoy values
+            ctypes.c_void_p, ctypes.c_void_p,  # gh, ghu
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # C, N, n_steps, k
+            ctypes.c_int, ctypes.c_int,  # buoy rows r0, r1
+            ctypes.c_float, ctypes.c_float, ctypes.c_float,  # dt_dx, g, h_dry
+            ctypes.c_void_p,  # stream
+        ]
+        fn.restype = ctypes.c_int
+        _vjp_fn = fn
+    return _vjp_fn
 
 
 def _occupancy_kernel():
@@ -204,11 +236,13 @@ def _check_cluster(cluster, C: int):
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device,
-           fn: str = "swe_step"):
+           fn: str = "swe_step", ref: str = "h"):
+    """`t` is a contiguous float32 tensor of `shape` on `device`, where the
+    call's tensor `ref` lies."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{fn}: {name} must be a tensor, got {type(t).__name__}")
     if t.device != device:
-        raise ValueError(f"{fn}: {name} is on {t.device}, h is on {device}")
+        raise ValueError(f"{fn}: {name} is on {t.device}, {ref} is on {device}")
     if t.dtype != torch.float32:
         raise TypeError(f"{fn}: {name} must be float32, got {t.dtype}")
     if tuple(t.shape) != shape:
@@ -280,6 +314,120 @@ def swe_step(
 swe_step.launches = 0
 
 
+def _check_wave(C: int, device: torch.device, b, rows, n_steps, h0_rows, fn: str,
+                ref: str = "h"):
+    """The arguments of a wave of C cells on `device` (where the call's
+    tensor `ref` lies) that the solve and its adjoint share: -> (b as
+    [C, 1], rows as ints in [0, C), n_steps)."""
+    if b.dim() == 1:
+        b = b[:, None]
+    rows = tuple(operator.index(r) for r in rows)
+    if len(rows) != N_ROWS:
+        raise ValueError(f"{fn}: {len(rows)} buoy rows, expected {N_ROWS}")
+    if not all(0 <= r < C for r in rows):
+        raise ValueError(f"{fn}: buoy rows {rows} must lie in [0, {C})")
+    n_steps = operator.index(n_steps)
+    if not 0 <= n_steps < MAX_STEPS:
+        raise ValueError(f"{fn}: n_steps {n_steps} must lie in [0, 2**24): the "
+                         "arrival step is kept as a float32")
+    for name, t, shape in (("b", b, (C, 1)), ("h0_rows", h0_rows, (len(rows),))):
+        _check(name, t, shape, device, fn, ref)
+    return b, rows, n_steps
+
+
+def _check_card(device: torch.device, C: int, N: int, fn: str) -> None:
+    """What a solve kernel takes on top of `_check_wave`: a CUDA tensor of
+    at most MAX_CELLS cells whose [C, N] the kernel's int index reaches."""
+    if device.type != "cuda":
+        raise ValueError(f"{fn}: no kernel for device {device}")
+    if C > MAX_CELLS:
+        raise ValueError(f"{fn}: {C} cells, the kernel takes at most {MAX_CELLS}")
+    if C * N >= 2**31:
+        raise ValueError(f"{fn}: [{C}, {N}] exceeds the kernel's int index range")
+
+
+def _solve(h, hu, b, dt_dx, n_steps, rows, h0_rows, cluster, keep: bool):
+    """The checked solve on h's device: (mx, arr, ck, ck_mx). With `keep`,
+    on the card, the same launch also writes the adjoint's checkpoints,
+    ck [n_seg, 2, C, N] and ck_mx [n_seg, 2, N] every
+    `checkpoint_every(n_steps)` steps (empty tensors otherwise)."""
+    C, N = h.shape
+    device = h.device
+    if device.type == "cpu":
+        with torch.no_grad():
+            mx, arr = swe_solve_ref(h, hu, b, dt_dx=dt_dx, n_steps=n_steps, rows=rows,
+                                    h0_rows=h0_rows)
+        return mx, arr, h.new_empty(0), h.new_empty(0)
+    _check_card(device, C, N, "swe_solve")
+    if device.index is not None and device.index != torch.cuda.current_device():
+        # the C entry point launches on the current device's context
+        with torch.cuda.device(device):
+            return _solve(h, hu, b, dt_dx, n_steps, rows, h0_rows, cluster, keep)
+    cs = cluster_plan(C, N) if cluster is None else cluster
+    mx, arr = h.new_empty((len(rows), N)), h.new_empty((len(rows), N))
+    k = checkpoint_every(n_steps)
+    n_seg = -(-n_steps // k) if keep else 0
+    ck, ck_mx = h.new_empty((n_seg, 2, C, N)), h.new_empty((n_seg, len(rows), N))
+    err = _solve_kernel()(
+        h.data_ptr(), hu.data_ptr(), b.data_ptr(), h0_rows.data_ptr(),
+        mx.data_ptr(), arr.data_ptr(), C, N, n_steps, *rows,
+        float(dt_dx), G, H_DRY, ARRIVAL_THRESH, cs,
+        ck.data_ptr() if n_seg else None, ck_mx.data_ptr() if n_seg else None, k,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"swe_solve: kernel launch failed (cluster {cs}), cudaError {err}")
+    launches.count(swe_solve)
+    return mx, arr, ck, ck_mx
+
+
+class SweSolve(torch.autograd.Function):
+    """`swe_solve` with its gradient in (h, hu), first order:
+    `apply(h, hu, b, h0_rows, dt_dx, n_steps, rows, cluster)` -> (mx, arr,
+    ck, ck_mx); only mx is differentiable (the arrival index is piecewise
+    constant), ck and ck_mx are the adjoint's checkpoints (empty on the
+    CPU). On the card the forward is the solve's one launch, keeping them,
+    and the backward one launch of `swe_solve_vjp`; on the CPU the
+    backward is `ref.swe_solve_vjp_ref`, which recomputes its own."""
+
+    @staticmethod
+    def forward(h, hu, b, h0_rows, dt_dx, n_steps, rows, cluster):
+        return _solve(h, hu, b, dt_dx, n_steps, rows, h0_rows, cluster, keep=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        h, hu, b, h0_rows, dt_dx, n_steps, rows, _ = inputs
+        _, arr, ck, ck_mx = output
+        ctx.save_for_backward(h, hu, b, h0_rows, ck, ck_mx)
+        ctx.dt_dx, ctx.n_steps, ctx.rows = dt_dx, n_steps, rows
+        ctx.mark_non_differentiable(arr, ck, ck_mx)
+
+    @staticmethod
+    def backward(ctx, gmx, _garr, _gck, _gck_mx):
+        """First order only (as `flash_attention`'s): the kernel fills fresh
+        tensors that carry no graph, so a `create_graph=True` backward
+        raises, on the CPU too."""
+        if torch.is_grad_enabled() and type(ctx) is SweSolve._backward_cls:
+            raise RuntimeError(
+                "swe_solve: the adjoint is once-differentiable; a second derivative "
+                "of a tsunami wave runs the plain differentiable solver "
+                "(apps.tsunami._Sweep)")
+        return SweSolve._first_order(ctx, gmx)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def _first_order(ctx, gmx):
+        h, hu, b, h0_rows, ck, ck_mx = ctx.saved_tensors
+        kw = dict(dt_dx=ctx.dt_dx, n_steps=ctx.n_steps, rows=ctx.rows, h0_rows=h0_rows)
+        gmx = gmx.to(h.dtype).contiguous()
+        if h.device.type == "cpu":
+            with torch.no_grad():
+                gh, ghu = swe_solve_vjp_ref(h, hu, b, gmx, **kw)
+        else:
+            gh, ghu = swe_solve_vjp(b, ck, ck_mx, gmx, **kw)
+        return gh, ghu, None, None, None, None, None, None
+
+
 def swe_solve(
     h: torch.Tensor,  # [C, N]
     hu: torch.Tensor,  # [C, N]
@@ -297,54 +445,84 @@ def swe_solve(
     (mx, arr), each [2, N] float32; h and hu are left as they are. On the
     card this is ONE kernel launch, whatever `n_steps` is, with each lane's
     column split over a cluster of `cluster` blocks (None: `cluster_plan`).
-    A cluster size the card refuses raises; nothing retries at another."""
-    if b.dim() == 1:
-        b = b[:, None]
+    A cluster size the card refuses raises; nothing retries at another.
+    Differentiable: with grad enabled and h or hu requiring grad, the call
+    goes through `SweSolve` (mx has a gradient, arr none)."""
     if h.dim() != 2 or h.shape[0] < 2 or h.shape[1] < 1:
         raise ValueError(f"swe_solve: h must be [C >= 2, N >= 1], got {tuple(h.shape)}")
     C, N = h.shape
-    device = h.device
-    rows = tuple(operator.index(r) for r in rows)
-    if len(rows) != N_ROWS:
-        raise ValueError(f"swe_solve: {len(rows)} buoy rows, expected {N_ROWS}")
-    if not all(0 <= r < C for r in rows):
-        raise ValueError(f"swe_solve: buoy rows {rows} must lie in [0, {C})")
-    n_steps = operator.index(n_steps)
-    if not 0 <= n_steps < MAX_STEPS:
-        raise ValueError(f"swe_solve: n_steps {n_steps} must lie in [0, 2**24): the "
-                         "arrival step is kept as a float32")
-    for name, t, shape in (("h", h, (C, N)), ("hu", hu, (C, N)), ("b", b, (C, 1)),
-                           ("h0_rows", h0_rows, (len(rows),))):
-        _check(name, t, shape, device, "swe_solve")
+    for name, t in (("h", h), ("hu", hu)):
+        _check(name, t, (C, N), h.device, "swe_solve")
+    b, rows, n_steps = _check_wave(C, h.device, b, rows, n_steps, h0_rows, "swe_solve")
     cluster = _check_cluster(cluster, C)
-    kw = dict(dt_dx=dt_dx, n_steps=n_steps, rows=rows, h0_rows=h0_rows)
-    if device.type == "cpu":
-        with torch.no_grad():
-            return swe_solve_ref(h, hu, b, **kw)
-    if device.type != "cuda":
-        raise ValueError(f"swe_solve: no kernel for device {device}")
-    if C > MAX_CELLS:
-        raise ValueError(f"swe_solve: {C} cells, the kernel takes at most {MAX_CELLS}")
-    if C * N >= 2**31:
-        raise ValueError(f"swe_solve: [{C}, {N}] exceeds the kernel's int index range")
-    if device.index is not None and device.index != torch.cuda.current_device():
-        # the C entry point launches on the current device's context
-        with torch.cuda.device(device):
-            return swe_solve(h, hu, b, **kw, cluster=cluster)
-    cs = cluster_plan(C, N) if cluster is None else cluster
-    mx, arr = h.new_empty((len(rows), N)), h.new_empty((len(rows), N))
-    err = _solve_kernel()(
-        h.data_ptr(), hu.data_ptr(), b.data_ptr(), h0_rows.data_ptr(),
-        mx.data_ptr(), arr.data_ptr(), C, N, n_steps, *rows,
-        float(dt_dx), G, H_DRY, ARRIVAL_THRESH, cs,
-        torch.cuda.current_stream().cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"swe_solve: kernel launch failed (cluster {cs}), cudaError {err}")
-    launches.count(swe_solve)
+    if torch.is_grad_enabled() and (h.requires_grad or hu.requires_grad):
+        mx, arr, _, _ = SweSolve.apply(h, hu, b, h0_rows, float(dt_dx), n_steps, rows,
+                                       cluster)
+        return mx, arr
+    mx, arr, _, _ = _solve(h, hu, b, dt_dx, n_steps, rows, h0_rows, cluster, keep=False)
     return mx, arr
 
 
 #: kernel launches since the last reset (CPU calls never count; a captured
 #: launch counts at each replay, `kernels.launches`)
 swe_solve.launches = 0
+
+
+def swe_solve_vjp(
+    b: torch.Tensor,  # [C] or [C, 1]
+    ck: torch.Tensor,  # [n_seg, 2, C, N]
+    ck_mx: torch.Tensor,  # [n_seg, 2, N]
+    cot_mx: torch.Tensor,  # [2, N]
+    *,
+    dt_dx: float,
+    n_steps: int,
+    rows,
+    h0_rows: torch.Tensor,  # [2]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reverse mode of a wave on the card, ONE launch of
+    csrc/swe_solve_vjp.cu: from the checkpoints `ck`, `ck_mx` that
+    `swe_solve`'s checkpointing launch (`SweSolve`) kept every
+    `ref.checkpoint_every(n_steps)` steps and the cotangent `cot_mx` of the
+    running max, the cotangents (gh, ghu) [C, N] of the wave's initial
+    state. Launched on the current stream; its scratch ([k, 2, C, N] states
+    and [k, 2, 2, N] buoy values) comes from the torch allocator, so a CUDA
+    graph can hold the launch. CUDA tensors only: its plain version is
+    `ref.swe_solve_vjp_ref`, which takes the initial state instead."""
+    if ck.dim() != 4 or ck.shape[1] != 2 or ck.shape[2] < 2 or ck.shape[3] < 1:
+        raise ValueError(f"swe_solve_vjp: ck must be [n_seg, 2, C >= 2, N >= 1], got "
+                         f"{tuple(ck.shape)}")
+    n_seg, _, C, N = ck.shape
+    device = ck.device
+    b, rows, n_steps = _check_wave(C, device, b, rows, n_steps, h0_rows, "swe_solve_vjp",
+                                   "ck")
+    k = checkpoint_every(n_steps)
+    if n_seg != -(-n_steps // k):
+        raise ValueError(f"swe_solve_vjp: {n_seg} checkpoints, {n_steps} steps keep "
+                         f"{-(-n_steps // k)} (every {k})")
+    for name, t, shape in (("ck", ck, (n_seg, 2, C, N)), ("ck_mx", ck_mx, (n_seg, len(rows), N)),
+                           ("cot_mx", cot_mx, (len(rows), N))):
+        _check(name, t, shape, device, "swe_solve_vjp", "ck")
+    _check_card(device, C, N, "swe_solve_vjp")
+    if device.index is not None and device.index != torch.cuda.current_device():
+        # the C entry point launches on the current device's context
+        with torch.cuda.device(device):
+            return swe_solve_vjp(b, ck, ck_mx, cot_mx, dt_dx=dt_dx, n_steps=n_steps,
+                                 rows=rows, h0_rows=h0_rows)
+    gh, ghu = cot_mx.new_empty((C, N)), cot_mx.new_empty((C, N))
+    scratch = cot_mx.new_empty((k, 2, C, N))
+    buoys = cot_mx.new_empty((k, 2, len(rows), N))
+    err = _vjp_kernel()(
+        b.data_ptr(), h0_rows.data_ptr(), ck.data_ptr(), ck_mx.data_ptr(),
+        cot_mx.data_ptr(), scratch.data_ptr(), buoys.data_ptr(), gh.data_ptr(),
+        ghu.data_ptr(), C, N, n_steps, k, *rows, float(dt_dx), G, H_DRY,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"swe_solve_vjp: kernel launch failed, cudaError {err}")
+    launches.count(swe_solve_vjp)
+    return gh, ghu
+
+
+#: kernel launches since the last reset (a captured launch counts at each
+#: replay, `kernels.launches`)
+swe_solve_vjp.launches = 0

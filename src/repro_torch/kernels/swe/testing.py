@@ -24,8 +24,18 @@ held at every case (`CLUSTER_SIZES`), one case (`edge_2047x13`) with a C
 that no cluster size divides and its buoy rows on either side of a slice
 edge. `H100_MAX_ACTIVE_CLUSTERS` and `H100_PLAN` are the occupancy the card
 reported and the plan it gives at the timed shapes (`TIMED_SHAPES`).
+
+The solve's adjoint (`ops.swe_solve_vjp`, through the autograd rule
+`ops.SweSolve`) is held to the same reverse mode computed another way: the
+plain differentiable solver `apps.tsunami._Sweep` (PyTorch ops under
+autograd, float32) on the same inputs, within GRAD_RTOL32 of each
+cotangent's largest entry (`assert_vjp_close`), at `VJP_CASES`. The two
+walk the same float32 states (the solve's steps are the plain step's, bit
+for bit), so they differ only by the reverse sweep's own rounding.
 """
 from __future__ import annotations
+
+from functools import partial
 
 import numpy as np
 import torch
@@ -87,6 +97,12 @@ H100_PLAN = {(512, 16): 8, (512, 64): 2, (512, 512): 1,
              (2048, 16): 8, (2048, 64): 2, (2048, 512): 1}
 #: the §4.3 campaign's uniform prior box: x0 [km], amplitude [m]
 SOURCE_BOX = ((30.0, 150.0), (0.5, 4.0))
+#: the adjoint's cases: whole waves at both published levels at 16 lanes
+#: and at the coarse level at 512, and two limiter cases of 48 cells (a
+#: block of 64 threads, 16 of them idle) and 32 lanes over CASE_SOLVE_STEPS
+#: steps, where cells dry and wet and the wave speeds tie
+VJP_CASES = ("wave_512x16", "wave_2048x16", "wave_512x512", "solve_dam_break",
+             "solve_dry_bed")
 #: float32 bound of a first-order derivative wave (gradient, JVP, the fused
 #: gradient) against the same wave computed another way, on the largest
 #: entry: two float32 solvers that round differently drift apart over the
@@ -328,3 +344,70 @@ def derivative_errors(got: dict, want: dict, hvp64: np.ndarray) -> dict:
         raise AssertionError(f"apply_hessian: lane errors {e_got} vs the float64 HVP, "
                              f"bound 2 x {e_want} + {HVP32_FLOOR}")
     return errors
+
+
+def vjp_case_inputs(case: str, device) -> dict:
+    """`solve_case_inputs` of one entry of `VJP_CASES`, with a cotangent
+    `cot_mx` [2, N] of the running max (standard normals, seeded)."""
+    kw = solve_case_inputs(case, device)
+    N = kw["h"].shape[1]
+    cot = np.random.default_rng(5).standard_normal((2, N)).astype(np.float32)
+    return dict(kw, cot_mx=torch.as_tensor(cot, device=torch.device(device)))
+
+
+def solve_vjp(h, hu, b, cot_mx, *, dt_dx: float, n_steps: int, rows,
+              h0_rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(gh, ghu): the cotangents of a wave's initial state for `cot_mx`,
+    through `swe_solve`'s autograd rule (on the card its checkpointing
+    launch and one launch of the adjoint kernel; on the CPU the plain
+    adjoint)."""
+    x = [h.detach().clone().requires_grad_(), hu.detach().clone().requires_grad_()]
+    from repro_torch.kernels.swe.ops import swe_solve
+
+    with torch.enable_grad():
+        mx, _ = swe_solve(*x, b, dt_dx=dt_dx, n_steps=n_steps, rows=rows, h0_rows=h0_rows)
+        gh, ghu = torch.autograd.grad(mx, x, cot_mx)
+    return gh, ghu
+
+
+def sweep_vjp(h, hu, b, cot_mx, *, dt_dx: float, n_steps: int, rows,
+              h0_rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The same (gh, ghu) through the plain differentiable solver,
+    `apps.tsunami._Sweep` over `_ad_wave_step` (PyTorch ops under autograd,
+    a kept state a step, each step a replayed CUDA graph on the card), in
+    h's dtype."""
+    from repro_torch.apps.tsunami import _ad_wave_step, _Sweep
+
+    rows_t = torch.as_tensor(rows, device=h.device)
+    step = partial(_ad_wave_step, b=b.to(h.dtype), dt_dx=dt_dx, rows=rows_t,
+                   h0_buoy=h0_rows.to(h.dtype).reshape(-1, 1))
+    z = torch.stack([h.detach(), hu.detach()]).requires_grad_()
+    carry0 = (z[0], z[1], h.new_full((len(rows), h.shape[1]), -torch.inf))
+    sweep = _Sweep(step, carry0, n_steps, keep=True)
+    sweep.forward(1.0)
+    cot = [torch.zeros_like(h), torch.zeros_like(hu), cot_mx.to(h.dtype)]
+    gh, ghu = sweep.pull(cot, carry0, z)
+    return gh, ghu
+
+
+def assert_vjp_close(got: tuple, want: tuple, what: str) -> dict:
+    """Hold the adjoint's `got = (gh, ghu)` to `want`, the same cotangents
+    computed another way: each within GRAD_RTOL32 of its largest entry, all
+    finite. Returns each one's error relative to its largest entry (and the
+    largest absolute error) and raises AssertionError, naming it, if one is
+    out of bounds."""
+    report = {}
+    for key, g, w in zip(("gh", "ghu"), got, want):
+        if g.shape != w.shape:
+            raise AssertionError(f"{what}, {key}: shape {tuple(g.shape)}, "
+                                 f"expected {tuple(w.shape)}")
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{what}, {key}: non-finite cotangents")
+        diff = (g.double() - w.double()).abs().max()
+        scale = w.double().abs().max()
+        report[key] = {"max_abs": float(diff), "rel_to_largest": float(diff / scale)
+                       if scale > 0 else float(diff)}
+        if not report[key]["rel_to_largest"] <= GRAD_RTOL32:
+            raise AssertionError(f"{what}, {key}: {report[key]} (bound {GRAD_RTOL32} of "
+                                 "the largest entry)")
+    return report

@@ -11,7 +11,8 @@ device work with
   drawn from in step order, never reseeded,
 * log-posterior evaluation through any ``[K, d] -> [K]`` tensor program
   (see the target builders; on the tsunami, `apps.tsunami.solve_batch`,
-  one launch of the SWE solve kernel a step),
+  one launch of the SWE solve kernel a step, and for MALA's drift one more
+  of its adjoint),
 * Metropolis accept/reject, and Robbins-Monro step-size adaptation for
   MALA, all on the device with no host sync inside the block,
 
@@ -187,8 +188,10 @@ def _value_and_grad_rows(logpost_fn: Callable) -> Callable:
     """(lps [K], dlps/dx [K, d]) in one backward pass: the log-posterior
     rows depend only on their own chain's row (lockstep batch =>
     block-diagonal Jacobian), so the gradient of their sum IS the per-row
-    gradient. A target that autograd cannot differentiate (the tsunami: the
-    SWE solve kernel has no autograd rule) raises."""
+    gradient. The tsunami's `solve_batch` is differentiated through the SWE
+    solve's autograd rule (`kernels.swe.SweSolve`: on the card one launch
+    of the solve and one of its adjoint a step, both held in a block's
+    graph). A target that autograd cannot differentiate raises."""
 
     def value_grad(xs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         with torch.enable_grad():
@@ -197,9 +200,9 @@ def _value_and_grad_rows(logpost_fn: Callable) -> Callable:
             if not lps.requires_grad:
                 raise NotImplementedError(
                     "fused MALA needs a log-posterior that torch autograd "
-                    "differentiates; this one does not (a tsunami target runs "
-                    "the forward-only SWE solve kernel): ROADMAP queue 1, "
-                    "item 7b, after queue 2, item 1d (the hand-written adjoint)"
+                    "differentiates; this one gives no gradient in its "
+                    "parameters (it computes outside autograd, or from tensors "
+                    "that do not depend on them)"
                 )
             (grads,) = torch.autograd.grad(lps.sum(), xs)
         return lps.detach(), grads

@@ -10,21 +10,28 @@ main-path shape. Flash attention runs bf16 on the wgmma kernel and
 float32 on the mma.sync kernel (the per-kernel launch counts show which),
 through strides at the model's layout, and inside reduced qwen3-0.6b
 forwards in float32 and in bf16; its check rejects the tensor-core
-kernel's output against a 1%-off scale or a dropped diagonal. The tsunami
-derivative waves (PyTorch ops, no kernel, each step a replayed CUDA graph)
-compute the kernel wave's values bit for bit and a finite HVP, equal the
-eager loop bit for bit, agree with the same waves on the CPU within the
-float32 bounds of `kernels.swe.testing`, and survive evaluate waves run
-from another thread while their graphs are captured, and derivative
-waves from several threads at once equal the serial wave. The GP level
+kernel's output against a 1%-off scale or a dropped diagonal. The SWE
+solve's adjoint kernel (through `swe_solve`'s autograd rule: one
+checkpointing launch of the solve, one launch of the adjoint) agrees with
+the plain differentiable solver (`_Sweep`) and with its plain version
+within `GRAD_RTOL32`, twice bit for bit, and the checkpointing launch's
+primal is the solve's at every cluster size. The tsunami derivative waves
+(the reverse mode on the adjoint kernel; JVP and HVP waves PyTorch ops,
+each step a replayed CUDA graph) compute the kernel wave's values bit for
+bit and a finite HVP, equal the eager loop bit for bit, agree with the same
+waves on the CPU within the float32 bounds of `kernels.swe.testing`, and
+survive evaluate waves run from another thread while their graphs are
+captured, and derivative waves from several threads at once equal the
+serial wave. The GP level
 (`uq/gp.py`: float32 Adam and Matérn matrices on the card) predicts what
 the same fit predicts on the CPU within `_torch_parity.FIT_TOL`, and an
 online GP screen trains on the card from a fabric's collector thread while
 a three-stage sampler predicts from its own. The fused sampler blocks
 (`uq/fused.py`: S steps a CUDA-graph replay) equal their per-step
 reference and their eager step body bit for bit, resume a killed run bit
-for bit, hold S `swe_solve` launches a replay on the coarse tsunami, and
-survive evaluate waves run from another thread while they are captured.
+for bit, hold S `swe_solve` launches a replay on the coarse tsunami (MALA:
+S more of `swe_solve_vjp`), and survive evaluate waves run from another
+thread while they are captured.
 A port server on the card answers /EvaluateBatch bit for bit like the
 in-process model (one launch a served wave). The composite app (`apps/composite.py`:
 a CG whose iterations replay as a CUDA graph) equals its graph-free loop
@@ -65,6 +72,8 @@ from repro_torch.uq.surrogate import SurrogateScreen
 from repro_torch.kernels.swe import (
     swe_solve,
     swe_solve_ref,
+    swe_solve_vjp,
+    swe_solve_vjp_ref,
     swe_step,
     swe_step_ref,
     swe_step_ref_into,
@@ -73,16 +82,22 @@ from repro_torch.kernels.swe import ops as swe_ops
 from repro_torch.kernels.swe.testing import (
     CASES,
     CLUSTER_SIZES,
+    GRAD_RTOL32,
     H100_PLAN,
     REFUSED_CLUSTER,
     SOLVE_CASES,
     TIMED_SHAPES,
+    VJP_CASES,
     assert_solve_equal,
     assert_step_equal,
+    assert_vjp_close,
     case_inputs,
     derivative_errors,
     solve_case_inputs,
+    solve_vjp,
     sources,
+    sweep_vjp,
+    vjp_case_inputs,
 )
 
 
@@ -516,20 +531,22 @@ def _leaves(tree) -> list:
 
 @pytest.mark.gpu
 def test_fused_wave_primal_equals_the_kernel_wave_on_cuda():
-    """A coarse 16-lane fused value-and-gradient wave (PyTorch ops under
-    autograd, no kernel launch) computes the evaluate wave's values (one
-    launch of the solve kernel) bit for bit, and a finite gradient."""
+    """A coarse 16-lane fused value-and-gradient wave (one checkpointing
+    launch of the solve kernel, one of its adjoint) computes the evaluate
+    wave's values (one launch of the solve kernel) bit for bit, and a
+    finite gradient."""
     from repro_torch.apps.tsunami import TsunamiModel
 
     dev = cuda_or_skip()
     model = TsunamiModel(device=dev)
     thetas = sources(16, 11)
-    solves = swe_solve.launches
+    solves, vjps = swe_solve.launches, swe_solve_vjp.launches
     ev = model.evaluate_batch(thetas, {"level": 0})
     assert swe_solve.launches == solves + 1
     data = torch.as_tensor(ev[0] + 0.1, dtype=torch.float32, device=dev)
     ys, gs = model.value_and_gradient_batch(thetas, lambda y: -(y - data), {"level": 0})
-    assert swe_solve.launches == solves + 1 and model.waves[0] == 1
+    assert swe_solve.launches == solves + 2 and swe_solve_vjp.launches == vjps + 1
+    assert model.waves[0] == 1
     np.testing.assert_array_equal(ys, ev)
     assert gs.shape == (16, 2) and np.isfinite(gs).all()
 
@@ -544,6 +561,91 @@ def test_hvp_wave_is_finite_on_cuda():
     hv = model.apply_hessian_batch(sources(4, 11), rng.normal(size=(4, 4)),
                                    rng.normal(size=(4, 2)), {"level": 0})
     assert hv.shape == (4, 2) and np.isfinite(hv).all() and np.abs(hv).max() > 0
+
+
+def _vjp_args(case, dev):
+    kw = vjp_case_inputs(case, dev)
+    return (kw.pop("h"), kw.pop("hu"), kw.pop("b"), kw.pop("cot_mx")), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", VJP_CASES)
+def test_vjp_kernel_matches_the_sweep_on_cuda(case):
+    """The adjoint kernel's (gh0, ghu0), through `swe_solve`'s autograd rule
+    (one checkpointing launch of the solve, one launch of the adjoint),
+    against the plain differentiable solver (`_Sweep`, float32) on the same
+    inputs within GRAD_RTOL32 of each largest entry; a second call bit for
+    bit (no atomics)."""
+    dev = cuda_or_skip()
+    args, kw = _vjp_args(case, dev)
+    solves, vjps = swe_solve.launches, swe_solve_vjp.launches
+    got = solve_vjp(*args, **kw)
+    assert (swe_solve.launches - solves, swe_solve_vjp.launches - vjps) == (1, 1)
+    again = solve_vjp(*args, **kw)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert_vjp_close(got, sweep_vjp(*args, **kw), case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["solve_dam_break", "solve_dry_bed"])
+def test_vjp_kernel_matches_its_plain_version_on_cuda(case):
+    """The kernel against `swe_solve_vjp_ref` (its plain version, eager, in
+    the kernel's expression order) on the card, within GRAD_RTOL32."""
+    dev = cuda_or_skip()
+    args, kw = _vjp_args(case, dev)
+    assert_vjp_close(solve_vjp(*args, **kw), swe_solve_vjp_ref(*args, **kw), case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["wave_512x16", "wave_2048x16", "edge_2047x13"])
+def test_checkpointing_forward_equals_the_solve_on_cuda(case):
+    """The solve's launch that keeps the adjoint's checkpoints computes
+    (mx, arr) bit for bit as the launch without them, at every cluster
+    size; its first checkpoint is the initial state and -inf."""
+    dev = cuda_or_skip()
+    kw = solve_case_inputs(case, dev)
+    h, hu, b = kw.pop("h"), kw.pop("hu"), kw.pop("b")
+    C = h.shape[0]
+    for cs in CLUSTER_SIZES:
+        if cs > C:
+            continue
+        want = swe_solve(h, hu, b, **kw, cluster=cs)
+        mx, arr, ck, ck_mx = swe_ops._solve(h, hu, b[:, None] if b.dim() == 1 else b,
+                                            kw["dt_dx"], kw["n_steps"], kw["rows"],
+                                            kw["h0_rows"], cs, keep=True)
+        assert_solve_equal((mx, arr), want, f"{case}, cluster {cs}, with checkpoints")
+        assert torch.equal(ck[0, 0], h) and torch.equal(ck[0, 1], hu)
+        assert bool((ck_mx[0] == -torch.inf).all())
+        assert ck.shape[0] == -(-kw["n_steps"] // swe_ops.checkpoint_every(kw["n_steps"]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("level", [0, 1])
+def test_model_gradient_takes_the_adjoint_kernel_on_cuda(monkeypatch, level):
+    """`TsunamiModel.gradient_batch` at a published level, 16 lanes: one
+    solve and one adjoint launch and no `_Sweep` step replay, and the
+    `_Sweep` gradient on the card within GRAD_RTOL32 of its largest
+    entry."""
+    dev = cuda_or_skip()
+    model = tsunami.TsunamiModel(device=dev)
+    thetas, senss, _ = _wave_inputs(16)
+    n_cells = model.N_CELLS[level]
+    solves, vjps = swe_solve.launches, swe_solve_vjp.launches
+
+    def no_replay(*a):
+        raise AssertionError("a float32 gradient wave on the card replayed _Sweep's steps")
+
+    with monkeypatch.context() as m:
+        m.setattr(tsunami, "_replay", no_replay)
+        g = model.gradient_batch(thetas, senss, {"level": level})
+    assert (swe_solve.launches - solves, swe_solve_vjp.launches - vjps) == (1, 1)
+    th = torch.as_tensor(thetas, dtype=torch.float32, device=dev)
+    s = torch.as_tensor(senss, dtype=torch.float32, device=dev)
+    _, want = tsunami._sweep_reverse_mode(th, n_cells, level == 0, lambda y: s)
+    want = want.cpu().numpy().astype(float)
+    assert np.isfinite(g).all()
+    err = np.max(np.abs(g - want)) / np.max(np.abs(want))
+    assert err <= GRAD_RTOL32, err
 
 
 class _SmallTsunami(tsunami.TsunamiModel):
@@ -642,21 +744,23 @@ def test_evaluate_waves_from_another_thread_during_a_derivative_wave():
 def test_derivative_waves_from_threads_at_once_equal_serial():
     """A server answers each request on its own thread, so derivative waves
     of one model, and of another model in the same process, capture their
-    step graphs at once. Entering a capture synchronizes the device, which
-    broke a capture under way on another thread (an H100 run failed with
-    cudaErrorStreamCaptureUnsupported); `core.device.CAPTURE_LOCK` makes
-    the captures take turns. Three rounds of three threads (two on one
-    model, one on a second) each equal the serial wave bit for bit."""
+    step graphs at once (the JVP waves; the gradient waves run the adjoint
+    kernel and capture nothing). Entering a capture synchronizes the
+    device, which broke a capture under way on another thread (an H100 run
+    failed with cudaErrorStreamCaptureUnsupported); `core.device.
+    CAPTURE_LOCK` makes the captures take turns. Three rounds of three
+    threads (two on one model, one on a second) each equal the serial wave
+    bit for bit."""
     dev = cuda_or_skip()
     models = [tsunami.TsunamiModel(device=dev), tsunami.TsunamiModel(device=dev)]
-    thetas, senss, _ = _wave_inputs(16)
-    want = models[0].gradient_batch(thetas, senss)
+    thetas, _, vecs = _wave_inputs(16)
+    want = models[0].apply_jacobian_batch(thetas, vecs)
     for _ in range(3):
         got, errors = [None] * 3, []
 
         def run(i):
             try:
-                got[i] = models[i // 2].gradient_batch(thetas, senss)
+                got[i] = models[i // 2].apply_jacobian_batch(thetas, vecs)
             except Exception as e:  # noqa: BLE001 — reported below
                 errors.append(e)
 
@@ -884,6 +988,39 @@ def test_fused_tsunami_block_is_one_graph_of_S_launches():
     np.testing.assert_array_equal(per_step.samples, first.samples)
     assert np.isfinite(first.samples).all()
     assert np.all((first.accept_rates > 0) & (first.accept_rates <= 1))
+
+
+@pytest.mark.gpu
+def test_fused_mala_tsunami_block_holds_2S_launches():
+    """Fused MALA over the coarse tsunami (512 cells, 16 chains): its drift
+    is the solve's autograd rule, so a replay holds S `swe_solve` and S
+    `swe_solve_vjp` launches (the backward captured from the autograd
+    engine's thread); fused == per-step bit for bit."""
+    from repro_torch.uq import fused
+
+    dev = cuda_or_skip()
+    lp = _coarse_tsunami_target(dev)
+    x0s, S = sources(16, 11).astype(float), 5
+
+    def run(n, **kw):
+        return fused.fused_ensemble_mala(lp, x0s, n, 1.0,
+                                         torch.Generator(device=dev).manual_seed(5),
+                                         fused_steps=S, precond=np.diag([4.0, 0.01]),
+                                         adapt_steps=S, **kw)
+
+    fused._BLOCK_MEMO.clear()
+    first = run(2 * S)
+    (block,) = [b for b in fused._BLOCK_MEMO.values() if isinstance(b, fused._Block)]
+    assert block.held == {(swe_solve, None): S, (swe_solve_vjp, None): S}
+    before = (swe_solve.launches, swe_solve_vjp.launches)
+    again = run(2 * S)
+    assert (swe_solve.launches - before[0], swe_solve_vjp.launches - before[1]) == \
+        (1 + 2 * S, 1 + 2 * S)
+    np.testing.assert_array_equal(again.samples, first.samples)
+    per_step = run(2 * S, per_step=True)
+    np.testing.assert_array_equal(per_step.samples, first.samples)
+    assert per_step.final_step_size == first.final_step_size
+    assert np.isfinite(first.samples).all() and 0 < first.accept_rate <= 1
 
 
 @pytest.mark.gpu

@@ -60,10 +60,11 @@ def test_fused_paths_name_their_roadmap_item():
     """The fused samplers run (tests/test_torch_fused.py), on a device mesh
     too (`ctx=`: here the 1x1 CPU mesh of this process, where 2 chains are
     not padded and the run is the run without a mesh, bit for bit; across
-    ranks: tests/test_torch_mesh.py). What they cannot do yet names its
-    ROADMAP row: fused MALA over a forward that autograd cannot
-    differentiate, the tsunami, whose SWE solve kernel has no autograd rule
-    (queue 1, item 7b, after the hand-written adjoint)."""
+    ranks: tests/test_torch_mesh.py). Fused MALA runs over the tsunami,
+    whose drift is the SWE solve's autograd rule (`kernels.swe.SweSolve`,
+    formerly ROADMAP queue 1, item 7b): finite samples, an acceptance in
+    (0, 1] (tests/test_torch_swe_vjp.py holds it to its per-step reference
+    and its gradient to the JAX package's)."""
     x0s = np.array([[84.0, 2.3], [97.0, 2.7]])
     target = fused.gaussian_likelihood_target(
         partial(tsunami.solve_batch, n_cells=64, smoothed=True),
@@ -79,9 +80,11 @@ def test_fused_paths_name_their_roadmap_item():
     want = rwm(None)
     np.testing.assert_array_equal(got.samples, want.samples)
     np.testing.assert_array_equal(got.logposts, want.logposts)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7b"):
-        mcmc.ensemble_mala(target, x0s, 2, 0.5, np.random.default_rng(0),
-                           fused_steps=2, fused_key=torch.Generator().manual_seed(0))
+    mala = mcmc.ensemble_mala(target, x0s, 2, 0.5, np.random.default_rng(0),
+                              fused_steps=2, fused_key=torch.Generator().manual_seed(0))
+    assert mala.samples.shape == (2, 2, 2) and np.isfinite(mala.samples).all()
+    assert np.isfinite(mala.logposts).all()
+    assert np.all((mala.accept_rates > 0) & (mala.accept_rates <= 1))
 
 
 # -- the slice as a whole: the §4.3 campaign through fabric and model ---------

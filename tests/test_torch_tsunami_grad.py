@@ -437,3 +437,36 @@ def test_observables_match_jax_and_a_wave_of_one(level, n_cells, smoothed):
     for other in (want, point):
         np.testing.assert_allclose(got[[0, 2]], other[[0, 2]], atol=tol["arrival"])
         np.testing.assert_allclose(got[[1, 3]], other[[1, 3]], rtol=tol["height_rtol"])
+
+
+def test_tangent_waves_from_threads_at_once_equal_serial():
+    """A server answers each request on its own thread, so JVP and HVP waves
+    of one model run at once. Their initial tangent comes from
+    `torch.func.jvp`, whose forward-AD level is process-wide: two threads
+    inside it at once raised (an internal assert, or "a forward AD level
+    with an invalid index" on an H100). `apps.tsunami._JVP_LOCK` makes them
+    take turns; eight threads, five JVP waves each (the HVP wave's initial
+    tangent is the same code), equal the serial wave bit for bit."""
+    import threading
+
+    class Tiny(tsunami.TsunamiModel):
+        N_CELLS = {0: 16, 1: 16}
+
+    m = Tiny(device="cpu")
+    th, vecs = THETAS[:2], VECS[:2]
+    want = m.apply_jacobian_batch(th, vecs)
+    errors = []
+
+    def run():
+        try:
+            for _ in range(5):
+                np.testing.assert_array_equal(m.apply_jacobian_batch(th, vecs), want)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=run) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
