@@ -16,8 +16,10 @@ user calls:
   and the SWE step kernel on its own path, `solve_batch(step=swe_step)`,
   one launch per time step; the solve's hand-written adjoint
   (`swe_solve_vjp`: the reverse mode of a whole wave in one launch, from
-  the checkpoints the solve's launch keeps) against the plain
-  differentiable solver, timed (`swe_vjp_vs_plain`); then the model's
+  the checkpoints the solve's launch keeps, a lane over a cluster as the
+  solve's) against the plain differentiable solver and, bit for bit at
+  every cluster size, its plain version, timed at every cluster size
+  (`swe_vjp_vs_plain`); then the model's
   derivative surface: a fused value-and-gradient, a JVP and an HVP wave of
   16 lanes per level (wall, busy share under the profiler, peak memory;
   the fused wave one solve and one adjoint launch, the JVP and HVP waves
@@ -711,11 +713,15 @@ def phase_swe_vjp_vs_plain(torch, dev, smi: str) -> dict:
     a replayed CUDA graph a step) on the same inputs at every
     `testing.VJP_CASES` case, within GRAD_RTOL32 of each cotangent's largest
     entry, each case twice, bit for bit; the limiter cases against the
-    kernel's plain version `swe_solve_vjp_ref` too; the checkpointing launch
-    against the launch without checkpoints, bit for bit, at every cluster
-    size (both levels, 16 lanes). Times at `VJP_TIMED`: the adjoint launch
-    alone beside its bound, the solve with and without checkpoints, and the
-    `_Sweep` wave's wall (the plain path, forward and reverse)."""
+    kernel's plain version `swe_solve_vjp_ref` too, bit for bit at every
+    cluster size (`cluster=`); the whole
+    waves at `VJP_TIMED` at every cluster size, each the plan's bits; the
+    checkpointing launch against the launch without checkpoints, bit for
+    bit, at every cluster size (both levels, 16 lanes). Times at
+    `VJP_TIMED`: the adjoint launch alone beside its bound at the plan's
+    cluster size and at each other, the solve with and without
+    checkpoints, and the `_Sweep` wave's wall (the plain path, forward and
+    reverse)."""
     from repro_torch.kernels.swe import ops as swe_ops
     from repro_torch.kernels.swe import swe_solve, swe_solve_vjp, swe_solve_vjp_ref
     from repro_torch.kernels.swe.ref import checkpoint_every
@@ -750,22 +756,40 @@ def phase_swe_vjp_vs_plain(torch, dev, smi: str) -> dict:
                  "checkpoint_every": checkpoint_every(kw["n_steps"]),
                  "vs_sweep": assert_vjp_close(got, want, f"{case} against _Sweep"),
                  "two_calls_bit_for_bit": True, "sweep_wall_s": sweep_s}
+        args = (h, hu, b, kw["dt_dx"], kw["n_steps"], kw["rows"], kw["h0_rows"], None)
         if case.startswith("solve_"):
             ref_s, ref = _timed(torch, lambda: swe_solve_vjp_ref(h, hu, b, cot, **kw))
             entry["vs_plain_version"] = assert_vjp_close(got, ref, f"{case} against the "
                                                          "plain version")
-            entry["bit_for_bit_with_plain_version"] = bool(
-                torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]))
+            _, _, ck, ck_mx = swe_ops._solve(*args, keep=True)
+            sizes = [cs for cs in CLUSTER_SIZES if cs == 1 or 2 * cs <= C]
+            for cs in sizes:
+                by_cs = swe_solve_vjp(b, ck, ck_mx, cot, **kw, cluster=cs)
+                if not (torch.equal(by_cs[0], ref[0]) and torch.equal(by_cs[1], ref[1])):
+                    raise AssertionError(f"{case}, cluster {cs}: the adjoint differs from "
+                                         "its plain version")
+            entry["bit_for_bit_with_plain_version"] = {"cluster_sizes": sizes, "equal": True}
             entry["plain_version_wall_s"] = ref_s
+            del ck, ck_mx
         if case in VJP_TIMED:
-            args = (h, hu, b, kw["dt_dx"], kw["n_steps"], kw["rows"], kw["h0_rows"], None)
             _, _, ck, ck_mx = swe_ops._solve(*args, keep=True)
             calls = 1 if C * N > 16 * 512 else 3
-            ms = _device_ms(torch, lambda: swe_solve_vjp(b, ck, ck_mx, cot, **kw), calls=calls)
+            plan = swe_ops.vjp_cluster_plan(C, N)
+            ms_by_cluster = {}
+            for cs in CLUSTER_SIZES:
+                by_cs = swe_solve_vjp(b, ck, ck_mx, cot, **kw, cluster=cs)
+                if not (torch.equal(by_cs[0], got[0]) and torch.equal(by_cs[1], got[1])):
+                    raise AssertionError(f"{case}, cluster {cs}: the adjoint differs from "
+                                         f"the plan's (cluster {plan})")
+                ms_by_cluster[str(cs)] = _device_ms(
+                    torch, lambda: swe_solve_vjp(b, ck, ck_mx, cot, **kw, cluster=cs),
+                    calls=calls)
+            ms = ms_by_cluster[str(plan)]
             work = vjp_work(C, N, kw["n_steps"], len(kw["rows"]))
             t_bytes, t_ops = work["bytes"] / HBM_BYTES_PER_S, work["ops"] / FP32_FLOPS
             bound_ms = max(t_bytes, t_ops) * 1e3
             entry.update(
+                cluster=plan, ms_by_cluster=ms_by_cluster, bit_for_bit_by_cluster=True,
                 ms=ms, ms_per_step=ms / kw["n_steps"],
                 solve_with_checkpoints_ms=_device_ms(
                     torch, lambda: swe_ops._solve(*args, keep=True), calls=5),
@@ -789,7 +813,9 @@ def phase_swe_vjp_vs_plain(torch, dev, smi: str) -> dict:
     worst = max(e["vs_sweep"][k]["rel_to_largest"] for e in cases.values() for k in ("gh", "ghu"))
     emit("swe_vjp_vs_plain", kernel="swe_solve_vjp",
          bound=f"{GRAD_RTOL32} of each cotangent's largest entry against _Sweep (float32) "
-               "and the plain version; two calls and the checkpointing primal bit for bit",
+               "and the plain version; the limiter cases bit for bit with the plain version "
+               "at every cluster size; two calls, every cluster size and the checkpointing "
+               "primal bit for bit",
          timer="adjoint and solves: one CUDA event pair around back-to-back launches, median "
                "of 5 windows; _Sweep and the plain version: host wall ending in a sync",
          cases=cases, checkpointing_primal=primal, worst_rel_to_largest=worst, card=smi)
@@ -3330,8 +3356,13 @@ def phase_mesh_lm_sharded(torch, model, smi: str) -> dict:
     bit (one forward's 28 flash launches, on each rank's local shard by
     `local_map`), and its gradient wave == the unsharded gradient wave bit
     for bit (2 x 28 forward launches, forward and remat recompute, and 28 of
-    each backward kernel). Then two `gloo` ranks on the one card on the
-    (data, model) = (1, 2) mesh (`--lm-tp-rank`, a host watchdog): the same
+    each backward kernel), and its Hessian-action wave (LM_HESS_POINTS
+    points cut to LM_HESS_SEQ tokens, as `dense_lm_gradient_path` cuts it:
+    reverse over reverse through the mesh layer's own DTensor rules on the
+    card's torch) == the unsharded Hessian
+    wave bit for bit, launching no kernel. Then two `gloo` ranks on the one
+    card on the (data, model) = (1, 2) mesh (`--lm-tp-rank`, a host
+    watchdog): the same
     8-point wave with TP over 'model', each rank's NLLs within LM_NLL_RTOL
     of the one-process wave, 28 flash launches a rank, every one on 8 q
     heads and 4 kv heads."""
@@ -3349,6 +3380,13 @@ def phase_mesh_lm_sharded(torch, model, smi: str) -> dict:
     senss = np.array([[(-2.0) ** (i % 3 - 1)] for i in range(K)])
     plain = model.evaluate_batch(MESH_LM_POINTS)
     plain_grads = model.gradient_batch(MESH_LM_POINTS, senss)
+    hess_batch = {k: v[:, :LM_HESS_SEQ] for k, v in model.batch.items()}
+    h_thetas, h_senss = MESH_LM_POINTS[:LM_HESS_POINTS], senss[:LM_HESS_POINTS]
+    h_vecs = np.eye(2)[np.arange(LM_HESS_POINTS) % 2]
+    hess_model = copy.copy(model)
+    hess_model.batch = hess_batch
+    plain_hvp = hess_model.apply_hessian_batch(h_thetas, h_senss, h_vecs)
+    del hess_model
     per_grad_wave = {"flash_attention_wgmma": 2 * cfg.n_layers,
                      **dict.fromkeys(ops.BWD_KERNELS[ops.bwd_stem(torch.bfloat16)],
                                      cfg.n_layers)}
@@ -3374,6 +3412,15 @@ def phase_mesh_lm_sharded(torch, model, smi: str) -> dict:
             raise AssertionError(f"the gradient wave on DTensor weights: launches {counts}, "
                                  f"expected {want}")
         _same_bits(grads, plain_grads, "the gradient wave on DTensor weights vs without ctx")
+        on_mesh.batch = hess_batch
+        reset_launches()
+        hess_s, hvp = _timed(torch, lambda: on_mesh.apply_hessian_batch(h_thetas, h_senss,
+                                                                        h_vecs))
+        hess_counts = read_launches()
+        if any(hess_counts.values()):
+            raise AssertionError(f"the Hessian wave on DTensor weights launched {hess_counts} "
+                                 "(no kernel has a second derivative)")
+        _same_bits(hvp, plain_hvp, "the Hessian wave on DTensor weights vs without ctx")
         del on_mesh
     finally:
         destroy_ranks()
@@ -3405,7 +3452,10 @@ def phase_mesh_lm_sharded(torch, model, smi: str) -> dict:
          one_by_one={"mesh": [1, 1], "backend": "nccl", "evaluate_s": eval_s,
                      "gradient_s": grad_s, "evaluate_launches": eval_launches,
                      "gradient_launches": {k: n for k, n in counts.items() if n},
-                     "bound": "bit for bit (evaluate and gradient waves)",
+                     "hessian": {"points": LM_HESS_POINTS, "seq": LM_HESS_SEQ,
+                                 "wave_s": hess_s, "launches": sum(hess_counts.values()),
+                                 "hvp_e1_e2": hvp.tolist()},
+                     "bound": "bit for bit (evaluate, gradient and Hessian waves)",
                      "max_memory_allocated": peak},
          tp={"mesh": list(LM_TP_MESH), "backend": "gloo", "ranks": ranks,
              "nll_max_rel_diff": tp_err, "bound": LM_NLL_RTOL, "wall_s": ranks_s},
@@ -6103,7 +6153,8 @@ def main() -> int:
         "shape": vjp["cases"]["wave_2048x16"]["shape"],
         "n_steps": vjp["cases"]["wave_2048x16"]["n_steps"],
         "by_shape": {case: {k: e[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
-                                              "solve_with_checkpoints_ms", "solve_ms")}
+                                              "solve_with_checkpoints_ms", "solve_ms",
+                                              "cluster", "ms_by_cluster")}
                      for case, e in vjp["cases"].items() if "ms" in e},
         "card": probe["smi"],
     }, {

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""The float32 flash-attention kernel, the bf16 flash-attention backward
-and the SWE step kernel of this checkout beside those of another checkout,
-timed in turns on one GPU.
+"""The float32 flash-attention kernel, the bf16 flash-attention backward,
+the SWE step kernel and the SWE solve's adjoint of this checkout beside
+those of another checkout, timed in turns on one GPU.
 
-    python3 scripts/kernel_ab.py --parent DIR [--parts step flash bwd path]
+    python3 scripts/kernel_ab.py --parent DIR [--parts step flash bwd path vjp]
                                  [--out build/kernel_ab.jsonl]
 
 DIR is the root of another checkout of the repository (for example the
@@ -42,7 +42,14 @@ minutes of the card where the whole A/B takes longer). Measured:
   layout, beside the bound of chip_smoke.py's `flash_bwd_work` (the five
   products at the bf16 peak; float32 three times them, 3xBF16), with
   whether the two sides' gradients are the same bits
-  (`bit_for_bit_with_parent`).
+  (`bit_for_bit_with_parent`);
+* the SWE solve's adjoint (`vjp`: the parent's `swe_solve_vjp.cu` and
+  `swe_solve.cu` through the parent's own wrappers, `parent_swe_ops`, each
+  side's adjoint on its own checkpoints, whose layout may differ) at
+  chip_smoke.py's `VJP_TIMED` shapes, the adjoint at each side's plan
+  beside chip_smoke.py's `vjp_work` bound, and the solve with and without
+  checkpoints; the two sides' (gh, ghu), (mx, arr) and the limiter cases'
+  cotangents must be the same bits.
 
 Prints one JSON line per measurement, writes them all to --out, and exits
 non-zero without a CUDA device or on any disagreement.
@@ -68,9 +75,12 @@ PATH_WAVES = ((2048, 16), (2048, 512), (512, 16), (512, 512))
 
 
 #: the parent's libraries each part needs: (stem, kernels/ subdirectory)
-PARENT_LIBS = {"step": ("swe_step", "swe"), "path": ("swe_step", "swe"),
-               "flash": ("flash_attention", "flash_attention"),
-               "bwd": ("flash_attention_bwd", "flash_attention")}
+PARENT_LIBS = {"step": [("swe_step", "swe")], "path": [("swe_step", "swe")],
+               "flash": [("flash_attention", "flash_attention")],
+               "bwd": [("flash_attention_bwd", "flash_attention")],
+               "vjp": [("swe_solve", "swe"), ("swe_solve_vjp", "swe")]}
+#: the adjoint's cases held bit for bit between the sides, untimed
+VJP_BITS_ONLY = ("solve_dam_break", "solve_dry_bed", "solve_fast_dam_break")
 
 
 def build_parent(parent: Path, stems) -> dict:
@@ -97,10 +107,10 @@ def build_parent(parent: Path, stems) -> dict:
     return libs
 
 
-def parent_step(parent: Path, lib):
-    """The parent's own wrapper `swe_step` (its `kernels/swe/ops.py`, loaded
-    under another name beside this checkout's modules) launching the
-    parent's library, so that both step paths pay their own wrapper."""
+def parent_swe_ops(parent: Path, libs: dict):
+    """The parent's own `kernels/swe/ops.py` (loaded under another name
+    beside this checkout's modules), its `_build.load` giving the parent's
+    libraries `libs` by stem, so that both sides pay their own wrapper."""
     import importlib.util
     import types
 
@@ -108,8 +118,13 @@ def parent_step(parent: Path, lib):
         "parent_swe_ops", parent / "src" / "repro_torch" / "kernels" / "swe" / "ops.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    mod._build = types.SimpleNamespace(load=lambda stem: lib)
-    return mod.swe_step
+    mod._build = types.SimpleNamespace(load=lambda stem: libs[stem])
+    return mod
+
+
+def parent_step(parent: Path, lib):
+    """The parent's own wrapper `swe_step` launching the parent's library."""
+    return parent_swe_ops(parent, {"swe_step": lib}).swe_step
 
 
 def bind_flash(lib):
@@ -341,6 +356,53 @@ def bwd_times(torch, chip_smoke, parent_bwd, dtypes) -> list:
     return rows
 
 
+def vjp_times(torch, chip_smoke, theirs) -> list:
+    """The adjoint and the checkpointing solve at `VJP_TIMED`, this checkout
+    and the parent's wrappers `theirs` in turns, each side on its own
+    checkpoints; then the limiter cases' cotangents, bits only."""
+    from repro_torch.kernels.swe import ops
+    from repro_torch.kernels.swe.testing import vjp_case_inputs
+
+    rows = []
+    for case in (*chip_smoke.VJP_TIMED, *VJP_BITS_ONLY):
+        kw = vjp_case_inputs(case, "cuda")
+        h, hu, b, cot = kw.pop("h"), kw.pop("hu"), kw.pop("b"), kw.pop("cot_mx")
+        b = b[:, None] if b.dim() == 1 else b
+        C, N = h.shape
+        args = (h, hu, b, kw["dt_dx"], kw["n_steps"], kw["rows"], kw["h0_rows"], None)
+        mine_ck, their_ck = ops._solve(*args, keep=True), theirs._solve(*args, keep=True)
+        mine = lambda: ops.swe_solve_vjp(b, *mine_ck[2:], cot, **kw)  # noqa: E731
+        their = lambda: theirs.swe_solve_vjp(b, *their_ck[2:], cot, **kw)  # noqa: E731
+        got, old = mine(), their()
+        torch.cuda.synchronize()
+        row = {"case": case, "shape": [C, N], "n_steps": kw["n_steps"],
+               "bit_for_bit_with_parent": all(torch.equal(a, b_) for a, b_ in zip(got, old)),
+               "primal_bit_for_bit_with_parent": all(
+                   torch.equal(a, b_) for a, b_ in zip(mine_ck[:2], their_ck[:2]))}
+        if case in chip_smoke.VJP_TIMED:
+            calls = 1 if C * N > 16 * 512 else 3
+            work = chip_smoke.vjp_work(C, N, kw["n_steps"], len(kw["rows"]))
+            t_bytes = work["bytes"] / chip_smoke.HBM_BYTES_PER_S
+            t_ops = work["ops"] / chip_smoke.FP32_FLOPS
+            row.update(
+                cluster=ops.vjp_cluster_plan(C, N),
+                adjoint=in_turns(torch, chip_smoke, their, mine, calls),
+                solve_with_checkpoints=in_turns(
+                    torch, chip_smoke, lambda: theirs._solve(*args, keep=True),
+                    lambda: ops._solve(*args, keep=True), 5),
+                solve=in_turns(torch, chip_smoke, lambda: theirs._solve(*args, keep=False),
+                               lambda: ops._solve(*args, keep=False), 5),
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+            row["speedup"] = sum(row["adjoint"]["parent_ms"]) / sum(row["adjoint"]["ms"])
+            row["share_of_bound"] = row["bound_ms"] / statistics.median(row["adjoint"]["ms"])
+        rows.append(row)
+        emit("vjp", **row)
+        del mine_ck, their_ck, got, old
+        torch.cuda.empty_cache()
+    return rows
+
+
 _out = None
 
 
@@ -370,7 +432,8 @@ def main() -> int:
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text("")
     _out = args.out
-    libs = build_parent(args.parent.resolve(), sorted({PARENT_LIBS[p] for p in args.parts}))
+    libs = build_parent(args.parent.resolve(),
+                        sorted({lib for p in args.parts for lib in PARENT_LIBS[p]}))
     emit("card", card=chip_smoke.nvidia_smi(), device=torch.cuda.get_device_name(0),
          parts=args.parts)
     if {"step", "path"} & set(args.parts):
@@ -383,6 +446,12 @@ def main() -> int:
         bwd_times(torch, chip_smoke, *bind_bwd(libs["flash_attention_bwd"]))
     if "path" in args.parts:
         path_walls(torch, step)
+    if "vjp" in args.parts:
+        rows = vjp_times(torch, chip_smoke, parent_swe_ops(args.parent.resolve(), libs))
+        if not all(r["bit_for_bit_with_parent"] and r["primal_bit_for_bit_with_parent"]
+                   for r in rows):
+            print("kernel_ab: the adjoint differs from the parent's", file=sys.stderr)
+            return 1
     return 0
 
 

@@ -45,9 +45,11 @@ then one program over the mesh, the kernels on each rank's local shards
   `SPMDBackend` runs derivative waves: the stack runs as any step on the
   mesh, its hidden states are gathered, and the reverse pass is DTensor's
   autograd through the sharded weights (the flash backward kernel on local
-  shards). The Hessian action raises on a mesh: reverse over reverse
-  through `local_map` (the attention, the SSD scan, the MoE dispatch)
-  disagreed with the one-device Hessian in the CPU tests.
+  shards). The Hessian action runs reverse over reverse the same way, on
+  the mesh layer's own DTensor rules (`distributed.sharding.redistribute`
+  and `ShardingCtx.local_map`), whose backward stays on the autograd
+  graph: DTensor's own build some gradients off it, and the second
+  backward lost those paths.
 """
 from __future__ import annotations
 
@@ -126,9 +128,9 @@ class LMUQModel(Model):
 
     def capabilities(self, config=None) -> Capabilities:
         return Capabilities(
-            evaluate=True, gradient=True, apply_jacobian=True, apply_hessian=self.ctx is None,
+            evaluate=True, gradient=True, apply_jacobian=True, apply_hessian=True,
             evaluate_batch=True, gradient_batch=True,
-            apply_jacobian_batch=True, apply_hessian_batch=self.ctx is None,
+            apply_jacobian_batch=True, apply_hessian_batch=True,
         )
 
     def __call__(self, parameters, config=None):
@@ -286,11 +288,6 @@ class LMUQModel(Model):
         graph, a first backward that keeps its own graph, and a second
         backward of its dot product with the vecs (the points are
         independent, so row k is point k's Hessian action)."""
-        if self.ctx is not None:
-            raise NotImplementedError(
-                "the Hessian action on a mesh: the attention, the SSD scan and the MoE "
-                "dispatch run through local_map, and reverse over reverse through it "
-                "disagreed with the one-device Hessian in the CPU tests (ROADMAP queue 3)")
         cfg = self.cfg.replace(attn_impl="plain")
         K = len(np.atleast_2d(thetas))
         senss = torch.as_tensor(self._even_wave(np.asarray(senss, np.float32)),

@@ -233,7 +233,7 @@ class ShardingCtx:
         from torch.distributed.tensor import DTensor
 
         if isinstance(x, DTensor):
-            return x.redistribute(x.device_mesh, self.placements(self.spec(*logical), x.shape))
+            return redistribute(x, self.placements(self.spec(*logical), x.shape))
         return x
 
     def replicated(self) -> Sharding:
@@ -331,24 +331,38 @@ class ShardingCtx:
         the placements of the arguments' gradients where they differ from
         the arguments' own (an argument replicated over an axis whose
         ranks each use a part of it has a gradient that is a partial sum
-        over that axis)."""
+        over that axis). PyTorch's `local_map` does the same, but its
+        inputs' and results' backward rules build some gradients off the
+        autograd graph, so reverse over reverse through it was wrong; this
+        one runs on `_ToLocal` and `_FromLocal`, which are twice
+        differentiable."""
         from torch.distributed.tensor import Placement
-        from torch.distributed.tensor.experimental import local_map
 
         names = self.mesh.mesh_dim_names
 
         def place(spec):
             if spec is None or not isinstance(spec, P):
                 return spec
-            return placements_of(spec, names)
+            return tuple(placements_of(spec, names))
 
         single = isinstance(out_specs, P) or all(isinstance(s, Placement) for s in out_specs)
         outs = (place(out_specs),) if single else tuple(place(s) for s in out_specs)
-        grads = None if in_grad_specs is None else tuple(place(s) for s in in_grad_specs)
-        return local_map(fn, out_placements=outs,
-                         in_placements=tuple(place(s) for s in in_specs),
-                         in_grad_placements=grads, redistribute_inputs=True,
-                         device_mesh=self.mesh)
+        ins = tuple(place(s) for s in in_specs)
+        grads = ins if in_grad_specs is None else tuple(place(s) for s in in_grad_specs)
+
+        def run(*args):
+            if not any(is_dtensor(a) for a in args):
+                return fn(*args)
+            local = [_ToLocal.apply(a if tuple(a.placements) == spec else redistribute(a, spec),
+                                    grad) if is_dtensor(a) else a
+                     for a, spec, grad in zip(args, ins, grads, strict=True)]
+            out = fn(*local)
+            results = (out,) if single else out
+            placed = tuple(_FromLocal.apply(r, self.mesh, p)
+                           for r, p in zip(results, outs, strict=True))
+            return placed[0] if single else placed
+
+        return run
 
     def partial_over(self, spec: P, *axes: str) -> tuple:
         """The placements of `spec` with each mesh axis of `axes` that the
@@ -427,6 +441,97 @@ GATHERS_BY_SUM = {"n": 0}
 #: tests add "cpu" to run the card's path on `gloo` CPU ranks)
 SUM_GATHER_DEVICES = {"cuda"}
 _REAL_GATHERS: dict = {}
+
+
+# DTensor's own autograd rules for `redistribute`, `to_local` and
+# `from_local` compute their gradients off the autograd graph: torch 2.11
+# builds the first two's with the DTensor constructor, and every version
+# redistributes a `from_local` result's gradient of other placements on its
+# local tensor. A first backward with `create_graph=True` (the Hessian
+# action's reverse over reverse) then cut every path through a constraint,
+# a `local_map` or a partial sum's reduction, even on a 1x1 mesh. The three
+# rules below compute the same values, and each one's backward is made of
+# these rules again, so it is differentiable once more.
+
+
+def _grad_placements(placements) -> tuple:
+    """The placements of a gradient of a DTensor so placed, as DTensor's
+    own rules choose them: a partial sum's gradient is replicated."""
+    from torch.distributed.tensor import Replicate
+
+    return tuple(Replicate() if p.is_partial() else p for p in placements)
+
+
+def redistribute(t, placements):
+    """The DTensor `t` redistributed to `placements` (DTensor's
+    `redistribute`), twice differentiable. Where `t` is so placed already
+    it is still a node of the graph, as DTensor's is: its backward brings
+    the gradient back to `t`'s placements (a constraint's fence)."""
+    return _Redistribute.apply(t, tuple(placements))
+
+
+class _Redistribute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, placements):
+        ctx.placements = tuple(t.placements)
+        return t.redistribute(t.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g is None:
+            return None, None
+        # DTensor's rule: a gradient that is sharded or replicated where the
+        # input was a partial sum stays replicated
+        from torch.distributed.tensor import Replicate
+
+        back = tuple(Replicate() if want.is_partial() and not have.is_partial() else want
+                     for have, want in zip(g.placements, ctx.placements))
+        return redistribute(g, back), None
+
+
+class _ToLocal(torch.autograd.Function):
+    """A DTensor's local shard, its gradient a DTensor placed by
+    `grad_placements` (None: `_grad_placements` of its own)."""
+
+    @staticmethod
+    def forward(ctx, t, grad_placements):
+        ctx.mesh, ctx.placements, ctx.shape = t.device_mesh, tuple(t.placements), t.shape
+        ctx.grad_placements = grad_placements or _grad_placements(t.placements)
+        local = t.to_local()
+        return local.view_as(local)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g is None:
+            return None, None
+        from torch.distributed.tensor._utils import compute_global_tensor_info
+
+        _, stride = compute_global_tensor_info(g, ctx.mesh, ctx.placements)
+        return _FromLocal.apply(g, ctx.mesh, ctx.grad_placements, ctx.shape,
+                                tuple(stride)), None
+
+
+class _FromLocal(torch.autograd.Function):
+    """Each rank's `local` tensor as one DTensor placed by `placements`
+    (`DTensor.from_local` without a check; `shape` and `stride` its global
+    ones where the shards are not even); its gradient is first
+    redistributed to `_grad_placements`, then each rank's shard."""
+
+    @staticmethod
+    def forward(ctx, local, mesh, placements, shape=None, stride=None):
+        from torch.distributed.tensor import DTensor
+
+        ctx.grad_placements = _grad_placements(placements)
+        return DTensor.from_local(local, mesh, placements, run_check=False, shape=shape,
+                                  stride=stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g is None:
+            return None, None, None, None, None
+        if tuple(g.placements) != ctx.grad_placements:
+            g = redistribute(g, ctx.grad_placements)
+        return _ToLocal.apply(g, None), None, None, None, None
 
 
 def sum_gloo_cuda_gathers() -> None:
@@ -548,8 +653,7 @@ def reduce_partial(t):
     from torch.distributed.tensor import DTensor, Replicate
 
     if isinstance(t, DTensor) and any(p.is_partial() for p in t.placements):
-        return t.redistribute(t.device_mesh, [Replicate() if p.is_partial() else p
-                                              for p in t.placements])
+        return redistribute(t, [Replicate() if p.is_partial() else p for p in t.placements])
     return t
 
 

@@ -232,8 +232,12 @@ __global__ void __launch_bounds__(kMaxThreads)
   // [round k, round k + k) from the ghost cells of state round k; `left`
   // steps of it remain (counted down: no division in the step loop)
   int round = 0, left = k;
-  // the checkpoints (with a non-null ck): every k_ck steps, counted down
+  // the checkpoints (with a non-null ck): every k_ck steps, counted down;
+  // this lane's [n_seg, 2, C] of ck (lane-major: a warp stores consecutive
+  // cells)
   int ck_left = 0, seg = 0;
+  const int n_seg = ck != nullptr ? (n_steps + k_ck - 1) / k_ck : 0;
+  float* const lck = ck != nullptr ? ck + (long long)lane * n_seg * 2 * C : nullptr;
   for (int s = 0; s < n_steps; ++s) {
     if (ck != nullptr) {
       if (ck_left == 0) {
@@ -244,8 +248,8 @@ __global__ void __launch_bounds__(kMaxThreads)
           const int e = t + m * T;
           if (e >= gl && e < gl + n) {
             const long long i = elo + e;
-            ck[((long long)(2 * seg) * C + i) * N + lane] = hc[m];
-            ck[((long long)(2 * seg + 1) * C + i) * N + lane] = huc[m];
+            lck[(long long)(2 * seg) * C + i] = hc[m];
+            lck[(long long)(2 * seg + 1) * C + i] = huc[m];
           }
         }
         if (erow >= 0) ck_mx[((long long)seg * kRows + t) * N + lane] = mx;
@@ -435,7 +439,7 @@ bool valid_cluster(int C, int cs) {
 // outputs; cs: the cluster size, blocks a lane (a power of two, at most C;
 // a Hopper card schedules at most 8, the portable limit). With a non-null
 // ck, also the checkpoints of the adjoint (swe_solve_vjp.cu): before each
-// step s = j k_ck, the state (h, hu) into ck [n_seg, 2, C, N] at j and the
+// step s = j k_ck, the state (h, hu) into ck [N, n_seg, 2, C] at j and the
 // running max into ck_mx [n_seg, 2, N] at j, n_seg = ceil(n_steps / k_ck);
 // they change nothing else (null: none are written). Launches on `stream`
 // and returns the launch's cudaError (0 on success); it never synchronises.

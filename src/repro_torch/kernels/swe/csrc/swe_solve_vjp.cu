@@ -15,23 +15,31 @@
 // in the order of ref.py::swe_solve_vjp_ref.
 //
 // Checkpoints: the forward (swe_solve.cu with a checkpoint pointer) keeps the
-// state (h, hu) and the running max before every k-th step, ck [n_seg, 2, C,
-// N] and ck_mx [n_seg, 2, N]. This kernel walks the segments from last to
-// first: it loads a segment's checkpoint, recomputes its (at most k) steps
-// with swe_solve.cu's own arithmetic (swe_math.cuh; built with -fmad=false
-// and IEEE sqrtf and division, so each recomputed state is the forward's, bit
-// for bit, and every kink branch is taken as the primal took it), writing
-// each step's input to a global scratch [k, 2, C, N] and the buoy max before
-// and the buoy height after each step to [k, 2, 2, N]; then it sweeps the
-// segment's steps backwards. Both scratches come from the caller (the torch
-// allocator: no cudaMalloc while a CUDA graph is captured).
+// state (h, hu) and the running max before every k-th step, ck [N, n_seg, 2,
+// C] (lane-major: a warp's threads touch consecutive cells) and ck_mx [n_seg,
+// 2, N]. This kernel walks the segments from last to first: it loads a
+// segment's checkpoint, recomputes its (at most k) steps with swe_solve.cu's
+// own arithmetic (swe_math.cuh; built with -fmad=false and IEEE sqrtf and
+// division, so each recomputed state is the forward's, bit for bit, and
+// every kink branch is taken as the primal took it), writing each step's
+// input to a global scratch [N, k, 2, C] (lane-major, coalesced) and the
+// buoy max before and the buoy height after each step to [N, k, 2, 2]; then
+// it sweeps the segment's steps backwards. The scratches come from the
+// caller (the torch allocator: no cudaMalloc while a CUDA graph is
+// captured).
 //
-// Layout: one block a lane, swe_solve.cu's cs = 1 layout: min(1,024, C
-// rounded up to a warp) threads, thread t owning cells t, t + T (1 or 2 a
-// thread). A reverse step is five phases with four block barriers:
-//   (0) each cell's input from the scratch, its velocity; the buoy slots
-//       (threads 0 and 1) split the running max's cotangent between the max
-//       before the step and the buoy row's depth after it;
+// Layout: as swe_solve.cu, a lane's column over a thread block cluster of cs
+// blocks (1, 2, 4 or 8; the wrapper's plan picks it from C, N and the card,
+// `cluster=` forces it). Cluster rank r owns the contiguous cells [lo, lo +
+// n) (C / cs each, the first C % cs ranks one more) and computes an extended
+// slice with k_g = min(32, C / cs) ghost cells on each side that has a
+// neighbour (none at cs = 1), whose ends it treats as walls. Thread t owns
+// extended cells t, t + T (1 or 2 a thread). A recomputed step is two phases
+// (faces, then cells) and a reverse step five, with four block barriers:
+//   (0) each cell's input from the scratch (loaded during the step
+//       before), its velocity; the buoy slots (threads 0 and 1) split the
+//       running max's cotangent between the max before the step and the
+//       buoy row's depth after it;
 //   (1) every face once (the owner of its left cell): Fh, A, B, as forward;
 //   (2) every cell: the divergence, the limiter's argument and the wet mask,
 //       as forward; the buoy share added to the cotangent of the new depth;
@@ -43,21 +51,68 @@
 //       shared memory;
 //   (4) every cell: the update's own term, its two faces' shares and the
 //       walls' pressure in a fixed order, then the velocity's adjoint.
-// No atomics: two calls give the same bits.
 //
-// What bounds it: as swe_solve.cu at cs = 1, the chain of dependent phases a
-// step and the SMs' issue rate, about three forward steps of work a step
-// (the recomputation, the reverse's own forward, the adjoint), plus the
-// scratch's traffic, [k, 2, C, N] written and read once a segment (L2 for the
-// main path's waves).
+// The cluster's blocks meet only through the scratch and the cluster
+// barrier, never through a load from another block's shared memory:
+// - a recomputed state at distance d from an extended end is wrong after d
+//   steps, so an owned cell (d >= k_g) is exact for k_g steps. Every block
+//   stores its owned cells' input of each step in the scratch; every k_g
+//   steps of a segment, after a cluster barrier, each block reloads its
+//   ghost cells' states from it (the neighbours' owned cells);
+// - the sweep reads every extended cell's state from the scratch, exact;
+//   a cotangent has radius 1, and the wall at an extended end spoils its
+//   cell and the next one in the first reverse step and one more cell each
+//   step after: an owned cell is exact for k_g - 1 reverse steps. So every
+//   k_g - 1 reverse steps (and at each segment's start) each block stores
+//   its owned cotangents in an exchange buffer [N, 2, 2, C] (two parities,
+//   so that a block never overwrites what a neighbour has still to read)
+//   and, after a cluster barrier, loads its ghost cells' cotangents;
+// - a cluster barrier after each segment's recomputation (the scratch
+//   complete) and after its sweep (nobody reads it any more). The buoy
+//   rows' values are written by their owners and read by every block.
+// Every cell computes the same expressions in the same order at every cs,
+// so every cluster size gives the same bits; the scratch is read with
+// ld.global.cg (L2), where the cluster barrier's release and acquire order
+// the other blocks' stores. No atomics: two calls give the same bits.
+//
+// What bounds it: the chain of dependent phases a step (a forward step
+// recomputed, and the reverse's forward and adjoint, about three forward
+// steps of work) and the SMs' issue rate; the scratch's traffic, [k, 2, C]
+// a lane written and read once a segment, is coalesced (L2 for 16 lanes).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "swe_math.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kMaxThreads = 1024;
-constexpr int kRows = 2;  // buoy rows of a solve (wrapper: ops.N_ROWS)
+constexpr int kRows = 2;    // buoy rows of a solve (wrapper: ops.N_ROWS)
+constexpr int kGhost = 32;  // ghost cells a side of a cluster's block
+
+#ifdef SWE_VJP_PHASES
+// The phase-stamped variant (scripts/swe_vjp_phases.py builds it with
+// -DSWE_VJP_PHASES): block 0's thread 0 adds the clock64() cycles of each
+// part of the wave, each part up to and including the barrier after it.
+#define PHASE_PARTS                                                               \
+  "checkpoint_load,recompute_scratch_store,recompute_exchange,recompute_faces,"   \
+  "recompute_update,segment_barriers,sweep_exchange,sweep_scratch_load,"         \
+  "sweep_faces,sweep_cells,sweep_face_adjoints,sweep_cell_adjoints"
+constexpr int kParts = 12;
+__device__ unsigned long long g_phase_cycles[kParts + 1];
+#define STAMP(i)                      \
+  do {                                \
+    const long long now_ = clock64(); \
+    cycles_[i] += now_ - then_;       \
+    then_ = now_;                     \
+  } while (0)
+#else
+#define STAMP(i) \
+  do {           \
+  } while (0)
+#endif
 
 // g times d max(x, y) / dx: g above, g / 2 at a tie, 0 below, as a select
 __device__ __forceinline__ float tie(float x, float y, float g) {
@@ -122,7 +177,49 @@ __device__ __forceinline__ void face_vjp(float hl, float ul, float bl, float hr,
   ghr = ghr + tie(argR, 0.0f, ghsR);
 }
 
+// k_g, the ghost cells a side of a cluster's block (none at cs = 1), and the
+// largest extended slice of a C-cell column cut in cs (swe_solve.cu's)
+__host__ __device__ inline int ghost_cells(int C, int cs) {
+  return cs == 1 ? 0 : (C / cs < kGhost ? C / cs : kGhost);
+}
+__host__ __device__ inline int max_extended(int C, int cs) {
+  return (C + cs - 1) / cs + 2 * ghost_cells(C, cs);
+}
+
+// Reverse step j's input from this lane's scratch, every extended cell
+// [elo, elo + nE) (ld.global.cg: another block's owned cells, ordered by the
+// cluster barrier after the recomputation), and the buoy values around it
+// (threads 0 and 1)
 template <int CPT>
+__device__ __forceinline__ void load_step(const float* lscr, const float* lbscr, int j,
+                                          int C, int elo, int nE, int t, int T, int row,
+                                          float (&h)[CPT], float (&hu)[CPT], float& mx,
+                                          float& eta) {
+  const float* const s_h = lscr + (long long)j * 2 * C;
+#pragma unroll
+  for (int m = 0; m < CPT; ++m) {
+    const int e = t + m * T;
+    if (e < nE) {
+      h[m] = __ldcg(s_h + elo + e);
+      hu[m] = __ldcg(s_h + C + elo + e);
+    }
+  }
+  if (row >= 0) {
+    const float* const at = lbscr + (long long)j * 2 * kRows + t;
+    mx = __ldcg(at);
+    eta = __ldcg(at + kRows);
+  }
+}
+
+// the cluster barrier (release and acquire: the blocks' stores to global
+// memory before it are seen by the loads after it); a block barrier at cs = 1
+template <bool kCluster>
+__device__ __forceinline__ void cluster_barrier() {
+  if constexpr (kCluster) cg::this_cluster().sync();
+  else __syncthreads();
+}
+
+template <int CPT, bool kCluster>
 __global__ void __launch_bounds__(kMaxThreads)
     swe_solve_vjp_kernel(const float* __restrict__ b,
                          const float* __restrict__ h0_rows,
@@ -130,15 +227,32 @@ __global__ void __launch_bounds__(kMaxThreads)
                          const float* __restrict__ ck_mx,
                          const float* __restrict__ cot_mx,
                          float* __restrict__ scr, float* __restrict__ bscr,
-                         float* __restrict__ gh_out, float* __restrict__ ghu_out,
-                         int C, int N, int n_steps, int k, int r0, int r1,
-                         float dt_dx, float g, float h_dry) {
-  const int lane = blockIdx.x;
+                         float* __restrict__ lam, float* __restrict__ gh_out,
+                         float* __restrict__ ghu_out, int C, int N, int n_steps,
+                         int k, int r0, int r1, float dt_dx, float g, float h_dry) {
+  int cs = 1, rank = 0;
+  if constexpr (kCluster) {
+    cs = (int)cg::this_cluster().num_blocks();
+    rank = (int)cg::this_cluster().block_rank();
+  }
+  const int lane = blockIdx.x / cs;
+  // this block's slice [lo, hi), extended by kg ghost cells on each side
+  // that has a neighbour (swe_solve.cu's cut)
+  const int q = C / cs, rem = C % cs;
+  const int lo = rank * q + (rank < rem ? rank : rem);
+  const int n = q + (rank < rem ? 1 : 0);
+  const int hi = lo + n;
+  const int kg = ghost_cells(C, cs);
+  const int gl = lo > 0 ? kg : 0, gr = hi < C ? kg : 0;
+  const int elo = lo - gl;     // global index of extended cell 0
+  const int nE = gl + n + gr;  // extended cells
+
   const int t = threadIdx.x;
   const int T = blockDim.x;
   const float hg = 0.5f * g;
   const float sqrt2 = 1.41421356237309515f;
 
+  const int SE = max_extended(C, cs);
   extern __shared__ float smem[];
   // two pairs of arrays, each reused once a reverse step (see the phases):
   // depth and velocity of the step's input, read by the left neighbour in
@@ -146,72 +260,112 @@ __global__ void __launch_bounds__(kMaxThreads)
   // neighbour in (3); the face terms Fh and B (face e | e + 1 at e + 1),
   // read in (2), then the right cells' shares of the faces' adjoints, read
   // in (4)
-  float* sh_h = smem;                // [C] h, then the cotangent of div_h
-  float* sh_u = smem + C;            // [C] u, then the cotangent of div_hu
-  float* sh_Fh = smem + 2 * C;       // [C + 1] Fh, then a right cell's gh share
-  float* sh_B = smem + 3 * C + 1;    // [C + 1] B, then a right cell's gu share
-  float* sh_gb = smem + 4 * C + 2;   // [2] the buoy rows' shares of gh
+  float* sh_h = smem;                // [SE] h, then the cotangent of div_h
+  float* sh_u = smem + SE;           // [SE] u, then the cotangent of div_hu
+  float* sh_Fh = smem + 2 * SE;      // [SE + 1] Fh, then a right cell's gh share
+  float* sh_B = smem + 3 * SE + 1;   // [SE + 1] B, then a right cell's gu share
+  float* sh_gb = smem + 4 * SE + 2;  // [2] the buoy rows' shares of gh
   float* sh_gdh = sh_h;
   float* sh_gdhu = sh_u;
   float* sh_gRh = sh_Fh;
   float* sh_gRu = sh_B;
 
+  // this lane's scratch: states [k, 2, C], buoy values [k, 2, 2], the
+  // cotangents' exchange [2 parities, 2, C]
+  float* const lscr = scr + (long long)lane * k * 2 * C;
+  float* const lbscr = bscr + (long long)lane * k * 2 * kRows;
+  float* const llam = lam + (long long)lane * 2 * 2 * C;
+
   float hc[CPT], huc[CPT], uc[CPT], bc[CPT], br[CPT], Fh[CPT], A[CPT];
   float hr[CPT], ur[CPT];  // the right neighbour's input, from phase (1) to (3)
   float gh[CPT], ghu[CPT];  // cotangent of the state after the current step
   float g_arg[CPT], g_hun[CPT], gdhu[CPT], ghl[CPT], gul[CPT];
+  // the next reverse step's input and buoy values, loaded a step ahead
+  float hn[CPT], hun[CPT], mx_n = 0.0f, eta_n = 0.0f;
 #pragma unroll
   for (int m = 0; m < CPT; ++m) {
     const int e = t + m * T;
     gh[m] = 0.0f;
     ghu[m] = 0.0f;
-    if (e < C) {
-      bc[m] = b[e];
-      br[m] = (e + 1 < C) ? b[e + 1] : 0.0f;
+    if (e < nE) {
+      const int i = elo + e;
+      bc[m] = b[i];
+      br[m] = (i + 1 < C) ? b[i + 1] : 0.0f;
     }
   }
-  // buoy slot t (threads 0 and 1): its row, its depth at rest, the
+  // buoy slot t (threads 0 and 1): its row in extended cells (-1 outside
+  // the extended slice), whether this block owns it (and so records the
+  // running max in the recomputation), its depth at rest, and the
   // cotangent of the running max after the current step
   const int row = t == 0 ? r0 : (t == 1 ? r1 : -1);
-  const float h0 = row >= 0 ? h0_rows[t] : 0.0f;
+  const int erow0 = r0 - elo >= 0 && r0 - elo < nE ? r0 - elo : -1;
+  const int erow1 = r1 - elo >= 0 && r1 - elo < nE ? r1 - elo : -1;
+  const bool owner = row >= lo && row < hi;
+  const float h0 = owner ? h0_rows[t] : 0.0f;
   float gmx = row >= 0 ? cot_mx[(long long)t * N + lane] : 0.0f;
-  const long long plane = (long long)C * N;  // one [C, N] array
-
   const int n_seg = (n_steps + k - 1) / k;
+  // rounds of the cotangents' exchange: each one's parity
+  int xround = 0;
+
+#ifdef SWE_VJP_PHASES
+  unsigned long long cycles_[kParts] = {};
+  const long long first_ = clock64();
+  long long then_ = first_;
+#endif
   for (int seg = n_seg - 1; seg >= 0; --seg) {
-    const int lo = seg * k;
-    const int cnt = n_steps - lo < k ? n_steps - lo : k;
-    // the segment's checkpoint
+    const int cnt = n_steps - seg * k < k ? n_steps - seg * k : k;
+    // the segment's checkpoint: every extended cell exact
+    const float* cks = ck + ((long long)lane * n_seg + seg) * 2 * C;
 #pragma unroll
     for (int m = 0; m < CPT; ++m) {
       const int e = t + m * T;
-      if (e < C) {
-        const long long idx = (long long)e * N + lane;
-        hc[m] = ck[2 * seg * plane + idx];
-        huc[m] = ck[(2 * seg + 1) * plane + idx];
+      if (e < nE) {
+        hc[m] = cks[elo + e];
+        huc[m] = cks[C + elo + e];
         uc[m] = velocity(hc[m], huc[m], h_dry);
         sh_h[e] = hc[m];
         sh_u[e] = uc[m];
       }
     }
-    float mx = row >= 0 ? ck_mx[((long long)seg * kRows + t) * N + lane] : 0.0f;
+    float mx = owner ? ck_mx[((long long)seg * kRows + t) * N + lane] : 0.0f;
     __syncthreads();
+    STAMP(0);
     // recompute the segment's steps, as swe_solve.cu computes them, keeping
-    // each step's input and the buoy max around it
+    // each step's input (the owned cells) and the buoy max around it
     for (int j = 0; j < cnt; ++j) {
+      float* const s_h = lscr + (long long)j * 2 * C;
 #pragma unroll
       for (int m = 0; m < CPT; ++m) {
         const int e = t + m * T;
-        if (e < C) {
-          const long long idx = (long long)e * N + lane;
-          scr[2 * j * plane + idx] = hc[m];
-          scr[(2 * j + 1) * plane + idx] = huc[m];
+        if (e >= gl && e < gl + n) {
+          s_h[elo + e] = hc[m];
+          s_h[C + elo + e] = huc[m];
         }
       }
+      STAMP(1);
+      if constexpr (kCluster) {
+        if (j > 0 && j % kg == 0) {
+          // a new round: the ghost cells' state j, from their owners
+          cluster_barrier<kCluster>();
+#pragma unroll
+          for (int m = 0; m < CPT; ++m) {
+            const int e = t + m * T;
+            if (e < nE && (e < gl || e >= gl + n)) {
+              hc[m] = __ldcg(s_h + elo + e);
+              huc[m] = __ldcg(s_h + C + elo + e);
+              uc[m] = velocity(hc[m], huc[m], h_dry);
+              sh_h[e] = hc[m];
+              sh_u[e] = uc[m];
+            }
+          }
+          __syncthreads();
+        }
+      }
+      STAMP(2);
 #pragma unroll
       for (int m = 0; m < CPT; ++m) {
         const int e = t + m * T;
-        if (e + 1 < C) {
+        if (e + 1 < nE) {
           const Face f = face(hc[m], uc[m], bc[m], sh_h[e + 1], sh_u[e + 1], br[m], g);
           Fh[m] = f.Fh;
           A[m] = f.A;
@@ -220,15 +374,16 @@ __global__ void __launch_bounds__(kMaxThreads)
         }
       }
       __syncthreads();
+      STAMP(3);
 #pragma unroll
       for (int m = 0; m < CPT; ++m) {
         const int e = t + m * T;
-        if (e < C) {
+        if (e < nE) {
           float div_h, div_hu;
           if (e == 0) {
             div_h = Fh[m];
             div_hu = A[m] - hg * (hc[m] * hc[m]);
-          } else if (e == C - 1) {
+          } else if (e == nE - 1) {
             div_h = -sh_Fh[e];
             div_hu = hg * (hc[m] * hc[m]) - sh_B[e];
           } else {
@@ -245,44 +400,90 @@ __global__ void __launch_bounds__(kMaxThreads)
         }
       }
       __syncthreads();
-      if (row >= 0) {
-        const float eta = sh_h[row] - h0;
-        const long long at = ((long long)(2 * j) * kRows + t) * N + lane;
-        bscr[at] = mx;                             // the max before step j
-        bscr[at + (long long)kRows * N] = eta;     // the buoy height after it
+      if (owner) {
+        const float eta = sh_h[row - elo] - h0;
+        float* const at = lbscr + (long long)j * 2 * kRows + t;
+        at[0] = mx;       // the max before step j
+        at[kRows] = eta;  // the buoy height after it
         mx = maximum_nan(mx, eta);
       }
+      STAMP(4);
     }
-    // the buoy slots read sh_h above; phase (0) writes it
-    __syncthreads();
-    // sweep the segment's steps back
-    for (int j = cnt - 1; j >= 0; --j) {
-      // (0) the step's input; the running max's reverse
+    // every block's scratch of the segment is complete (the buoy slots read
+    // sh_h above; phase (0) writes it); the first exchange of the sweep
+    // rides on this barrier: the owned cotangents go out before it
+    if constexpr (kCluster) {
+      float* const x = llam + (long long)(xround & 1) * 2 * C;
 #pragma unroll
       for (int m = 0; m < CPT; ++m) {
         const int e = t + m * T;
-        if (e < C) {
-          const long long idx = (long long)e * N + lane;
-          hc[m] = scr[2 * j * plane + idx];
-          huc[m] = scr[(2 * j + 1) * plane + idx];
+        if (e >= gl && e < gl + n) {
+          x[elo + e] = gh[m];
+          x[C + elo + e] = ghu[m];
+        }
+      }
+    }
+    cluster_barrier<kCluster>();
+    STAMP(5);
+    // the first reverse step's input (later ones are loaded a step ahead)
+    load_step(lscr, lbscr, cnt - 1, C, elo, nE, t, T, row, hn, hun, mx_n, eta_n);
+    // sweep the segment's steps back
+    for (int j = cnt - 1; j >= 0; --j) {
+      if constexpr (kCluster) {
+        const int r = cnt - 1 - j;  // reverse steps of this segment done
+        if (r % (kg - 1) == 0) {
+          // a new round: the ghost cells' cotangents, from their owners
+          // (sent before the barrier: above at a segment's first step)
+          float* const x = llam + (long long)(xround & 1) * 2 * C;
+          if (r > 0) {
+#pragma unroll
+            for (int m = 0; m < CPT; ++m) {
+              const int e = t + m * T;
+              if (e >= gl && e < gl + n) {
+                x[elo + e] = gh[m];
+                x[C + elo + e] = ghu[m];
+              }
+            }
+            cluster_barrier<kCluster>();
+          }
+#pragma unroll
+          for (int m = 0; m < CPT; ++m) {
+            const int e = t + m * T;
+            if (e < nE && (e < gl || e >= gl + n)) {
+              gh[m] = __ldcg(x + elo + e);
+              ghu[m] = __ldcg(x + C + elo + e);
+            }
+          }
+          ++xround;
+        }
+      }
+      STAMP(6);
+      // (0) the step's input, every extended cell's exact state (loaded a
+      // step ahead); the running max's reverse
+#pragma unroll
+      for (int m = 0; m < CPT; ++m) {
+        const int e = t + m * T;
+        if (e < nE) {
+          hc[m] = hn[m];
+          huc[m] = hun[m];
           uc[m] = velocity(hc[m], huc[m], h_dry);
           sh_h[e] = hc[m];
           sh_u[e] = uc[m];
         }
       }
       if (row >= 0) {
-        const long long at = ((long long)(2 * j) * kRows + t) * N + lane;
-        const float mx_before = bscr[at];
-        const float eta = bscr[at + (long long)kRows * N];
-        sh_gb[t] = tie(eta, mx_before, gmx);
-        gmx = tie(mx_before, eta, gmx);
+        sh_gb[t] = tie(eta_n, mx_n, gmx);
+        gmx = tie(mx_n, eta_n, gmx);
       }
       __syncthreads();
+      // the next step's input, in flight through phases (1)-(4)
+      if (j > 0) load_step(lscr, lbscr, j - 1, C, elo, nE, t, T, row, hn, hun, mx_n, eta_n);
+      STAMP(7);
       // (1) each face once, by the owner of its left cell, as forward
 #pragma unroll
       for (int m = 0; m < CPT; ++m) {
         const int e = t + m * T;
-        if (e + 1 < C) {
+        if (e + 1 < nE) {
           hr[m] = sh_h[e + 1];
           ur[m] = sh_u[e + 1];
           const Face f = face(hc[m], uc[m], bc[m], hr[m], ur[m], br[m], g);
@@ -293,16 +494,17 @@ __global__ void __launch_bounds__(kMaxThreads)
         }
       }
       __syncthreads();
+      STAMP(8);
       // (2) each cell: the update as forward, then its transpose
 #pragma unroll
       for (int m = 0; m < CPT; ++m) {
         const int e = t + m * T;
-        if (e < C) {
+        if (e < nE) {
           float div_h, div_hu;
           if (e == 0) {
             div_h = Fh[m];
             div_hu = A[m] - hg * (hc[m] * hc[m]);
-          } else if (e == C - 1) {
+          } else if (e == nE - 1) {
             div_h = -sh_Fh[e];
             div_hu = hg * (hc[m] * hc[m]) - sh_B[e];
           } else {
@@ -311,8 +513,8 @@ __global__ void __launch_bounds__(kMaxThreads)
           }
           const float arg_h = hc[m] - dt_dx * div_h;
           const bool wet = fmaxf(arg_h, 0.0f) > h_dry;
-          if (e == r0) gh[m] = gh[m] + sh_gb[0];
-          if (e == r1) gh[m] = gh[m] + sh_gb[1];
+          if (e == erow0) gh[m] = gh[m] + sh_gb[0];
+          if (e == erow1) gh[m] = gh[m] + sh_gb[1];
           g_arg[m] = tie(arg_h, 0.0f, gh[m]);
           g_hun[m] = wet ? ghu[m] : 0.0f;
           gdhu[m] = -dt_dx * g_hun[m];
@@ -322,11 +524,12 @@ __global__ void __launch_bounds__(kMaxThreads)
         }
       }
       __syncthreads();
+      STAMP(9);
       // (3) each face's adjoint; Fh and B were last read in (2)
 #pragma unroll
       for (int m = 0; m < CPT; ++m) {
         const int e = t + m * T;
-        if (e + 1 < C) {
+        if (e + 1 < nE) {
           const float gFh = sh_gdh[e] - sh_gdh[e + 1];
           const float gA = sh_gdhu[e];
           const float gB = -sh_gdhu[e + 1];
@@ -338,19 +541,20 @@ __global__ void __launch_bounds__(kMaxThreads)
         }
       }
       __syncthreads();
+      STAMP(10);
       // (4) each cell: its faces' shares, the walls, the velocity's adjoint
 #pragma unroll
       for (int m = 0; m < CPT; ++m) {
         const int e = t + m * T;
-        if (e < C) {
+        if (e < nE) {
           const float h = hc[m], hu = huc[m];
           float gh_in = g_arg[m];
           if (e > 0) gh_in = gh_in + sh_gRh[e];
-          if (e + 1 < C) gh_in = gh_in + ghl[m];
+          if (e + 1 < nE) gh_in = gh_in + ghl[m];
           if (e == 0) gh_in = gh_in + g * h * -gdhu[m];
-          if (e == C - 1) gh_in = gh_in + g * h * gdhu[m];
+          if (e == nE - 1) gh_in = gh_in + g * h * gdhu[m];
           float gu = e > 0 ? sh_gRu[e] : 0.0f;
-          if (e + 1 < C) gu = gu + gul[m];
+          if (e + 1 < nE) gu = gu + gul[m];
           // u = sqrt2 h hu / sqrt(h^4 + max(h, h_dry)^4)
           const float h2 = h * h;
           const float hm = fmaxf(h, h_dry);
@@ -366,52 +570,165 @@ __global__ void __launch_bounds__(kMaxThreads)
           gh[m] = gh_in + tie(h, h_dry, ghm);
         }
       }
+      STAMP(11);
       // the next step's (0) writes sh_h, sh_u and sh_gb, none of which (4)
       // reads; the last readers of each passed a barrier since
     }
+    // nobody reads this segment's scratch any more before the next one's
+    // recomputation overwrites it
+    cluster_barrier<kCluster>();
+    STAMP(5);
   }
 #pragma unroll
   for (int m = 0; m < CPT; ++m) {
     const int e = t + m * T;
-    if (e < C) {
-      const long long idx = (long long)e * N + lane;
+    if (e >= gl && e < gl + n) {
+      const long long idx = (long long)(elo + e) * N + lane;
       gh_out[idx] = gh[m];
       ghu_out[idx] = ghu[m];
     }
   }
+#ifdef SWE_VJP_PHASES
+  if (blockIdx.x == 0 && t == 0) {
+    for (int i = 0; i < kParts; ++i) g_phase_cycles[i] = cycles_[i];
+    g_phase_cycles[kParts] = clock64() - first_;
+  }
+#endif
+}
+
+// Block size, cells per thread and dynamic shared memory of an adjoint of C
+// cells cut in cs: 4 floats a cell of the largest extended slice, 2 more
+// faces and the 2 buoy shares (33 KB at most: within the 48 KB a launch
+// gets by default).
+struct Shape {
+  int threads, cpt;
+  size_t smem;
+};
+
+Shape shape_of(int C, int cs) {
+  const int SE = max_extended(C, cs);
+  const int cpt = (SE + kMaxThreads - 1) / kMaxThreads;
+  const int threads = cs == 1 ? (SE < kMaxThreads ? (SE + 31) / 32 * 32 : kMaxThreads)
+                              : ((SE + cpt - 1) / cpt + 31) / 32 * 32;
+  return {threads, (SE + threads - 1) / threads, (4 * (size_t)SE + 2 + kRows) * sizeof(float)};
+}
+
+cudaLaunchConfig_t cluster_config(int blocks, int cs, const Shape& sh,
+                                  cudaLaunchAttribute* attr, cudaStream_t stream) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(sh.threads);
+  cfg.dynamicSmemBytes = sh.smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int CPT>
+cudaError_t launch(const float* b, const float* h0_rows, const float* ck,
+                   const float* ck_mx, const float* cot_mx, float* scr, float* bscr,
+                   float* lam, float* gh, float* ghu, int C, int N, int n_steps, int k,
+                   int r0, int r1, float dt_dx, float g, float h_dry, int cs,
+                   const Shape& sh, cudaStream_t stream) {
+  if (cs == 1) {
+    swe_solve_vjp_kernel<CPT, false><<<N, sh.threads, sh.smem, stream>>>(
+        b, h0_rows, ck, ck_mx, cot_mx, scr, bscr, lam, gh, ghu, C, N, n_steps, k, r0,
+        r1, dt_dx, g, h_dry);
+    return cudaGetLastError();
+  }
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(N * cs, cs, sh, &attr, stream);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, swe_solve_vjp_kernel<CPT, true>, b, h0_rows, ck, ck_mx, cot_mx, scr, bscr,
+      lam, gh, ghu, C, N, n_steps, k, r0, r1, dt_dx, g, h_dry);
+  // read and clear the launch error either way, so that it is not reported
+  // later against another kernel
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
+// a power of two whose blocks own 2 cells or more (a ghost round is k_g - 1
+// reverse steps long)
+bool valid_cluster(int C, int cs) {
+  return cs >= 1 && (cs & (cs - 1)) == 0 && (cs == 1 || 2 * cs <= C);
 }
 
 }  // namespace
 
 // C entry point, bound with ctypes. b: [C]; h0_rows: [2], the depths at rest
-// of buoy rows r0 and r1; ck [n_seg, 2, C, N] and ck_mx [n_seg, 2, N], the
+// of buoy rows r0 and r1; ck [N, n_seg, 2, C] and ck_mx [n_seg, 2, N], the
 // forward's checkpoints every k steps (swe_solve_f32 with the same k), n_seg
 // = ceil(n_steps / k); cot_mx: [2, N], the cotangent of the running max;
-// scr [k, 2, C, N] and bscr [k, 2, 2, N]: scratch; gh, ghu: [C, N] outputs,
-// the cotangents of the initial (h, hu). Launches on `stream` and returns the
-// launch's cudaError (0 on success); it never synchronises. The wrapper checks
-// the arguments; this rejects what the kernel cannot take (2 <= C <= 2048,
-// N >= 1, 0 <= n_steps, k >= 1, r0 and r1 in [0, C)).
+// scr [N, k, 2, C], bscr [N, k, 2, 2] and lam [N, 2, 2, C]: scratch; gh,
+// ghu: [C, N] outputs, the cotangents of the initial (h, hu); cs: the
+// cluster size, blocks a lane (a power of two, at most C / 2 above 1; a
+// Hopper card schedules at most 8, the portable limit). Launches on
+// `stream` and returns the launch's cudaError (0 on success); it never
+// synchronises. The wrapper checks the arguments; this rejects what the
+// kernel cannot take (2 <= C <= 2048, N >= 1, 0 <= n_steps, k >= 1, r0 and
+// r1 in [0, C)). A cluster size the card refuses is returned as the
+// launch's error, never retried at another.
 extern "C" int swe_solve_vjp_f32(const float* b, const float* h0_rows,
                                  const float* ck, const float* ck_mx,
                                  const float* cot_mx, float* scr, float* bscr,
-                                 float* gh, float* ghu, int C, int N, int n_steps,
-                                 int k, int r0, int r1, float dt_dx, float g,
-                                 float h_dry, void* stream) {
+                                 float* lam, float* gh, float* ghu, int C, int N,
+                                 int n_steps, int k, int r0, int r1, float dt_dx,
+                                 float g, float h_dry, int cs, void* stream) {
   if (C < 2 || C > 2 * kMaxThreads || N < 1 || n_steps < 0 || k < 1 || r0 < 0 ||
-      r0 >= C || r1 < 0 || r1 >= C)
+      r0 >= C || r1 < 0 || r1 >= C || !valid_cluster(C, cs))
     return (int)cudaErrorInvalidValue;
-  const int threads = C < kMaxThreads ? (C + 31) / 32 * 32 : kMaxThreads;
-  const int cpt = (C + threads - 1) / threads;
-  const size_t smem = (4 * (size_t)C + 2 + kRows) * sizeof(float);
+  const Shape sh = shape_of(C, cs);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (cpt == 1)
-    swe_solve_vjp_kernel<1><<<N, threads, smem, s>>>(b, h0_rows, ck, ck_mx, cot_mx, scr,
-                                                     bscr, gh, ghu, C, N, n_steps, k, r0,
-                                                     r1, dt_dx, g, h_dry);
-  else
-    swe_solve_vjp_kernel<2><<<N, threads, smem, s>>>(b, h0_rows, ck, ck_mx, cot_mx, scr,
-                                                     bscr, gh, ghu, C, N, n_steps, k, r0,
-                                                     r1, dt_dx, g, h_dry);
-  return (int)cudaGetLastError();
+  if (sh.cpt == 1)
+    return (int)launch<1>(b, h0_rows, ck, ck_mx, cot_mx, scr, bscr, lam, gh, ghu, C, N,
+                          n_steps, k, r0, r1, dt_dx, g, h_dry, cs, sh, s);
+  return (int)launch<2>(b, h0_rows, ck, ck_mx, cot_mx, scr, bscr, lam, gh, ghu, C, N,
+                        n_steps, k, r0, r1, dt_dx, g, h_dry, cs, sh, s);
 }
+
+// How many clusters of cs blocks of a C-cell adjoint the current device
+// holds at once (cudaOccupancyMaxActiveClusters; at cs = 1, blocks a SM
+// times the SMs), into *out. Returns the cudaError (0 on success).
+extern "C" int swe_solve_vjp_max_active_clusters(int C, int cs, int* out) {
+  if (C < 2 || C > 2 * kMaxThreads || !valid_cluster(C, cs))
+    return (int)cudaErrorInvalidValue;
+  const Shape sh = shape_of(C, cs);
+  cudaError_t err;
+  if (cs == 1) {
+    int device, sms, per_sm;
+    err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = sh.cpt == 1
+                ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      &per_sm, swe_solve_vjp_kernel<1, false>, sh.threads, sh.smem)
+                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      &per_sm, swe_solve_vjp_kernel<2, false>, sh.threads, sh.smem);
+    if (err == cudaSuccess) *out = per_sm * sms;
+  } else {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(cs, cs, sh, &attr, nullptr);
+    err = sh.cpt == 1
+              ? cudaOccupancyMaxActiveClusters(out, swe_solve_vjp_kernel<1, true>, &cfg)
+              : cudaOccupancyMaxActiveClusters(out, swe_solve_vjp_kernel<2, true>, &cfg);
+  }
+  cudaGetLastError();  // clear it: the caller gets it as the return value
+  return (int)err;
+}
+
+#ifdef SWE_VJP_PHASES
+// The phase-stamped variant's readout: the parts' names (comma-separated),
+// and, after a launch has finished, block 0's cycles in each part and over
+// the whole kernel into out[0 .. parts] (parts + 1 values). Returns the
+// cudaError.
+extern "C" const char* swe_solve_vjp_phase_parts() { return PHASE_PARTS; }
+extern "C" int swe_solve_vjp_phase_cycles(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_phase_cycles, sizeof(g_phase_cycles));
+}
+#endif

@@ -15,7 +15,9 @@ goes through `SweSolve`, whose forward is the same launch keeping a
 checkpoint of the state every `k` steps (`ref.checkpoint_every`), and
 whose backward is `swe_solve_vjp`, the wave's reverse mode in one launch
 of `csrc/swe_solve_vjp.cu` (the JAX package differentiates its scan
-instead: it has no Pallas kernel for this).
+instead: it has no Pallas kernel for this). The adjoint also splits each
+lane's column over a cluster, with a plan of its own (`vjp_cluster_plan`,
+the same rule on its own occupancy), and `cluster=` forces it.
 
 A CUDA tensor goes to the hand-written Hopper kernel or the call raises; a
 CPU tensor goes to the plain version (`ref.swe_step_ref`,
@@ -73,9 +75,12 @@ _vjp_fn = None
 #: SMs of each CUDA device, read at its first step
 _sm_counts: dict[int, int] = {}
 _occupancy_fn = None
+_vjp_occupancy_fn = None
 #: the plan of each (device, C, N), computed at its first solve: a graph
 #: captured with a plan replays it
 _plans: dict[tuple[int, int, int], int] = {}
+#: the adjoint's plan of each (device, C, N), as `_plans`
+_vjp_plans: dict[tuple[int, int, int], int] = {}
 
 
 def _kernel():
@@ -125,15 +130,27 @@ def _vjp_kernel():
             ctypes.c_void_p, ctypes.c_void_p,  # ck, ck_mx
             ctypes.c_void_p,  # cot_mx
             ctypes.c_void_p, ctypes.c_void_p,  # scratch: states, buoy values
+            ctypes.c_void_p,  # scratch: the cotangents' exchange
             ctypes.c_void_p, ctypes.c_void_p,  # gh, ghu
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # C, N, n_steps, k
             ctypes.c_int, ctypes.c_int,  # buoy rows r0, r1
             ctypes.c_float, ctypes.c_float, ctypes.c_float,  # dt_dx, g, h_dry
+            ctypes.c_int,  # cluster size
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
         _vjp_fn = fn
     return _vjp_fn
+
+
+def _vjp_occupancy_kernel():
+    global _vjp_occupancy_fn
+    if _vjp_occupancy_fn is None:
+        fn = _build.load("swe_solve_vjp").swe_solve_vjp_max_active_clusters
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        _vjp_occupancy_fn = fn
+    return _vjp_occupancy_fn
 
 
 def _occupancy_kernel():
@@ -191,16 +208,36 @@ def _cluster_plan(C: int, N: int, sm_count: int, max_active_clusters) -> int:
     return 1
 
 
+def _max_active(query, C: int, cs: int, fn: str) -> int:
+    out = ctypes.c_int(0)
+    err = query(C, cs, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"{fn}: occupancy query for cluster {cs} at {C} cells "
+                           f"failed, cudaError {err}")
+    return out.value
+
+
 def max_active_clusters(C: int, cs: int) -> int:
     """How many clusters of `cs` blocks of a C-cell solve the current CUDA
     device holds at once (cudaOccupancyMaxActiveClusters; at cs = 1 blocks
     a SM times the SMs)."""
-    out = ctypes.c_int(0)
-    err = _occupancy_kernel()(C, cs, ctypes.byref(out))
-    if err != 0:
-        raise RuntimeError(f"swe_solve: occupancy query for cluster {cs} at {C} cells "
-                           f"failed, cudaError {err}")
-    return out.value
+    return _max_active(_occupancy_kernel(), C, cs, "swe_solve")
+
+
+def vjp_max_active_clusters(C: int, cs: int) -> int:
+    """`max_active_clusters` of the adjoint's kernel."""
+    return _max_active(_vjp_occupancy_kernel(), C, cs, "swe_solve_vjp")
+
+
+def _cached_plan(plans: dict, C: int, N: int, occupancy) -> int:
+    """`_cluster_plan` of a [C, N] wave on the current CUDA device, its
+    occupancy `occupancy(cs)`, cached in `plans` per (device, C, N)."""
+    key = (torch.cuda.current_device(), C, N)
+    cs = plans.get(key)
+    if cs is None:
+        sm_count = torch.cuda.get_device_properties(key[0]).multi_processor_count
+        cs = plans[key] = _cluster_plan(C, N, sm_count, occupancy)
+    return cs
 
 
 def cluster_plan(C: int, N: int) -> int:
@@ -208,30 +245,36 @@ def cluster_plan(C: int, N: int) -> int:
     current CUDA device: `_cluster_plan` on its SM count and occupancy,
     cached per (device, C, N). Fill it before capturing a graph (a warm-up
     solve does): the query is no stream work."""
-    key = (torch.cuda.current_device(), C, N)
-    cs = _plans.get(key)
-    if cs is None:
-        sm_count = torch.cuda.get_device_properties(key[0]).multi_processor_count
-        cs = _plans[key] = _cluster_plan(C, N, sm_count,
-                                         lambda c: max_active_clusters(C, c))
-    return cs
+    return _cached_plan(_plans, C, N, lambda cs: max_active_clusters(C, cs))
 
 
-def _check_cluster(cluster, C: int):
-    """`cluster=` of `swe_solve`: None (the plan) or a power of two in
-    [1, C] (every block owns a cell); whether the card schedules it is the
-    launch's answer."""
+def vjp_cluster_plan(C: int, N: int) -> int:
+    """The cluster size `swe_solve_vjp` launches the adjoint of a [C, N]
+    wave with on the current CUDA device: `_cluster_plan` on its SM count
+    and the adjoint's own occupancy, cached per (device, C, N) (a warm-up
+    backward fills it before a graph is captured). Its slices are the
+    solve's (`testing.slices`), each extended by `testing.vjp_ghost_cells`
+    a side (`testing.vjp_extended_slices`)."""
+    return _cached_plan(_vjp_plans, C, N, lambda cs: vjp_max_active_clusters(C, cs))
+
+
+def _check_cluster(cluster, C: int, fn: str, most: int):
+    """`cluster=` of `fn`: None (the plan) or a power of two in [1, most].
+    `swe_solve` takes up to C (every block owns a cell), `swe_solve_vjp`
+    up to C / 2 (every block owns two cells: a round of its cotangents'
+    exchange is one reverse step shorter than its ghost width). Whether
+    the card schedules it is the launch's answer."""
     if cluster is None:
         return None
     if isinstance(cluster, bool):
-        raise TypeError(f"swe_solve: cluster must be None or an int, got {cluster!r}")
+        raise TypeError(f"{fn}: cluster must be None or an int, got {cluster!r}")
     try:
         cluster = operator.index(cluster)
     except TypeError:
-        raise TypeError(f"swe_solve: cluster must be None or an int, got {cluster!r}") from None
-    if cluster < 1 or cluster & (cluster - 1) or cluster > C:
-        raise ValueError(f"swe_solve: cluster {cluster} must be a power of two in "
-                         f"[1, {C}] (C = {C} cells)")
+        raise TypeError(f"{fn}: cluster must be None or an int, got {cluster!r}") from None
+    if cluster < 1 or cluster & (cluster - 1) or cluster > most:
+        raise ValueError(f"{fn}: cluster {cluster} must be a power of two in "
+                         f"[1, {most}] (C = {C} cells)")
     return cluster
 
 
@@ -349,7 +392,7 @@ def _check_card(device: torch.device, C: int, N: int, fn: str) -> None:
 def _solve(h, hu, b, dt_dx, n_steps, rows, h0_rows, cluster, keep: bool):
     """The checked solve on h's device: (mx, arr, ck, ck_mx). With `keep`,
     on the card, the same launch also writes the adjoint's checkpoints,
-    ck [n_seg, 2, C, N] and ck_mx [n_seg, 2, N] every
+    ck [N, n_seg, 2, C] (lane-major) and ck_mx [n_seg, 2, N] every
     `checkpoint_every(n_steps)` steps (empty tensors otherwise)."""
     C, N = h.shape
     device = h.device
@@ -367,7 +410,7 @@ def _solve(h, hu, b, dt_dx, n_steps, rows, h0_rows, cluster, keep: bool):
     mx, arr = h.new_empty((len(rows), N)), h.new_empty((len(rows), N))
     k = checkpoint_every(n_steps)
     n_seg = -(-n_steps // k) if keep else 0
-    ck, ck_mx = h.new_empty((n_seg, 2, C, N)), h.new_empty((n_seg, len(rows), N))
+    ck, ck_mx = h.new_empty((N, n_seg, 2, C)), h.new_empty((n_seg, len(rows), N))
     err = _solve_kernel()(
         h.data_ptr(), hu.data_ptr(), b.data_ptr(), h0_rows.data_ptr(),
         mx.data_ptr(), arr.data_ptr(), C, N, n_steps, *rows,
@@ -454,7 +497,7 @@ def swe_solve(
     for name, t in (("h", h), ("hu", hu)):
         _check(name, t, (C, N), h.device, "swe_solve")
     b, rows, n_steps = _check_wave(C, h.device, b, rows, n_steps, h0_rows, "swe_solve")
-    cluster = _check_cluster(cluster, C)
+    cluster = _check_cluster(cluster, C, "swe_solve", C)
     if torch.is_grad_enabled() and (h.requires_grad or hu.requires_grad):
         mx, arr, _, _ = SweSolve.apply(h, hu, b, h0_rows, float(dt_dx), n_steps, rows,
                                        cluster)
@@ -470,7 +513,7 @@ swe_solve.launches = 0
 
 def swe_solve_vjp(
     b: torch.Tensor,  # [C] or [C, 1]
-    ck: torch.Tensor,  # [n_seg, 2, C, N]
+    ck: torch.Tensor,  # [N, n_seg, 2, C]
     ck_mx: torch.Tensor,  # [n_seg, 2, N]
     cot_mx: torch.Tensor,  # [2, N]
     *,
@@ -478,20 +521,25 @@ def swe_solve_vjp(
     n_steps: int,
     rows,
     h0_rows: torch.Tensor,  # [2]
+    cluster: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The reverse mode of a wave on the card, ONE launch of
     csrc/swe_solve_vjp.cu: from the checkpoints `ck`, `ck_mx` that
     `swe_solve`'s checkpointing launch (`SweSolve`) kept every
     `ref.checkpoint_every(n_steps)` steps and the cotangent `cot_mx` of the
     running max, the cotangents (gh, ghu) [C, N] of the wave's initial
-    state. Launched on the current stream; its scratch ([k, 2, C, N] states
-    and [k, 2, 2, N] buoy values) comes from the torch allocator, so a CUDA
-    graph can hold the launch. CUDA tensors only: its plain version is
+    state, with each lane's column split over a cluster of `cluster` blocks
+    (None: `vjp_cluster_plan`; 1 or a power of two in [2, C / 2]); every
+    size gives the same bits. A cluster size the card refuses raises;
+    nothing retries at another. Launched on the current stream; its
+    scratch ([N, k, 2, C] states, [N, k, 2, 2] buoy values and the
+    cotangents' exchange [N, 2, 2, C]) comes from the torch allocator, so a
+    CUDA graph can hold the launch. CUDA tensors only: its plain version is
     `ref.swe_solve_vjp_ref`, which takes the initial state instead."""
-    if ck.dim() != 4 or ck.shape[1] != 2 or ck.shape[2] < 2 or ck.shape[3] < 1:
-        raise ValueError(f"swe_solve_vjp: ck must be [n_seg, 2, C >= 2, N >= 1], got "
+    if ck.dim() != 4 or ck.shape[0] < 1 or ck.shape[2] != 2 or ck.shape[3] < 2:
+        raise ValueError(f"swe_solve_vjp: ck must be [N >= 1, n_seg, 2, C >= 2], got "
                          f"{tuple(ck.shape)}")
-    n_seg, _, C, N = ck.shape
+    N, n_seg, _, C = ck.shape
     device = ck.device
     b, rows, n_steps = _check_wave(C, device, b, rows, n_steps, h0_rows, "swe_solve_vjp",
                                    "ck")
@@ -499,26 +547,30 @@ def swe_solve_vjp(
     if n_seg != -(-n_steps // k):
         raise ValueError(f"swe_solve_vjp: {n_seg} checkpoints, {n_steps} steps keep "
                          f"{-(-n_steps // k)} (every {k})")
-    for name, t, shape in (("ck", ck, (n_seg, 2, C, N)), ("ck_mx", ck_mx, (n_seg, len(rows), N)),
+    for name, t, shape in (("ck", ck, (N, n_seg, 2, C)), ("ck_mx", ck_mx, (n_seg, len(rows), N)),
                            ("cot_mx", cot_mx, (len(rows), N))):
         _check(name, t, shape, device, "swe_solve_vjp", "ck")
+    cluster = _check_cluster(cluster, C, "swe_solve_vjp", max(1, C // 2))
     _check_card(device, C, N, "swe_solve_vjp")
     if device.index is not None and device.index != torch.cuda.current_device():
         # the C entry point launches on the current device's context
         with torch.cuda.device(device):
             return swe_solve_vjp(b, ck, ck_mx, cot_mx, dt_dx=dt_dx, n_steps=n_steps,
-                                 rows=rows, h0_rows=h0_rows)
+                                 rows=rows, h0_rows=h0_rows, cluster=cluster)
+    cs = vjp_cluster_plan(C, N) if cluster is None else cluster
     gh, ghu = cot_mx.new_empty((C, N)), cot_mx.new_empty((C, N))
-    scratch = cot_mx.new_empty((k, 2, C, N))
-    buoys = cot_mx.new_empty((k, 2, len(rows), N))
+    scratch = cot_mx.new_empty((N, k, 2, C))
+    buoys = cot_mx.new_empty((N, k, 2, len(rows)))
+    exchange = cot_mx.new_empty((N, 2, 2, C))
     err = _vjp_kernel()(
         b.data_ptr(), h0_rows.data_ptr(), ck.data_ptr(), ck_mx.data_ptr(),
-        cot_mx.data_ptr(), scratch.data_ptr(), buoys.data_ptr(), gh.data_ptr(),
-        ghu.data_ptr(), C, N, n_steps, k, *rows, float(dt_dx), G, H_DRY,
-        torch.cuda.current_stream().cuda_stream,
+        cot_mx.data_ptr(), scratch.data_ptr(), buoys.data_ptr(), exchange.data_ptr(),
+        gh.data_ptr(), ghu.data_ptr(), C, N, n_steps, k, *rows, float(dt_dx), G, H_DRY,
+        cs, torch.cuda.current_stream().cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"swe_solve_vjp: kernel launch failed, cudaError {err}")
+        raise RuntimeError(f"swe_solve_vjp: kernel launch failed (cluster {cs}), "
+                           f"cudaError {err}")
     launches.count(swe_solve_vjp)
     return gh, ghu
 

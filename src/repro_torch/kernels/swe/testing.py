@@ -42,7 +42,14 @@ import torch
 
 from repro_torch.apps.tsunami import L_DOMAIN, initial_state, level_grid
 from repro_torch.convert import swe_state_from_numpy
-from repro_torch.kernels.swe.ref import ARRIVAL_THRESH, swe_step_ref, swe_step_ref_into
+from repro_torch.kernels.swe.ref import (
+    ARRIVAL_THRESH,
+    _tie,
+    checkpoint_every,
+    swe_step_ref,
+    swe_step_ref_into,
+    swe_step_vjp_ref,
+)
 
 #: the `_swe_state` cases of the JAX package's tests/test_kernels.py
 SWE_KINDS = ("lake_at_rest", "dam_break", "dry_bed", "moving")
@@ -102,7 +109,14 @@ SOURCE_BOX = ((30.0, 150.0), (0.5, 4.0))
 #: block of 64 threads, 16 of them idle) and 32 lanes over CASE_SOLVE_STEPS
 #: steps, where cells dry and wet and the wave speeds tie
 VJP_CASES = ("wave_512x16", "wave_2048x16", "wave_512x512", "solve_dam_break",
-             "solve_dry_bed")
+             "solve_dry_bed", "solve_fast_dam_break")
+#: a limiter case whose gradient sees the adjoint's cluster schedule: the
+#: dam break of 48 cells x 32 lanes at 7.5 x CASE_DT_DX over 200 steps, its
+#: front reaching the buoy rows mid-wave (a running max attained late), so
+#: a ghost cell's error would reach the owned cells through the sweep
+#: (`swe_solve_vjp_clustered` with rounds one step longer than the ghost
+#: width, or none, gives other bits at cluster sizes 4 to 16)
+FAST_DAM_BREAK = dict(kind="dam_break", dt_dx=0.15, n_steps=200)
 #: float32 bound of a first-order derivative wave (gradient, JVP, the fused
 #: gradient) against the same wave computed another way, on the largest
 #: entry: two float32 solvers that round differently drift apart over the
@@ -189,6 +203,102 @@ def slices(C: int, cs: int) -> list[tuple[int, int]]:
     q, rem = divmod(C, cs)
     bounds = [r * q + min(r, rem) for r in range(cs + 1)]
     return list(zip(bounds[:-1], bounds[1:]))
+
+
+#: ghost cells a side of a cluster's block in the adjoint, at most
+#: (`kGhost` in csrc/swe_solve_vjp.cu)
+VJP_GHOST = 32
+
+
+def vjp_ghost_cells(C: int, cs: int) -> int:
+    """k_g, the ghost cells on each side of an adjoint block that has a
+    neighbour: min(VJP_GHOST, C // cs), none at cs = 1. A block reloads its
+    ghost states every k_g recomputed steps and its ghost cotangents every
+    k_g - 1 reverse steps, so a cluster above 1 needs k_g >= 2."""
+    return 0 if cs == 1 else min(VJP_GHOST, C // cs)
+
+
+def vjp_extended_slices(C: int, cs: int) -> list[tuple[int, int, int, int]]:
+    """(elo, lo, hi, ehi) of each block of the adjoint's cs-block cluster, by
+    rank: it owns [lo, hi) (`slices`) and computes [elo, ehi), k_g ghost
+    cells more on each side that has a neighbour, as
+    csrc/swe_solve_vjp.cu cuts it."""
+    kg = vjp_ghost_cells(C, cs)
+    return [(lo - (kg if lo > 0 else 0), lo, hi, hi + (kg if hi < C else 0))
+            for lo, hi in slices(C, cs)]
+
+
+def swe_solve_vjp_clustered(h0, hu0, b, cot_mx, *, dt_dx: float, n_steps: int, rows,
+                            h0_rows: torch.Tensor, cs: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """csrc/swe_solve_vjp.cu's schedule at cluster size `cs`, in plain
+    PyTorch: each block recomputes and sweeps its extended slice
+    (`vjp_extended_slices`) with `swe_step_ref` and `swe_step_vjp_ref`,
+    whose column ends are walls as the kernel's extended ends are; every
+    k_g recomputed steps a block reloads its ghost states from the
+    scratch of the owners, its sweep reads every extended cell's state
+    from that scratch, and every k_g - 1 reverse steps (and at each
+    segment's start) it reloads its ghost cotangents from the owners'. The
+    buoy rows' running max is recorded by their owner and its cotangent
+    added in every block whose extended slice holds the row. Returns the
+    owned cells' (gh, ghu) [C, N]: `ref.swe_solve_vjp_ref`'s bits wherever
+    the ghost widths and the rounds keep the owned cells exact."""
+    C, N = h0.shape
+    k = checkpoint_every(n_steps)
+    kg = vjp_ghost_cells(C, cs)
+    cuts = vjp_extended_slices(C, cs)
+    rows = [int(r) for r in rows]
+    h0_buoy = h0_rows.to(h0.dtype).reshape(-1, 1)
+    rows_t = torch.as_tensor(rows, device=h0.device)
+    # the forward's checkpoints: the whole column's state and running max
+    checkpoints = []
+    h, hu = h0, hu0
+    mx = h0.new_full((len(rows), N), -torch.inf)
+    for s in range(n_steps):
+        if s % k == 0:
+            checkpoints.append((h, hu, mx))
+        h, hu = swe_step_ref(h, hu, b, dt_dx)
+        mx = torch.maximum(mx, h.index_select(0, rows_t) - h0_buoy)
+    lam = [(torch.zeros_like(h0[elo:ehi]), torch.zeros_like(hu0[elo:ehi]))
+           for elo, _, _, ehi in cuts]
+    gmx = cot_mx.to(h0.dtype).clone()
+
+    def owned(parts):
+        # every block's owned cells of its extended arrays, as one column
+        return torch.cat([p[lo - elo:hi - elo] for p, (elo, lo, hi, _) in zip(parts, cuts)])
+
+    for seg in range(len(checkpoints) - 1, -1, -1):
+        h, hu, mx = checkpoints[seg]
+        cnt = min(k, n_steps - seg * k)
+        blocks = [(h[elo:ehi], hu[elo:ehi]) for elo, _, _, ehi in cuts]
+        scratch, buoys = [], []
+        for j in range(cnt):
+            scratch.append((owned([x[0] for x in blocks]), owned([x[1] for x in blocks])))
+            if cs > 1 and j > 0 and j % kg == 0:
+                blocks = [(scratch[j][0][elo:ehi], scratch[j][1][elo:ehi])
+                          for elo, _, _, ehi in cuts]
+            blocks = [swe_step_ref(bh, bhu, b[elo:ehi], dt_dx)
+                      for (bh, bhu), (elo, _, _, ehi) in zip(blocks, cuts)]
+            eta = owned([x[0] for x in blocks]).index_select(0, rows_t) - h0_buoy
+            buoys.append((mx, eta))
+            mx = torch.maximum(mx, eta)
+        for r, j in enumerate(range(cnt - 1, -1, -1)):
+            if cs > 1 and r % (kg - 1) == 0:
+                full = (owned([x[0] for x in lam]), owned([x[1] for x in lam]))
+                lam = [(full[0][elo:ehi], full[1][elo:ehi]) for elo, _, _, ehi in cuts]
+            # the running max's reverse (`ref._buoy_vjp`), its rows' shares
+            # added in every block that holds them
+            mx_before, eta = buoys[j]
+            shares = [_tie(eta[r], mx_before[r], gmx[r]) for r in range(len(rows))]
+            new = []
+            for (gh, ghu), (elo, _, _, ehi) in zip(lam, cuts):
+                gh = gh.clone()
+                for row, share in zip(rows, shares):
+                    if elo <= row < ehi:
+                        gh[row - elo] += share
+                new.append(swe_step_vjp_ref(scratch[j][0][elo:ehi], scratch[j][1][elo:ehi],
+                                            b[elo:ehi], dt_dx, gh, ghu))
+            lam, gmx = new, _tie(mx_before, eta, gmx)
+    return owned([x[0] for x in lam]), owned([x[1] for x in lam])
 
 
 def strips(C: int, depth: int) -> list[tuple[int, int]]:
@@ -349,7 +459,11 @@ def derivative_errors(got: dict, want: dict, hvp64: np.ndarray) -> dict:
 def vjp_case_inputs(case: str, device) -> dict:
     """`solve_case_inputs` of one entry of `VJP_CASES`, with a cotangent
     `cot_mx` [2, N] of the running max (standard normals, seeded)."""
-    kw = solve_case_inputs(case, device)
+    if case == "solve_fast_dam_break":
+        kw = dict(solve_case_inputs("solve_dam_break", device),
+                  dt_dx=FAST_DAM_BREAK["dt_dx"], n_steps=FAST_DAM_BREAK["n_steps"])
+    else:
+        kw = solve_case_inputs(case, device)
     N = kw["h"].shape[1]
     cot = np.random.default_rng(5).standard_normal((2, N)).astype(np.float32)
     return dict(kw, cot_mx=torch.as_tensor(cot, device=torch.device(device)))

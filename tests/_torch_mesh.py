@@ -282,10 +282,9 @@ def _leaves(tree):
     return tree_leaves(tree)
 
 
-def lm_mesh_waves(ctx, arch: str, params: dict, batch: dict, thetas, senss) -> dict:
+def lm_mesh_waves(ctx, arch: str, params: dict, batch: dict, thetas, senss, vecs) -> dict:
     """The reduced LMUQModel on carried weights, sharded over the mesh: its
-    evaluate and gradient waves, its capabilities, and whether its Hessian
-    action raises there."""
+    evaluate, gradient and Hessian-action waves and its capabilities."""
     from repro_torch.apps.lm_model import LMUQModel
     from repro_torch.configs import get_config
     from repro_torch.convert import lm_params_from_numpy
@@ -293,25 +292,72 @@ def lm_mesh_waves(ctx, arch: str, params: dict, batch: dict, thetas, senss) -> d
     weights = lm_params_from_numpy(get_config(arch, True), params, "cpu")
     lm = LMUQModel(arch, reduced=True, device="cpu", params=weights, batch=batch, ctx=ctx)
     out = {"evaluate": lm.evaluate_batch(thetas), "gradient": lm.gradient_batch(thetas, senss),
+           "hessian": lm.apply_hessian_batch(thetas, senss, vecs),
            "capabilities": lm.capabilities().to_json(),
            "sharded": any(p.is_shard() for t in _leaves(lm.params) for p in t.placements)}
-    try:
-        lm.apply_hessian_batch(thetas[:1], senss[:1], np.ones((1, 2)))
-        out["hessian"] = "ran"
-    except NotImplementedError:
-        out["hessian"] = "raises"
     return out
 
 
-def lm_mesh_suite(rank: int, *, meshes, nll, train, lm) -> dict:
+def _dtensor_rules_local_map(self, fn, out_specs, in_specs, in_grad_specs=None):
+    """`ShardingCtx.local_map` on DTensor's own autograd rules (PyTorch's
+    `local_map`), as the port ran it before its twice-differentiable rules."""
+    from torch.distributed.tensor import Placement
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding import P, placements_of
+
+    def place(spec):
+        return placements_of(spec, self.mesh.mesh_dim_names) if isinstance(spec, P) else spec
+
+    single = isinstance(out_specs, P) or all(isinstance(s, Placement) for s in out_specs)
+    outs = (place(out_specs),) if single else tuple(place(s) for s in out_specs)
+    grads = None if in_grad_specs is None else tuple(place(s) for s in in_grad_specs)
+    return local_map(fn, out_placements=outs,
+                     in_placements=tuple(place(s) for s in in_specs),
+                     in_grad_placements=grads, redistribute_inputs=True, device_mesh=self.mesh)
+
+
+def rule_collectives(ctx, archs, B: int, S: int) -> dict:
+    """Each reduced arch's training-step backward (`loss_and_grads`) on the
+    mesh, on the port's twice-differentiable DTensor rules and on DTensor's
+    own (`sharding.redistribute` and `ShardingCtx.local_map` swapped for
+    theirs): the collectives it runs by kind (DTensor's `CommDebugMode`)
+    and its gradients, keyed (arch, "port" or "dtensor")."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.distributed import sharding
+    from repro_torch.models import model as M
+
+    port = sharding.redistribute, sharding.ShardingCtx.local_map
+    theirs = (lambda t, placements: t.redistribute(t.device_mesh, placements),
+              _dtensor_rules_local_map)
+    out = {}
+    try:
+        for arch in archs:
+            cfg, params, batch = lm_case(arch, B, S)
+            for name, rules in (("port", port), ("dtensor", theirs)):
+                sharding.redistribute, sharding.ShardingCtx.local_map = rules
+                sharded = M.shard_params(cfg, params, ctx)
+                with CommDebugMode() as comm:
+                    _, _, grads = M.loss_and_grads(cfg, sharded, batch, ctx)
+                out[arch, name] = {"counts": {str(k): n for k, n in comm.get_comm_counts().items()},
+                                   "grads": _full(grads)}
+    finally:
+        sharding.redistribute, sharding.ShardingCtx.local_map = port
+    return out
+
+
+def lm_mesh_suite(rank: int, *, meshes, nll, train, lm, collectives) -> dict:
     """On each mesh shape of `meshes` (over this world's ranks): the zoo's
-    NLLs, a training step and the LMUQModel waves."""
+    NLLs, a training step, the LMUQModel waves and the training step's
+    collectives on the port's DTensor rules and on DTensor's own."""
     out = {}
     for shape in meshes:
         ctx = _mesh(tuple(shape))
         out["x".join(map(str, shape))] = {
             "nll": mesh_nlls(ctx, **nll), "train": mesh_train_step(ctx, **train),
-            "lm": lm_mesh_waves(ctx, **lm), "batch_index": ctx.batch_index}
+            "lm": lm_mesh_waves(ctx, **lm), "batch_index": ctx.batch_index,
+            "collectives": rule_collectives(ctx, **collectives)}
     return out
 
 

@@ -587,13 +587,52 @@ def test_vjp_kernel_matches_the_sweep_on_cuda(case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["solve_dam_break", "solve_dry_bed"])
+@pytest.mark.parametrize("case", ["solve_dam_break", "solve_dry_bed", "solve_fast_dam_break"])
 def test_vjp_kernel_matches_its_plain_version_on_cuda(case):
     """The kernel against `swe_solve_vjp_ref` (its plain version, eager, in
-    the kernel's expression order) on the card, within GRAD_RTOL32."""
+    the kernel's expression order) on the card, within GRAD_RTOL32 through
+    the autograd rule, and bit for bit at every cluster size (`cluster=`;
+    8 blocks of 6 cells: a ghost width of 6, a round of 5 reverse steps),
+    two calls the same bits."""
     dev = cuda_or_skip()
     args, kw = _vjp_args(case, dev)
-    assert_vjp_close(solve_vjp(*args, **kw), swe_solve_vjp_ref(*args, **kw), case)
+    want = swe_solve_vjp_ref(*args, **kw)
+    assert_vjp_close(solve_vjp(*args, **kw), want, case)
+    h, hu, b, cot = args
+    _, _, ck, ck_mx = swe_ops._solve(h, hu, b, kw["dt_dx"], kw["n_steps"], kw["rows"],
+                                     kw["h0_rows"], None, keep=True)
+    for cs in CLUSTER_SIZES:
+        got = swe_solve_vjp(b, ck, ck_mx, cot, **kw, cluster=cs)
+        again = swe_solve_vjp(b, ck, ck_mx, cot, **kw, cluster=cs)
+        for g, a, w in zip(got, again, want):
+            assert torch.equal(g, w) and torch.equal(g, a), (case, cs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["wave_512x16", "wave_2048x16", "edge_2047x13"])
+def test_vjp_kernel_is_the_same_at_every_cluster_size_on_cuda(case):
+    """The adjoint of a whole wave at every cluster size (`cluster=`) gives
+    the plan's bits; the plan is a portable size; a size the card refuses
+    (16 blocks: not portable) raises, and nothing retries at another."""
+    dev = cuda_or_skip()
+    args, kw = _vjp_args(case, dev) if case.startswith("wave_") else (None, None)
+    if args is None:
+        kw = solve_case_inputs(case, dev)
+        h, hu, b = kw.pop("h"), kw.pop("hu"), kw.pop("b")
+        cot = torch.randn(2, h.shape[1], device=dev, generator=torch.Generator(
+            device=dev).manual_seed(5))
+        args = (h, hu, b, cot)
+    h, hu, b, cot = args
+    C, N = h.shape
+    _, _, ck, ck_mx = swe_ops._solve(h, hu, b[:, None] if b.dim() == 1 else b, kw["dt_dx"],
+                                     kw["n_steps"], kw["rows"], kw["h0_rows"], None, keep=True)
+    want = swe_solve_vjp(b, ck, ck_mx, cot, **kw)
+    assert swe_ops.vjp_cluster_plan(C, N) in CLUSTER_SIZES
+    for cs in CLUSTER_SIZES:
+        got = swe_solve_vjp(b, ck, ck_mx, cot, **kw, cluster=cs)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (case, cs)
+    with pytest.raises(RuntimeError, match=f"cluster {REFUSED_CLUSTER}.*cudaError"):
+        swe_solve_vjp(b, ck, ck_mx, cot, **kw, cluster=REFUSED_CLUSTER)
 
 
 @pytest.mark.gpu
@@ -614,9 +653,10 @@ def test_checkpointing_forward_equals_the_solve_on_cuda(case):
                                             kw["dt_dx"], kw["n_steps"], kw["rows"],
                                             kw["h0_rows"], cs, keep=True)
         assert_solve_equal((mx, arr), want, f"{case}, cluster {cs}, with checkpoints")
-        assert torch.equal(ck[0, 0], h) and torch.equal(ck[0, 1], hu)
+        # lane-major: ck [N, n_seg, 2, C]
+        assert torch.equal(ck[:, 0, 0].T, h) and torch.equal(ck[:, 0, 1].T, hu)
         assert bool((ck_mx[0] == -torch.inf).all())
-        assert ck.shape[0] == -(-kw["n_steps"] // swe_ops.checkpoint_every(kw["n_steps"]))
+        assert ck.shape[1] == -(-kw["n_steps"] // swe_ops.checkpoint_every(kw["n_steps"]))
 
 
 @pytest.mark.gpu

@@ -25,9 +25,18 @@
     in another order);
   - `LMUQModel(ctx=)`'s evaluate wave against the JAX package's
     `LMUQModel(..., ctx=ctx11)` within `NLL_RTOL`, its gradient wave
-    within `_torch_lm_grad.grad_rtol`, every rank the same numbers; its
-    Hessian action raises on a mesh (and its capabilities say so).
-Each world has its own time limit."""
+    within `_torch_lm_grad.grad_rtol`, its Hessian-action wave within
+    `_torch_lm_grad.hess_rtol` of the JAX package's and of the one-process
+    port's, every rank the same numbers (and its capabilities advertise
+    the Hessian action).
+Each world has its own time limit.
+* In the test process, on a 1x1 mesh of one rank: the reduced
+  deepseek-moe-16b's Hessian action equals the one-process port's bit for
+  bit (reverse over reverse lost the MoE dispatch's output gradient
+  through `local_map` before the port's own DTensor rules), and so do
+  qwen3-0.6b's and deepseek-moe-16b's while DTensor's `to_local` and
+  `redistribute` build their gradients off the graph, as torch 2.11's
+  do."""
 import jax
 import numpy as np
 import pytest
@@ -39,12 +48,14 @@ import repro.apps.lm_model as jax_lm
 import repro.distributed.sharding as jax_sharding
 import repro.models.model as jax_model
 import repro.models.transformer as jax_transformer
-from _torch_lm_grad import grad_rtol
-from _torch_mesh import lm_case, run_ranks
-from _torch_zoo import NLL_RTOL, rel
+from _torch_lm_grad import grad_rtol, hess_rtol
+from _torch_mesh import lm_case, one_rank_mesh, run_ranks
+from _torch_zoo import NLL_RTOL, carry, jax_lm_model, rel
 from repro.configs import ARCH_IDS as JAX_ARCH_IDS
 from repro.configs import get_config as jax_get_config
+from repro_torch.apps.lm_model import LMUQModel
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.convert import lm_params_from_numpy
 from repro_torch.distributed.sharding import P, AbstractMesh, ShardingCtx, sanitize_spec
 from repro_torch.models import model as M
 from repro_torch.models import transformer
@@ -65,6 +76,10 @@ TRAIN = dict(arch="qwen3-0.6b", B=4, S=16)
 LM_ARCH, LM_SEQ = "qwen3-0.6b", 32
 THETAS = np.array([[1.0, 1.0], [0.7, 1.0], [1.3, 1.0], [0.8, 1.2], [1.25, 0.75]])
 SENSS = np.array([[1.0], [0.5], [-2.0], [1.5], [1.0]])
+#: the training steps whose collectives are counted on the port's DTensor
+#: rules and on DTensor's own (a MoE's dispatch returns a partial sum)
+COLLECTIVES = dict(archs=["deepseek-moe-16b", "qwen3-0.6b"], B=4, S=16)
+VECS = np.array([[1.0, 0.0], [0.3, -0.7], [0.0, 1.0], [-0.6, 0.4], [1.0, 1.0]])
 
 
 def _ctxs(name):
@@ -144,17 +159,23 @@ def test_cache_decl_without_a_ctx_is_the_one_device_layout():
 @pytest.fixture(scope="module")
 def carried():
     """The JAX package's reduced qwen3-0.6b LMUQModel (seed 0, a [2, LM_SEQ]
-    batch from seed 1): its waves on a 1x1 mesh, weights and batch as numpy."""
+    batch from seed 1): its waves, and the one-process port's Hessian
+    action on the same weights; the weights and batch as numpy."""
     jm = jax_lm.LMUQModel(LM_ARCH, reduced=True, batch=2, seq=LM_SEQ)
-    want = {"evaluate": jm.evaluate_batch(THETAS), "gradient": jm.gradient_batch(THETAS, SENSS)}
-    return want, {"arch": LM_ARCH, "params": jax.tree.map(np.asarray, jm.params),
-                  "batch": jax.tree.map(np.asarray, jm.batch), "thetas": THETAS,
-                  "senss": SENSS}
+    lm = {"arch": LM_ARCH, "params": jax.tree.map(np.asarray, jm.params),
+          "batch": jax.tree.map(np.asarray, jm.batch), "thetas": THETAS, "senss": SENSS,
+          "vecs": VECS}
+    one = LMUQModel(LM_ARCH, reduced=True, device="cpu", batch=lm["batch"],
+                    params=lm_params_from_numpy(get_config(LM_ARCH, True), lm["params"], "cpu"))
+    want = {"evaluate": jm.evaluate_batch(THETAS), "gradient": jm.gradient_batch(THETAS, SENSS),
+            "hessian": jm.apply_hessian_batch(THETAS, SENSS, VECS),
+            "hessian_one": one.apply_hessian_batch(THETAS, SENSS, VECS)}
+    return want, lm
 
 
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory, carried):
-    kw = dict(nll=NLL, train=TRAIN, lm=carried[1])
+    kw = dict(nll=NLL, train=TRAIN, lm=carried[1], collectives=COLLECTIVES)
     two = run_ranks(2, "lm_mesh_suite", tmp_path_factory.mktemp("lm_two"), timeout_s=240.0,
                     meshes=[(2, 1), (1, 2)], **kw)
     four = run_ranks(4, "lm_mesh_suite", tmp_path_factory.mktemp("lm_four"), timeout_s=240.0,
@@ -227,10 +248,99 @@ def test_sharded_lm_waves_match_jax(worlds, carried, mesh):
     for rank, run in enumerate(runs):
         assert run["sharded"]
         e, g = rel(run["evaluate"], want["evaluate"]), rel(run["gradient"], want["gradient"])
-        print(f"LMUQModel on {mesh}, rank {rank}: evaluate {e:.3g}, gradient {g:.3g}")
+        h, h1 = rel(run["hessian"], want["hessian"]), rel(run["hessian"], want["hessian_one"])
+        print(f"LMUQModel on {mesh}, rank {rank}: evaluate {e:.3g}, gradient {g:.3g}, "
+              f"Hessian {h:.3g} (one process {h1:.3g})")
         assert run["evaluate"].shape == (len(THETAS), 1) and e < NLL_RTOL
         assert run["gradient"].shape == (len(THETAS), 2) and g < grad_rtol(LM_ARCH)
-        assert run["hessian"] == "raises"
-        assert not run["capabilities"]["ApplyHessian"]
-        np.testing.assert_array_equal(run["evaluate"], runs[0]["evaluate"])
-        np.testing.assert_array_equal(run["gradient"], runs[0]["gradient"])
+        assert run["hessian"].shape == (len(THETAS), 2)
+        assert h < hess_rtol(LM_ARCH) and h1 < hess_rtol(LM_ARCH)
+        assert run["capabilities"]["ApplyHessian"]
+        for k in ("evaluate", "gradient", "hessian"):
+            np.testing.assert_array_equal(run[k], runs[0][k])
+
+
+def test_hessian_on_a_one_rank_mesh_is_the_one_process_hessian():
+    """The reduced deepseek-moe-16b on a 1x1 mesh: no collective runs, so
+    its Hessian action equals the one-process port's bit for bit, and the
+    JAX package's within `hess_rtol`. The direction is the embedding scale
+    (every path through the stack). Before the port's own DTensor rules
+    (`sharding._FromLocal`) the second backward lost the MoE dispatch's
+    output gradient (a partial sum that `from_local`'s backward
+    redistributed outside the graph): 5.3e-3 relative here, on any
+    mesh."""
+    arch = "deepseek-moe-16b"
+    c = carry(arch, seq=LM_SEQ)
+    jm = jax_lm_model(c, seq=LM_SEQ)
+    batch = jax.tree.map(np.asarray, jm.batch)
+    vecs = np.tile([1.0, 0.0], (len(THETAS), 1))
+    want = jm.apply_hessian_batch(THETAS, SENSS, vecs)
+    one = LMUQModel(arch, reduced=True, device="cpu", params=c.params, batch=batch)
+    one_process = one.apply_hessian_batch(THETAS, SENSS, vecs)
+    with one_rank_mesh() as ctx:
+        lm = LMUQModel(arch, reduced=True, device="cpu", params=c.params, batch=batch, ctx=ctx)
+        got = lm.apply_hessian_batch(THETAS, SENSS, vecs)
+        assert lm.capabilities().apply_hessian_batch
+    print(f"{arch} on 1x1: Hessian against the one process {rel(got, one_process):.3g}, "
+          f"against JAX {rel(got, want):.3g}")
+    np.testing.assert_array_equal(got, one_process)
+    assert rel(got, want) < hess_rtol(arch)
+
+
+
+def _off_graph(backward):
+    """A DTensor autograd rule's backward whose gradients are built off the
+    autograd graph, as torch 2.11's `to_local` and `redistribute` build
+    theirs (with the DTensor constructor: a leaf that requires grad where
+    the incoming gradient does)."""
+    def rule(ctx, *grads):
+        return tuple(g.detach().requires_grad_(g.requires_grad) if isinstance(g, torch.Tensor)
+                     else g for g in backward(ctx, *grads))
+
+    return staticmethod(rule)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "deepseek-moe-16b"])
+def test_hessian_on_a_one_rank_mesh_needs_no_twice_differentiable_dtensor_rule(arch,
+                                                                                 monkeypatch):
+    """The reduced arch's Hessian action in the embedding scale's direction
+    on a 1x1 mesh equals the one-process port's bit for bit while DTensor's
+    `to_local` and `redistribute` build their gradients off the autograd
+    graph, as torch 2.11's do: the port's own rules (`sharding.redistribute`,
+    `_ToLocal`, `_FromLocal`) carry reverse over reverse. Through
+    PyTorch's `local_map` and `redistribute` it was 2.3e-3 (qwen3-0.6b)
+    and 1.0 (deepseek-moe-16b) relative off."""
+    from torch.distributed.tensor import _api
+    from torch.distributed.tensor._redistribute import Redistribute
+
+    cfg = get_config(arch, reduced=True)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    vecs = np.tile([1.0, 0.0], (len(THETAS), 1))
+    one = LMUQModel(arch, reduced=True, device="cpu", params=params, seq=LM_SEQ)
+    want = one.apply_hessian_batch(THETAS, SENSS, vecs)
+    monkeypatch.setattr(_api._ToTorchTensor, "backward", _off_graph(_api._ToTorchTensor.backward))
+    monkeypatch.setattr(Redistribute, "backward", _off_graph(Redistribute.backward))
+    with one_rank_mesh() as ctx:
+        lm = LMUQModel(arch, reduced=True, device="cpu", params=params, seq=LM_SEQ, ctx=ctx)
+        got = lm.apply_hessian_batch(THETAS, SENSS, vecs)
+    print(f"{arch} on 1x1, DTensor's rules off the graph: Hessian against the one process "
+          f"{rel(got, want):.3g}")
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("mesh", MESH_RUNS)
+def test_twice_differentiable_rules_add_no_collective(worlds, mesh):
+    """The port's DTensor rules (`sharding.redistribute`, `_ToLocal`,
+    `_FromLocal`) redistribute every gradient on the autograd graph to the
+    placements that DTensor's own rules redistribute it to off the graph,
+    so a training step's backward runs the same collectives on them as on
+    DTensor's own, and gives the same bits."""
+    for rank, run in enumerate(worlds[mesh]):
+        got = run[mesh]["collectives"]
+        for arch in COLLECTIVES["archs"]:
+            port, theirs = got[arch, "port"], got[arch, "dtensor"]
+            print(f"{arch} training step on {mesh}, rank {rank}: collectives {port['counts']} "
+                  f"on the port's rules, {theirs['counts']} on DTensor's")
+            assert port["counts"] and port["counts"] == theirs["counts"]
+            for a, b in zip(port["grads"], theirs["grads"], strict=True):
+                np.testing.assert_array_equal(a, b)

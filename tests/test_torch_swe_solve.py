@@ -279,7 +279,7 @@ def test_slices_own_every_cell_once(C, cs):
     one more in the first C % cs."""
     if cs > C:
         with pytest.raises(ValueError, match="power of two"):
-            ops._check_cluster(cs, C)
+            ops._check_cluster(cs, C, "swe_solve", C)
         return
     cuts = slices(C, cs)
     assert len(cuts) == cs

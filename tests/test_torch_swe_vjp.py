@@ -6,8 +6,13 @@ version of csrc/swe_solve_vjp.cu, derived by hand) against torch autograd of
 term or a wrong rule at a kink shows far above rounding; `swe_solve`'s
 autograd rule (`SweSolve`) through `torch.autograd.grad`; fused MALA over a
 tsunami target, fused against per step bit for bit, its drift gradient
-against the JAX package's. The card's kernel: tests/test_torch_gpu.py."""
+against the JAX package's. The adjoint kernel's cluster schedule
+(`testing.swe_solve_vjp_clustered`: the blocks' extended slices, their
+ghost states' and ghost cotangents' rounds) against the plain adjoint bit
+for bit, its plan and its slices, `cluster=`'s checks. The card's kernel:
+tests/test_torch_gpu.py."""
 from functools import partial
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -25,14 +30,21 @@ import repro_torch.uq.mcmc as mcmc
 from repro_torch.kernels.swe import SweSolve, swe_solve, swe_solve_vjp_ref, swe_step_vjp_ref
 from repro_torch.kernels.swe.testing import (
     CASE_DT_DX,
+    CLUSTER_SIZES,
     GRAD_RTOL32,
     SOURCE_BOX,
     SWE_KINDS,
+    VJP_GHOST,
     assert_vjp_close,
+    slices,
     solve_case_inputs,
     solve_vjp,
     sweep_vjp,
+    swe_solve_vjp_clustered,
     swe_state,
+    vjp_case_inputs,
+    vjp_extended_slices,
+    vjp_ghost_cells,
 )
 
 # the waves here run [cells, <= 16] states: one thread keeps the xdist
@@ -292,6 +304,7 @@ def test_autograd_rule_on_a_faked_card_launches_the_solve_and_its_adjoint(monkey
     monkeypatch.setattr(ops, "_solve_kernel", lambda: fake("solve"))
     monkeypatch.setattr(ops, "_vjp_kernel", lambda: fake("vjp"))
     monkeypatch.setattr(ops, "cluster_plan", lambda C, N: 4)
+    monkeypatch.setattr(ops, "vjp_cluster_plan", lambda C, N: 2)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
     kw = solve_case_inputs("solve_dam_break", "cpu")
@@ -310,19 +323,144 @@ def test_autograd_rule_on_a_faked_card_launches_the_solve_and_its_adjoint(monkey
     assert solve[16] and solve[17] and solve[18] == k and solve[19] == _Stream.cuda_stream
     # the adjoint reads the checkpoints the solve wrote
     assert (vjp[2], vjp[3]) == (solve[16], solve[17])
-    assert vjp[9:] == (C, N, kw["n_steps"], k, *kw["rows"], kw["dt_dx"],
-                       pytest.approx(ref.G), pytest.approx(ref.H_DRY), _Stream.cuda_stream)
+    # ... at the adjoint's plan (2 here), ck lane-major [N, n_seg, 2, C]
+    assert vjp[10:] == (C, N, kw["n_steps"], k, *kw["rows"], kw["dt_dx"],
+                        pytest.approx(ref.G), pytest.approx(ref.H_DRY), 2,
+                        _Stream.cuda_stream)
     calls.clear()
     ops.swe_solve(h, hu, b, **kw)
     assert calls[0][1][16] is None and calls[0][1][17] is None
     with pytest.raises(ValueError, match="no kernel"):
-        ops.swe_solve_vjp(b.as_subclass(torch.Tensor), torch.zeros(17, 2, C, N),
+        ops.swe_solve_vjp(b.as_subclass(torch.Tensor), torch.zeros(N, 17, 2, C),
                           torch.zeros(17, 2, N), torch.zeros(2, N),
                           **dict(kw, h0_rows=h0_rows.as_subclass(torch.Tensor)))
     with pytest.raises(ValueError, match="checkpoints"):
-        ops.swe_solve_vjp(b, torch.zeros(3, 2, C, N).as_subclass(_OnCuda),
+        ops.swe_solve_vjp(b, torch.zeros(N, 3, 2, C).as_subclass(_OnCuda),
                           torch.zeros(3, 2, N).as_subclass(_OnCuda),
                           torch.zeros(2, N).as_subclass(_OnCuda), **kw)
+    # the old layout [n_seg, 2, C, N] is refused
+    with pytest.raises(ValueError, match="ck must be"):
+        ops.swe_solve_vjp(b, torch.zeros(17, 2, C, N).as_subclass(_OnCuda),
+                          torch.zeros(17, 2, N).as_subclass(_OnCuda),
+                          torch.zeros(2, N).as_subclass(_OnCuda), **kw)
+    # cluster= forces the size, the plan is not asked
+    calls.clear()
+    monkeypatch.setattr(ops, "vjp_cluster_plan", lambda C, N: pytest.fail("planned"))
+    ops.swe_solve_vjp(b, torch.zeros(N, 17, 2, C).as_subclass(_OnCuda),
+                      torch.zeros(17, 2, N).as_subclass(_OnCuda),
+                      torch.zeros(2, N).as_subclass(_OnCuda), **kw, cluster=8)
+    assert calls[0][1][19] == 8
+
+
+# -- the adjoint kernel's cluster schedule, plan and slices ----------------------
+
+#: the schedule's cases: the two limiter cases (their running max is
+#: attained early) and the fast dam break, whose gradient sees a wrong
+#: schedule (`testing.FAST_DAM_BREAK`)
+SCHEDULE_CASES = ("solve_dam_break", "solve_dry_bed", "solve_fast_dam_break")
+
+
+@pytest.mark.parametrize("cs", [1, 4, 16])
+@pytest.mark.parametrize("case", SCHEDULE_CASES)
+def test_cluster_schedule_is_the_plain_adjoint_bit_for_bit(case, cs):
+    """csrc/swe_solve_vjp.cu's schedule at cluster size cs
+    (`testing.swe_solve_vjp_clustered`: each block's extended slice with
+    walls at its ends, ghost states every k_g recomputed steps, ghost
+    cotangents every k_g - 1 reverse steps) gives the plain adjoint's bits
+    in every owned cell. 16 blocks of 48 cells keep 3 ghost cells a side:
+    a round of 2 reverse steps."""
+    kw = vjp_case_inputs(case, "cpu")
+    args = (kw.pop("h"), kw.pop("hu"), kw.pop("b"), kw.pop("cot_mx"))
+    want = swe_solve_vjp_ref(*args, **kw)
+    got = swe_solve_vjp_clustered(*args, **kw, cs=cs)
+    assert torch.isfinite(want[0]).all() and want[0].abs().max() > 0
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), (case, cs, float((g - w).abs().max()))
+
+
+@pytest.mark.parametrize("C", [2, 3, 48, 512, 2047, 2048])
+@pytest.mark.parametrize("cs", [*CLUSTER_SIZES, 16])
+def test_adjoint_slices_extend_the_solves_by_the_ghost_cells(C, cs):
+    """Each adjoint block owns the solve's slice (`slices`) and computes
+    k_g = min(VJP_GHOST, C // cs) cells more on each side that has a
+    neighbour, within the column; every cluster size the wrapper takes
+    keeps k_g >= 2 (a round of k_g - 1 >= 1 reverse steps), and k_g never
+    exceeds a neighbour's own slice."""
+    valid = cs == 1 or 2 * cs <= C
+    if not valid:
+        with pytest.raises(ValueError, match="power of two"):
+            ops._check_cluster(cs, C, "swe_solve_vjp", max(1, C // 2))
+        return
+    assert ops._check_cluster(cs, C, "swe_solve_vjp", max(1, C // 2)) == cs
+    kg = vjp_ghost_cells(C, cs)
+    assert kg == (0 if cs == 1 else min(VJP_GHOST, C // cs))
+    cuts = vjp_extended_slices(C, cs)
+    assert [(lo, hi) for _, lo, hi, _ in cuts] == slices(C, cs)
+    for r, (elo, lo, hi, ehi) in enumerate(cuts):
+        assert lo - elo == (kg if r > 0 else 0) and ehi - hi == (kg if r < cs - 1 else 0)
+        assert 0 <= elo and ehi <= C and ehi - elo <= -(-C // cs) + 2 * kg
+        assert hi - lo >= kg
+    if cs > 1:
+        assert kg >= 2
+    # the kernel's own width
+    src = (Path(ops.__file__).parent / "csrc" / "swe_solve_vjp.cu").read_text()
+    assert f"constexpr int kGhost = {VJP_GHOST};" in src
+
+
+def test_adjoint_plan_is_the_solves_rule_on_its_own_occupancy(monkeypatch):
+    """`vjp_cluster_plan` is `_cluster_plan` on the card's SM count and the
+    ADJOINT's occupancy (`vjp_max_active_clusters`), cached per (device, C,
+    N) apart from the solve's plan."""
+    asked = []
+
+    def occupancy(fn, table):
+        def query(C, cs):
+            asked.append((fn, C, cs))
+            return table[cs]
+        return query
+
+    class Props:
+        multi_processor_count = 132
+
+    monkeypatch.setattr(ops, "max_active_clusters",
+                        occupancy("swe_solve", {8: 16, 4: 99, 2: 99}))
+    monkeypatch.setattr(ops, "vjp_max_active_clusters",
+                        occupancy("swe_solve_vjp", {8: 15, 4: 16, 2: 99}))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda d: Props())
+    monkeypatch.setattr(ops, "_plans", {})
+    monkeypatch.setattr(ops, "_vjp_plans", {})
+    assert ops.vjp_cluster_plan(2048, 16) == 4
+    assert ops.cluster_plan(2048, 16) == 8
+    assert {fn for fn, _, _ in asked} == {"swe_solve", "swe_solve_vjp"}
+    asked.clear()
+    assert (ops.vjp_cluster_plan(2048, 16), ops.cluster_plan(2048, 16)) == (4, 8)
+    assert asked == []
+    # the lanes fill the card: one block a lane, no query
+    assert ops.vjp_cluster_plan(512, 512) == 1 and asked == []
+
+
+BAD_VJP_CLUSTERS = {0: ValueError, -2: ValueError, 3: ValueError, 6: ValueError,
+                    32: ValueError, True: TypeError, 2.0: TypeError, "8": TypeError}
+
+
+@pytest.mark.parametrize("cluster", list(BAD_VJP_CLUSTERS), ids=repr)
+def test_vjp_cluster_checks_raise_on_cpu(cluster):
+    """`swe_solve_vjp`'s `cluster=` is None, 1 or a power of two in
+    [2, C / 2] (48 cells here: 32 is too many), checked before the device;
+    a valid one on a CPU tensor meets "no kernel"."""
+    kw = solve_case_inputs("solve_moving", "cpu")
+    C, N = kw.pop("h").shape
+    kw.pop("hu")
+    b = kw.pop("b")
+    k = ref.checkpoint_every(kw["n_steps"])
+    ck = torch.zeros(N, -(-kw["n_steps"] // k), 2, C)
+    args = (b, ck, torch.zeros(ck.shape[1], 2, N), torch.zeros(2, N))
+    with pytest.raises(BAD_VJP_CLUSTERS[cluster], match="cluster"):
+        ops.swe_solve_vjp(*args, **kw, cluster=cluster)
+    for good in (None, 1, 16):
+        with pytest.raises(ValueError, match="no kernel"):
+            ops.swe_solve_vjp(*args, **kw, cluster=good)
 
 
 def test_reverse_mode_on_the_cpu_stays_on_the_sweep(monkeypatch):
